@@ -1,0 +1,424 @@
+#!/usr/bin/env python3
+"""Chip smoke test of ``la3dm_tpu_torch`` on one CUDA GPU (built for H100).
+
+Run from the repository root on a machine with one card:
+
+    python3 chip_smoke.py
+
+It builds the CUDA kernels from ``la3dm_tpu_torch/csrc`` (and the host
+library from ``native/host_preprocess.cpp``) on first use, then:
+
+1. prints the card's name and power limit and the build times;
+2. makes seeded synthetic range scans at the BGK demo's scale (3500 beams
+   per scan, max_range 8 m, a moving sensor in a 12 × 12 × 4.3 m box room
+   with box obstacles) and writes them as PCDs to a temporary directory;
+3. holds K1 (heavy pass) against its plain PyTorch version on the argument
+   tuple of a real 16-scan dispatch: |Δ| ≤ 1e-5 + 1e-5·|plain|;
+4. holds K2 (light pass + prune) against its plain version on the same
+   accumulator and pool state: eff and touched equal, A and B within 1e-6;
+5. runs the main path — ``pipeline.run_static`` on 12 and on 60 scans and
+   ``OnlineIntegrator`` on 12 scans one by one — with ``BGKOctoMap(cfg)``
+   on the card, asserting each kernel's launch count;
+6. runs the first 3 scans on the card and on the CPU and compares the maps
+   voxel by voxel (A/B within 5e-3; eff and touched equal except where the
+   voxel's added mass is ≤ 1e-5, the k̄ > 0 gate's clamp boundary);
+7. profiles the 60-scan run once more (torch.profiler): device time by
+   kernel, device busy share and host time;
+8. prints a ``kernels`` JSON line and, last, the device JSON line.
+
+Any failure exits non-zero.  Without a CUDA card it exits 2 at once.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+
+from la3dm_tpu_torch import pipeline  # noqa: E402
+from la3dm_tpu_torch.geometry import native  # noqa: E402
+from la3dm_tpu_torch.io.pcd import save_pcd  # noqa: E402
+from la3dm_tpu_torch.kernels import _build, bgk_heavy, bgk_light  # noqa: E402
+from la3dm_tpu_torch.models.bgk import BGKOctoMap  # noqa: E402
+from la3dm_tpu_torch.utils.config import DatasetConfig, load_method_config  # noqa: E402
+
+# H100 SXM peaks (NVIDIA data sheet): FP32 on the CUDA cores, HBM3 rate
+PEAK_FP32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+#: operations per sparse-kernel evaluation (distance, cos, sin, clamp,
+#: two accumulations), the count the JAX package's bench uses
+FLOP_PER_EVAL = 50
+
+BEAMS_AZ, BEAMS_EL = 175, 20            # 3500 beams per scan
+ELEVATION = np.deg2rad(15.0)            # ±15°
+MAX_RANGE = 8.0
+ROOM = (np.array([-6.0, -6.0, 0.0]), np.array([6.0, 6.0, 4.3]))
+OBSTACLES = [                           # (lo, hi) boxes off the sensor's path
+    (np.array([-0.5, -0.5, 0.0]), np.array([0.5, 0.5, 4.3])),    # pillar
+    (np.array([3.5, -1.0, 0.0]), np.array([5.0, 1.0, 0.8])),     # table
+    (np.array([-5.5, -3.0, 0.0]), np.array([-4.5, 3.0, 2.0])),   # shelf
+    (np.array([-1.0, 4.0, 0.0]), np.array([1.0, 5.0, 1.2])),     # crate
+]
+
+
+# ----------------------------------------------------------------- scenes
+
+def _ray_box_exit(o, d, lo, hi):
+    """Distance along unit rays d [N,3] from o (inside the box) to its wall."""
+    with np.errstate(divide="ignore"):
+        t = np.where(d > 0, (hi - o) / d, np.where(d < 0, (lo - o) / d, np.inf))
+    return t.min(axis=1)
+
+
+def _ray_box_entry(o, d, lo, hi):
+    """Entry distance of rays into a box outside them (inf where missed)."""
+    with np.errstate(divide="ignore", invalid="ignore"):
+        t1 = (lo - o) / d
+        t2 = (hi - o) / d
+    tmin = np.nanmax(np.minimum(t1, t2), axis=1)
+    tmax = np.nanmin(np.maximum(t1, t2), axis=1)
+    hit = (tmax >= tmin) & (tmin > 0)
+    return np.where(hit, tmin, np.inf)
+
+
+def synthetic_scans(n_scans: int, seed: int = 0):
+    """Seeded range scans: ``n_scans`` (cloud [3500,3] f32, origin [3] f32)
+    from a sensor circling the room at 1 m height (≈ 0.26 m per scan)."""
+    rng = np.random.default_rng(seed)
+    el = np.linspace(-ELEVATION, ELEVATION, BEAMS_EL)
+    scans = []
+    for i in range(n_scans):
+        a = 2 * np.pi * i / 60
+        origin = np.array([2.5 * np.cos(a), 2.5 * np.sin(a), 1.0])
+        origin = origin + rng.normal(0.0, 0.02, 3)
+        az = np.linspace(0, 2 * np.pi, BEAMS_AZ, endpoint=False) + rng.uniform(0, 0.03)
+        azg, elg = np.meshgrid(az, el, indexing="ij")
+        d = np.stack([np.cos(elg) * np.cos(azg), np.cos(elg) * np.sin(azg),
+                      np.sin(elg)], -1).reshape(-1, 3)
+        t = _ray_box_exit(origin, d, *ROOM)
+        for lo, hi in OBSTACLES:
+            t = np.minimum(t, _ray_box_entry(origin, d, lo, hi))
+        t = t + rng.normal(0.0, 0.01, t.shape)
+        cloud = origin + d * t[:, None]
+        scans.append((cloud.astype(np.float32), origin.astype(np.float32)))
+    return scans
+
+
+def write_pcds(scans, directory: str, prefix: str = "synth") -> None:
+    for i, (cloud, origin) in enumerate(scans, start=1):
+        save_pcd(os.path.join(directory, f"{prefix}_{i}.pcd"), cloud, origin)
+
+
+# ----------------------------------------------------------------- timing
+
+def cuda_ms(fn, reps: int, warmup: int = 1, setup=None) -> float:
+    """Mean device time of ``fn`` (ms) over ``reps`` runs, by CUDA events.
+    ``setup`` (untimed) runs before each call and its result is passed in."""
+    for _ in range(warmup):
+        fn(setup() if setup else None)
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(reps):
+        arg = setup() if setup else None
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn(arg)
+        e1.record()
+        torch.cuda.synchronize()
+        total += e0.elapsed_time(e1)
+    return total / reps
+
+
+def require(ok: bool, what: str) -> None:
+    """Fail the run (also under ``python -O``, which drops asserts)."""
+    if not ok:
+        raise RuntimeError(what)
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def bound(flops: float, nbyte: float) -> tuple[float, str]:
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbyte / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+# ----------------------------------------------------------------- phases
+
+def capture_dispatch(cfg, scans, device):
+    """Argument tuple and statics of the first dispatch of ``scans``
+    (≤ 16 scans), as the main path builds it."""
+    m = BGKOctoMap(cfg, device=device)
+    m._capture_step_args = True
+    m.insert_pointclouds([c for c, _ in scans], [o for _, o in scans],
+                         ds_resolution=cfg.resolution,
+                         free_resolution=cfg.free_resolution, max_range=MAX_RANGE)
+    return m._last_step_call
+
+
+def check_k1(args, statics, reps: int = 5) -> dict:
+    """K1 against its plain version on one dispatch's arguments."""
+    (_, _, _, _, all_nodes, _, ent, lab, ids, gs, rb, rs, rn, _, ctr, _, _) = args
+    hargs = (ent, lab, ids, gs, rb, rs, rn, ctr, all_nodes)
+    kw = dict(G=statics["G"], sf2=statics["sf2"], ell=statics["ell"])
+    acc_k = bgk_heavy.bgk_heavy(*hargs, **kw)
+    acc_p = bgk_heavy.bgk_heavy_plain(*hargs, **kw)
+    torch.cuda.synchronize()
+    err = (acc_k - acc_p).abs()
+    bad = int((err > 1e-5 + 1e-5 * acc_p.abs()).sum())
+    max_err = float(err.max())
+    print(f"K1: acc {tuple(acc_k.shape)}, max |kernel - plain| = {max_err:.3e}, "
+          f"{bad} elements outside 1e-5 + 1e-5*|plain|")
+    require(bool(torch.isfinite(acc_k).all()), "K1 gave non-finite values")
+    require(bad == 0, "K1 disagrees with its plain version")
+    ms = cuda_ms(lambda _: bgk_heavy.bgk_heavy(*hargs, **kw), reps)
+    plain_ms = cuda_ms(lambda _: bgk_heavy.bgk_heavy_plain(*hargs, **kw), 2)
+    evals = int(rn.sum()) * all_nodes.shape[0]
+    b_ms, b_by = bound(FLOP_PER_EVAL * evals,
+                       nbytes(ent, lab, ids, gs, rb, rs, rn, ctr, all_nodes, acc_k))
+    print(f"K1: {ms:.3f} ms (plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms by "
+          f"{b_by}; {evals} kernel evaluations)")
+    return {"acc": acc_k, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def check_k2(args, statics, acc, reps: int = 5) -> dict:
+    """K2 against its plain version on the same accumulator and pool state,
+    over every scan of the dispatch in order."""
+    (A, B, T, E, _, node_idx, _, _, _, _, _, _, _, slots, _, ss, sc) = args
+    kw = {k: statics[k] for k in ("G", "gate", "n", "max_level", "state_fn",
+                                  "do_prune")}
+
+    def pool():
+        return A.clone(), B.clone(), T.clone(), E.clone()
+
+    def run(fn, st):
+        for s, c in zip(ss, sc):
+            fn(acc, *st, node_idx, slots, s, c, **kw)
+        return st
+
+    k = run(bgk_light.bgk_light, pool())
+    p = run(bgk_light.bgk_light_plain, pool())
+    torch.cuda.synchronize()
+    max_err = max(float((k[0] - p[0]).abs().max()), float((k[1] - p[1]).abs().max()))
+    eff_eq = bool(torch.equal(k[3], p[3]))
+    tch_eq = bool(torch.equal(k[2], p[2]))
+    print(f"K2: {len(ss)} scans, max |A/B kernel - plain| = {max_err:.3e}, "
+          f"eff equal {eff_eq}, touched equal {tch_eq}, "
+          f"pruned voxels {int((k[3] > 0).sum())}")
+    require(eff_eq and tch_eq and max_err <= 1e-6,
+            "K2 disagrees with its plain version")
+    ms = cuda_ms(lambda st: run(bgk_light.bgk_light, st), reps, setup=pool)
+    plain_ms = cuda_ms(lambda st: run(bgk_light.bgk_light_plain, st), 2, setup=pool)
+    V, G = A.shape[1], statics["G"]
+    blocks = int(sum(sc))
+    # per block: each voxel's 2G accumulator values read, the pool row
+    # (A, B f32; touched, eff 1 byte) read and written, its slot read
+    per_block = V * 2 * G * 4 + 2 * V * (4 + 4 + 1 + 1) + 4
+    b_ms, b_by = bound(0, blocks * per_block + nbytes(node_idx))
+    print(f"K2: {ms:.3f} ms for {len(ss)} launches (plain {plain_ms:.3f} ms, "
+          f"bound {b_ms:.4f} ms by {b_by}; {blocks} blocks)")
+    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def reset_counts() -> None:
+    bgk_heavy.launches = 0
+    bgk_light.launches = 0
+
+
+def main_path(cfg, pcd_dir: str, scans) -> dict:
+    """run_static on 12 and 60 scans, then OnlineIntegrator on 12 scans."""
+    out = {}
+    for n_scans in (12, 60):
+        ds = DatasetConfig(name="synth", dir=pcd_dir, prefix="synth",
+                           scan_num=n_scans, max_range=MAX_RANGE)
+        reset_counts()
+        res = pipeline.run_static(cfg, ds)
+        k1, k2 = bgk_heavy.launches, bgk_light.launches
+        dispatches = -(-n_scans // BGKOctoMap.SCAN_BATCH)
+        ex = pipeline.export_leaves(res.map)
+        n_occ, n_free = len(ex["occupied"]["x"]), len(ex["free"]["x"])
+        print(f"run_static {n_scans} scans: {res.scans_per_second:.2f} scans/s "
+              f"({res.total_seconds:.3f} s), {res.map.pool.n_blocks} blocks, "
+              f"{n_occ} occupied / {n_free} free leaves; launches K1 {k1} "
+              f"K2 {k2}")
+        require(k1 == dispatches, f"K1 launched {k1} times, expected {dispatches}")
+        require(k2 == n_scans, f"K2 launched {k2} times, expected {n_scans}")
+        require(n_occ > 0 and n_free > 0, "no occupied or no free leaves")
+        leaves = ex["all"]
+        require(all(np.isfinite(leaves[k]).all() for k in ("prob", "var", "x")),
+                "non-finite leaves")
+        out[f"static{n_scans}"] = {"scans_per_s": res.scans_per_second,
+                                   "seconds": res.total_seconds,
+                                   "launches": {"bgk_heavy": k1, "bgk_light": k2}}
+
+    m = BGKOctoMap(cfg)
+    online = pipeline.OnlineIntegrator(m)
+    lat = []
+    reset_counts()
+    for cloud, origin in scans[:12]:
+        t0 = time.perf_counter()
+        online.offer(cloud, origin)
+        m.synchronize()
+        lat.append(time.perf_counter() - t0)
+    k1, k2 = bgk_heavy.launches, bgk_light.launches
+    med = float(np.median(lat)) * 1e3
+    print(f"OnlineIntegrator 12 scans: {online.n_integrated} integrated, median "
+          f"latency {med:.2f} ms (min {min(lat) * 1e3:.2f}, max "
+          f"{max(lat) * 1e3:.2f}); launches K1 {k1} K2 {k2}")
+    require(online.n_integrated == 12 and k1 == k2 == online.n_integrated,
+            "online launches do not match the integrated scans")
+    out["online12"] = {"median_ms": med, "integrated": online.n_integrated,
+                       "launches": {"bgk_heavy": k1, "bgk_light": k2}}
+    return out
+
+
+def profile_main_path(cfg, pcd_dir: str) -> dict:
+    """Where the time goes: the 60-scan run_static once more under
+    torch.profiler — device time by kernel against the wall clock."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    ds = DatasetConfig(name="synth", dir=pcd_dir, prefix="synth", scan_num=60,
+                       max_range=MAX_RANGE)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = pipeline.run_static(cfg, ds)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:   # kernels and copies on the card
+            name = ("bgk_heavy" if "bgk_heavy_kernel" in e.key else
+                    "bgk_light" if "bgk_light_kernel" in e.key else
+                    "memcpy_h2d" if "HtoD" in e.key else "other")
+            dev[name] = dev.get(name, 0.0) + e.self_device_time_total / 1e3
+    busy = sum(dev.values())
+    host_ms = res.map.stats["host_s"] * 1e3
+    print(f"profile, run_static 60 scans: wall {wall_ms:.1f} ms (profiled), "
+          f"device busy {busy:.3f} ms = {100 * busy / wall_ms:.2f}% "
+          f"(idle {100 - 100 * busy / wall_ms:.2f}%), host main thread "
+          f"{host_ms:.1f} ms; device ms by kind "
+          + ", ".join(f"{k} {v:.3f}" for k, v in sorted(dev.items())))
+    require(dev.get("bgk_heavy", 0) > 0 and dev.get("bgk_light", 0) > 0,
+            "the profiler saw no kernel time")
+    return {"wall_ms": wall_ms, "device_busy_ms": busy, "host_ms": host_ms,
+            "device_ms": dev}
+
+
+def card_vs_cpu(cfg, pcd_dir: str) -> float:
+    """The first 3 scans on the card and on the CPU, voxel by voxel."""
+    ds = DatasetConfig(name="synth", dir=pcd_dir, prefix="synth", scan_num=3,
+                       max_range=MAX_RANGE)
+    gpu = pipeline.run_static(cfg, ds, device="cuda").map
+    # the CPU reference on one thread: its sums then do not depend on how
+    # PyTorch splits the work
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        cpu = pipeline.run_static(cfg, ds, device="cpu").map
+    finally:
+        torch.set_num_threads(threads)
+    nb = gpu.pool.n_blocks
+    require(nb == cpu.pool.n_blocks and np.array_equal(
+        gpu.pool.coords[:nb], cpu.pool.coords[:nb]), "block sets differ")
+    rows = np.arange(nb)
+    g = {k: gpu._gather_rows(v, rows) for k, v in gpu.pool.fields.items()}
+    c = {k: cpu._gather_rows(v, rows) for k, v in cpu.pool.fields.items()}
+    dev = max(float(np.abs(g[k] - c[k]).max()) for k in g)
+    prior = np.array([cfg.prior_A, cfg.prior_B], np.float32)
+    mass = np.maximum(
+        np.maximum(np.abs(g["A"] - prior[0]), np.abs(g["B"] - prior[1])),
+        np.maximum(np.abs(c["A"] - prior[0]), np.abs(c["B"] - prior[1])))
+    away = mass > 1e-5
+    eff_g = gpu._gather_rows(gpu.pool.eff_level, rows)
+    eff_c = cpu._gather_rows(cpu.pool.eff_level, rows)
+    t_g = gpu._gather_rows(gpu.pool.touched, rows)
+    t_c = cpu._gather_rows(cpu.pool.touched, rows)
+    n_eff = int((eff_g != eff_c).sum())
+    n_eff_away = int(((eff_g != eff_c) & away).sum())
+    n_t_away = int(((t_g != t_c) & away).sum())
+    print(f"card vs CPU, 3 scans: {nb} blocks, max |A/B| deviation {dev:.3e}, "
+          f"eff differs at {n_eff} voxels ({n_eff_away} with mass > 1e-5), "
+          f"touched differs at {n_t_away} voxels with mass > 1e-5")
+    require(dev <= 5e-3, "card and CPU maps differ beyond 5e-3")
+    require(n_eff_away == 0 and n_t_away == 0,
+            "eff/touched differ off the gate boundary")
+    return dev
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip()
+    print(smi)
+    print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
+          f"CUDA {torch.version.cuda}")
+
+    t0 = time.perf_counter()
+    _build.lib()
+    t_kern = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    native._load()
+    t_host = time.perf_counter() - t0
+    print(f"build: kernels {t_kern:.1f} s, host library {t_host:.1f} s")
+    if _build.build_log:
+        print(_build.build_log.strip())
+
+    cfg = load_method_config("bgk", max_range=MAX_RANGE)
+    with tempfile.TemporaryDirectory(prefix="la3dm_smoke_") as tmp:
+        t0 = time.perf_counter()
+        scans = synthetic_scans(60)
+        write_pcds(scans, tmp)
+        print(f"scenes: 60 scans × {len(scans[0][0])} beams "
+              f"({time.perf_counter() - t0:.1f} s)")
+
+        args, statics = capture_dispatch(cfg, scans[:16], "cuda")
+        k1 = check_k1(args, statics)
+        k2 = check_k2(args, statics, k1.pop("acc"))
+        del args
+
+        path = main_path(cfg, tmp, scans)
+        path["profile60"] = profile_main_path(cfg, tmp)
+        dev = card_vs_cpu(cfg, tmp)
+
+    launches = path["static60"]["launches"]
+    kernels = [
+        {"name": "bgk_heavy", "route": "cuda",
+         "source": "la3dm_tpu_torch/csrc/bgk_heavy.cu",
+         "replaces": "la3dm_tpu/models/bgk.py:106", "launches": launches["bgk_heavy"],
+         "work": "one 16-scan dispatch", **k1, "library_ms": None},
+        {"name": "bgk_light", "route": "cuda",
+         "source": "la3dm_tpu_torch/csrc/bgk_light.cu",
+         "replaces": "la3dm_tpu/models/bgk.py:140", "launches": launches["bgk_light"],
+         "work": "the 16 per-scan launches of one 16-scan dispatch", **k2,
+         "library_ms": None},
+    ]
+    summary = {"card": smi, "main_path": path, "card_vs_cpu_max_dev": dev}
+    print(f"main path on {smi}: {path['static60']['scans_per_s']:.2f} scans/s "
+          f"(60 scans), median online latency {path['online12']['median_ms']:.2f} ms")
+    print(json.dumps(summary))
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

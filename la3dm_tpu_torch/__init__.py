@@ -1,0 +1,28 @@
+"""la3dm_tpu_torch — Bayesian continuous-occupancy mapping on PyTorch and
+hand-written CUDA kernels for Hopper (H100, sm_90a).
+
+The port of ``la3dm_tpu`` (JAX), which stays beside it as the reference.
+This package imports neither JAX nor ``la3dm_tpu``: it keeps its own copies
+of the framework-free modules it needs.  Ported so far: the BGK family on
+the host-ingest path (``BGKOctoMap``, ``pipeline.run_static``), with the
+heavy pass (K1) and the light pass with the prune (K2) as CUDA kernels.
+
+Maps run on the GPU unless the caller passes ``device="cpu"``; there is no
+silent fall-back to the CPU.
+"""
+
+__version__ = "0.1.0"
+
+from la3dm_tpu_torch.utils.config import (DatasetConfig, MapConfig,
+                                          load_dataset_config, load_method_config)
+from la3dm_tpu_torch.models.base import State
+from la3dm_tpu_torch.models.bgk import BGKOctoMap
+
+__all__ = [
+    "BGKOctoMap",
+    "State",
+    "MapConfig",
+    "DatasetConfig",
+    "load_method_config",
+    "load_dataset_config",
+]

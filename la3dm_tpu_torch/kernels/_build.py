@@ -1,0 +1,109 @@
+"""Build the port's CUDA kernels: every ``csrc/*.cu`` into one shared library
+with a plain C interface, loaded with ctypes.
+
+Each source is compiled by its own ``nvcc`` process, all started together,
+then linked into ``build/libla3dm_kernels.so`` (git-ignored).  The library
+is built at first use and rebuilt when a source is newer than it.  Flags:
+
+* ``-gencode arch=compute_90a,code=sm_90a`` — Hopper (H100);
+* ``--fmad=false`` — no a·b + c contraction into FMA: the kernels must round
+  every expression as the plain PyTorch versions' separate ops round, since
+  the k̄ > 0 update gate sits on the sparse kernel's clamp boundary;
+* never ``--use_fast_math``, which would swap in ``__sinf``/``__cosf`` and
+  approximate division and square root.
+
+Every C entry point returns ``cudaGetLastError()`` after its launch;
+:func:`check` raises on a non-zero code.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import os
+import shutil
+import subprocess
+import threading
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(_PKG_DIR, "build")
+_SO = os.path.join(BUILD_DIR, "libla3dm_kernels.so")
+_NVCC_DEFAULT = "/usr/local/cuda/bin/nvcc"
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC"]
+
+_lib = None
+_lock = threading.Lock()
+#: compiler output of this process's build (ptxas registers / shared
+#: memory per kernel); empty when the library was already up to date
+build_log = ""
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or _NVCC_DEFAULT
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return path
+
+
+def build() -> str:
+    """Compile and link the kernels if any source is newer; return the .so."""
+    global build_log
+    srcs = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+    if (os.path.exists(_SO)
+            and os.path.getmtime(_SO) >= max(os.path.getmtime(s) for s in srcs)):
+        return _SO
+    nvcc = _nvcc()
+    obj_dir = os.path.join(BUILD_DIR, f"obj.{os.getpid()}")
+    os.makedirs(obj_dir, exist_ok=True)
+    jobs = []
+    for src in srcs:
+        obj = os.path.join(obj_dir, os.path.basename(src) + ".o")
+        proc = subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", src, "-o", obj],
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                text=True)
+        jobs.append((src, obj, proc))
+    logs, failed = [], []
+    for src, _, proc in jobs:
+        out, _ = proc.communicate()
+        logs.append(f"== {os.path.basename(src)}\n{out}")
+        if proc.returncode != 0:
+            failed.append(src)
+    if failed:
+        raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
+                           + "\n".join(logs))
+    tmp = f"{_SO}.build.{os.getpid()}"
+    link = subprocess.run([nvcc, "-shared", "-o", tmp, *(o for _, o, _ in jobs)],
+                          capture_output=True, text=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"linking the kernels failed:\n{link.stderr}")
+    os.replace(tmp, _SO)  # atomic: a concurrent process never loads half a file
+    shutil.rmtree(obj_dir, ignore_errors=True)
+    build_log = "\n".join(logs)
+    return _SO
+
+
+def _bind(lib):
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.la3dm_bgk_heavy.restype = ci
+    lib.la3dm_bgk_heavy.argtypes = [vp] * 9 + [ci, ci, ci, cf, cf, vp, vp]
+    lib.la3dm_bgk_light.restype = ci
+    lib.la3dm_bgk_light.argtypes = ([vp] * 7 + [ci] * 6 + [cf, ci, cf, cf, cf, vp])
+    return lib
+
+
+def lib():
+    """The loaded kernel library (built on first use)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            _lib = _bind(ctypes.CDLL(build()))
+        return _lib
+
+
+def check(code: int, name: str) -> None:
+    """Raise if a launch reported a CUDA error."""
+    if code != 0:
+        raise RuntimeError(f"{name}: CUDA error {code} at launch")

@@ -1,0 +1,106 @@
+"""K1 — the BGK heavy pass: wrapper, plain version and launch counter.
+
+Replaces the heavy half of ``la3dm_tpu/models/bgk.py::_bgk_seq_step``
+(lines 106-138, with ``kernels/math.py::cov_sparse`` and
+``kernels/predict.py::_slot_rhs``).  For each row of ≤ W merged neighbour
+entries of one test block: the sparse kernel K[Vall, W] between the block's
+all-level node centres and the entries, masked by the row count, times the
+one-hot slot RHS [W, 2G], accumulated into acc[Tp, Vall, 2G] at
+``row_block``.
+
+On a CUDA tensor :func:`bgk_heavy` launches the hand-written kernel
+(``csrc/bgk_heavy.cu``: one CTA per test block, one thread per node, no
+atomics); on a CPU tensor it runs :func:`bgk_heavy_plain`.  What bounds the
+kernel is FP32 arithmetic on the CUDA cores (≈ 50 operations per kernel
+evaluation); parity keeps it off the tensor cores (see the source note).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from la3dm_tpu_torch.kernels import _build, math as km, predict as kp
+
+#: fixed entry-row width; the kernel stages one row in shared memory
+ROW_W = 64
+#: kernel launches since the counter was last reset (one per dispatch)
+launches = 0
+
+_INT_ARGS = ("ids", "row_start", "row_count", "row_block")
+
+
+def bgk_heavy(entries, labels, ids, gslot, row_block, row_start, row_count,
+              centers, all_nodes, *, G: int, sf2: float, ell: float):
+    """acc [Tp, Vall, 2G] f32: per (test block, node) the slot-grouped
+    (ȳ_g | k̄_g).  ``row_block`` must be non-decreasing (rows of a block are
+    contiguous); a row with count 0 is padding."""
+    if entries.device.type == "cpu":
+        return bgk_heavy_plain(entries, labels, ids, gslot, row_block, row_start,
+                               row_count, centers, all_nodes, G=G, sf2=sf2, ell=ell)
+    if entries.device.type != "cuda":
+        raise ValueError(f"bgk_heavy: unsupported device {entries.device}")
+    global launches
+    Tp, Vall = centers.shape[0], all_nodes.shape[0]
+    args = dict(entries=entries, labels=labels, ids=ids, gslot=gslot,
+                row_block=row_block, row_start=row_start, row_count=row_count,
+                centers=centers, all_nodes=all_nodes)
+    want = {"entries": torch.float32, "labels": torch.float32,
+            "centers": torch.float32, "all_nodes": torch.float32,
+            "gslot": torch.int8, **{k: torch.int32 for k in _INT_ARGS}}
+    for k, x in args.items():
+        if x.device != entries.device or x.dtype != want[k] or not x.is_contiguous():
+            raise ValueError(f"bgk_heavy: {k} must be a contiguous {want[k]} "
+                             f"tensor on {entries.device}")
+    if G not in (7, 27):
+        raise ValueError(f"bgk_heavy: G={G} (the kernel takes 7 or 27)")
+    R = row_block.shape[0]
+    if (entries.shape[1:] != (3,) or centers.shape[1:] != (3,)
+            or all_nodes.shape[1:] != (3,) or labels.shape[0] != entries.shape[0]
+            or gslot.shape[0] != ids.shape[0]
+            or row_start.shape[0] != R or row_count.shape[0] != R):
+        raise ValueError("bgk_heavy: inconsistent shapes")
+    acc = torch.empty((Tp, Vall, 2 * G), dtype=torch.float32, device=entries.device)
+    if Tp == 0:
+        return acc
+    block_rows = torch.searchsorted(
+        row_block, torch.arange(Tp + 1, dtype=row_block.dtype, device=row_block.device))
+    stream = torch.cuda.current_stream(entries.device).cuda_stream
+    code = _build.lib().la3dm_bgk_heavy(
+        entries.data_ptr(), labels.data_ptr(), ids.data_ptr(), gslot.data_ptr(),
+        row_start.data_ptr(), row_count.data_ptr(), block_rows.data_ptr(),
+        centers.data_ptr(), all_nodes.data_ptr(), Tp, Vall, G,
+        float(sf2), float(ell), acc.data_ptr(), stream)
+    _build.check(code, "bgk_heavy")
+    launches += 1
+    return acc
+
+
+def bgk_heavy_plain(entries, labels, ids, gslot, row_block, row_start, row_count,
+                    centers, all_nodes, *, G: int, sf2: float, ell: float,
+                    chunk: int = 2048):
+    """The plain PyTorch heavy pass: rows in chunks of ``chunk``; each row's
+    [Vall, W] × [W, 2G] product summed over the entries in order, as the
+    kernel sums them (a library matmul would pick its order by the thread
+    count), then index-added at ``row_block`` in row order."""
+    Tp, Vall = centers.shape[0], all_nodes.shape[0]
+    dev = entries.device
+    acc = torch.zeros((Tp, Vall, 2 * G), dtype=torch.float32, device=dev)
+    F, R = ids.shape[0], row_block.shape[0]
+    if F == 0 or R == 0:
+        return acc
+    wcol = torch.arange(ROW_W, device=dev)
+    for c0 in range(0, R, chunk):
+        blk = row_block[c0:c0 + chunk].long()
+        fidx = torch.clamp_max(row_start[c0:c0 + chunk].long()[:, None] + wcol, F - 1)
+        valid = wcol < row_count[c0:c0 + chunk].long()[:, None]       # [c,W]
+        eid = ids[fidx].long()
+        ent = entries[eid]                                            # [c,W,3]
+        vox = all_nodes[None] + centers[blk][:, None, :]              # [c,Vall,3]
+        K = km.cov_sparse(vox, ent, sf2, ell)                         # [c,Vall,W]
+        K = torch.where(valid[:, None, :], K, 0.0)
+        rhs = kp._slot_rhs(labels[eid], gslot[fidx], valid, G)        # [c,W,2G]
+        part = torch.zeros((len(blk), Vall, 2 * G), dtype=torch.float32, device=dev)
+        for w in range(ROW_W):
+            part += K[:, :, w, None] * rhs[:, None, w, :]
+        acc.index_add_(0, blk, part)
+    return acc

@@ -1,0 +1,96 @@
+"""K2 — the BGK light pass with the prune: wrapper, plain version and launch
+counter.
+
+Replaces the light half of ``la3dm_tpu/models/bgk.py::_bgk_seq_step``
+(lines 140-177, with ``kernels/predict.py::beta_update``,
+``models/pruning.py::prune_blocks`` and ``posterior.BetaStateFn``) for one
+scan: the per-slot gate k̄_g > gate, ΔA = Σ gated ȳ and ΔB = Σ gated
+(k̄ − ȳ) read at each voxel's eff-level node, the add into A/B, the OR into
+``touched``, then the bottom-up prune of the scan's blocks.  The pool
+tensors are updated in place.
+
+On a CUDA tensor :func:`bgk_light` launches the hand-written kernel
+(``csrc/bgk_light.cu``: one CTA per block, one thread per voxel, the prune
+in shared memory); on a CPU tensor it runs :func:`bgk_light_plain`.  The
+kernel is bound by memory: it moves each accumulator and pool byte once.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from la3dm_tpu_torch.kernels import _build, predict as kp
+from la3dm_tpu_torch.models import pruning
+
+#: kernel launches since the counter was last reset (one per scan)
+launches = 0
+
+
+def bgk_light(acc, A, Bv, touched, eff, node_idx_tab, slots, start: int,
+              count: int, *, G: int, gate: float, n: int, max_level: int,
+              state_fn, do_prune: bool) -> None:
+    """Apply one scan's blocks ``[start, start + count)`` of ``acc`` to the
+    pool (in place).  ``slots`` [Tp] int32; a slot equal to the pool
+    capacity is padding.  ``start`` and ``count`` are host integers."""
+    if acc.device.type == "cpu":
+        bgk_light_plain(acc, A, Bv, touched, eff, node_idx_tab, slots, start,
+                        count, G=G, gate=gate, n=n, max_level=max_level,
+                        state_fn=state_fn, do_prune=do_prune)
+        return
+    if acc.device.type != "cuda":
+        raise ValueError(f"bgk_light: unsupported device {acc.device}")
+    global launches
+    V = n ** 3
+    want = {"acc": (acc, torch.float32), "A": (A, torch.float32),
+            "Bv": (Bv, torch.float32), "touched": (touched, torch.bool),
+            "eff": (eff, torch.int8), "node_idx_tab": (node_idx_tab, torch.int32),
+            "slots": (slots, torch.int32)}
+    for k, (x, dt) in want.items():
+        if x.device != acc.device or x.dtype != dt or not x.is_contiguous():
+            raise ValueError(f"bgk_light: {k} must be a contiguous {dt} tensor "
+                             f"on {acc.device}")
+    if not A.shape == Bv.shape == touched.shape == eff.shape:
+        raise ValueError("bgk_light: pool tensors differ in shape")
+    if V > 1024 or A.shape[1] != V:
+        raise ValueError(f"bgk_light: V={V} voxels per block (the kernel takes "
+                         "one thread per voxel, at most 1024)")
+    if (acc.shape[0] != slots.shape[0] or acc.shape[2] != 2 * G
+            or node_idx_tab.shape[1] != V or start < 0
+            or start + count > slots.shape[0]):
+        raise ValueError("bgk_light: accumulator, node table or scan range "
+                         "out of shape")
+    if count <= 0:
+        return
+    stream = torch.cuda.current_stream(acc.device).cuda_stream
+    code = _build.lib().la3dm_bgk_light(
+        acc.data_ptr(), slots.data_ptr(), node_idx_tab.data_ptr(),
+        A.data_ptr(), Bv.data_ptr(), touched.data_ptr(), eff.data_ptr(),
+        int(start), int(count), A.shape[0], n, acc.shape[1], G, float(gate),
+        max_level if do_prune else 0, float(state_fn.var_thresh),
+        float(state_fn.free_thresh), float(state_fn.occupied_thresh), stream)
+    _build.check(code, "bgk_light")
+    launches += 1
+
+
+def bgk_light_plain(acc, A, Bv, touched, eff, node_idx_tab, slots, start: int,
+                    count: int, *, G: int, gate: float, n: int, max_level: int,
+                    state_fn, do_prune: bool) -> None:
+    """The plain PyTorch light pass for one scan (in place)."""
+    cap, V = A.shape
+    sl = slots[start:start + count].long()
+    keep = sl < cap                         # drop padding slots
+    sl = sl[keep]
+    accb = acc[start:start + count][keep]   # [B,Vall,2G]
+    nidx = node_idx_tab.long()[eff[sl].long(), torch.arange(V, device=A.device)]
+    sel = torch.gather(accb, 1, nidx[..., None].expand(-1, -1, 2 * G))  # [B,V,2G]
+    dA, dB, tch = kp.beta_update(sel[..., :G], sel[..., G:], gate)
+    vals = {"A": A[sl] + dA, "B": Bv[sl] + dB,
+            "touched": (touched[sl] | tch).to(torch.float32)}
+    new_eff = eff[sl]
+    if do_prune:
+        vals, new_eff = pruning.prune_blocks(vals, new_eff, n=n,
+                                             max_level=max_level, state_fn=state_fn)
+    A[sl] = vals["A"]
+    Bv[sl] = vals["B"]
+    touched[sl] = vals["touched"] > 0
+    eff[sl] = new_eff

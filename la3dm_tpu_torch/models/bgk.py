@@ -1,0 +1,257 @@
+"""BGKOctoMap — Bayesian generalized kernel inference with Beta posteriors,
+on PyTorch and hand-written CUDA kernels.
+
+The port of ``la3dm_tpu/models/bgk.py`` on its host-ingest path
+(reference ``src/bgkoctomap/bgkoctomap.cpp:214-366``), a two-pass engine
+over whole scan sequences:
+
+  host:   scans → training entries + per-block neighbour tables (native
+          ``bgk_training_data`` + ``scan_bucket_tables``) → fixed-width entry
+          rows (native ``row_tables``)
+  device: HEAVY pass (K1, kernels/bgk_heavy.py) — every (row × node) kernel
+          product at ALL octree-level node centres of the row's test block,
+          accumulated per (scan, block, neighbour slot); LIGHT pass (K2,
+          kernels/bgk_light.py) — once per scan, in order: the per-slot
+          k̄ gate, the Beta update at each voxel's eff-level node, and the
+          prune.
+
+Tensors take their exact sizes (no pad ladder: nothing here is compiled
+per shape), and the pool tensors are updated in place.
+"""
+
+from __future__ import annotations
+
+import time
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+import torch
+
+from la3dm_tpu_torch.geometry import blocks as geo, native
+from la3dm_tpu_torch.kernels import bgk_heavy, bgk_light
+from la3dm_tpu_torch.models import base, bucketing, posterior
+from la3dm_tpu_torch.utils.config import MapConfig
+
+#: fixed entry-row width; per-block entry lists are cut into rows of W
+_ROW_W = bgk_heavy.ROW_W
+#: max scans per dispatch (one heavy pass, then one light pass per scan)
+_SCAN_BATCH = 16
+
+
+def _bgk_seq_step(A, Bv, touched, eff, all_nodes, node_idx_tab,
+                  entries, labels, ids_flat, gslot_flat,
+                  row_block, row_start, row_count,
+                  slots_flat, centers_flat, scan_start, scan_count, *,
+                  G: int, sf2: float, ell: float, gate: float, n: int,
+                  max_level: int, state_fn, do_prune: bool) -> None:
+    """K scans in one dispatch: the heavy pass once, then the light pass
+    once per scan, in scan order.  Updates A, Bv, touched and eff in place.
+
+    Shapes (the JAX step's argument tuple, padded or not): entries [N,3],
+    labels [N], ids_flat/gslot_flat [F] merged entry ids and their
+    neighbour slot, row_* [R] with ``row_block`` non-decreasing (count 0 ⇒
+    padding), slots_flat/centers_flat [T] the stacked per-scan block lists
+    (slot == pool capacity ⇒ padding).  ``scan_start``/``scan_count`` [K]
+    are host integers: each scan's segment of the block lists.
+    """
+    acc = bgk_heavy.bgk_heavy(entries, labels, ids_flat, gslot_flat, row_block,
+                              row_start, row_count, centers_flat, all_nodes,
+                              G=G, sf2=sf2, ell=ell)
+    for start, count in zip(scan_start, scan_count):
+        bgk_light.bgk_light(acc, A, Bv, touched, eff, node_idx_tab, slots_flat,
+                            int(start), int(count), G=G, gate=gate, n=n,
+                            max_level=max_level, state_fn=state_fn,
+                            do_prune=do_prune)
+
+
+class BGKOctoMap(base.OccupancyMapBase):
+    """BGK occupancy map (ctor params: bgkoctomap.cpp:31-56).
+
+    ``device`` is where the pool lives and the engine runs: CUDA unless the
+    caller names another (``device="cpu"`` runs the plain PyTorch versions of
+    the kernels).
+    """
+
+    GATE = 0.0  # update gate: k̄ > 0 (bgkoctomap.cpp:332)
+    SCAN_BATCH = _SCAN_BATCH
+
+    def __init__(self, cfg: MapConfig, device=None):
+        if cfg.device_ingest == "on":
+            raise NotImplementedError(
+                "device ingest is K7, ROADMAP queue 1 (not ported yet)")
+        super().__init__(cfg, device)
+        nodes, node_idx = geo.all_level_nodes(cfg.resolution, cfg.block_depth)
+        self._all_nodes_host = nodes
+        self._node_idx_host = node_idx
+        self._all_nodes = torch.as_tensor(nodes, device=self.device)
+        self._node_idx = torch.as_tensor(node_idx, device=self.device)
+
+    def _field_fills(self):
+        # prior pseudo-counts are the pool fill values (bgkoctree_node.h:33)
+        return {"A": self.cfg.prior_A, "B": self.cfg.prior_B}
+
+    def _make_state_fn(self):
+        cfg = self.cfg
+        return posterior.BetaStateFn(cfg.var_thresh, cfg.free_thresh,
+                                     cfg.occupied_thresh)
+
+    # ------------------------------------------------------------------ API
+
+    def insert_pointcloud(self, cloud: np.ndarray, origin: np.ndarray,
+                          ds_resolution: float | None = None,
+                          free_resolution: float | None = None,
+                          max_range: float | None = None) -> None:
+        """Integrate one scan (reference insert_pointcloud, bgkoctomap.cpp:214)."""
+        t0 = time.perf_counter()
+        t = self._scan_tables(cloud, origin, ds_resolution, free_resolution,
+                              max_range)
+        self.stats["host_s"] += time.perf_counter() - t0
+        self._integrate([t] if t is not None else [])
+
+    def insert_pointclouds(self, clouds, origins, ds_resolution=None,
+                           free_resolution=None, max_range=None) -> None:
+        """Integrate a scan sequence, ≤ SCAN_BATCH scans per dispatch.
+
+        Exact relative to the sequential loop up to f32 sum order: the
+        light pass applies each scan's gate, update and prune in order, and
+        each dispatch resumes from the previous one's pool state.  Scan
+        preprocessing runs in a thread pool while earlier dispatches run on
+        the device; ``host_s`` counts main-thread host work plus the waits
+        for preprocessing.
+        """
+        with ThreadPoolExecutor(max_workers=min(8, max(len(clouds), 1))) as ex:
+            futures = [ex.submit(self._scan_tables, c, o, ds_resolution,
+                                 free_resolution, max_range)
+                       for c, o in zip(clouds, origins)]
+            buf = []
+            for f in futures:
+                t0 = time.perf_counter()
+                t = f.result()
+                self.stats["host_s"] += time.perf_counter() - t0
+                if t is not None:
+                    buf.append(t)
+                if len(buf) == _SCAN_BATCH:
+                    self._integrate(buf)
+                    buf = []
+            if buf:
+                self._integrate(buf)
+
+    def insert_training_data(self, points: np.ndarray, labels: np.ndarray) -> None:
+        """Integrate pre-labeled training points (bgkoctomap.cpp:82-212)."""
+        points = np.asarray(points, np.float32)
+        coords, idx = geo.point_block_memberships(points, self.block_size)
+        t = bucketing.bucket_tables(
+            coords, points[idx], np.asarray(labels, np.float32)[idx],
+            self._neighbor_offsets)
+        self._integrate([t] if len(t.test_coords) else [])
+
+    # ------------------------------------------------------------- internals
+
+    def _scan_tables(self, cloud, origin, ds_resolution, free_resolution,
+                     max_range) -> bucketing.BucketTables | None:
+        """Scan → bucket tables through the native library (None if empty)."""
+        cfg = self.cfg
+        ds = cfg.ds_resolution if ds_resolution is None else ds_resolution
+        fr = cfg.free_resolution if free_resolution is None else free_resolution
+        mr = cfg.max_range if max_range is None else max_range
+        td = native.bgk_training_data(cloud, origin, ds, fr, mr, free_label=0.0)
+        if len(td.points) == 0:
+            return None
+        nt = native.scan_bucket_tables(td.points, td.labels, self.block_size,
+                                       self._neighbor_offsets)
+        if len(nt["test_coords"]) == 0:
+            return None
+        return bucketing.BucketTables(
+            test_coords=nt["test_coords"], entries=nt["entries"],
+            labels=nt["labels"], starts=nt["starts"], counts=nt["counts"],
+            max_total=int(nt["counts"].sum(axis=1).max()))
+
+    def _row_tables(self, t: bucketing.BucketTables):
+        """Merged per-block entry id list + fixed-width rows (native).
+
+        Returns (ids [F] i32, gslot [F] i8, row_block [R] i32, row_start [R]
+        i64, row_count [R] i32, totals [B] i64): for each test block its G
+        neighbour segments concatenated in slot order (``gslot`` carries the
+        slot for the per-model gate), cut into rows of ``_ROW_W``.
+        """
+        return native.row_tables(t.starts, t.counts, _ROW_W)
+
+    def _to_device(self, x: np.ndarray) -> torch.Tensor:
+        """Host array → tensor on the map's device.  To a GPU the copy goes
+        from pinned memory without blocking the host, so building the next
+        chunk's tables overlaps the device work."""
+        t = torch.from_numpy(np.ascontiguousarray(x))
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device)
+
+    def _integrate(self, tables: list) -> None:
+        """Integrate K ≤ SCAN_BATCH scans' bucket tables in one dispatch."""
+        if not tables:
+            return
+        if len(tables) > _SCAN_BATCH:
+            for i in range(0, len(tables), _SCAN_BATCH):
+                self._integrate(tables[i:i + _SCAN_BATCH])
+            return
+        t_host0 = time.perf_counter()
+        cfg = self.cfg
+        Vall = self._all_nodes_host.shape[0]
+        parts = {k: [] for k in ("ent", "lab", "ids", "gs", "rb", "rs", "rn",
+                                 "slots", "ctr")}
+        scan_start, scan_count = [], []
+        ent_off = id_off = blk_off = 0
+        for t in tables:
+            slots = self.pool.ensure(t.test_coords)
+            ids, gslot, row_block, row_start, row_count, totals = \
+                self._row_tables(t)
+            parts["ent"].append(t.entries)
+            parts["lab"].append(t.labels)
+            parts["ids"].append(ids + ent_off)
+            parts["gs"].append(gslot)
+            parts["rb"].append(row_block + blk_off)
+            parts["rs"].append(row_start + id_off)
+            parts["rn"].append(row_count)
+            parts["slots"].append(slots)
+            parts["ctr"].append(self.block_centers(t.test_coords))
+            scan_start.append(blk_off)
+            scan_count.append(len(slots))
+            ent_off += len(t.entries)
+            id_off += len(ids)
+            blk_off += len(slots)
+            self.stats["kernel_evals"] += int(totals.sum()) * Vall
+            self.stats["scans"] += 1
+
+        cat = {k: np.concatenate(v) for k, v in parts.items()}
+        dev = self._to_device
+        args = (self.pool.fields["A"], self.pool.fields["B"], self.pool.touched,
+                self.pool.eff_level, self._all_nodes, self._node_idx,
+                dev(cat["ent"].astype(np.float32)),
+                dev(cat["lab"].astype(np.float32)),
+                dev(cat["ids"].astype(np.int32)), dev(cat["gs"].astype(np.int8)),
+                dev(cat["rb"].astype(np.int32)), dev(cat["rs"].astype(np.int32)),
+                dev(cat["rn"].astype(np.int32)),
+                dev(cat["slots"].astype(np.int32)),
+                dev(cat["ctr"].astype(np.float32)),
+                scan_start, scan_count)
+        statics = dict(G=self.num_slots, sf2=cfg.sf2, ell=cfg.ell, gate=self.GATE,
+                       n=self.n, max_level=cfg.block_depth - 1,
+                       state_fn=self._state_fn, do_prune=cfg.block_depth > 1)
+        self.stats["host_s"] += time.perf_counter() - t_host0
+        if getattr(self, "_capture_step_args", False):
+            # the step updates the pool in place: keep copies of its inputs
+            self._last_step_call = (
+                tuple(a.clone() if torch.is_tensor(a) else list(a) for a in args),
+                statics)
+        _bgk_seq_step(*args, **statics)
+
+    def _posterior(self, fields: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
+        cfg = self.cfg
+        A, B = fields["A"], fields["B"]
+        prob = A / (A + B)
+        var = (A * B) / ((A + B) ** 2 * (A + B + 1.0))
+        st = np.where(prob > cfg.occupied_thresh, posterior.OCCUPIED,
+                      np.where(prob < cfg.free_thresh, posterior.FREE,
+                               posterior.UNKNOWN))
+        st = np.where(var > cfg.var_thresh, posterior.UNKNOWN, st)
+        st = np.where(fields["touched"], st, posterior.UNKNOWN).astype(np.int8)
+        return {"prob": prob, "var": var, "state": st, "A": A, "B": B}

@@ -1,0 +1,62 @@
+"""Beta posterior accessors on torch tensors (BGK family).
+
+The port of the BGK parts of ``la3dm_tpu/models/posterior.py``
+(``bgkoctree_node.cpp:27-44``): p = A/(A+B); var = AB/((A+B)²(A+B+1));
+state by var_thresh then the p-thresholds, UNKNOWN where untouched.  States
+are int8 in the reference enum order (FREE=0, OCCUPIED=1, UNKNOWN=2,
+UNCERTAIN=3).  Thresholds are compared in float32, as the JAX package and
+the CUDA light-pass kernel (csrc/bgk_light.cu) compare them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+FREE = 0
+OCCUPIED = 1
+UNKNOWN = 2
+UNCERTAIN = 3
+
+
+def _f32(x: float) -> float:
+    """A threshold rounded to float32 (exactly representable as a float)."""
+    return float(np.float32(x))
+
+
+def _classify(prob, var, var_thresh, free_thresh, occupied_thresh):
+    """Shared threshold logic (bgkoctree_node.cpp:36-43)."""
+    by_p = torch.where(prob > _f32(occupied_thresh), OCCUPIED,
+                       torch.where(prob < _f32(free_thresh), FREE, UNKNOWN))
+    return torch.where(var > _f32(var_thresh), UNKNOWN, by_p).to(torch.int8)
+
+
+def beta_prob(A, B):
+    return A / (A + B)
+
+
+def beta_var(A, B):
+    s = A + B
+    return (A * B) / (s * s * (s + 1.0))
+
+
+def beta_state(A, B, touched, var_thresh, free_thresh, occupied_thresh):
+    st = _classify(beta_prob(A, B), beta_var(A, B), var_thresh, free_thresh,
+                   occupied_thresh)
+    return torch.where(touched, st, UNKNOWN)
+
+
+@dataclasses.dataclass(frozen=True)
+class BetaStateFn:
+    """values-dict → int8 state; the thresholds are also handed to the CUDA
+    light-pass kernel, which evaluates the same rules."""
+
+    var_thresh: float
+    free_thresh: float
+    occupied_thresh: float
+
+    def __call__(self, v):
+        return beta_state(v["A"], v["B"], v["touched"] > 0,
+                          self.var_thresh, self.free_thresh, self.occupied_thresh)

@@ -1,0 +1,91 @@
+"""Guards of the PyTorch port: it imports no JAX and nothing of la3dm_tpu,
+and its entry points do not fall back to the CPU."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from la3dm_tpu_torch import BGKOctoMap, load_method_config
+from la3dm_tpu_torch.kernels import _build
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "la3dm_tpu")
+
+
+def _port_sources():
+    pkg = os.path.join(ROOT, "la3dm_tpu_torch")
+    for dirpath, _, files in os.walk(pkg):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(dirpath, f)
+    yield os.path.join(ROOT, "chip_smoke.py")
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in FORBIDDEN
+
+
+def test_import_pulls_in_no_jax():
+    # a subprocess: this test process has JAX loaded by tests/conftest.py
+    code = (
+        "import sys\n"
+        "import la3dm_tpu_torch, la3dm_tpu_torch.models.bgk, la3dm_tpu_torch.pipeline\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "clean"
+
+
+def test_sources_import_no_jax():
+    n = 0
+    for path in _port_sources():
+        with open(path) as f:
+            tree = ast.parse(f.read(), filename=path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            assert not any(_forbidden(nm) for nm in names), (path, names)
+        n += 1
+    assert n > 10
+
+
+def test_map_without_device_does_not_fall_back_to_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = load_method_config("bgk", max_range=8.0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        BGKOctoMap(cfg)
+    assert BGKOctoMap(cfg, device="cpu").device.type == "cpu"
+
+
+def test_device_ingest_on_is_not_ported():
+    cfg = load_method_config("bgk", max_range=8.0, device_ingest="on")
+    with pytest.raises(NotImplementedError, match="K7"):
+        BGKOctoMap(cfg, device="cpu")
+
+
+def test_kernel_build_flags_keep_parity():
+    assert "--fmad=false" in _build.NVCC_FLAGS
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+    assert not any("fast_math" in f or "fast-math" in f for f in _build.NVCC_FLAGS)
+
+
+def test_kernel_build_raises_without_nvcc(monkeypatch):
+    # no silent plain fall-back: without a CUDA compiler the build raises
+    monkeypatch.setattr(_build.shutil, "which", lambda _: None)
+    monkeypatch.setattr(_build, "_NVCC_DEFAULT", "/nonexistent/nvcc")
+    monkeypatch.setattr(_build, "_SO", "/nonexistent/libla3dm_kernels.so")
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.build()
