@@ -9,9 +9,12 @@ It builds the CUDA kernels from ``la3dm_tpu_torch/csrc`` (and the host
 library from ``native/host_preprocess.cpp``) on first use, then:
 
 1. prints the card's name and power limit and the build times;
-2. makes seeded synthetic range scans at the BGK demo's scale (3500 beams
-   per scan, max_range 8 m, a moving sensor in a 12 × 12 × 4.3 m box room
-   with box obstacles) and writes them as PCDs to a temporary directory;
+2. makes seeded synthetic range scans at the demo scale (3500 beams per
+   scan, max_range 8 m, a moving sensor in a 12 × 12 × 4.3 m box room with
+   box obstacles) and writes them as PCDs to a temporary directory.
+
+BGK (``bgkoctomap.yaml``):
+
 3. holds K1 (heavy pass) against its plain PyTorch version on the argument
    tuple of a real 16-scan dispatch: |Δ| ≤ 1e-5 + 1e-5·|plain|;
 4. holds K2 (light pass + prune) against its plain version on the same
@@ -23,10 +26,30 @@ library from ``native/host_preprocess.cpp``) on first use, then:
    voxel by voxel (A/B within 5e-3; eff and touched equal except where the
    voxel's added mass is ≤ 1e-5, the k̄ > 0 gate's clamp boundary);
 7. profiles the 60-scan run once more (torch.profiler): device time by
-   kernel, device busy share and host time;
-8. prints a ``kernels`` JSON line and, last, the device JSON line.
+   kernel, device busy share and host time.
 
-Any failure exits non-zero.  Without a CUDA card it exits 2 at once.
+BGKLV (``bgklvoctomap.yaml``, the demo, and ``bgklvoctomap_large_map.yaml``
+with ``original_size``):
+
+8. holds K3 (tile row engine) against its plain version on the argument
+   tuple of a real 12-scan dispatch: A/B within 1e-5 + 1e-5·|plain| and
+   touched equal, except at voxels whose plain k̄ lies within 1e-5 of the
+   0.001 gate (counted and printed);
+9. holds K8 (tile-major prune) against its plain version on the pool state
+   of a real large-map prune, and on the same blocks made collapsible at
+   every level (16³ and 32³ groups included, which the real scene does not
+   collapse): A, B, touched and eff equal;
+10. runs the main path — ``run_static`` on 12 and 60 demo scans,
+    ``OnlineIntegrator`` on 12 scans, ``run_static`` on 12 large-map scans
+    (one K3 and one K8 per scan) — asserting every launch count;
+11. compares 3 demo scans on the card and on the CPU, as in 6 with the
+    gate at 0.001;
+12. profiles the 60-scan demo run as in 7.
+
+Last, a ``kernels`` JSON line and the device JSON line.  Every kernel time
+is the profiler's device time for the work named in its ``work`` key; the
+CUDA-event window (``event_ms``) also holds the host's launch gaps.  Any
+failure exits non-zero.  Without a CUDA card it exits 2 at once.
 """
 
 from __future__ import annotations
@@ -44,10 +67,12 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from la3dm_tpu_torch import pipeline  # noqa: E402
-from la3dm_tpu_torch.geometry import native  # noqa: E402
+from la3dm_tpu_torch.geometry import blocks as geo, native  # noqa: E402
 from la3dm_tpu_torch.io.pcd import save_pcd  # noqa: E402
-from la3dm_tpu_torch.kernels import _build, bgk_heavy, bgk_light  # noqa: E402
+from la3dm_tpu_torch.kernels import (_build, bgk_heavy, bgk_light,  # noqa: E402
+                                     lv_prune, lv_rows)
 from la3dm_tpu_torch.models.bgk import BGKOctoMap  # noqa: E402
+from la3dm_tpu_torch.models.bgklv import BGKLVOctoMap  # noqa: E402
 from la3dm_tpu_torch.utils.config import DatasetConfig, load_method_config  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet): FP32 on the CUDA cores, HBM3 rate
@@ -138,6 +163,30 @@ def cuda_ms(fn, reps: int, warmup: int = 1, setup=None) -> float:
     return total / reps
 
 
+def device_ms(fn, key: str, reps: int = 3) -> tuple[float, int]:
+    """Mean device time (ms) of one call of ``fn`` and the launches per
+    call of the kernels whose name holds ``key``, by torch.profiler over
+    ``reps`` calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ms, count, seen = 0.0, 0, set()
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            seen.add(e.key[:60])
+            if key in e.key:
+                ms += e.self_device_time_total / 1e3
+                count += e.count
+    require(count > 0, f"the profiler saw no {key} launch; it saw {sorted(seen)}")
+    return ms / reps, count // reps
+
+
 def require(ok: bool, what: str) -> None:
     """Fail the run (also under ``python -O``, which drops asserts)."""
     if not ok:
@@ -181,15 +230,17 @@ def check_k1(args, statics, reps: int = 5) -> dict:
           f"{bad} elements outside 1e-5 + 1e-5*|plain|")
     require(bool(torch.isfinite(acc_k).all()), "K1 gave non-finite values")
     require(bad == 0, "K1 disagrees with its plain version")
-    ms = cuda_ms(lambda _: bgk_heavy.bgk_heavy(*hargs, **kw), reps)
+    event_ms = cuda_ms(lambda _: bgk_heavy.bgk_heavy(*hargs, **kw), reps)
+    ms, _ = device_ms(lambda: bgk_heavy.bgk_heavy(*hargs, **kw), "bgk_heavy_kernel")
     plain_ms = cuda_ms(lambda _: bgk_heavy.bgk_heavy_plain(*hargs, **kw), 2)
     evals = int(rn.sum()) * all_nodes.shape[0]
     b_ms, b_by = bound(FLOP_PER_EVAL * evals,
                        nbytes(ent, lab, ids, gs, rb, rs, rn, ctr, all_nodes, acc_k))
-    print(f"K1: {ms:.3f} ms (plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms by "
-          f"{b_by}; {evals} kernel evaluations)")
-    return {"acc": acc_k, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by}
+    print(f"K1: {ms:.3f} ms device time (event window {event_ms:.3f} ms; plain "
+          f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by}; {evals} kernel "
+          f"evaluations)")
+    return {"acc": acc_k, "max_abs_err": max_err, "ms": ms, "event_ms": event_ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
 
 
 def check_k2(args, statics, acc, reps: int = 5) -> dict:
@@ -218,7 +269,8 @@ def check_k2(args, statics, acc, reps: int = 5) -> dict:
           f"pruned voxels {int((k[3] > 0).sum())}")
     require(eff_eq and tch_eq and max_err <= 1e-6,
             "K2 disagrees with its plain version")
-    ms = cuda_ms(lambda st: run(bgk_light.bgk_light, st), reps, setup=pool)
+    event_ms = cuda_ms(lambda st: run(bgk_light.bgk_light, st), reps, setup=pool)
+    ms, count = device_ms(lambda: run(bgk_light.bgk_light, pool()), "bgk_light_kernel")
     plain_ms = cuda_ms(lambda st: run(bgk_light.bgk_light_plain, st), 2, setup=pool)
     V, G = A.shape[1], statics["G"]
     blocks = int(sum(sc))
@@ -226,15 +278,20 @@ def check_k2(args, statics, acc, reps: int = 5) -> dict:
     # (A, B f32; touched, eff 1 byte) read and written, its slot read
     per_block = V * 2 * G * 4 + 2 * V * (4 + 4 + 1 + 1) + 4
     b_ms, b_by = bound(0, blocks * per_block + nbytes(node_idx))
-    print(f"K2: {ms:.3f} ms for {len(ss)} launches (plain {plain_ms:.3f} ms, "
-          f"bound {b_ms:.4f} ms by {b_by}; {blocks} blocks)")
-    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+    print(f"K2: {ms:.4f} ms device time over {count} launches "
+          f"({1e3 * ms / count:.2f} us each; the event window, which holds the "
+          f"host's launch gaps, {event_ms:.3f} ms); plain {plain_ms:.3f} ms, "
+          f"bound {b_ms:.4f} ms by {b_by}; {blocks} blocks")
+    return {"max_abs_err": max_err, "ms": ms, "event_ms": event_ms,
+            "ms_per_launch": ms / count, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by}
 
 
 def reset_counts() -> None:
     bgk_heavy.launches = 0
     bgk_light.launches = 0
+    lv_rows.launches = 0
+    lv_prune.launches = 0
 
 
 def main_path(cfg, pcd_dir: str, scans) -> dict:
@@ -284,9 +341,10 @@ def main_path(cfg, pcd_dir: str, scans) -> dict:
     return out
 
 
-def profile_main_path(cfg, pcd_dir: str) -> dict:
+def profile_main_path(cfg, pcd_dir: str, kernels: dict) -> dict:
     """Where the time goes: the 60-scan run_static once more under
-    torch.profiler — device time by kernel against the wall clock."""
+    torch.profiler — device time by kernel (``kernels``: label → part of
+    the CUDA kernel's name) against the wall clock."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -299,25 +357,27 @@ def profile_main_path(cfg, pcd_dir: str) -> dict:
     dev = {}
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA:   # kernels and copies on the card
-            name = ("bgk_heavy" if "bgk_heavy_kernel" in e.key else
-                    "bgk_light" if "bgk_light_kernel" in e.key else
-                    "memcpy_h2d" if "HtoD" in e.key else "other")
+            name = next((k for k, v in kernels.items() if v in e.key),
+                        "memcpy_h2d" if "HtoD" in e.key else "other")
             dev[name] = dev.get(name, 0.0) + e.self_device_time_total / 1e3
     busy = sum(dev.values())
     host_ms = res.map.stats["host_s"] * 1e3
-    print(f"profile, run_static 60 scans: wall {wall_ms:.1f} ms (profiled), "
+    print(f"profile, {cfg.method} run_static 60 scans: wall {wall_ms:.1f} ms (profiled), "
           f"device busy {busy:.3f} ms = {100 * busy / wall_ms:.2f}% "
           f"(idle {100 - 100 * busy / wall_ms:.2f}%), host main thread "
           f"{host_ms:.1f} ms; device ms by kind "
           + ", ".join(f"{k} {v:.3f}" for k, v in sorted(dev.items())))
-    require(dev.get("bgk_heavy", 0) > 0 and dev.get("bgk_light", 0) > 0,
-            "the profiler saw no kernel time")
+    require(all(dev.get(k, 0) > 0 for k in kernels), "the profiler saw no kernel time")
     return {"wall_ms": wall_ms, "device_busy_ms": busy, "host_ms": host_ms,
             "device_ms": dev}
 
 
 def card_vs_cpu(cfg, pcd_dir: str) -> float:
-    """The first 3 scans on the card and on the CPU, voxel by voxel."""
+    """The first 3 scans on the card and on the CPU, voxel by voxel.  The
+    voxels whose added mass is ≤ 1e-5 sit on the update gate's boundary
+    (k̄ > 0 for BGK: the clamp; k̄ > 0.001 for BGKLV), where the card's and
+    the CPU's last ulp may decide apart; eff and touched must agree
+    elsewhere."""
     ds = DatasetConfig(name="synth", dir=pcd_dir, prefix="synth", scan_num=3,
                        max_range=MAX_RANGE)
     gpu = pipeline.run_static(cfg, ds, device="cuda").map
@@ -348,13 +408,230 @@ def card_vs_cpu(cfg, pcd_dir: str) -> float:
     n_eff = int((eff_g != eff_c).sum())
     n_eff_away = int(((eff_g != eff_c) & away).sum())
     n_t_away = int(((t_g != t_c) & away).sum())
-    print(f"card vs CPU, 3 scans: {nb} blocks, max |A/B| deviation {dev:.3e}, "
+    print(f"card vs CPU, {cfg.method} 3 scans: {nb} blocks, max |A/B| deviation {dev:.3e}, "
           f"eff differs at {n_eff} voxels ({n_eff_away} with mass > 1e-5), "
           f"touched differs at {n_t_away} voxels with mass > 1e-5")
     require(dev <= 5e-3, "card and CPU maps differ beyond 5e-3")
     require(n_eff_away == 0 and n_t_away == 0,
             "eff/touched differ off the gate boundary")
     return dev
+
+
+# ------------------------------------------------------------ BGKLV phases
+
+#: plain k̄ this close to the LV gate may be decided the other way by the
+#: kernel's own last ulp (its sums are the plain version's, in its order)
+GATE_MARGIN = 1e-5
+
+
+def capture_lv(cfg, scans):
+    """An LV map on the card that keeps copies of the arguments of its first
+    row-engine dispatch (and of its last prune) over ``scans``."""
+    m = BGKLVOctoMap(cfg, device="cuda")
+    m._capture_step_args = True
+    m.insert_pointclouds([c for c, _ in scans], [o for _, o in scans],
+                         ds_resolution=cfg.resolution,
+                         free_resolution=cfg.free_resolution, max_range=MAX_RANGE)
+    return m
+
+
+def check_k3(args, statics, reps: int = 5) -> dict:
+    """K3 against its plain version on one dispatch's arguments and pool."""
+    pool0, rest = args[:4], args[4:]
+    vbt, ent, lab, ids, rt, rs, rn, slots, pos, ctr = rest
+
+    def pool():
+        return [x.clone() for x in pool0]
+
+    def plain(st):
+        acc_y, acc_k, members = lv_rows.lv_rows_acc_plain(
+            vbt, ent, lab, ids, rt, rs, rn, pos, ctr, sf2=statics["sf2"],
+            ell=statics["ell"], free_res=statics["free_res"])
+        lv_rows.lv_rows_apply_plain(*st, acc_y, acc_k, slots, pos, gate=statics["gate"])
+        return acc_k, members
+
+    k = pool()
+    lv_rows.lv_rows(*k, *rest, **statics)
+    p = pool()
+    acc_k, members = plain(p)
+    torch.cuda.synchronize()
+    cap, V = pool0[0].shape
+    Vt = vbt.shape[1]
+    tpb = V // Vt
+    row = slots.long() * tpb + pos.long()
+    near = ((acc_k - statics["gate"]).abs() <= GATE_MARGIN).to(torch.int32)
+    excused = torch.zeros((cap * tpb, Vt), dtype=torch.int32, device=near.device)
+    excused.index_add_(0, row, near)
+    excused = excused.view(cap, V) > 0
+    errA, errB = (k[0] - p[0]).abs(), (k[1] - p[1]).abs()
+    off = ((errA > 1e-5 + 1e-5 * p[0].abs()) | (errB > 1e-5 + 1e-5 * p[1].abs())
+           | (k[2] != p[2]))
+    bad = int((off & ~excused).sum())
+    n_near, n_moved = int(excused.sum()), int((off & excused).sum())
+    max_err = max(float(errA[~excused].max()), float(errB[~excused].max()))
+    updated = int((k[0] != pool0[0]).sum())
+    print(f"K3: {len(slots)} (scan, tile) entries, {len(rt)} rows, {updated} voxels "
+          f"updated; max |A/B kernel - plain| = {max_err:.3e}, {bad} voxels outside "
+          f"1e-5 + 1e-5*|plain| or with touched differing; {n_near} voxels within "
+          f"{GATE_MARGIN} of the gate, {n_moved} of them decided apart")
+    require(bool(torch.isfinite(k[0]).all() and torch.isfinite(k[1]).all()),
+            "K3 gave non-finite values")
+    require(bad == 0 and torch.equal(k[3], pool0[3]), "K3 disagrees with its plain version")
+    event_ms = cuda_ms(lambda st: lv_rows.lv_rows(*st, *rest, **statics), reps, setup=pool)
+    ms, _ = device_ms(lambda: lv_rows.lv_rows(*pool(), *rest, **statics),
+                      "lv_rows_kernel")
+    plain_ms = cuda_ms(plain, 1, warmup=0, setup=pool)  # warmed up by the check
+    evals = int(rn.sum()) * Vt
+    n_rows = int(torch.unique(row).numel())
+    flops = lv_rows.FLOP_MEMBERSHIP * evals + lv_rows.FLOP_MEMBER * int(members)
+    # inputs read once; each pool row updated: A, B, touched, eff read and
+    # A, B, touched written
+    b_ms, b_by = bound(flops, nbytes(*rest) + n_rows * Vt * (10 + 9))
+    print(f"K3: {ms:.3f} ms device time (event window {event_ms:.3f} ms; plain "
+          f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by}; {evals} evaluations, "
+          f"{int(members)} members, {flops:.4g} operations)")
+    return {"max_abs_err": max_err, "ms": ms, "event_ms": event_ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "evaluations": evals, "members": int(members),
+            "gate_boundary_voxels": n_near, "decided_apart": n_moved}
+
+
+def collapsible_pool(pool0, slots, n: int, seed: int = 0):
+    """A copy of the pool whose blocks ``slots`` collapse at every level,
+    the levels across tiles included: block i holds one (A, B) template per
+    cube of edge (n, 16, 8, 4)[i % 4] (one state per cube: occupied, free
+    or uncertain under the large-map thresholds), ±5 % noise so that
+    collapse copies show, every voxel touched at eff 0; edge-4 blocks also
+    get 3 % stray voxels, so that their tiles are not uniform."""
+    rng = np.random.default_rng(seed)
+    tmpl = np.array([[100.0, 0.001], [0.001, 100.0], [1.0, 1.0]], np.float32)
+    sl = slots.long()
+    sl = sl[sl < pool0[0].shape[0]].cpu().numpy()
+    S = len(sl)
+    vox = np.empty((S, n ** 3), np.int64)
+    for i in range(S):
+        edge = (n, 16, 8, 4)[i % 4]
+        g = n // edge
+        t = rng.integers(0, 3, (g, g, g)).repeat(edge, 0).repeat(edge, 1).repeat(edge, 2)
+        vox[i] = t.reshape(-1)
+        if edge == 4:
+            stray = rng.uniform(size=n ** 3) < 0.03
+            vox[i] = np.where(stray, rng.integers(0, 3, n ** 3), vox[i])
+    AB = tmpl[vox] * rng.uniform(0.95, 1.05, (S, n ** 3, 2)).astype(np.float32)
+    perm = geo.tile_vox_map(n).reshape(-1)            # stored column → raster
+    dev = pool0[0].device
+    pool = [x.clone() for x in pool0]
+    rows = torch.as_tensor(sl, device=dev)
+    pool[0][rows] = torch.as_tensor(AB[..., 0][:, perm], device=dev)
+    pool[1][rows] = torch.as_tensor(AB[..., 1][:, perm], device=dev)
+    pool[2][rows] = True
+    pool[3][rows] = 0
+    return pool
+
+
+def check_k8(args, statics, reps: int = 10) -> dict:
+    """K8 against its plain version on the pool state of one real prune,
+    and on the same blocks made collapsible at every level (the real scene
+    collapses no 16³ or 32³ group, and those levels run in the kernel's
+    second, cross-tile half)."""
+    pool0, slots = args[:4], args[4]
+    n, max_level = statics["n"], statics["max_level"]
+    sl = slots.long()
+
+    def compare(start, what):
+        k = [x.clone() for x in start]
+        lv_prune.lv_prune(*k, slots, **statics)
+        p = [x.clone() for x in start]
+        lv_prune.lv_prune_plain(*p, slots, **statics)
+        torch.cuda.synchronize()
+        same = [torch.equal(x, y) for x, y in zip(k, p)]
+        levels = [int((k[3][sl] == L).sum()) for L in range(max_level + 1)]
+        print(f"K8, {what}: {len(slots)} blocks of {start[0].shape[1]} voxels; A, B, "
+              f"touched, eff equal to the plain version: {same}; voxels by eff level "
+              f"{levels}")
+        require(all(same), f"K8 disagrees with its plain version ({what})")
+        return levels
+
+    levels = compare(pool0, "the real pool")
+    levels_all = compare(collapsible_pool(pool0, slots, n), "collapsible blocks")
+    require(max_level >= 5 and levels_all[4] > 0 and levels_all[5] > 0,
+            "the collapsible blocks did not reach the cross-tile levels 4 and 5")
+
+    def pool():
+        return [x.clone() for x in pool0]
+
+    event_ms = cuda_ms(lambda st: lv_prune.lv_prune(*st, slots, **statics), reps,
+                       setup=pool)
+    ms, _ = device_ms(lambda: lv_prune.lv_prune(*pool(), slots, **statics),
+                      "lv_prune_kernel", reps=10)
+    plain_ms = cuda_ms(lambda st: lv_prune.lv_prune_plain(*st, slots, **statics), 2,
+                       setup=pool)
+    V = pool0[0].shape[1]
+    # each voxel's A, B (f32), touched and eff (1 byte) read and written once
+    b_ms, b_by = bound(0, len(slots) * V * 2 * (4 + 4 + 1 + 1) + nbytes(slots))
+    print(f"K8: {ms:.4f} ms device time on the real pool (event window "
+          f"{event_ms:.3f} ms; plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by})")
+    return {"max_abs_err": 0.0, "ms": ms, "event_ms": event_ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "levels": levels,
+            "levels_collapsible": levels_all}
+
+
+def main_path_lv(cfg, cfg_large, pcd_dir: str, scans) -> dict:
+    """BGKLV: run_static on 12 and 60 demo scans, OnlineIntegrator on 12
+    scans, run_static on 12 large-map scans."""
+    out = {}
+    runs = [(cfg, 12), (cfg, 60), (cfg_large, 12)]
+    for c, n_scans in runs:
+        ds = DatasetConfig(name="synth", dir=pcd_dir, prefix="synth",
+                           scan_num=n_scans, max_range=MAX_RANGE)
+        reset_counts()
+        res = pipeline.run_static(c, ds)
+        k3, k8 = lv_rows.launches, lv_prune.launches
+        m = res.map
+        large = c.original_size
+        want3 = n_scans if large else -(-n_scans // BGKLVOctoMap.SCAN_BATCH)
+        want8 = n_scans if large else 0
+        ex = pipeline.export_leaves(m, original_size=large)
+        leaves = ex["all"]
+        n_occ, n_free = len(ex["occupied"]["x"]), len(ex["free"]["x"])
+        n_touched = int(m.pool.touched.sum())
+        n_pruned = int((m.pool.eff_level > 0).sum())
+        name = f"{'large' if large else 'static'}{n_scans}"
+        print(f"BGKLV run_static {n_scans} scans ({'large map' if large else 'demo'}): "
+              f"{res.scans_per_second:.2f} scans/s ({res.total_seconds:.3f} s), "
+              f"{m.pool.n_blocks} blocks, {n_touched} touched voxels, {n_pruned} "
+              f"pruned, {n_occ} occupied / {n_free} free leaves; launches K3 {k3} "
+              f"K8 {k8}")
+        require(k3 == want3, f"K3 launched {k3} times, expected {want3}")
+        require(k8 == want8, f"K8 launched {k8} times, expected {want8}")
+        # the large-map config's var_thresh of 0.001 leaves most touched
+        # voxels UNCERTAIN, and UNCERTAIN groups collapse
+        require(n_touched > 0 and (n_pruned > 0 if large else n_occ > 0),
+                "no touched voxels, or no occupied (demo) / pruned (large map) ones")
+        require(all(np.isfinite(leaves[k]).all() for k in ("prob", "var", "x")),
+                "non-finite leaves")
+        out[name] = {"scans_per_s": res.scans_per_second, "seconds": res.total_seconds,
+                     "launches": {"lv_rows": k3, "lv_prune": k8}}
+
+    m = BGKLVOctoMap(cfg)
+    online = pipeline.OnlineIntegrator(m)
+    lat = []
+    reset_counts()
+    for cloud, origin in scans[:12]:
+        t0 = time.perf_counter()
+        online.offer(cloud, origin)
+        m.synchronize()
+        lat.append(time.perf_counter() - t0)
+    k3, k8 = lv_rows.launches, lv_prune.launches
+    med = float(np.median(lat)) * 1e3
+    print(f"BGKLV OnlineIntegrator 12 scans: {online.n_integrated} integrated, median "
+          f"latency {med:.2f} ms (min {min(lat) * 1e3:.2f}, max "
+          f"{max(lat) * 1e3:.2f}); launches K3 {k3} K8 {k8}")
+    require(online.n_integrated == 12 and k3 == online.n_integrated and k8 == 0,
+            "online launches do not match the integrated scans")
+    out["online12"] = {"median_ms": med, "integrated": online.n_integrated,
+                       "launches": {"lv_rows": k3, "lv_prune": k8}}
+    return out
 
 
 def main() -> int:
@@ -394,8 +671,21 @@ def main() -> int:
         del args
 
         path = main_path(cfg, tmp, scans)
-        path["profile60"] = profile_main_path(cfg, tmp)
+        path["profile60"] = profile_main_path(
+            cfg, tmp, {"bgk_heavy": "bgk_heavy_kernel", "bgk_light": "bgk_light_kernel"})
         dev = card_vs_cpu(cfg, tmp)
+
+        cfg_lv = load_method_config("bgklv", max_range=MAX_RANGE)
+        cfg_large = load_method_config("bgklvoctomap_large_map", max_range=MAX_RANGE)
+        m = capture_lv(cfg_lv, scans[:12])
+        k3 = check_k3(*m._last_step_call)
+        m = capture_lv(cfg_large, scans[:4])
+        k8 = check_k8(*m._last_prune_call)
+        del m
+
+        path_lv = main_path_lv(cfg_lv, cfg_large, tmp, scans)
+        path_lv["profile60"] = profile_main_path(cfg_lv, tmp, {"lv_rows": "lv_rows_kernel"})
+        dev_lv = card_vs_cpu(cfg_lv, tmp)
 
     launches = path["static60"]["launches"]
     kernels = [
@@ -408,10 +698,24 @@ def main() -> int:
          "replaces": "la3dm_tpu/models/bgk.py:140", "launches": launches["bgk_light"],
          "work": "the 16 per-scan launches of one 16-scan dispatch", **k2,
          "library_ms": None},
+        {"name": "lv_rows", "route": "cuda",
+         "source": "la3dm_tpu_torch/csrc/lv_rows.cu",
+         "replaces": "la3dm_tpu/models/bgklv.py:127",
+         "launches": path_lv["static60"]["launches"]["lv_rows"],
+         "work": "one 12-scan demo dispatch", **k3, "library_ms": None},
+        {"name": "lv_prune", "route": "cuda",
+         "source": "la3dm_tpu_torch/csrc/lv_prune.cu",
+         "replaces": "la3dm_tpu/models/bgklv.py:216",
+         "launches": path_lv["large12"]["launches"]["lv_prune"],
+         "work": "the prune of one large-map scan's blocks", **k8, "library_ms": None},
     ]
-    summary = {"card": smi, "main_path": path, "card_vs_cpu_max_dev": dev}
-    print(f"main path on {smi}: {path['static60']['scans_per_s']:.2f} scans/s "
-          f"(60 scans), median online latency {path['online12']['median_ms']:.2f} ms")
+    summary = {"card": smi, "main_path": path, "card_vs_cpu_max_dev": dev,
+               "main_path_lv": path_lv, "card_vs_cpu_max_dev_lv": dev_lv}
+    print(f"main path on {smi}: BGK {path['static60']['scans_per_s']:.2f} scans/s "
+          f"(60 scans), median online latency {path['online12']['median_ms']:.2f} ms; "
+          f"BGKLV {path_lv['static60']['scans_per_s']:.2f} scans/s (60 scans), "
+          f"median online latency {path_lv['online12']['median_ms']:.2f} ms, large "
+          f"map {path_lv['large12']['scans_per_s']:.2f} scans/s (12 scans)")
     print(json.dumps(summary))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,9 @@ The port of ``la3dm_tpu`` (JAX), which stays beside it as the reference.
 This package imports neither JAX nor ``la3dm_tpu``: it keeps its own copies
 of the framework-free modules it needs.  Ported so far: the BGK family on
 the host-ingest path (``BGKOctoMap``, ``pipeline.run_static``), with the
-heavy pass (K1) and the light pass with the prune (K2) as CUDA kernels.
+heavy pass (K1) and the light pass with the prune (K2) as CUDA kernels, and
+the BGKLV family (``BGKLVOctoMap``), with the tile row engine (K3) and the
+tile-major prune (K8) as CUDA kernels.
 
 Maps run on the GPU unless the caller passes ``device="cpu"``; there is no
 silent fall-back to the CPU.
@@ -17,9 +19,11 @@ from la3dm_tpu_torch.utils.config import (DatasetConfig, MapConfig,
                                           load_dataset_config, load_method_config)
 from la3dm_tpu_torch.models.base import State
 from la3dm_tpu_torch.models.bgk import BGKOctoMap
+from la3dm_tpu_torch.models.bgklv import BGKLVOctoMap
 
 __all__ = [
     "BGKOctoMap",
+    "BGKLVOctoMap",
     "State",
     "MapConfig",
     "DatasetConfig",

@@ -129,6 +129,24 @@ def voxel_offsets(resolution: float, block_depth: int) -> np.ndarray:
     return leaves[_leaf_raster_perm(leaves)]
 
 
+def tile_vox_map(n: int) -> np.ndarray:
+    """[tiles_per_block, Vt] int32: raster voxel indices of each 8³ tile
+    (the whole block when n < 8), tiles and their voxels both in raster order
+    (x fastest).  Flattened, it is the BGKLV tile-major storage order: stored
+    column k = pos·Vt + vt holds raster voxel ``tile_vox_map(n).reshape(-1)[k]``
+    (la3dm_tpu/models/bgklv.py:276-303)."""
+    te = min(8, n)
+    tpa = n // te
+    t = np.arange(tpa)
+    v = np.arange(te)
+    tz, ty, tx = np.meshgrid(t, t, t, indexing="ij")
+    z, y, x = np.meshgrid(v, v, v, indexing="ij")
+    gx = tx.reshape(-1, 1) * te + x.reshape(1, -1)
+    gy = ty.reshape(-1, 1) * te + y.reshape(1, -1)
+    gz = tz.reshape(-1, 1) * te + z.reshape(1, -1)
+    return (gx + gy * n + gz * n * n).astype(np.int32)
+
+
 def level_offsets(resolution: float, block_depth: int, level: int) -> np.ndarray:
     """Center offsets of each leaf voxel's 2^level-aligned ancestor node.
 

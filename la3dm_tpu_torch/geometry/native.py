@@ -2,10 +2,11 @@
 
 Builds the repository's C++ source ``native/host_preprocess.cpp`` into the
 port's build directory (``la3dm_tpu_torch/build/``, git-ignored) at first
-use, and rebuilds it when the source is newer.  Three entry points are
-bound: :func:`bgk_training_data`, :func:`scan_bucket_tables` and
-:func:`row_tables` — the BGK host-ingest path.  There is no numpy stand-in:
-if the library cannot be built, the call raises.
+use, and rebuilds it when the source is newer.  Bound: the BGK host-ingest
+path (:func:`bgk_training_data`, :func:`scan_bucket_tables`,
+:func:`row_tables`) and the BGKLV one (:func:`lv_training_data`,
+:func:`lv_tile_tables_ray`).  There is no numpy stand-in: if the library
+cannot be built, the call raises.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import threading
 
 import numpy as np
 
-from la3dm_tpu_torch.geometry.preprocess import PointTrainingData
+from la3dm_tpu_torch.geometry.preprocess import PointTrainingData, SegmentTrainingData
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC = os.path.join(os.path.dirname(_PKG_DIR), "native", "host_preprocess.cpp")
@@ -85,6 +86,21 @@ def _bind(lib):
         i64p, i32p, i32p, i32p, ip,
         i64p, i32p, i32p, ip,
         ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ]
+    lib.lv_training_data.restype = ctypes.c_int
+    lib.lv_training_data.argtypes = [
+        f32p, ctypes.c_int, f32p,
+        ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
+        f32p, ip, f32p, ip, f32p, i32p, ip,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, f32p,
+    ]
+    lib.lv_tile_tables_ray.restype = ctypes.c_int
+    lib.lv_tile_tables_ray.argtypes = [
+        f32p, ctypes.c_int, f32p, ctypes.c_int,
+        ctypes.c_double, ctypes.c_double, ctypes.c_double,
+        i64p, i32p, i32p, i32p, i32p, i32p, i32p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ip, ip, ip,
     ]
     return lib
 
@@ -190,3 +206,81 @@ def row_tables(starts: np.ndarray, counts: np.ndarray, W: int):
         raise RuntimeError(f"row_tables failed (rc={rc})")
     return (ids[:nf.value], gslot[:nf.value], row_block[:nr.value],
             row_start[:nr.value], row_count[:nr.value], totals[:B])
+
+
+def lv_training_data(cloud: np.ndarray, origin: np.ndarray, ds: float, fr: float,
+                     max_range: float, ell: float) -> SegmentTrainingData:
+    """Native BGKLV training-data build (bgklvoctomap.cpp:303-423): hits,
+    shortened free rays, their proxy samples and the hits ∪ samples bbox."""
+    lib = _load()
+    cloud = np.ascontiguousarray(cloud, np.float32)
+    origin = np.ascontiguousarray(np.asarray(origin, np.float32).reshape(3))
+    n = len(cloud)
+    max_h, max_r = n + 8, n + 8
+    max_s = 64
+    while True:
+        max_s = max(max_s, int((max_range / max(fr, 1e-6) + 2) * max_r))
+        hits = np.empty((max_h, 3), np.float32)
+        rays = np.empty((max_r, 6), np.float32)
+        samples = np.empty((max_s, 3), np.float32)
+        sample_ray = np.empty(max_s, np.int32)
+        nh, nr, ns = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+        bbox = np.empty(6, np.float32)
+        rc = lib.lv_training_data(
+            cloud.reshape(-1), n, origin, ds, fr, max_range, ell,
+            hits.reshape(-1), ctypes.byref(nh), rays.reshape(-1), ctypes.byref(nr),
+            samples.reshape(-1), sample_ray, ctypes.byref(ns),
+            max_h, max_r, max_s, bbox)
+        if rc == 0:
+            break
+        max_h *= 2
+        max_r *= 2
+        max_s *= 2
+    return SegmentTrainingData(
+        hits=hits[:nh.value].copy(), rays=rays[:nr.value].copy(),
+        samples=samples[:ns.value].copy(),
+        sample_ray=sample_ray[:ns.value].astype(np.int64),
+        bbox=bbox.reshape(2, 3).copy() if (nh.value or ns.value) else None)
+
+
+def lv_tile_tables_ray(hits: np.ndarray, rays: np.ndarray,
+                       ts: float, halo: float, shift: float):
+    """Per-tile hit/ray tables by a segment event walk (host_preprocess.cpp):
+    a slight superset of the proxy-sample candidate set (the row engine
+    re-tests exact membership).
+
+    Returns (tile_keys [T] i64, h_start, h_count, r_start, r_count [T] i32,
+    hits_flat, rays_flat i32): per active tile, contiguous segments into the
+    tile-sorted hit and ray id tables.
+    """
+    lib = _load()
+    hits = np.ascontiguousarray(hits, np.float32)
+    rays = np.ascontiguousarray(rays, np.float32)
+    H, R = len(hits), len(rays)
+    max_t = 64 * max(H + R, 8)
+    max_hf = 16 * max(H, 8)
+    max_rf = 128 * max(R, 8)
+    while True:
+        keys = np.empty(max_t, np.int64)
+        hs = np.empty(max_t, np.int32)
+        hc = np.empty(max_t, np.int32)
+        rs = np.empty(max_t, np.int32)
+        rc_ = np.empty(max_t, np.int32)
+        hf = np.empty(max_hf, np.int32)
+        rf = np.empty(max_rf, np.int32)
+        nt, nhf, nrf = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+        rc = lib.lv_tile_tables_ray(
+            hits.reshape(-1), H, rays.reshape(-1), R,
+            float(ts), float(halo), float(shift),
+            keys, hs, hc, rs, rc_, hf, rf,
+            max_t, max_hf, max_rf,
+            ctypes.byref(nt), ctypes.byref(nhf), ctypes.byref(nrf))
+        if rc == 0:
+            break
+        max_t *= 2
+        max_hf *= 2
+        max_rf *= 2
+    Ta = nt.value
+    return (keys[:Ta].copy(), hs[:Ta].copy(), hc[:Ta].copy(),
+            rs[:Ta].copy(), rc_[:Ta].copy(),
+            hf[:nhf.value].copy(), rf[:nrf.value].copy())

@@ -6,7 +6,8 @@ the reference's ``get_training_data`` (``src/bgkoctomap/bgkoctomap.cpp:
 points sampled along each beam, then a second downsample of the free cloud.
 BGK labels free space 0.  The fused native path (geometry/native.py) gives
 bit-identical points; this numpy version backs ``OnlineIntegrator``'s
-server pre-downsample and the tests.
+server pre-downsample and the tests.  BGKLV's training data
+(:class:`SegmentTrainingData`) comes from the native library only.
 """
 
 from __future__ import annotations
@@ -77,6 +78,24 @@ class PointTrainingData:
 
     points: np.ndarray  # [N,3] f32
     labels: np.ndarray  # [N]   f32 (1 occupied; 0 free)
+
+
+@dataclasses.dataclass
+class SegmentTrainingData:
+    """BGKLV training set: occupied points + free rays + ray sample points.
+
+    ``samples``/``sample_ray`` are the R-tree proxy points of each ray
+    (origin + beam samples); ``hits`` are the occupied endpoints (degenerate
+    segments in the reference).
+    """
+
+    hits: np.ndarray        # [H,3] f32 occupied endpoints
+    rays: np.ndarray        # [R,6] f32 free segments (start,end)
+    samples: np.ndarray     # [S,3] f32 free sample points (incl. ray origins)
+    sample_ray: np.ndarray  # [S]   int64 ray id per sample
+    #: [2,3] (min,max) over hits ∪ samples — the R-tree extent of the
+    #: candidate block sweep; None for an empty scan
+    bbox: np.ndarray | None = None
 
 
 def bgk_training_data(cloud: np.ndarray, origin: np.ndarray, ds_resolution: float,

@@ -91,6 +91,10 @@ def _bind(lib):
     lib.la3dm_bgk_heavy.argtypes = [vp] * 9 + [ci, ci, ci, cf, cf, vp, vp]
     lib.la3dm_bgk_light.restype = ci
     lib.la3dm_bgk_light.argtypes = ([vp] * 7 + [ci] * 6 + [cf, ci, cf, cf, cf, vp])
+    lib.la3dm_lv_rows.restype = ci
+    lib.la3dm_lv_rows.argtypes = [vp] * 16 + [ci] * 4 + [cf] * 4 + [vp]
+    lib.la3dm_lv_prune.restype = ci
+    lib.la3dm_lv_prune.argtypes = [vp] * 9 + [ci] * 4 + [cf] * 4 + [vp]
     return lib
 
 

@@ -1,8 +1,10 @@
 """Sparse covariance kernel and distances, as plain torch.
 
-The port of ``pairwise_dist``, ``sparse_kernel`` and ``cov_sparse`` from
-``la3dm_tpu/kernels/math.py``, with the same parity rules — the k̄ > 0
-update gate sits on the kernel's clamp boundary, where the last ulp decides:
+The port of ``pairwise_dist``, ``sparse_kernel``, ``cov_sparse``,
+``sparse_kernel_lv``, ``point_to_segment_dist`` and ``cov_sparse_segment``
+from ``la3dm_tpu/kernels/math.py``, with the same parity rules — the k̄
+update gates sit on the kernel's support boundary, where the last ulp
+decides:
 
 * distances by per-axis direct subtraction, summed x, y, z in that order
   (no Gram expansion, no matmul);
@@ -21,6 +23,8 @@ import numpy as np
 import torch
 
 TWO_PI = float(np.float32(2.0 * 3.1415926))  # reference uses 3.1415926f
+#: degenerate-segment threshold of point_to_segment_dist (bgklinference.h)
+SEG_EPSILON = float(np.float32(1e-4))
 
 
 def pairwise_dist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -48,3 +52,58 @@ def cov_sparse(x: torch.Tensor, z: torch.Tensor, sf2: float, ell: float) -> torc
     """
     e = float(np.float32(ell))
     return sparse_kernel(pairwise_dist(x / e, z / e), sf2)
+
+
+def sparse_kernel_lv(r: torch.Tensor, sf2: float) -> torch.Tensor:
+    """LV sparse kernel (bgklvinference.h:143-157): r clamped to ≤ 1 before
+    the kernel, no output clamp."""
+    r = torch.clamp_max(r, 1.0)
+    return ((2.0 + torch.cos(TWO_PI * r)) * (1.0 - r) / 3.0
+            + torch.sin(TWO_PI * r) / TWO_PI) * float(np.float32(sf2))
+
+
+def _sq3(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """x² + y² + z², summed in that order."""
+    return x * x + y * y + z * z
+
+
+def point_to_segment_dist(p: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
+    """Distances [..., M, N] from points p [..., M, 3] to segments
+    seg [..., N, 6] (start, end), branch structure of bgklinference.h:106-141:
+
+      |p1 − p0| < ε        → |p − p0|
+      c1 = (p−p0)·u ≤ 0    → |p − p0|
+      c2 = u·u ≤ c1        → |p − p1|
+      else                 → |p − (p0 + u·c1/c2)|
+
+    All in float32 with per-axis sums in x, y, z order and c2 floored at
+    1e-30, as the JAX package computes it (its docstring's float64 is not
+    what its code does).
+    """
+    p0, p1 = seg[..., None, :, 0:3], seg[..., None, :, 3:6]   # [..., 1, N, 3]
+    u = p1 - p0
+    line_len = torch.sqrt(_sq3(u[..., 0], u[..., 1], u[..., 2]))
+    pp = p[..., :, None, :]                                   # [..., M, 1, 3]
+    diff0 = pp - p0
+    diff1 = pp - p1
+    d0 = torch.sqrt(_sq3(diff0[..., 0], diff0[..., 1], diff0[..., 2]))
+    d1 = torch.sqrt(_sq3(diff1[..., 0], diff1[..., 1], diff1[..., 2]))
+    c1 = diff0[..., 0] * u[..., 0] + diff0[..., 1] * u[..., 1] + diff0[..., 2] * u[..., 2]
+    c2 = _sq3(u[..., 0], u[..., 1], u[..., 2])
+    b = c1 / torch.clamp_min(c2, 1e-30)
+    dm = pp - (p0 + u * b[..., None])
+    dmid = torch.sqrt(_sq3(dm[..., 0], dm[..., 1], dm[..., 2]))
+    d = torch.where(c1 <= 0.0, d0, torch.where(c2 <= c1, d1, dmid))
+    return torch.where(line_len < SEG_EPSILON, d0, d)
+
+
+def cov_sparse_segment(p: torch.Tensor, seg: torch.Tensor, sf2: float, ell: float,
+                       lv: bool = False) -> torch.Tensor:
+    """covSparseLine: the sparse kernel of point-to-segment distance / ℓ.
+
+    ``lv=False``: BGKL semantics (negative outputs clamped,
+    bgklinference.h:183-197); ``lv=True``: LV semantics (r clamped ≤ 1
+    first, bgklvinference.h:143-157).
+    """
+    r = point_to_segment_dist(p, seg) / float(np.float32(ell))
+    return sparse_kernel_lv(r, sf2) if lv else sparse_kernel(r, sf2)

@@ -130,6 +130,9 @@ class OccupancyMapBase:
 
     #: pool field names → fill values, set by subclasses (e.g. A, B)
     FIELD_FILLS: dict[str, float] = {}
+    #: whether the online server voxel-downsamples a cloud before
+    #: ``insert_pointcloud`` (pipeline.OnlineIntegrator)
+    SERVER_DOWNSAMPLE = True
 
     def __init__(self, cfg: MapConfig, device=None):
         self.cfg = cfg
@@ -169,6 +172,15 @@ class OccupancyMapBase:
         self.stats["query_fetch_bytes"] += out.nbytes
         return out
 
+    def _to_device(self, x: np.ndarray) -> torch.Tensor:
+        """Host array → tensor on the map's device.  To a GPU the copy goes
+        from pinned memory without blocking the host, so building the next
+        chunk's tables overlaps the device work."""
+        t = torch.from_numpy(np.ascontiguousarray(x))
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device)
+
     def synchronize(self) -> None:
         """Wait for the map's queued device work."""
         if self.device.type == "cuda":
@@ -179,13 +191,30 @@ class OccupancyMapBase:
     def block_centers(self, coords: np.ndarray) -> np.ndarray:
         return geo.block_center(coords, self.block_size)
 
+    # -- voxel-storage order ----------------------------------------------
+    # The pool stores each block's V voxels in the engine's order: raster
+    # for BGK, tile-major for BGKLV (models/bgklv.py).  Queries, exports and
+    # checkpoints convert through these hooks; the defaults are identity.
+
+    def _stored_vidx(self, vidx: np.ndarray) -> np.ndarray:
+        """Raster voxel index → stored column index."""
+        return vidx
+
+    def _stored_to_raster(self, rows: np.ndarray) -> np.ndarray:
+        """[N, V] stored-order columns → raster order (host numpy)."""
+        return rows
+
+    def _raster_to_stored(self, rows: np.ndarray) -> np.ndarray:
+        """[N, V] raster-order columns → stored order (host numpy)."""
+        return rows
+
     # -- queries ----------------------------------------------------------
 
     def _gather_rows(self, arr: torch.Tensor, slots: np.ndarray) -> np.ndarray:
         """``arr[slots]`` as host numpy, raster voxel order; the gather runs
         on the device and only len(slots)·V elements cross to the host."""
         idx = torch.as_tensor(np.asarray(slots, np.int64), device=arr.device)
-        return self._fetch(arr[idx])
+        return self._stored_to_raster(self._fetch(arr[idx]))
 
     def search(self, points: np.ndarray) -> dict[str, np.ndarray]:
         """Vectorized ``search(point3f)`` (bgkoctomap.cpp:563-574): per-point
@@ -199,7 +228,8 @@ class OccupancyMapBase:
         vidx = geo.point_to_voxel_index(points, centers, self.cfg.resolution, self.n)
         sl = torch.as_tensor(np.where(exists, slots, 0).astype(np.int64),
                              device=self.device)
-        vi = torch.as_tensor(vidx.astype(np.int64), device=self.device)
+        vi = torch.as_tensor(self._stored_vidx(vidx).astype(np.int64),
+                             device=self.device)
         out = {}
         for name, arr in self.pool.fields.items():
             vals = self._fetch(arr[sl, vi])
@@ -303,10 +333,12 @@ class OccupancyMapBase:
             raise ValueError("load into an empty map")
         slots = torch.as_tensor(self.pool.ensure(np.asarray(coords)).astype(np.int64),
                                 device=self.device)
+
+        def stored(rows, dtype):
+            return torch.tensor(self._raster_to_stored(np.asarray(rows, dtype)),
+                                device=self.device)
+
         for k in self.pool.fields:
-            self.pool.fields[k][slots] = torch.tensor(
-                np.asarray(fields[k], np.float32), device=self.device)
-        self.pool.touched[slots] = torch.tensor(
-            np.asarray(touched, bool), device=self.device)
-        self.pool.eff_level[slots] = torch.tensor(
-            np.asarray(eff_level, np.int8), device=self.device)
+            self.pool.fields[k][slots] = stored(fields[k], np.float32)
+        self.pool.touched[slots] = stored(touched, bool)
+        self.pool.eff_level[slots] = stored(eff_level, np.int8)

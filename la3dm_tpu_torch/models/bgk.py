@@ -176,15 +176,6 @@ class BGKOctoMap(base.OccupancyMapBase):
         """
         return native.row_tables(t.starts, t.counts, _ROW_W)
 
-    def _to_device(self, x: np.ndarray) -> torch.Tensor:
-        """Host array → tensor on the map's device.  To a GPU the copy goes
-        from pinned memory without blocking the host, so building the next
-        chunk's tables overlaps the device work."""
-        t = torch.from_numpy(np.ascontiguousarray(x))
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t.to(self.device)
-
     def _integrate(self, tables: list) -> None:
         """Integrate K ≤ SCAN_BATCH scans' bucket tables in one dispatch."""
         if not tables:

@@ -8,7 +8,7 @@ occupied/free leaves with the reference's display conventions.
 
 The static nodes pass ``resolution`` — not the config's ds_resolution — as
 the downsampling leaf (bgkoctomap_static_node.cpp:95); ``run_static``
-reproduces that.  Only the BGK family is ported so far.
+reproduces that.
 """
 
 from __future__ import annotations
@@ -24,10 +24,12 @@ from la3dm_tpu_torch.geometry.preprocess import voxel_downsample
 from la3dm_tpu_torch.io.pcd import load_pcd
 from la3dm_tpu_torch.models.base import OccupancyMapBase, State
 from la3dm_tpu_torch.models.bgk import BGKOctoMap
+from la3dm_tpu_torch.models.bgklv import BGKLVOctoMap
 from la3dm_tpu_torch.utils.config import DatasetConfig, MapConfig
 
 MAP_CLASSES = {
     "bgk": BGKOctoMap,
+    "bgklv": BGKLVOctoMap,
 }
 
 
@@ -108,7 +110,8 @@ class OnlineIntegrator:
     * motion gate — integrate only if the sensor moved > 0.1 m or rotated
       > 0.2 rad since the last *integrated* cloud (:17-20, :60);
     * pre-downsample the cloud with a ds_resolution voxel grid before
-      ``insert_pointcloud`` (:70-82).
+      ``insert_pointcloud`` (:70-82), where the map class's
+      ``SERVER_DOWNSAMPLE`` says so (not BGKLV).
     """
 
     POS_GATE = 0.1   # m   (server.cpp:17)
@@ -137,7 +140,8 @@ class OnlineIntegrator:
                 self.n_skipped += 1
                 return False
         self._last_pos, self._last_quat = origin, quat
-        cloud = voxel_downsample(cloud, self.map.cfg.ds_resolution)
+        if self.map.SERVER_DOWNSAMPLE:
+            cloud = voxel_downsample(cloud, self.map.cfg.ds_resolution)
         self.map.insert_pointcloud(cloud, origin)
         self.n_integrated += 1
         return True

@@ -11,10 +11,11 @@ it runs apart from tests/conftest.py:
 import pytest
 import torch
 
-from la3dm_tpu_torch.kernels import bgk_heavy, bgk_light
+from la3dm_tpu_torch.kernels import bgk_heavy, bgk_light, lv_prune, lv_rows
 from la3dm_tpu_torch.models import posterior as po
 
-from torch_cases import heavy_inputs, light_inputs  # tests/ is on sys.path
+from torch_cases import (LV_ROWS_STATICS, LV_STATE, heavy_inputs,  # tests/ on sys.path
+                         light_inputs, lv_prune_inputs, lv_rows_inputs)
 
 
 @pytest.fixture
@@ -51,3 +52,40 @@ def test_bgk_light_kernel_matches_plain(cuda_dev):
     torch.cuda.synchronize()
     assert torch.equal(k[2], p[2]) and torch.equal(k[3], p[3])
     assert (k[0] - p[0]).abs().max() <= 1e-6 and (k[1] - p[1]).abs().max() <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [3, 5, 6])
+def test_lv_rows_kernel_matches_plain(cuda_dev, depth):
+    a = lv_rows_inputs(12, depth=depth, dev=cuda_dev)
+    k = [x.clone() for x in a[:4]]
+    p = [x.clone() for x in a[:4]]
+    before = lv_rows.launches
+    lv_rows.lv_rows(*k, *a[4:], **LV_ROWS_STATICS)
+    assert lv_rows.launches == before + 1
+    lv_rows.lv_rows_plain(*p, *a[4:], **LV_ROWS_STATICS)
+    torch.cuda.synchronize()
+    # the same sums in the same order; sinf/cosf and the plain version's
+    # separate ops round alike, so 1e-5 relative covers the rest
+    for x, y in zip(k[:2], p[:2]):
+        assert ((x - y).abs() <= 1e-5 + 1e-5 * y.abs()).all()
+    assert torch.equal(k[2], p[2]) and torch.equal(k[3], a[3])
+    assert (k[0] != a[0]).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4, 16, 32])
+def test_lv_prune_kernel_matches_plain(cuda_dev, n):
+    pool = lv_prune_inputs(13, n=n, dev=cuda_dev)
+    kw = dict(n=n, max_level=n.bit_length() - 1, state_fn=po.LVStateFn(**LV_STATE))
+    k = [x.clone() for x in pool[:4]]
+    p = [x.clone() for x in pool[:4]]
+    before = lv_prune.launches
+    lv_prune.lv_prune(*k, pool[4], **kw)
+    assert lv_prune.launches == before + 1
+    lv_prune.lv_prune_plain(*p, pool[4], **kw)
+    torch.cuda.synchronize()
+    # copies and f32 state rules only: bit-identical
+    for x, y in zip(k, p):
+        assert torch.equal(x, y)
+    assert int(k[3].max()) == kw["max_level"]

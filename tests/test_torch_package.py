@@ -2,14 +2,16 @@
 and its entry points do not fall back to the CPU."""
 
 import ast
+import ctypes
 import os
+import re
 import subprocess
 import sys
 
 import pytest
 import torch
 
-from la3dm_tpu_torch import BGKOctoMap, load_method_config
+from la3dm_tpu_torch import BGKLVOctoMap, BGKOctoMap, load_method_config
 from la3dm_tpu_torch.kernels import _build
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -35,6 +37,8 @@ def test_import_pulls_in_no_jax():
     code = (
         "import sys\n"
         "import la3dm_tpu_torch, la3dm_tpu_torch.models.bgk, la3dm_tpu_torch.pipeline\n"
+        "import la3dm_tpu_torch.models.bgklv, la3dm_tpu_torch.kernels.lv_rows\n"
+        "import la3dm_tpu_torch.kernels.lv_prune\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "assert not bad, bad\n"
@@ -68,6 +72,38 @@ def test_map_without_device_does_not_fall_back_to_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         BGKOctoMap(cfg)
     assert BGKOctoMap(cfg, device="cpu").device.type == "cpu"
+
+
+def test_lv_map_without_device_does_not_fall_back_to_cpu(monkeypatch):
+    from la3dm_tpu_torch import pipeline
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = load_method_config("bgklv", max_range=8.0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        BGKLVOctoMap(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pipeline.build_map(cfg)
+    assert BGKLVOctoMap(cfg, device="cpu").device.type == "cpu"
+
+
+def test_kernel_library_binds_every_entry_point():
+    class Lib:  # records what _bind declares
+        def __getattr__(self, name):
+            fn = type("Fn", (), {})()
+            setattr(self, name, fn)
+            return fn
+
+    lib = _build._bind(Lib())
+    n_args = {"la3dm_bgk_heavy": 16, "la3dm_bgk_light": 19, "la3dm_lv_rows": 25,
+              "la3dm_lv_prune": 18}
+    for name, n in n_args.items():
+        fn = getattr(lib, name)
+        assert fn.restype is ctypes.c_int and len(fn.argtypes) == n, name
+        assert fn.argtypes[-1] is ctypes.c_void_p  # the stream
+    # every C entry point in the sources is bound
+    srcs = "".join(open(os.path.join(_build.CSRC_DIR, f)).read()
+                   for f in sorted(os.listdir(_build.CSRC_DIR)) if f.endswith(".cu"))
+    assert sorted(re.findall(r'extern "C" int (\w+)\(', srcs)) == sorted(n_args)
 
 
 def test_device_ingest_on_is_not_ported():

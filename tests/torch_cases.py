@@ -67,3 +67,137 @@ def light_inputs(seed, G=7, T=12, cap=32, dev="cpu"):
     eff = np.zeros((cap, V), np.int8)
     t = lambda x: torch.from_numpy(x).to(dev)  # noqa: E731
     return t(acc), t(A), t(B), t(touched), t(eff), t(node_idx), t(slots)
+
+
+#: LV state parameters of the prune cases: the three (A, B) templates below
+#: classify OCCUPIED, FREE and UNCERTAIN, untouched voxels UNKNOWN
+LV_STATE = dict(min_W=0.001, var_thresh=0.2, free_thresh=0.3, occupied_thresh=0.7)
+
+
+def lv_prune_inputs(seed, n=16, B=20, cap=28, dev="cpu"):
+    """A tile-major pool [cap, n³] whose blocks collapse at every level:
+    kind 0 blocks hold one (A, B) template, kind 1 one per 16³ group, kind 2
+    one per 8³ tile (the first tile already collapsed to level 3), kind 3
+    one per 4³ group, kind 4 one per 2³ group with 3 % stray voxels and
+    untouched ones.  Values carry
+    ±5 % noise so that collapse copies are visible.  Returns (A, B,
+    touched, eff, slots) with a padding slot (== cap) last."""
+    rng = np.random.default_rng(seed)
+    tmpl = np.array([[5.0, 0.5], [0.5, 5.0], [1.0, 1.0]], np.float32)
+    te = min(8, n)
+
+    def per_cube(edge):            # one template per edge³ cube, raster z,y,x
+        g = max(n // edge, 1)
+        t = rng.integers(0, 3, (g, g, g))
+        k = n // g
+        return t.repeat(k, 0).repeat(k, 1).repeat(k, 2)
+
+    kind = np.arange(B) % 5
+    vox = np.stack([per_cube({0: n, 1: 16, 2: te, 3: 4, 4: 2}[k]) for k in kind])
+    vox = vox.reshape(B, -1)
+    stray = (rng.uniform(size=vox.shape) < 0.03) & (kind == 4)[:, None]
+    vox = np.where(stray, rng.integers(0, 3, vox.shape), vox)
+    AB = tmpl[vox] * rng.uniform(0.95, 1.05, (B, n ** 3, 2)).astype(np.float32)
+    touched = (rng.uniform(size=vox.shape) > 0.05) | (kind != 4)[:, None]
+    eff = np.zeros(vox.shape, np.int8)
+    if n >= 8:                     # kind 2: the first tile already collapsed
+        tile0 = np.zeros((n, n, n), bool)
+        tile0[:8, :8, :8] = True
+        tile0 = tile0.reshape(-1)
+        for b in range(2, B, 5):
+            AB[b, tile0] = AB[b, 0]
+            eff[b, tile0] = 3
+    perm = geo.tile_vox_map(n).reshape(-1)          # raster → stored columns
+    V = n ** 3
+    A = np.full((cap, V), 0.001, np.float32)
+    Bv = np.full((cap, V), 0.001, np.float32)
+    T = np.zeros((cap, V), bool)
+    E = np.zeros((cap, V), np.int8)
+    slots = rng.permutation(cap)[:B].astype(np.int32)
+    A[slots] = AB[..., 0][:, perm]
+    Bv[slots] = AB[..., 1][:, perm]
+    T[slots] = touched[:, perm]
+    E[slots] = eff[:, perm]
+    slots = np.concatenate([slots, [cap]]).astype(np.int32)
+    t = lambda x: torch.from_numpy(x).to(dev)  # noqa: E731
+    return t(A), t(Bv), t(T), t(E), t(slots)
+
+
+def lv_rows_inputs(seed, depth=5, n_scans=3, tiles_per_scan=5, cap=6, res=0.1,
+                   ell=0.2, dev="cpu"):
+    """One multi-scan row-engine dispatch in the map's argument order:
+    per scan a tile list in pool-row order (some pool tiles reached by
+    several scans), each tile's own entries — hits (degenerate segments)
+    and free rays from a far origin ending near it, one of them along an
+    axis — plus a few of the scan's other entries, cut into rows of ≤ 64;
+    a padding tile (slot == cap) last.  Pool A/B near the prior, a few
+    voxels at eff > 0."""
+    rng = np.random.default_rng(seed)
+    n = 2 ** (depth - 1)
+    te = min(8, n)
+    Vt, tpb = te ** 3, (n // te) ** 3
+    V = n ** 3
+    vbt = geo.voxel_offsets(res, depth)[geo.tile_vox_map(n)]       # [tpb,Vt,3]
+    coords = np.stack([np.arange(cap), rng.integers(-2, 3, cap),
+                       rng.integers(-2, 3, cap)], 1)
+    ctr_of = geo.block_center(coords, res * n)
+    pool_tiles = [(int(s), int(p)) for s, p in zip(rng.integers(0, cap, 3 * tiles_per_scan),
+                                                   rng.integers(0, tpb, 3 * tiles_per_scan))]
+    pool_tiles = sorted(set(pool_tiles))
+    ent, lab, ids, rt, rs, rn, slots, pos, ctr = [], [], [], [], [], [], [], [], []
+    for _ in range(n_scans):
+        pick = sorted(rng.choice(len(pool_tiles), tiles_per_scan, replace=False))
+        scan_ids = []
+        for i in pick:
+            s, p = pool_tiles[i]
+            vox = ctr_of[s] + vbt[p]
+            lo, hi = vox.min(0) - ell, vox.max(0) + ell
+            nh, nr = rng.integers(0, 40), rng.integers(0, 90)
+            h = rng.uniform(lo, hi, (nh, 3))
+            end = rng.uniform(lo, hi, (nr, 3))
+            d = rng.normal(size=(nr, 3))
+            d /= np.linalg.norm(d, axis=1, keepdims=True)
+            start = end - d * rng.uniform(0.5, 3.0, (nr, 1))
+            if nr:
+                start[0, :2] = end[0, :2]           # a ray along the z axis
+            e = np.concatenate([np.concatenate([h, h], 1),
+                                np.concatenate([start, end], 1)]).astype(np.float32)
+            base = sum(len(x) for x in ent)
+            ent.append(e)
+            lab.append(np.concatenate([np.ones(nh), np.zeros(nr)]).astype(np.float32))
+            own = base + rng.permutation(len(e))
+            other = rng.choice(scan_ids, min(len(scan_ids), 5), replace=False) \
+                if scan_ids else np.zeros(0, np.int64)
+            tid = np.concatenate([own, other]).astype(np.int64)
+            scan_ids.extend(own.tolist())
+            start_f = len(ids)
+            ids.extend(tid.tolist())
+            t = len(slots)
+            for r0 in range(0, len(tid), 64):
+                rt.append(t)
+                rs.append(start_f + r0)
+                rn.append(min(64, len(tid) - r0))
+            slots.append(s)
+            pos.append(p)
+            ctr.append(ctr_of[s])
+    # a padding tile with one row
+    rt.append(len(slots))
+    rs.append(0)
+    rn.append(min(64, len(ids)))
+    slots.append(cap)
+    pos.append(0)
+    ctr.append(np.zeros(3, np.float32))
+    A = (0.001 + rng.uniform(0, 0.5, (cap, V)) * (rng.uniform(size=(cap, V)) < 0.3))
+    Bv = (0.001 + rng.uniform(0, 0.5, (cap, V)) * (rng.uniform(size=(cap, V)) < 0.3))
+    touched = rng.uniform(size=(cap, V)) < 0.2
+    eff = (rng.uniform(size=(cap, V)) < 0.05).astype(np.int8) * 2
+    arrs = (A.astype(np.float32), Bv.astype(np.float32), touched, eff,
+            vbt.astype(np.float32), np.concatenate(ent), np.concatenate(lab),
+            np.array(ids, np.int32), np.array(rt, np.int32), np.array(rs, np.int32),
+            np.array(rn, np.int32), np.array(slots, np.int32), np.array(pos, np.int32),
+            np.array(ctr, np.float32))
+    return tuple(torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in arrs)
+
+
+#: the statics of lv_rows_inputs' dispatch
+LV_ROWS_STATICS = dict(sf2=0.1, ell=0.2, free_res=0.1, gate=0.001)
