@@ -42,13 +42,47 @@ with ``original_size``):
 10. runs the main path — ``run_static`` on 12 and 60 demo scans,
     ``OnlineIntegrator`` on 12 scans, ``run_static`` on 12 large-map scans
     (one K3 and one K8 per scan) — asserting every launch count;
-11. compares 3 demo scans on the card and on the CPU, as in 6 with the
-    gate at 0.001;
+11. compares the first demo scan on the card and on the CPU, as in 6 with
+    the gate at 0.001 (one scan: the CPU's LV pass takes about 10 s a
+    scan, and the script keeps to 120 s);
 12. profiles the 60-scan demo run as in 7.
 
+GP (``gpoctomap.yaml``, the demo, and ``gpoctomap_large_map.yaml``, depth 4
+with ``original_size``, ``max_range`` cut to the scene's 8 m):
+
+13. holds K4 (GP heavy pass) against its plain version (``torch.linalg``,
+    i.e. cuSOLVER/cuBLAS, on the JAX step's batch padded to the tier's
+    largest count) on every size tier of a real 16-scan demo dispatch (base
+    tier), of a 12-scan large-map dispatch (base tier at 4095 queries a
+    model, overflow tier) and of a forced 300-point block
+    (``insert_training_data``): |Δ|/(1+|plain|) within 1e-3 (base) or 4e-3
+    (overflow) on means and 1e-5 on variances, ``present`` equal, no failed
+    factorisation; each limit must fail the control, the plain version on
+    TF32-rounded coordinates;
+14. holds K5 (BCM light pass + prune) against its plain version on the
+    demo dispatch's tables and pool (V 64, 2 prune levels) and on the
+    large-map dispatch's (V 512, 3 levels), scan by scan from the plain
+    pool: m_ivar/ivar, eff and touched equal, except in blocks holding a
+    voxel whose plain pre-prune p lies within 1e-5 of a threshold or whose
+    ivar lies within 1e-5·min_known_ivar of the chop (counted and printed);
+15. runs the main path — ``run_static`` on 12 and 60 demo scans,
+    ``OnlineIntegrator`` on 12 scans, ``run_static`` on 12 large-map scans —
+    asserting K4 = the (dispatch, size tier) pairs the map built (an
+    overflow tier on the large map), K5 = the scans, no failed
+    factorisation, finite leaves, occupied and free leaves;
+16. compares 3 demo scans on the card and on the CPU: m_ivar/ivar within
+    5e-2 + 5e-3·|CPU| (f32 factors in another rounding order, amplified by
+    the BCM weights 1/σ²; the control, the card's map with the heavy pass on
+    TF32-rounded coordinates, must fail it), touched equal, state equal
+    except within 1e-3 of a threshold or the chop, eff equal in blocks
+    without such a voxel;
+17. profiles the 60-scan demo run as in 7.
+
 Last, a ``kernels`` JSON line and the device JSON line.  Every kernel time
-is the profiler's device time for the work named in its ``work`` key; the
-CUDA-event window (``event_ms``) also holds the host's launch gaps.  Any
+(``ms``) is the device time of the work named in its ``work`` key, by a pair
+of CUDA events around its launches queued back to back behind a spin of the
+stream (:func:`launch_ms`); the same window without the spin (``event_ms``)
+also holds the host's launch gaps.  Any
 failure exits non-zero.  Without a CUDA card it exits 2 at once.
 """
 
@@ -70,9 +104,11 @@ from la3dm_tpu_torch import pipeline  # noqa: E402
 from la3dm_tpu_torch.geometry import blocks as geo, native  # noqa: E402
 from la3dm_tpu_torch.io.pcd import save_pcd  # noqa: E402
 from la3dm_tpu_torch.kernels import (_build, bgk_heavy, bgk_light,  # noqa: E402
-                                     lv_prune, lv_rows)
+                                     gp_heavy, gp_light, lv_prune, lv_rows)
+from la3dm_tpu_torch.models import posterior  # noqa: E402
 from la3dm_tpu_torch.models.bgk import BGKOctoMap  # noqa: E402
 from la3dm_tpu_torch.models.bgklv import BGKLVOctoMap  # noqa: E402
+from la3dm_tpu_torch.models.gp import GPOctoMap  # noqa: E402
 from la3dm_tpu_torch.utils.config import DatasetConfig, load_method_config  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet): FP32 on the CUDA cores, HBM3 rate
@@ -163,28 +199,101 @@ def cuda_ms(fn, reps: int, warmup: int = 1, setup=None) -> float:
     return total / reps
 
 
-def device_ms(fn, key: str, reps: int = 3) -> tuple[float, int]:
-    """Mean device time (ms) of one call of ``fn`` and the launches per
-    call of the kernels whose name holds ``key``, by torch.profiler over
-    ``reps`` calls."""
+#: pause at the start of a profiler session (``profile_main_path``): on an
+#: H100 80GB HBM3, short sessions recorded none or only some of their
+#: kernels unless they lasted a second or more; every session is checked
+#: against the launches it must hold and retried with a longer pause
+PROFILE_PAUSE_S = 1.0
+
+
+def profiled(fn, launches: dict):
+    """Run ``fn`` under torch.profiler until the session holds exactly
+    ``launches`` (part of a CUDA kernel's name → launch count); returns
+    (the profiler, fn's result)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()  # warm-up
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    for attempt in range(4):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_PAUSE_S * (1 + 2 * attempt))
+            out = fn()
+            torch.cuda.synchronize()
+        seen = {k: 0 for k in launches}
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA:
+                for k in launches:
+                    if k in e.key:
+                        seen[k] += e.count
+        if seen == launches:
+            return prof, out
+        print(f"profiler session {attempt + 1} held launches {seen}, not {launches}; "
+              "retried", flush=True)
+    raise RuntimeError(f"the profiler did not record the launches {launches}")
+
+
+_CYCLES_PER_MS = None
+
+
+def spin(ms: float) -> None:
+    """Hold the current stream for about ``ms`` ms (``torch.cuda._sleep``),
+    so that the work the host queues behind it runs back to back."""
+    global _CYCLES_PER_MS
+    if _CYCLES_PER_MS is None:
+        cycles = 20_000_000
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)  # warm-up
+        e0.record()
+        torch.cuda._sleep(cycles)
+        e1.record()
         torch.cuda.synchronize()
-    ms, count, seen = 0.0, 0, set()
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
-            seen.add(e.key[:60])
-            if key in e.key:
-                ms += e.self_device_time_total / 1e3
-                count += e.count
-    require(count > 0, f"the profiler saw no {key} launch; it saw {sorted(seen)}")
-    return ms / reps, count // reps
+        _CYCLES_PER_MS = cycles / e0.elapsed_time(e1)
+    torch.cuda._sleep(int(ms * _CYCLES_PER_MS))
+
+
+def launch_ms(calls, reps: int = 3, setup=None) -> float:
+    """Mean device time (ms) of one pass of ``calls``, each of which launches
+    one kernel and gets ``setup()``'s result (made untimed before the pass).
+    The pass is queued behind a spin of the stream, so its launches run back
+    to back, and one pair of CUDA events brackets it: the host's gaps between
+    launches are left out.  A pass whose queueing outlasted its spin runs
+    again with a longer one; if that is outlasted too, a wrapper waits on the
+    device (K3 sizes its grid from the data), and the passes run without a
+    spin: the window then also holds that wrapper's device work before its
+    launch.  The caller has run the kernels once before (build and
+    first-call costs)."""
+    total, spin_ms, longer = 0.0, 10.0, True
+    done = 0
+    while done < reps:
+        arg = setup() if setup else None
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if spin_ms:
+            spin(spin_ms)
+        e0.record()
+        for call in calls:
+            call(arg)
+        e1.record()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        if spin_ms and host_ms > 0.8 * spin_ms:
+            if longer:
+                spin_ms, longer = min(3 * host_ms, 1000.0), False
+                continue
+            print("launch_ms: a wrapper waits on the device; timed without a spin",
+                  flush=True)
+            spin_ms = 0.0
+        total += e0.elapsed_time(e1)
+        done += 1
+    return total / reps
+
+
+_T_START = time.perf_counter()
+
+
+def stamp(what: str) -> None:
+    """Print the seconds since the script started, before a phase."""
+    print(f"[{time.perf_counter() - _T_START:.1f} s] {what}", flush=True)
 
 
 def require(ok: bool, what: str) -> None:
@@ -231,7 +340,7 @@ def check_k1(args, statics, reps: int = 5) -> dict:
     require(bool(torch.isfinite(acc_k).all()), "K1 gave non-finite values")
     require(bad == 0, "K1 disagrees with its plain version")
     event_ms = cuda_ms(lambda _: bgk_heavy.bgk_heavy(*hargs, **kw), reps)
-    ms, _ = device_ms(lambda: bgk_heavy.bgk_heavy(*hargs, **kw), "bgk_heavy_kernel")
+    ms = launch_ms([lambda _: bgk_heavy.bgk_heavy(*hargs, **kw)], reps)
     plain_ms = cuda_ms(lambda _: bgk_heavy.bgk_heavy_plain(*hargs, **kw), 2)
     evals = int(rn.sum()) * all_nodes.shape[0]
     b_ms, b_by = bound(FLOP_PER_EVAL * evals,
@@ -270,7 +379,10 @@ def check_k2(args, statics, acc, reps: int = 5) -> dict:
     require(eff_eq and tch_eq and max_err <= 1e-6,
             "K2 disagrees with its plain version")
     event_ms = cuda_ms(lambda st: run(bgk_light.bgk_light, st), reps, setup=pool)
-    ms, count = device_ms(lambda: run(bgk_light.bgk_light, pool()), "bgk_light_kernel")
+    count = len(ss)
+    ms = launch_ms([lambda st, s=s, c=c: bgk_light.bgk_light(acc, *st, node_idx, slots, s,
+                                                             c, **kw)
+                    for s, c in zip(ss, sc)], reps, setup=pool)
     plain_ms = cuda_ms(lambda st: run(bgk_light.bgk_light_plain, st), 2, setup=pool)
     V, G = A.shape[1], statics["G"]
     blocks = int(sum(sc))
@@ -292,6 +404,8 @@ def reset_counts() -> None:
     bgk_light.launches = 0
     lv_rows.launches = 0
     lv_prune.launches = 0
+    gp_heavy.launches = 0
+    gp_light.launches = 0
 
 
 def main_path(cfg, pcd_dir: str, scans) -> dict:
@@ -341,19 +455,22 @@ def main_path(cfg, pcd_dir: str, scans) -> dict:
     return out
 
 
-def profile_main_path(cfg, pcd_dir: str, kernels: dict) -> dict:
+def profile_main_path(cfg, pcd_dir: str, kernels: dict, launches: dict) -> dict:
     """Where the time goes: the 60-scan run_static once more under
     torch.profiler — device time by kernel (``kernels``: label → part of
-    the CUDA kernel's name) against the wall clock."""
+    the CUDA kernel's name, ``launches``: label → the launches the run
+    makes) against the wall clock."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     ds = DatasetConfig(name="synth", dir=pcd_dir, prefix="synth", scan_num=60,
                        max_range=MAX_RANGE)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+
+    def run():
         t0 = time.perf_counter()
         res = pipeline.run_static(cfg, ds)
-        wall_ms = (time.perf_counter() - t0) * 1e3
+        return res, (time.perf_counter() - t0) * 1e3
+
+    prof, (res, wall_ms) = profiled(run, {kernels[k]: n for k, n in launches.items()})
     dev = {}
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA:   # kernels and copies on the card
@@ -372,13 +489,13 @@ def profile_main_path(cfg, pcd_dir: str, kernels: dict) -> dict:
             "device_ms": dev}
 
 
-def card_vs_cpu(cfg, pcd_dir: str) -> float:
-    """The first 3 scans on the card and on the CPU, voxel by voxel.  The
+def card_vs_cpu(cfg, pcd_dir: str, n_scans: int = 3) -> float:
+    """The first ``n_scans`` scans on the card and on the CPU, voxel by voxel.  The
     voxels whose added mass is ≤ 1e-5 sit on the update gate's boundary
     (k̄ > 0 for BGK: the clamp; k̄ > 0.001 for BGKLV), where the card's and
     the CPU's last ulp may decide apart; eff and touched must agree
     elsewhere."""
-    ds = DatasetConfig(name="synth", dir=pcd_dir, prefix="synth", scan_num=3,
+    ds = DatasetConfig(name="synth", dir=pcd_dir, prefix="synth", scan_num=n_scans,
                        max_range=MAX_RANGE)
     gpu = pipeline.run_static(cfg, ds, device="cuda").map
     # the CPU reference on one thread: its sums then do not depend on how
@@ -408,7 +525,7 @@ def card_vs_cpu(cfg, pcd_dir: str) -> float:
     n_eff = int((eff_g != eff_c).sum())
     n_eff_away = int(((eff_g != eff_c) & away).sum())
     n_t_away = int(((t_g != t_c) & away).sum())
-    print(f"card vs CPU, {cfg.method} 3 scans: {nb} blocks, max |A/B| deviation {dev:.3e}, "
+    print(f"card vs CPU, {cfg.method} {n_scans} scans: {nb} blocks, max |A/B| deviation {dev:.3e}, "
           f"eff differs at {n_eff} voxels ({n_eff_away} with mass > 1e-5), "
           f"touched differs at {n_t_away} voxels with mass > 1e-5")
     require(dev <= 5e-3, "card and CPU maps differ beyond 5e-3")
@@ -478,8 +595,7 @@ def check_k3(args, statics, reps: int = 5) -> dict:
             "K3 gave non-finite values")
     require(bad == 0 and torch.equal(k[3], pool0[3]), "K3 disagrees with its plain version")
     event_ms = cuda_ms(lambda st: lv_rows.lv_rows(*st, *rest, **statics), reps, setup=pool)
-    ms, _ = device_ms(lambda: lv_rows.lv_rows(*pool(), *rest, **statics),
-                      "lv_rows_kernel")
+    ms = launch_ms([lambda st: lv_rows.lv_rows(*st, *rest, **statics)], reps, setup=pool)
     plain_ms = cuda_ms(plain, 1, warmup=0, setup=pool)  # warmed up by the check
     evals = int(rn.sum()) * Vt
     n_rows = int(torch.unique(row).numel())
@@ -562,8 +678,8 @@ def check_k8(args, statics, reps: int = 10) -> dict:
 
     event_ms = cuda_ms(lambda st: lv_prune.lv_prune(*st, slots, **statics), reps,
                        setup=pool)
-    ms, _ = device_ms(lambda: lv_prune.lv_prune(*pool(), slots, **statics),
-                      "lv_prune_kernel", reps=10)
+    ms = launch_ms([lambda st: lv_prune.lv_prune(*st, slots, **statics)], reps,
+                   setup=pool)
     plain_ms = cuda_ms(lambda st: lv_prune.lv_prune_plain(*st, slots, **statics), 2,
                        setup=pool)
     V = pool0[0].shape[1]
@@ -634,6 +750,359 @@ def main_path_lv(cfg, cfg_large, pcd_dir: str, scans) -> dict:
     return out
 
 
+# --------------------------------------------------------------- GP phases
+
+#: K4 against its plain version, (mean, var) limit on |Δ|/(1+|plain|) by
+#: tier: α = K⁻¹y carries the Gram's conditioning into the factor's rounding
+#: order, so means get 1e-3 in the base tier (≤ 128 points; 6.3e-4 seen on
+#: the card) and 4e-3 in the overflow tier (up to 512 points; 1.9e-3 seen),
+#: variances 1e-5 (3.4e-6 seen).  Each limit must fail the control, the
+#: plain version on TF32-rounded coordinates (PERF.md has both readings).
+K4_TOL = {"base": (1e-3, 1e-5), "overflow": (4e-3, 1e-5)}
+#: plain pre-prune p this close to a threshold, or ivar this close (relative)
+#: to the chop, may be decided apart by the kernel's own division
+STATE_MARGIN = 1e-5
+
+
+def capture_gp(cfg, scans=None, training=None):
+    """A GP map on the card that keeps copies of the arguments of its last
+    dispatch: of ``scans`` (≤ 16: one dispatch) or of ``training`` points."""
+    m = GPOctoMap(cfg, device="cuda")
+    m._capture_step_args = True
+    if training is not None:
+        m.insert_training_data(*training)
+    else:
+        m.insert_pointclouds([c for c, _ in scans], [o for _, o in scans],
+                             ds_resolution=cfg.resolution,
+                             free_resolution=cfg.free_resolution, max_range=MAX_RANGE)
+    return m._last_step_call
+
+
+def dense_block(n_dense: int = 300, half: float = 0.75, seed: int = 0):
+    """Training points with ``n_dense`` of them in the large-map block
+    (0, 0, 0), labels ±1: one model of the overflow tier."""
+    rng = np.random.default_rng(seed)
+    pts = np.concatenate([rng.uniform(-half, half, (n_dense, 3)),
+                          rng.uniform(-4 * half, 4 * half, (60, 3))]).astype(np.float32)
+    lab = np.where(rng.uniform(size=len(pts)) < 0.5, 1.0, -1.0).astype(np.float32)
+    return pts, lab
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (f32) rounded to TF32's 10 mantissa bits, as a tensor-core
+    operand is: the control that shows a limit fails a lower precision."""
+    i = x.contiguous().view(torch.int32)
+    return ((i + 0x1000) & -0x2000).view(torch.float32)
+
+
+def check_k4(args, statics, what: str, reps: int = 3) -> dict:
+    """K4 against its plain version on every size tier of one dispatch, into
+    one pair of tables as the main path fills them.  Each tier is held on
+    the rows its models serve at its tier's tolerance, beside the control:
+    the plain version on TF32-rounded coordinates.  Each tier is timed
+    alone; returns the kernel's tables and one result per tier."""
+    all_nodes, pts, lab, tiers, centers = args[4], args[6], args[7], args[8], args[10]
+    G, Vall, T = statics["G"], all_nodes.shape[0], centers.shape[0]
+    kw = {k: statics[k] for k in ("sf2", "ell", "noise")}
+    dev = pts.device
+    gcol = torch.arange(G, device=dev)
+
+    def tables():
+        return {"acc_mean": torch.zeros((T * G, Vall), device=dev),
+                "acc_var": torch.ones((T * G, Vall), device=dev),
+                "present": torch.zeros(T * G, dtype=torch.bool, device=dev),
+                "failed": torch.zeros(1, dtype=torch.int32, device=dev)}
+
+    k, p, ctl = tables(), tables(), tables()
+    rounded = (tf32_round(pts), lab, tf32_round(centers), tf32_round(all_nodes))
+    results = []
+    for st, ct, nb, cmax in tiers:
+        ins = (pts, lab, st, ct, nb, centers, all_nodes)
+
+        def kernel(_):
+            gp_heavy.gp_heavy(*ins, **k, cmax=cmax, **kw)
+
+        kernel(None)
+        # the control first: it also warms the plain version up for its timing
+        gp_heavy.gp_heavy_plain(*rounded[:2], st, ct, nb, *rounded[2:], **ctl,
+                                cmax=cmax, **kw)
+        plain_ms = cuda_ms(lambda _: gp_heavy.gp_heavy_plain(*ins, **p, cmax=cmax, **kw),
+                           1, warmup=0)
+        nbl = nb.long()
+        rows = (nbl * G + gcol)[(nbl >= 0) & (nbl < T)]
+        tier_name = "base" if cmax <= gp_heavy.SHARED_MAX_C else "overflow"
+        tols = K4_TOL[tier_name]
+        errs, need, need_ctl, bad, bad_ctl = {}, {}, {}, 0, 0
+        for name, tol in zip(("acc_mean", "acc_var"), tols):
+            ref = p[name][rows]
+            scale = 1.0 + ref.abs()
+            d = (k[name][rows] - ref).abs()
+            dc = (ctl[name][rows] - ref).abs()
+            errs[name] = float(d.max())
+            need[name] = float((d / scale).max())
+            need_ctl[name] = float((dc / scale).max())
+            bad += int((d > tol * scale).sum())
+            bad_ctl += int((dc > tol * scale).sum())
+        finite = bool(torch.isfinite(k["acc_mean"][rows]).all()
+                      and torch.isfinite(k["acc_var"][rows]).all())
+        print(f"K4, {what}: {tier_name} tier, {ct.numel()} models (largest {cmax} "
+              f"points), {rows.numel()} (block, slot) rows; max |kernel - plain| mean "
+              f"{errs['acc_mean']:.3e}, var {errs['acc_var']:.3e}; largest |Δ|/(1+|plain|)"
+              f" mean {need['acc_mean']:.3e}, var {need['acc_var']:.3e} (control, the "
+              f"plain version on TF32-rounded coordinates: mean "
+              f"{need_ctl['acc_mean']:.3e}, var {need_ctl['acc_var']:.3e}); limit "
+              f"{tols[0]:g} (mean) / {tols[1]:g} (var) times 1+|plain|: {bad} elements "
+              f"outside, control {bad_ctl}")
+        require(finite, f"K4 ({what}, {tier_name} tier) gave non-finite values")
+        require(bad == 0, f"K4 disagrees with its plain version ({what}, {tier_name} tier)")
+        require(bad_ctl > 0, f"the K4 limit passes the TF32 control ({what}, "
+                             f"{tier_name} tier)")
+        event_ms = cuda_ms(kernel, reps, warmup=0)
+        ms = launch_ms([kernel], reps)
+        flops = gp_heavy.flops(ct.cpu().numpy(), G * Vall)
+        b_ms, b_by = bound(flops, nbytes(*ins) + rows.numel() * Vall * 8 + T * G)
+        print(f"K4, {what}, {tier_name} tier: {ms:.3f} ms device time (event window "
+              f"{event_ms:.3f} ms; plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms by "
+              f"{b_by}; {flops:.4g} operations)")
+        results.append({"tier": tier_name, "models": int(ct.numel()), "cmax": int(cmax),
+                        "max_abs_err": max(errs.values()), "rel_err": need,
+                        "rel_err_control": need_ctl, "ms": ms, "event_ms": event_ms,
+                        "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by})
+    torch.cuda.synchronize()
+    failed, failed_p = int(k["failed"]), int(p["failed"])
+    same_present = bool(torch.equal(k["present"], p["present"]))
+    print(f"K4, {what}: present equal {same_present}; failed factorisations {failed} "
+          f"(plain {failed_p})")
+    require(same_present and failed == 0 and failed_p == 0,
+            f"K4 ({what}): present differs or a factorisation failed")
+    return {"tables": k, "tiers": results, "failed": failed}
+
+
+def check_k5(args, statics, tables, what: str, timed: bool = True,
+             reps: int = 5) -> dict:
+    """K5 against its plain version on one dispatch's tables and pool, scan
+    by scan: each scan starts both versions from the plain pool.  Timed
+    (kernel, event window, plain) only if ``timed``."""
+    pool0, node_idx, slots, ss, sc = args[:4], args[5], args[9], args[11], args[12]
+    am, av, pr = tables["acc_mean"], tables["acc_var"], tables["present"]
+    kw = {k: statics[k] for k in ("G", "sf2", "min_known_ivar", "max_ivar", "n",
+                                  "max_level", "state_fn", "do_prune")}
+    sf = statics["state_fn"]
+    p = [x.clone() for x in pool0]
+    n_near = n_blocks_excused = bad = 0
+    max_err = 0.0
+    for s, c in zip(ss, sc):
+        k = [x.clone() for x in p]
+        pre = [x.clone() for x in p]
+        gp_light.gp_light(am, av, pr, *k, node_idx, slots, s, c, **kw)
+        gp_light.gp_light_plain(am, av, pr, *pre, node_idx, slots, s, c,
+                                **{**kw, "do_prune": False})
+        gp_light.gp_light_plain(am, av, pr, *p, node_idx, slots, s, c, **kw)
+        sl = slots[s:s + c].long()
+        prob = posterior.gp_prob(pre[0][sl], sf.l, sf.max_ivar)
+        near = (((prob - sf.free_thresh).abs() <= STATE_MARGIN)
+                | ((prob - sf.occupied_thresh).abs() <= STATE_MARGIN)
+                | ((pre[1][sl] - sf.min_known_ivar).abs()
+                   <= STATE_MARGIN * sf.min_known_ivar)) & pre[2][sl]
+        calm = ~near.any(dim=1)
+        n_near += int(near.sum())
+        n_blocks_excused += int((~calm).sum())
+        rows = sl[calm]
+        for x, y in zip(k[:2], p[:2]):
+            d = (x[rows] - y[rows]).abs()
+            max_err = max(max_err, float(d.max()) if d.numel() else 0.0)
+            bad += int((d > 1e-6 * (1.0 + y[rows].abs())).sum())
+        bad += int((k[2][rows] != p[2][rows]).sum() + (k[3][rows] != p[3][rows]).sum())
+    torch.cuda.synchronize()
+    V = pool0[0].shape[1]
+    levels = [int((p[3][slots.long()] == L).sum()) for L in range(kw["max_level"] + 1)]
+    print(f"K5, {what}: {len(ss)} scans, {int(sum(sc))} blocks of {V} voxels; max "
+          f"|m_ivar/ivar kernel - plain| "
+          f"= {max_err:.3e}, {bad} voxels outside 1e-6*(1+|plain|) or with eff/touched "
+          f"differing; {n_near} voxels near a threshold or the chop, {n_blocks_excused} "
+          f"blocks excused; voxels by eff level {levels}")
+    require(bad == 0, f"K5 disagrees with its plain version ({what})")
+    checked = {"max_abs_err": max_err, "near_threshold_voxels": n_near,
+               "blocks_excused": n_blocks_excused, "levels": levels}
+    if not timed:
+        return checked
+
+    def pool():
+        return [x.clone() for x in pool0]
+
+    def run(fn, st):
+        for s, c in zip(ss, sc):
+            fn(am, av, pr, *st, node_idx, slots, s, c, **kw)
+        return st
+
+    event_ms = cuda_ms(lambda st: run(gp_light.gp_light, st), reps, setup=pool)
+    count = len(ss)
+    ms = launch_ms([lambda st, s=s, c=c: gp_light.gp_light(am, av, pr, *st, node_idx, slots,
+                                                           s, c, **kw)
+                    for s, c in zip(ss, sc)], reps, setup=pool)
+    plain_ms = cuda_ms(lambda st: run(gp_light.gp_light_plain, st), 2, setup=pool)
+    G, blocks = statics["G"], int(sum(sc))
+    # per block: each voxel's G (mean, var) at its node, the G present
+    # flags, the pool row (m_ivar, ivar f32; touched, eff 1 byte) read and
+    # written, its slot
+    per_block = V * G * 8 + G + 2 * V * (4 + 4 + 1 + 1) + 4
+    b_ms, b_by = bound(0, blocks * per_block + nbytes(node_idx))
+    print(f"K5, {what}: {ms:.4f} ms device time over {count} launches "
+          f"({1e3 * ms / count:.2f} us each; event window {event_ms:.3f} ms); plain "
+          f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by}")
+    return {**checked, "ms": ms, "event_ms": event_ms, "ms_per_launch": ms / count,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
+
+
+def main_path_gp(cfg, cfg_large, pcd_dir: str, scans) -> dict:
+    """GP: run_static on 12 and 60 demo scans and 12 large-map scans, then
+    OnlineIntegrator on 12 demo scans."""
+    out = {}
+    for c, n_scans in ((cfg, 12), (cfg, 60), (cfg_large, 12)):
+        ds = DatasetConfig(name="synth", dir=pcd_dir, prefix="synth",
+                           scan_num=n_scans, max_range=MAX_RANGE)
+        reset_counts()
+        res = pipeline.run_static(c, ds)
+        k4, k5 = gp_heavy.launches, gp_light.launches
+        m = res.map
+        large = c.original_size
+        # one K4 per (dispatch, size tier) the map built; the large map's
+        # dispatch holds an overflow tier
+        want4 = m.stats["heavy_tiers"]
+        dispatches = -(-n_scans // GPOctoMap.SCAN_BATCH)
+        failed = int(m.failed_models)
+        ex = pipeline.export_leaves(m, original_size=large)
+        leaves = ex["all"]
+        n_occ, n_free = len(ex["occupied"]["x"]), len(ex["free"]["x"])
+        n_pruned = int((m.pool.eff_level > 0).sum())
+        name = f"{'large' if large else 'static'}{n_scans}"
+        print(f"GP run_static {n_scans} scans ({'large map' if large else 'demo'}): "
+              f"{res.scans_per_second:.2f} scans/s ({res.total_seconds:.3f} s), "
+              f"{m.pool.n_blocks} blocks, {int(m.pool.touched.sum())} touched voxels, "
+              f"{n_pruned} pruned, {n_occ} occupied / {n_free} free leaves, "
+              f"{failed} failed factorisations; launches K4 {k4} (expected {want4}) "
+              f"K5 {k5}")
+        require(k4 == want4 and (want4 > dispatches if large else want4 >= dispatches),
+                f"K4 launched {k4} times for {want4} (dispatch, tier) pairs over "
+                f"{dispatches} dispatches")
+        require(k5 == n_scans, f"K5 launched {k5} times, expected {n_scans}")
+        require(failed == 0, "a GP factorisation failed on real scans")
+        require(n_occ > 0 and n_free > 0, "no occupied or no free leaves")
+        require(all(np.isfinite(leaves[k]).all() for k in ("prob", "var", "x")),
+                "non-finite leaves")
+        out[name] = {"scans_per_s": res.scans_per_second, "seconds": res.total_seconds,
+                     "launches": {"gp_heavy": k4, "gp_light": k5}}
+
+    m = GPOctoMap(cfg)
+    online = pipeline.OnlineIntegrator(m)
+    lat = []
+    reset_counts()
+    for cloud, origin in scans[:12]:
+        t0 = time.perf_counter()
+        online.offer(cloud, origin)
+        m.synchronize()
+        lat.append(time.perf_counter() - t0)
+    k4, k5 = gp_heavy.launches, gp_light.launches
+    want4 = m.stats["heavy_tiers"]
+    med = float(np.median(lat)) * 1e3
+    print(f"GP OnlineIntegrator 12 scans: {online.n_integrated} integrated, median "
+          f"latency {med:.2f} ms (min {min(lat) * 1e3:.2f}, max "
+          f"{max(lat) * 1e3:.2f}); launches K4 {k4} (expected {want4}) K5 {k5}")
+    require(online.n_integrated == 12 and k5 == 12 and k4 == want4 >= 12,
+            "online launches do not match the integrated scans")
+    out["online12"] = {"median_ms": med, "integrated": online.n_integrated,
+                       "launches": {"gp_heavy": k4, "gp_light": k5}}
+    return out
+
+
+#: card vs CPU on the GP map: |Δ| ≤ ABS + REL·|CPU| on m_ivar and ivar.  At
+#: ABS 5e-2 (the JAX package's one-scan GP tolerance against its oracle) the
+#: card's map needs REL 1.4e-3 and the TF32 control 110 (PERF.md)
+GP_CPU_TOL = (5e-2, 5e-3)
+
+
+def tf32_heavy(pts, lab, st, ct, nb, centers, all_nodes, *rest, **kw) -> None:
+    """The control's heavy pass: K4's plain version on TF32-rounded
+    coordinates."""
+    gp_heavy.gp_heavy_plain(tf32_round(pts), lab, st, ct, nb, tf32_round(centers),
+                            tf32_round(all_nodes), *rest, **kw)
+
+
+def card_vs_cpu_gp(cfg, pcd_dir: str) -> dict:
+    """The first 3 demo scans on the card and on the CPU, voxel by voxel:
+    m_ivar/ivar within GP_CPU_TOL (f32 factors in another rounding order,
+    amplified by the BCM weights 1/σ²), touched equal, state equal except
+    where either p lies within 1e-3 of a threshold or ivar within
+    1e-3·min_known_ivar of the chop, eff equal in blocks without such a
+    voxel.  The control, the card's map with the heavy pass on TF32-rounded
+    coordinates (:func:`tf32_heavy`), is held to the same limit.  Returns the
+    largest deviation over the limit, for the card and for the control."""
+    ds = DatasetConfig(name="synth", dir=pcd_dir, prefix="synth", scan_num=3,
+                       max_range=MAX_RANGE)
+    gpu = pipeline.run_static(cfg, ds, device="cuda").map
+    kernel = gp_heavy.gp_heavy
+    gp_heavy.gp_heavy = tf32_heavy
+    try:
+        ctl = pipeline.run_static(cfg, ds, device="cuda").map
+    finally:
+        gp_heavy.gp_heavy = kernel
+    # on all CPU threads: the tolerance is far above a sum-order change
+    cpu = pipeline.run_static(cfg, ds, device="cpu").map
+    nb = gpu.pool.n_blocks
+    require(nb == cpu.pool.n_blocks == ctl.pool.n_blocks and np.array_equal(
+        gpu.pool.coords[:nb], cpu.pool.coords[:nb]), "block sets differ")
+    rows = np.arange(nb)
+    g = {k: gpu._gather_rows(v, rows) for k, v in gpu.pool.fields.items()}
+    c = {k: cpu._gather_rows(v, rows) for k, v in cpu.pool.fields.items()}
+    x = {k: ctl._gather_rows(v, rows) for k, v in ctl.pool.fields.items()}
+    t_g = gpu._gather_rows(gpu.pool.touched, rows)
+    t_c = cpu._gather_rows(cpu.pool.touched, rows)
+    dev = {k: float(np.abs(g[k] - c[k]).max()) for k in g}
+    tol_a, tol_r = GP_CPU_TOL
+
+    def ratio(f, a=tol_a, r=tol_r):
+        return max(float((np.abs(f[k] - c[k]) / (a + r * np.abs(c[k]))).max()) for k in c)
+
+    def rel_need(f, a):
+        """The least REL that passes f at ABS = a."""
+        with np.errstate(divide="ignore", invalid="ignore"):
+            return max(float(np.where(np.abs(f[k] - c[k]) > a,
+                                      (np.abs(f[k] - c[k]) - a) / np.abs(c[k]), 0).max())
+                       for k in c)
+
+    def near(m, f):
+        post = m._posterior({**f, "touched": np.ones_like(f["ivar"], bool)})
+        return ((np.abs(post["prob"] - cfg.free_thresh) <= 1e-3)
+                | (np.abs(post["prob"] - cfg.occupied_thresh) <= 1e-3)
+                | (np.abs(f["ivar"] - m.min_known_ivar) <= 1e-3 * m.min_known_ivar))
+
+    excused = t_c & (near(gpu, g) | near(cpu, c))
+    s_g = gpu._posterior({**g, "touched": t_g})["state"]
+    s_c = cpu._posterior({**c, "touched": t_c})["state"]
+    calm = ~excused.any(axis=1)
+    eff_g = gpu._gather_rows(gpu.pool.eff_level, rows)
+    eff_c = cpu._gather_rows(cpu.pool.eff_level, rows)
+    n_state = int(((s_g != s_c) & ~excused).sum())
+    n_eff = int((eff_g[calm] != eff_c[calm]).sum())
+    out = {"ratio": ratio(g), "ratio_control": ratio(x)}
+    needs = {f"{a:g}": (rel_need(g, a), rel_need(x, a)) for a in (1e-2, 2e-2, 5e-2)}
+    print(f"card vs CPU, gp 3 scans: {nb} blocks, max |m_ivar| deviation "
+          f"{dev['m_ivar']:.3e}, max |ivar| deviation {dev['ivar']:.3e}, largest "
+          f"deviation / ({tol_a:g} + {tol_r:g}*|CPU|) = {out['ratio']:.3f} (control, "
+          f"the heavy pass on TF32-rounded coordinates: {out['ratio_control']:.3f}); "
+          f"least REL that passes at ABS = " + ", ".join(
+              f"{a}: {n[0]:.3e} (control {n[1]:.3e})" for a, n in needs.items())
+          + f"; touched equal {bool(np.array_equal(t_g, t_c))}; {int(excused.sum())} "
+          f"voxels near a threshold ({int((~calm).sum())} blocks); state differs at "
+          f"{n_state} other voxels, eff at {n_eff} voxels of the other blocks")
+    require(out["ratio"] <= 1.0,
+            f"card and CPU GP maps differ beyond {tol_a:g} + {tol_r:g}*|CPU|")
+    require(out["ratio_control"] > 1.0, "the card-vs-CPU limit passes the TF32 control")
+    require(np.array_equal(t_g, t_c) and n_state == 0 and n_eff == 0,
+            "touched, state or eff differ away from the thresholds")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -665,27 +1134,60 @@ def main() -> int:
         print(f"scenes: 60 scans × {len(scans[0][0])} beams "
               f"({time.perf_counter() - t0:.1f} s)")
 
+        stamp("BGK: K1, K2")
         args, statics = capture_dispatch(cfg, scans[:16], "cuda")
         k1 = check_k1(args, statics)
         k2 = check_k2(args, statics, k1.pop("acc"))
         del args
 
+        stamp("BGK: main path, profile, card vs CPU")
         path = main_path(cfg, tmp, scans)
         path["profile60"] = profile_main_path(
-            cfg, tmp, {"bgk_heavy": "bgk_heavy_kernel", "bgk_light": "bgk_light_kernel"})
+            cfg, tmp, {"bgk_heavy": "bgk_heavy_kernel", "bgk_light": "bgk_light_kernel"},
+            path["static60"]["launches"])
         dev = card_vs_cpu(cfg, tmp)
 
         cfg_lv = load_method_config("bgklv", max_range=MAX_RANGE)
         cfg_large = load_method_config("bgklvoctomap_large_map", max_range=MAX_RANGE)
+        stamp("BGKLV: K3, K8")
         m = capture_lv(cfg_lv, scans[:12])
         k3 = check_k3(*m._last_step_call)
         m = capture_lv(cfg_large, scans[:4])
         k8 = check_k8(*m._last_prune_call)
         del m
 
+        stamp("BGKLV: main path, profile, card vs CPU")
         path_lv = main_path_lv(cfg_lv, cfg_large, tmp, scans)
-        path_lv["profile60"] = profile_main_path(cfg_lv, tmp, {"lv_rows": "lv_rows_kernel"})
-        dev_lv = card_vs_cpu(cfg_lv, tmp)
+        path_lv["profile60"] = profile_main_path(
+            cfg_lv, tmp, {"lv_rows": "lv_rows_kernel"},
+            {"lv_rows": path_lv["static60"]["launches"]["lv_rows"]})
+        # one scan (three before GP joined the script): the CPU's LV pass
+        # takes about 10 s a scan
+        dev_lv = card_vs_cpu(cfg_lv, tmp, n_scans=1)
+
+        cfg_gp = load_method_config("gp", max_range=MAX_RANGE)
+        cfg_gp_large = load_method_config("gpoctomap_large_map", max_range=MAX_RANGE)
+        stamp("GP: K4 (base and overflow tiers), K5")
+        args, statics = capture_gp(cfg_gp, scans[:16])
+        k4 = check_k4(args, statics, "16-scan demo dispatch")
+        k5 = check_k5(args, statics, k4.pop("tables"), "16-scan demo dispatch")
+        args, statics = capture_gp(cfg_gp_large, scans[:12])
+        require(len(args[8]) == 2, "the large-map dispatch has no overflow tier")
+        k4_l = check_k4(args, statics, "12-scan large-map dispatch", reps=1)
+        k5_l = check_k5(args, statics, k4_l.pop("tables"), "12-scan large-map dispatch",
+                        timed=False)
+        args, statics = capture_gp(cfg_gp_large, training=dense_block())
+        k4_d = check_k4(args, statics, "a forced 300-point block", reps=1)
+        k4_d.pop("tables")
+        del args
+
+        stamp("GP: main path")
+        path_gp = main_path_gp(cfg_gp, cfg_gp_large, tmp, scans)
+        path_gp["profile60"] = profile_main_path(
+            cfg_gp, tmp, {"gp_heavy": "gp_heavy_kernel", "gp_light": "gp_light_kernel"},
+            path_gp["static60"]["launches"])
+        stamp("GP: card vs CPU")
+        dev_gp = card_vs_cpu_gp(cfg_gp, tmp)
 
     launches = path["static60"]["launches"]
     kernels = [
@@ -708,14 +1210,32 @@ def main() -> int:
          "replaces": "la3dm_tpu/models/bgklv.py:216",
          "launches": path_lv["large12"]["launches"]["lv_prune"],
          "work": "the prune of one large-map scan's blocks", **k8, "library_ms": None},
+        {"name": "gp_heavy", "route": "cuda",
+         "source": "la3dm_tpu_torch/csrc/gp_heavy.cu",
+         "replaces": "la3dm_tpu/models/gp.py:66",
+         "launches": path_gp["static60"]["launches"]["gp_heavy"],
+         "work": "the base tier of one 16-scan demo dispatch", **k4["tiers"][0],
+         "library_ms": None, "large_map_tiers": k4_l["tiers"],
+         "forced_block_tiers": k4_d["tiers"]},
+        {"name": "gp_light", "route": "cuda",
+         "source": "la3dm_tpu_torch/csrc/gp_light.cu",
+         "replaces": "la3dm_tpu/models/gp.py:128",
+         "launches": path_gp["static60"]["launches"]["gp_light"],
+         "work": "the 16 per-scan launches of one 16-scan demo dispatch", **k5,
+         "library_ms": None, "large_map": k5_l},
     ]
     summary = {"card": smi, "main_path": path, "card_vs_cpu_max_dev": dev,
-               "main_path_lv": path_lv, "card_vs_cpu_max_dev_lv": dev_lv}
+               "main_path_lv": path_lv, "card_vs_cpu_max_dev_lv": dev_lv,
+               "main_path_gp": path_gp, "card_vs_cpu_gp": dev_gp}
     print(f"main path on {smi}: BGK {path['static60']['scans_per_s']:.2f} scans/s "
           f"(60 scans), median online latency {path['online12']['median_ms']:.2f} ms; "
           f"BGKLV {path_lv['static60']['scans_per_s']:.2f} scans/s (60 scans), "
           f"median online latency {path_lv['online12']['median_ms']:.2f} ms, large "
-          f"map {path_lv['large12']['scans_per_s']:.2f} scans/s (12 scans)")
+          f"map {path_lv['large12']['scans_per_s']:.2f} scans/s (12 scans); GP "
+          f"{path_gp['static60']['scans_per_s']:.2f} scans/s (60 scans), median online "
+          f"latency {path_gp['online12']['median_ms']:.2f} ms, large map "
+          f"{path_gp['large12']['scans_per_s']:.2f} scans/s (12 scans)")
+    stamp("done")
     print(json.dumps(summary))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

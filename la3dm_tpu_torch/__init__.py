@@ -7,7 +7,9 @@ of the framework-free modules it needs.  Ported so far: the BGK family on
 the host-ingest path (``BGKOctoMap``, ``pipeline.run_static``), with the
 heavy pass (K1) and the light pass with the prune (K2) as CUDA kernels, and
 the BGKLV family (``BGKLVOctoMap``), with the tile row engine (K3) and the
-tile-major prune (K8) as CUDA kernels.
+tile-major prune (K8) as CUDA kernels, and the GP family (``GPOctoMap``),
+with the GP heavy pass (K4) and the BCM light pass with the prune (K5) as
+CUDA kernels.
 
 Maps run on the GPU unless the caller passes ``device="cpu"``; there is no
 silent fall-back to the CPU.
@@ -20,10 +22,12 @@ from la3dm_tpu_torch.utils.config import (DatasetConfig, MapConfig,
 from la3dm_tpu_torch.models.base import State
 from la3dm_tpu_torch.models.bgk import BGKOctoMap
 from la3dm_tpu_torch.models.bgklv import BGKLVOctoMap
+from la3dm_tpu_torch.models.gp import GPOctoMap
 
 __all__ = [
     "BGKOctoMap",
     "BGKLVOctoMap",
+    "GPOctoMap",
     "State",
     "MapConfig",
     "DatasetConfig",

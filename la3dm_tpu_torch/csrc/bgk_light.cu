@@ -13,11 +13,8 @@
 //   dB += kbar_g - ybar_g, touched |= 1 (the plain version sums the same
 //   way, so the two agree bit for bit on identical inputs);
 // * A += dA, B += dB, touched |= any;
-// * the bottom-up prune in shared memory, levels L = 1..max_level: a
-//   2^L-aligned group collapses iff every voxel in it has eff == L-1, every
-//   voxel has the same Beta state, and that state is not UNKNOWN; the
-//   minimum-corner voxel's A, B, touched and state are copied to the group
-//   and eff is set to L.  States use the f32 rules of
+// * the bottom-up prune in shared memory (csrc/raster_prune.cuh, shared with
+//   K5) with the Beta state.  States use the f32 rules of
 //   la3dm_tpu/models/posterior.py:29-51, built without FMA contraction.
 //
 // What bounds it: memory.  Per block it reads V * 2G floats of the
@@ -29,10 +26,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "raster_prune.cuh"
+
 namespace {
 
-constexpr int kMaxV = 1024;
-constexpr int8_t kFree = 0, kOccupied = 1, kUnknown = 2;
+using la3dm::kFree;
+using la3dm::kMaxV;
+using la3dm::kOccupied;
+using la3dm::kUnknown;
 
 __device__ __forceinline__ int8_t beta_state(float A, float B, bool touched,
                                              float var_thresh, float free_thresh,
@@ -93,32 +94,7 @@ __global__ void bgk_light_kernel(const float* __restrict__ acc,   // [Tp,Vall,2G
     sT[v] = Tn;
     sE[v] = En;
     sS[v] = beta_state(An, Bn, Tn != 0, var_thresh, free_thresh, occupied_thresh);
-    __syncthreads();
-    const int x = v % n, y = (v / n) % n, z = v / (n * n);
-    for (int L = 1; L <= max_level; ++L) {
-      const int m = 1 << L;
-      const int bx = x & ~(m - 1), by = y & ~(m - 1), bz = z & ~(m - 1);
-      const int c = bx + by * n + bz * n * n;  // minimum corner of the group
-      const int8_t st = sS[c];
-      bool ok = st != kUnknown;
-      for (int dz = 0; dz < m && ok; ++dz)
-        for (int dy = 0; dy < m && ok; ++dy)
-          for (int dx = 0; dx < m && ok; ++dx) {
-            const int u = (bx + dx) + (by + dy) * n + (bz + dz) * n * n;
-            ok = sE[u] == L - 1 && sS[u] == st;
-          }
-      const float cA = sA[c], cB = sB[c];
-      const uint8_t cT = sT[c];
-      __syncthreads();  // every thread has read the level's inputs
-      if (ok) {
-        sA[v] = cA;
-        sB[v] = cB;
-        sT[v] = cT;
-        sS[v] = st;
-        sE[v] = (int8_t)L;
-      }
-      __syncthreads();
-    }
+    la3dm::raster_prune(sA, sB, sT, sE, sS, v, n, max_level);
     An = sA[v];
     Bn = sB[v];
     Tn = sT[v];

@@ -2,8 +2,8 @@
 
 Builds the repository's C++ source ``native/host_preprocess.cpp`` into the
 port's build directory (``la3dm_tpu_torch/build/``, git-ignored) at first
-use, and rebuilds it when the source is newer.  Bound: the BGK host-ingest
-path (:func:`bgk_training_data`, :func:`scan_bucket_tables`,
+use, and rebuilds it when the source is newer.  Bound: the BGK and GP
+host-ingest paths (:func:`bgk_training_data`, :func:`scan_bucket_tables`,
 :func:`row_tables`) and the BGKLV one (:func:`lv_training_data`,
 :func:`lv_tile_tables_ray`).  There is no numpy stand-in: if the library
 cannot be built, the call raises.
@@ -140,8 +140,11 @@ def scan_bucket_tables(points: np.ndarray, labels: np.ndarray,
                        block_size: float, nb_offsets: np.ndarray) -> dict:
     """Fused block bucketing for the point families (see host_preprocess.cpp).
 
-    Returns a dict with the block-sorted entry table and the test-side
-    (start, count) segments per neighbor slot.
+    Returns a dict with the block-sorted entry table and both views of it:
+    the model side (one model per entry block: ``model_coords``,
+    ``model_starts``, ``model_counts`` and ``nb_t`` [M, G], the test block
+    each model serves at each neighbour slot; GP) and the test side
+    (``test_coords`` with per-slot ``starts``/``counts`` segments; BGK).
     """
     lib = _load()
     points = np.ascontiguousarray(points, np.float32)
@@ -173,8 +176,10 @@ def scan_bucket_tables(points: np.ndarray, labels: np.ndarray,
             break
         max_ent *= 2
         max_test *= 2
-    E, B = ne.value, nt.value
+    E, M, B = ne.value, nm.value, nt.value
     return {"entries": ent[:E].copy(), "labels": lab[:E].copy(),
+            "model_coords": mc[:M].copy(), "model_starts": ms[:M].copy(),
+            "model_counts": mn[:M].copy(), "nb_t": nbt[:M].copy(),
             "test_coords": tc[:B].copy(), "starts": ts[:B].copy(),
             "counts": tn[:B].copy()}
 

@@ -3,7 +3,8 @@ with a plain C interface, loaded with ctypes.
 
 Each source is compiled by its own ``nvcc`` process, all started together,
 then linked into ``build/libla3dm_kernels.so`` (git-ignored).  The library
-is built at first use and rebuilt when a source is newer than it.  Flags:
+is built at first use and rebuilt when a source or a shared header
+(``csrc/*.cuh``) is newer than it.  Flags:
 
 * ``-gencode arch=compute_90a,code=sm_90a`` — Hopper (H100);
 * ``--fmad=false`` — no a·b + c contraction into FMA: the kernels must round
@@ -52,8 +53,9 @@ def build() -> str:
     """Compile and link the kernels if any source is newer; return the .so."""
     global build_log
     srcs = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+    deps = srcs + glob.glob(os.path.join(CSRC_DIR, "*.cuh"))
     if (os.path.exists(_SO)
-            and os.path.getmtime(_SO) >= max(os.path.getmtime(s) for s in srcs)):
+            and os.path.getmtime(_SO) >= max(os.path.getmtime(s) for s in deps)):
         return _SO
     nvcc = _nvcc()
     obj_dir = os.path.join(BUILD_DIR, f"obj.{os.getpid()}")
@@ -95,6 +97,10 @@ def _bind(lib):
     lib.la3dm_lv_rows.argtypes = [vp] * 16 + [ci] * 4 + [cf] * 4 + [vp]
     lib.la3dm_lv_prune.restype = ci
     lib.la3dm_lv_prune.argtypes = [vp] * 9 + [ci] * 4 + [cf] * 4 + [vp]
+    lib.la3dm_gp_heavy.restype = ci
+    lib.la3dm_gp_heavy.argtypes = [vp] * 12 + [ci] * 7 + [cf] * 3 + [vp]
+    lib.la3dm_gp_light.restype = ci
+    lib.la3dm_gp_light.argtypes = [vp] * 9 + [ci] * 7 + [cf] * 6 + [vp]
     return lib
 
 

@@ -1,8 +1,9 @@
-"""Sparse covariance kernel and distances, as plain torch.
+"""Covariance kernels and distances, as plain torch.
 
 The port of ``pairwise_dist``, ``sparse_kernel``, ``cov_sparse``,
-``sparse_kernel_lv``, ``point_to_segment_dist`` and ``cov_sparse_segment``
-from ``la3dm_tpu/kernels/math.py``, with the same parity rules — the k̄
+``matern32``, ``cov_matern32``, ``sparse_kernel_lv``,
+``point_to_segment_dist`` and ``cov_sparse_segment`` from
+``la3dm_tpu/kernels/math.py``, with the same parity rules — the k̄
 update gates sit on the kernel's support boundary, where the last ulp
 decides:
 
@@ -23,6 +24,7 @@ import numpy as np
 import torch
 
 TWO_PI = float(np.float32(2.0 * 3.1415926))  # reference uses 3.1415926f
+SQRT3 = float(np.float32(1.73205))           # reference uses 1.73205f
 #: degenerate-segment threshold of point_to_segment_dist (bgklinference.h)
 SEG_EPSILON = float(np.float32(1e-4))
 
@@ -52,6 +54,24 @@ def cov_sparse(x: torch.Tensor, z: torch.Tensor, sf2: float, ell: float) -> torc
     """
     e = float(np.float32(ell))
     return sparse_kernel(pairwise_dist(x / e, z / e), sf2)
+
+
+def matern32(d: torch.Tensor, sf2: float, ell: float) -> torch.Tensor:
+    """Matérn-3/2 on raw distance d, the √3/ℓ scale applied inside
+    (``gpregressor.h:114-117``)."""
+    s = float(np.float32(SQRT3) / np.float32(ell)) * d
+    return (1.0 + s) * torch.exp(-s) * float(np.float32(sf2))
+
+
+def cov_matern32(x: torch.Tensor, z: torch.Tensor, sf2: float, ell: float) -> torch.Tensor:
+    """covMaterniso3 (gpregressor.h:114-117): ``(1 + d)·exp(−d)·sf2`` with
+    d the distance between x·s and z·s.  The scale s = 1.73205/ℓ is taken in
+    double and rounded to float32 (the reference's ``1.73205 / ell``
+    promotes to double), and both operands are scaled before the per-axis
+    subtraction — not (x − z)·s."""
+    s = float(np.float32(1.73205 / float(ell)))
+    d = pairwise_dist(x * s, z * s)
+    return (1.0 + d) * torch.exp(-d) * float(np.float32(sf2))
 
 
 def sparse_kernel_lv(r: torch.Tensor, sf2: float) -> torch.Tensor:

@@ -1,17 +1,19 @@
-"""Posterior accessors on torch tensors (BGK and BGKLV families).
+"""Posterior accessors on torch tensors (BGK, BGKLV and GP families).
 
-The port of the BGK and BGKLV parts of ``la3dm_tpu/models/posterior.py``:
+The port of ``la3dm_tpu/models/posterior.py``:
 
 * BGK (``bgkoctree_node.cpp:27-44``): p = A/(A+B); var = AB/((A+B)²(A+B+1));
   state by var_thresh then the p-thresholds.
 * BGKLV (``bgklvoctree_node.cpp:29-77``): evidence-mass probability with an
   explicit unknown mass W, Brier-style variance, and UNCERTAIN in place of
   UNKNOWN in the var_thresh branch.
+* GP (``gpoctree_node.cpp:31-49``): logistic squashing of the BCM mean
+  p = 1/(1 + exp(−l·m_ivar/max_ivar)), UNKNOWN below min_known_ivar.
 
 UNKNOWN where untouched.  States are int8 in the reference enum order
 (FREE=0, OCCUPIED=1, UNKNOWN=2, UNCERTAIN=3).  Thresholds are compared in
 float32, as the JAX package and the CUDA kernels (csrc/bgk_light.cu,
-csrc/lv_prune.cu) compare them.
+csrc/lv_prune.cu, csrc/gp_light.cu) compare them.
 """
 
 from __future__ import annotations
@@ -104,3 +106,34 @@ class LVStateFn:
     def __call__(self, v):
         return lv_state(v["A"], v["B"], v["touched"] > 0, self.min_W,
                         self.var_thresh, self.free_thresh, self.occupied_thresh)
+
+
+def gp_prob(m_ivar, l, max_ivar):
+    return 1.0 / (1.0 + torch.exp(-_f32(l) * m_ivar / _f32(max_ivar)))
+
+
+def gp_state(m_ivar, ivar, touched, l, max_ivar, min_known_ivar, free_thresh,
+             occupied_thresh):
+    p = gp_prob(m_ivar, l, max_ivar)
+    by_p = torch.where(p > _f32(occupied_thresh), OCCUPIED,
+                       torch.where(p < _f32(free_thresh), FREE, UNKNOWN))
+    st = torch.where(ivar < _f32(min_known_ivar), UNKNOWN, by_p).to(torch.int8)
+    return torch.where(touched, st, UNKNOWN)
+
+
+@dataclasses.dataclass(frozen=True)
+class GPStateFn:
+    """values-dict → int8 GP state; the parameters are also handed to the
+    CUDA light-pass kernel (csrc/gp_light.cu), which evaluates the same
+    rules."""
+
+    l: float
+    max_ivar: float
+    min_known_ivar: float
+    free_thresh: float
+    occupied_thresh: float
+
+    def __call__(self, v):
+        return gp_state(v["m_ivar"], v["ivar"], v["touched"] > 0, self.l,
+                        self.max_ivar, self.min_known_ivar, self.free_thresh,
+                        self.occupied_thresh)

@@ -11,10 +11,11 @@ it runs apart from tests/conftest.py:
 import pytest
 import torch
 
-from la3dm_tpu_torch.kernels import bgk_heavy, bgk_light, lv_prune, lv_rows
+from la3dm_tpu_torch.kernels import bgk_heavy, bgk_light, gp_heavy, gp_light, lv_prune, lv_rows
 from la3dm_tpu_torch.models import posterior as po
 
-from torch_cases import (LV_ROWS_STATICS, LV_STATE, heavy_inputs,  # tests/ on sys.path
+from torch_cases import (GP_BCM, GP_STATE, GP_STATICS, LV_ROWS_STATICS,  # tests/ on sys.path
+                         LV_STATE, gp_heavy_inputs, gp_light_inputs, heavy_inputs,
                          light_inputs, lv_prune_inputs, lv_rows_inputs)
 
 
@@ -89,3 +90,62 @@ def test_lv_prune_kernel_matches_plain(cuda_dev, n):
     for x, y in zip(k, p):
         assert torch.equal(x, y)
     assert int(k[3].max()) == kw["max_level"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth,S", [(3, 128), (4, 128), (3, 256), (4, 512)])
+def test_gp_heavy_kernel_matches_plain(cuda_dev, depth, S):
+    """Both tiers (shared-memory factor up to 128 points, global workspace
+    above) against the plain version (cuSOLVER/cuBLAS through torch.linalg):
+    the factor's rounding order differs, so means agree to
+    1e-3 + 1e-3·|plain| (α = K⁻¹y carries the Gram's conditioning) and
+    variances to 1e-4 + 1e-4·|plain|."""
+    a = gp_heavy_inputs(14, depth=depth, S=S, dev=cuda_dev)
+    p = {k: v.clone() for k, v in a.items()}
+    cmax = int(a["counts"].max())
+    before = gp_heavy.launches
+    gp_heavy.gp_heavy(**a, cmax=cmax, **GP_STATICS)
+    assert gp_heavy.launches == before + 1
+    gp_heavy.gp_heavy_plain(**p, cmax=cmax, **GP_STATICS)
+    torch.cuda.synchronize()
+    assert torch.equal(a["present"], p["present"]) and int(a["present"].sum()) > 50
+    assert int(a["failed"]) == int(p["failed"]) == 0
+    for k, tol in (("acc_mean", 1e-3), ("acc_var", 1e-4)):
+        x, y = a[k], p[k]
+        assert torch.isfinite(x).all()
+        assert ((x - y).abs() <= tol + tol * y.abs()).all(), k
+
+
+@pytest.mark.cuda
+def test_gp_heavy_kernel_fails_like_plain(cuda_dev):
+    """A Gram that is not positive definite (negative noise) gives NaN
+    outputs and counts the model; the one-point model still factors."""
+    a = gp_heavy_inputs(15, dev=cuda_dev)
+    p = {k: v.clone() for k, v in a.items()}
+    kw = dict(cmax=128, sf2=1.0, ell=1.0, noise=-0.5)
+    gp_heavy.gp_heavy(**a, **kw)
+    gp_heavy.gp_heavy_plain(**p, **kw)
+    torch.cuda.synchronize()
+    assert int(a["failed"]) == int(p["failed"]) == a["counts"].numel() - 1
+    assert torch.equal(torch.isnan(a["acc_mean"]), torch.isnan(p["acc_mean"]))
+    assert torch.equal(torch.isnan(a["acc_var"]), torch.isnan(p["acc_var"]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [3, 4])
+def test_gp_light_kernel_matches_plain(cuda_dev, depth):
+    am, av, pr, *pool, node_idx, slots = gp_light_inputs(16, depth=depth, dev=cuda_dev)
+    kw = dict(G=7, **GP_BCM, n=2 ** (depth - 1), max_level=depth - 1,
+              state_fn=po.GPStateFn(**GP_STATE), do_prune=True)
+    k = [x.clone() for x in pool]
+    p = [x.clone() for x in pool]
+    before = gp_light.launches
+    for s, c in ((0, 6), (6, 6)):
+        gp_light.gp_light(am, av, pr, *k, node_idx, slots, s, c, **kw)
+        gp_light.gp_light_plain(am, av, pr, *p, node_idx, slots, s, c, **kw)
+    torch.cuda.synchronize()
+    assert gp_light.launches == before + 2
+    # the same operations in the same order: bit-identical
+    for x, y in zip(k, p):
+        assert torch.equal(x, y)
+    assert int(k[3].max()) == depth - 1

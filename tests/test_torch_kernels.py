@@ -12,15 +12,16 @@ import torch
 import jax.numpy as jnp
 
 from la3dm_tpu.geometry import blocks as jgeo
-from la3dm_tpu.kernels import math as jkm, predict as jkp
-from la3dm_tpu.models import bgklv as jlv, posterior as jpo, pruning as jpr
+from la3dm_tpu.kernels import gp as jgpk, math as jkm, predict as jkp
+from la3dm_tpu.models import bgklv as jlv, gp as jgp, posterior as jpo, pruning as jpr
 
 from la3dm_tpu_torch.geometry import blocks as geo
-from la3dm_tpu_torch.kernels import (bgk_heavy, bgk_light, lv_prune, lv_rows,
-                                     math as km, predict as kp)
+from la3dm_tpu_torch.kernels import (bgk_heavy, bgk_light, gp as kgp, gp_heavy, gp_light,
+                                     lv_prune, lv_rows, math as km, predict as kp)
 from la3dm_tpu_torch.models import posterior as po, pruning as pr
 
-from torch_cases import (LV_ROWS_STATICS, LV_STATE, heavy_inputs as _heavy_inputs,
+from torch_cases import (GP_BCM, GP_STATE, GP_STATICS, LV_ROWS_STATICS, LV_STATE,
+                         gp_heavy_inputs, gp_light_inputs, heavy_inputs as _heavy_inputs,
                          light_inputs as _light_inputs, lv_prune_inputs, lv_rows_inputs,
                          one_torch_thread)  # noqa: F401  (autouse fixture)
 
@@ -367,9 +368,13 @@ def test_lv_prune_plain_matches_jax(depth):
     A, B, T, E, slots = lv_prune_inputs(9, n=n)
     kw = dict(n=n, max_level=depth - 1)
     perm = geo.tile_vox_map(n).reshape(-1)
+    # copies: the JAX step donates its pool inputs and runs asynchronously,
+    # and jnp.asarray may alias the numpy memory the port's in-place prune
+    # below writes
     fields, jt, je = jlv._prune_step_tilemajor(
-        {"A": jnp.asarray(A.numpy()), "B": jnp.asarray(B.numpy())},
-        jnp.asarray(T.numpy()), jnp.asarray(E.numpy()), jnp.asarray(slots.numpy()),
+        {"A": jnp.asarray(A.numpy().copy()), "B": jnp.asarray(B.numpy().copy())},
+        jnp.asarray(T.numpy().copy()), jnp.asarray(E.numpy().copy()),
+        jnp.asarray(slots.numpy()),
         jnp.asarray(np.argsort(perm)), jnp.asarray(perm),
         state_fn=jpo.LVStateFn(**LV_STATE), **kw)
     before = lv_prune.launches
@@ -389,3 +394,185 @@ def test_lv_wrappers_reject_devices_without_a_kernel():
     pool = [x.to("meta") for x in lv_prune_inputs(10, n=4)]
     with pytest.raises(ValueError, match="device"):
         lv_prune.lv_prune(*pool, n=4, max_level=2, state_fn=po.LVStateFn(**LV_STATE))
+
+
+# ------------------------------------------------------------- GP maths
+
+@pytest.mark.parametrize("ell", [1.0, 0.6])
+def test_cov_matern32_matches_jax(ell):
+    rng = np.random.default_rng(23)
+    x = rng.uniform(-2.0, 2.0, (73, 3)).astype(np.float32)
+    z = rng.uniform(-2.0, 2.0, (64, 3)).astype(np.float32)
+    ours = km.cov_matern32(_t(x), _t(z), 1.0, ell).numpy()
+    ref = np.asarray(jkm.cov_matern32(jnp.asarray(x), jnp.asarray(z), 1.0, ell))
+    np.testing.assert_allclose(ours, ref, atol=1e-6, rtol=1e-6)
+    # both operands scaled before the subtraction: K(x, x) has exact ones
+    assert (km.cov_matern32(_t(x), _t(x), 1.0, ell).diagonal() == 1.0).all()
+    d = np.linspace(0.0, 5.0, 501, dtype=np.float32)
+    np.testing.assert_allclose(km.matern32(_t(d), 0.5, ell).numpy(),
+                               np.asarray(jkm.matern32(jnp.asarray(d), 0.5, ell)),
+                               atol=1e-7, rtol=1e-6)
+
+
+def _gp_batch(seed, noise):
+    """Three padded models (16, 5 and 1 points of 16) of ±1 labels."""
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform(-0.3, 0.3, (3, 16, 3)).astype(np.float32)
+    valid = np.arange(16)[None] < np.array([16, 5, 1])[:, None]
+    lab = np.where(rng.uniform(size=(3, 16)) > 0.5, 1.0, -1.0).astype(np.float32)
+    xs = rng.uniform(-0.5, 0.5, (3, 20, 3)).astype(np.float32)
+    return pts, lab, valid, xs, (1.0, 1.0, noise)
+
+
+@pytest.mark.parametrize("noise", [0.01, -0.5])
+def test_gp_train_and_predict_core_match_jax(noise):
+    """Train and predict against JAX; with noise −0.5 the 16- and 5-point
+    Grams are not positive definite: NaN exactly where JAX gives NaN (the
+    whole factor of those models), the 1-point model still factors."""
+    pts, lab, valid, xs, (sf2, ell, nz) = _gp_batch(24, noise)
+    L, a = kgp.gp_train_core(_t(pts), _t(lab), _t(valid), sf2, ell, nz)
+    jL, ja = jgpk.gp_train_core(jnp.asarray(pts), jnp.asarray(lab),
+                                jnp.asarray(valid), sf2, ell, nz)
+    jL, ja = np.asarray(jL), np.asarray(ja)
+    np.testing.assert_array_equal(np.isnan(L.numpy()), np.isnan(jL))
+    np.testing.assert_allclose(L.numpy(), jL, atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(a.numpy(), ja, atol=1e-3, rtol=1e-3)
+    mean, var = kgp.gp_predict_core(L, a, _t(pts), _t(valid), _t(xs), sf2, ell)
+    jm, jv = jgpk.gp_predict_core(jnp.asarray(jL), jnp.asarray(ja), jnp.asarray(pts),
+                                  jnp.asarray(valid), jnp.asarray(xs), sf2, ell)
+    jm, jv = np.asarray(jm), np.asarray(jv)
+    np.testing.assert_array_equal(np.isnan(mean.numpy()), np.isnan(jm))
+    np.testing.assert_allclose(mean.numpy(), jm, atol=1e-3, rtol=1e-3)
+    np.testing.assert_allclose(var.numpy(), jv, atol=1e-5, rtol=1e-5)
+    failed = np.isnan(jL[:, 0, 0])
+    assert list(failed) == ([False] * 3 if noise > 0 else [True, True, False])
+
+
+def test_bcm_update_sequential_matches_jax():
+    rng = np.random.default_rng(25)
+    mi = rng.uniform(-50, 50, (40, 64)).astype(np.float32)
+    iv = rng.uniform(0.001, 80, (40, 64)).astype(np.float32)
+    iv[:5] = 990.0                                 # these rows reach the chop
+    m = rng.uniform(-1, 1, (40, 64, 7)).astype(np.float32)
+    var = rng.uniform(0.005, 1.0, (40, 64, 7)).astype(np.float32)
+    ok = rng.uniform(size=(40, 64, 7)) < 0.7
+    a, b = kgp.bcm_update_sequential(_t(mi), _t(iv), _t(m), _t(var), _t(ok), **GP_BCM)
+    ja, jb = jgpk.bcm_update_sequential(jnp.asarray(mi), jnp.asarray(iv), jnp.asarray(m),
+                                        jnp.asarray(var), jnp.asarray(ok), **GP_BCM)
+    np.testing.assert_array_equal(a.numpy(), np.asarray(ja))
+    np.testing.assert_array_equal(b.numpy(), np.asarray(jb))
+    assert (b.numpy() == 1000.0).any() and (b.numpy() < 50.0).any()   # chop, unknown
+
+
+def test_gp_state_matches_jax():
+    rng = np.random.default_rng(26)
+    mi = rng.uniform(-30, 30, (24, 64)).astype(np.float32)
+    iv = rng.uniform(0, 120, (24, 64)).astype(np.float32)
+    touched = rng.uniform(size=(24, 64)) > 0.1
+    ours = po.gp_state(_t(mi), _t(iv), _t(touched), **GP_STATE).numpy()
+    ref = np.asarray(jpo.gp_state(jnp.asarray(mi), jnp.asarray(iv), jnp.asarray(touched),
+                                  **GP_STATE))
+    np.testing.assert_array_equal(ours, ref)
+    assert set(np.unique(ours)) == {po.FREE, po.OCCUPIED, po.UNKNOWN}
+    np.testing.assert_allclose(po.gp_prob(_t(mi), 100.0, 1000.0).numpy(),
+                               np.asarray(jpo.gp_prob(mi, 100.0, 1000.0)), rtol=1e-6)
+    vals = {"m_ivar": _t(mi), "ivar": _t(iv), "touched": _t(touched.astype(np.float32))}
+    jvals = {k: jnp.asarray(v.numpy()) for k, v in vals.items()}
+    np.testing.assert_array_equal(po.GPStateFn(**GP_STATE)(vals).numpy(),
+                                  np.asarray(jpo.GPStateFn(**GP_STATE)(jvals)))
+
+
+# ------------------------------------------------------- K4 / K5 plain paths
+
+def _jax_gp_heavy(a, S):
+    """la3dm_tpu's _gp_heavy on gp_heavy_inputs' dict, models padded with
+    count-0 models to a multiple of its chunk."""
+    x = {k: v.numpy() for k, v in a.items()}
+    M, G = x["nb_rows"].shape
+    Tp, Vall = len(x["centers"]), len(x["all_nodes"])
+    chunk = jgp._chunk_for(S)
+    Mp = -(-M // chunk) * chunk
+    st, ct = np.zeros(Mp, np.int32), np.zeros(Mp, np.int32)
+    nb = np.full((Mp, G), Tp, np.int32)
+    st[:M], ct[:M], nb[:M] = x["starts"], x["counts"], x["nb_rows"]
+    out = jgp._gp_heavy(jnp.zeros((Tp * G, Vall)), jnp.ones((Tp * G, Vall)),
+                        jnp.zeros(Tp * G, bool), jnp.asarray(x["all_nodes"]),
+                        jnp.asarray(x["pts"]), jnp.asarray(x["lab"]), jnp.asarray(st),
+                        jnp.asarray(ct), jnp.asarray(nb), jnp.asarray(x["centers"]),
+                        S=S, chunk=chunk, G=G, **GP_STATICS)
+    return [np.asarray(o) for o in out]
+
+
+@pytest.mark.parametrize("depth,S", [(3, 128), (4, 128), (3, 256), (4, 512)])
+def test_gp_heavy_plain_matches_jax(depth, S):
+    """Both tiers, demo and large-map node tables, the JAX step padded to S
+    and the port's to the tier's largest count: the factor's rounding order
+    differs between the two packages' LAPACKs, so means agree to
+    2e-3 + 1e-3·|JAX| (α = K⁻¹y carries the Gram's conditioning) and
+    variances to 1e-5."""
+    a = gp_heavy_inputs(17, depth=depth, S=S)
+    ref_mean, ref_var, ref_present = _jax_gp_heavy(a, S)
+    before = gp_heavy.launches
+    gp_heavy.gp_heavy(**a, cmax=int(a["counts"].max()), **GP_STATICS)
+    assert gp_heavy.launches == before                # CPU tensors: plain version
+    np.testing.assert_array_equal(a["present"].numpy(), ref_present)
+    assert ref_present.sum() > 50 and int(a["failed"]) == 0
+    np.testing.assert_allclose(a["acc_mean"].numpy(), ref_mean, atol=2e-3, rtol=1e-3)
+    np.testing.assert_allclose(a["acc_var"].numpy(), ref_var, atol=1e-5, rtol=0)
+    # rows no model serves keep the tables' fill
+    idle = ~ref_present
+    assert (a["acc_var"].numpy()[idle] == 1.0).all()
+
+
+def test_gp_heavy_plain_counts_failed_models():
+    a = gp_heavy_inputs(18)
+    gp_heavy.gp_heavy(**a, cmax=128, sf2=1.0, ell=1.0, noise=-0.5)
+    assert int(a["failed"]) == a["counts"].numel() - 1     # all but the 1-point model
+    served = a["present"].numpy()
+    nan_rows = np.isnan(a["acc_mean"].numpy()).all(-1)
+    assert nan_rows.sum() > 0 and (nan_rows <= served).all()
+
+
+def _jax_gp_light(pool, am, av, pr_, node_idx, slots, scans, depth):
+    """la3dm_tpu's _gp_light; its pool has one spare row past the capacity."""
+    cap = pool[0].shape[0]
+    ext = [jnp.asarray(np.concatenate([x.numpy(), x.numpy()[:1] * 0]))
+           for x in pool]
+    out = jgp._gp_light(*ext, jnp.asarray(node_idx.numpy()), jnp.asarray(am.numpy()),
+                        jnp.asarray(av.numpy()), jnp.asarray(pr_.numpy()),
+                        jnp.asarray(slots.numpy()),
+                        jnp.asarray(np.array([s for s, _ in scans], np.int32)),
+                        jnp.asarray(np.array([c for _, c in scans], np.int32)),
+                        G=7, **GP_BCM, n=2 ** (depth - 1), max_level=depth - 1,
+                        state_fn=jpo.GPStateFn(**GP_STATE), do_prune=True,
+                        scan_bt=max(c for _, c in scans))
+    return [np.asarray(o)[:cap] for o in out]
+
+
+@pytest.mark.parametrize("depth", [3, 4])
+def test_gp_light_plain_matches_jax(depth):
+    am, av, pr_, *pool, node_idx, slots = gp_light_inputs(19, depth=depth)
+    scans = [(0, 6), (6, 6)]
+    ref = _jax_gp_light(pool, am, av, pr_, node_idx, slots, scans, depth)
+    before = gp_light.launches
+    for s, c in scans:
+        gp_light.gp_light(am, av, pr_, *pool, node_idx, slots, s, c, G=7, **GP_BCM,
+                          n=2 ** (depth - 1), max_level=depth - 1,
+                          state_fn=po.GPStateFn(**GP_STATE), do_prune=True)
+    assert gp_light.launches == before
+    for ours, r in zip(pool, ref):
+        np.testing.assert_array_equal(ours.numpy(), r)
+    levels = set(np.unique(pool[3].numpy()).tolist())
+    assert {0, 1, depth - 1} <= levels
+    sl = slots[:-1].long()
+    assert pool[2][sl].any() and not pool[2][slots[6].long()].any()   # no slot present
+
+
+def test_gp_wrappers_reject_devices_without_a_kernel():
+    a = {k: v.to("meta") for k, v in gp_heavy_inputs(20).items()}
+    with pytest.raises(ValueError, match="device"):
+        gp_heavy.gp_heavy(**a, cmax=128, **GP_STATICS)
+    am, av, pr_, *pool, node_idx, slots = (x.to("meta") for x in gp_light_inputs(20))
+    with pytest.raises(ValueError, match="device"):
+        gp_light.gp_light(am, av, pr_, *pool, node_idx, slots, 0, 4, G=7, **GP_BCM, n=4,
+                          max_level=2, state_fn=po.GPStateFn(**GP_STATE), do_prune=True)

@@ -11,7 +11,7 @@ import sys
 import pytest
 import torch
 
-from la3dm_tpu_torch import BGKLVOctoMap, BGKOctoMap, load_method_config
+from la3dm_tpu_torch import BGKLVOctoMap, BGKOctoMap, GPOctoMap, load_method_config
 from la3dm_tpu_torch.kernels import _build
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -38,7 +38,8 @@ def test_import_pulls_in_no_jax():
         "import sys\n"
         "import la3dm_tpu_torch, la3dm_tpu_torch.models.bgk, la3dm_tpu_torch.pipeline\n"
         "import la3dm_tpu_torch.models.bgklv, la3dm_tpu_torch.kernels.lv_rows\n"
-        "import la3dm_tpu_torch.kernels.lv_prune\n"
+        "import la3dm_tpu_torch.kernels.lv_prune, la3dm_tpu_torch.models.gp\n"
+        "import la3dm_tpu_torch.kernels.gp_heavy, la3dm_tpu_torch.kernels.gp_light\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "assert not bad, bad\n"
@@ -95,7 +96,7 @@ def test_kernel_library_binds_every_entry_point():
 
     lib = _build._bind(Lib())
     n_args = {"la3dm_bgk_heavy": 16, "la3dm_bgk_light": 19, "la3dm_lv_rows": 25,
-              "la3dm_lv_prune": 18}
+              "la3dm_lv_prune": 18, "la3dm_gp_heavy": 23, "la3dm_gp_light": 23}
     for name, n in n_args.items():
         fn = getattr(lib, name)
         assert fn.restype is ctypes.c_int and len(fn.argtypes) == n, name
@@ -104,6 +105,20 @@ def test_kernel_library_binds_every_entry_point():
     srcs = "".join(open(os.path.join(_build.CSRC_DIR, f)).read()
                    for f in sorted(os.listdir(_build.CSRC_DIR)) if f.endswith(".cu"))
     assert sorted(re.findall(r'extern "C" int (\w+)\(', srcs)) == sorted(n_args)
+
+
+def test_gp_map_without_device_does_not_fall_back_to_cpu(monkeypatch):
+    from la3dm_tpu_torch import pipeline
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = load_method_config("gp", max_range=8.0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        GPOctoMap(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pipeline.build_map(cfg)
+    assert GPOctoMap(cfg, device="cpu").device.type == "cpu"
+    with pytest.raises(NotImplementedError, match="K7"):
+        GPOctoMap(load_method_config("gp", device_ingest="on"), device="cpu")
 
 
 def test_device_ingest_on_is_not_ported():

@@ -201,3 +201,87 @@ def lv_rows_inputs(seed, depth=5, n_scans=3, tiles_per_scan=5, cap=6, res=0.1,
 
 #: the statics of lv_rows_inputs' dispatch
 LV_ROWS_STATICS = dict(sf2=0.1, ell=0.2, free_res=0.1, gate=0.001)
+
+
+#: GP parameters of the K4/K5 cases (gpoctomap.yaml): sf2, ell, noise and
+#: the BCM / state constants min_known_ivar = 1/max_known_var, max_ivar =
+#: 1/min_var
+GP_STATICS = dict(sf2=1.0, ell=1.0, noise=0.01)
+GP_BCM = dict(sf2=1.0, min_known_ivar=50.0, max_ivar=1000.0)
+GP_STATE = dict(l=100.0, max_ivar=1000.0, min_known_ivar=50.0, free_thresh=0.3,
+                occupied_thresh=0.7)
+
+
+def gp_heavy_inputs(seed, depth=3, S=128, n_models=12, G=7, dev="cpu"):
+    """One size tier of a GP heavy dispatch: ``n_models`` block models with
+    counts in (S/2, S] (one of them a single point), points round each
+    model's block, labels ±1, sorted by model; a test-block list of
+    2·n_models blocks near the models, each model serving a distinct row
+    at every slot (a few slots serve none: row == Tp).  Returns the
+    wrapper's arguments as a dict, with fresh tables (mean 0, var 1,
+    present False) and a zero ``failed`` counter."""
+    rng = np.random.default_rng(seed)
+    res = 0.1 if depth == 3 else 0.2
+    n = 2 ** (depth - 1)
+    nodes, _ = geo.all_level_nodes(res, depth)
+    bs = res * n
+    counts = rng.integers(S // 2 + 1, S + 1, n_models)
+    counts[0] = 1
+    mc = rng.integers(-3, 4, (n_models, 3)) * bs
+    pts = np.concatenate([mc[m] + rng.uniform(-bs / 2, bs / 2, (c, 3))
+                          for m, c in enumerate(counts)]).astype(np.float32)
+    lab = np.where(rng.uniform(size=len(pts)) < 0.4, 1.0, -1.0).astype(np.float32)
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    Tp = 2 * n_models
+    centers = (mc[rng.integers(0, n_models, Tp)]
+               + rng.integers(-1, 2, (Tp, 3)) * bs).astype(np.float32)
+    nb = np.stack([rng.permutation(Tp)[:n_models] for _ in range(G)], 1)
+    nb[rng.uniform(size=nb.shape) < 0.1] = Tp
+    out = dict(pts=pts, lab=lab, starts=starts.astype(np.int32),
+               counts=counts.astype(np.int32), nb_rows=nb.astype(np.int32),
+               centers=centers, all_nodes=nodes,
+               acc_mean=np.zeros((Tp * G, len(nodes)), np.float32),
+               acc_var=np.ones((Tp * G, len(nodes)), np.float32),
+               present=np.zeros(Tp * G, bool), failed=np.zeros(1, np.int32))
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in out.items()}
+
+
+def gp_light_inputs(seed, depth=3, T=12, cap=32, G=7, dev="cpu"):
+    """Prediction tables of T test blocks and a pool at the prior (m_ivar 0,
+    ivar 1/max_var): the first T/2 blocks see confident predictions (mean
+    ±1, var 0.01) from every slot, one sign per block, per 2³ group or per
+    voxel (of the level-0 nodes), so that they collapse to the block root,
+    to level 1 (and beyond where groups agree) or not at all; the rest see
+    random means and
+    variances (some exactly 0, the padded-row guard) from random slots, and
+    one of them from none.  A padding slot (== cap) is last.  Returns
+    (acc_mean, acc_var, present, m_ivar, ivar, touched, eff, node_idx,
+    slots)."""
+    rng = np.random.default_rng(seed)
+    _, node_idx = geo.all_level_nodes(0.1, depth)
+    V, Vall = node_idx.shape[1], int(node_idx.max()) + 1
+    mean = rng.uniform(-1.0, 1.0, (T, G, Vall)).astype(np.float32)
+    var = rng.uniform(0.005, 1.0, (T, G, Vall)).astype(np.float32)
+    var[rng.uniform(size=var.shape) < 0.02] = 0.0
+    present = rng.uniform(size=(T, G)) < 0.6
+    n = 2 ** (depth - 1)
+    v = np.arange(V)
+    x, y, z = v % n, (v // n) % n, v // (n * n)
+    for t in range(T // 2):
+        kind = t % 3
+        sign = {0: np.full(V, (-1) ** (t // 3)), 1: (-1) ** (x // 2 + y // 2 + z // 2),
+                2: (-1) ** (x + y + z)}[kind]
+        mean[t] = sign[0]
+        mean[t][:, :V] = sign            # the level-0 nodes are the voxels
+        var[t] = 0.01
+        present[t] = True
+    present[T // 2] = False
+    slots = rng.permutation(cap)[:T].astype(np.int32)
+    slots[-1] = cap
+    m_ivar = np.zeros((cap, V), np.float32)
+    ivar = np.full((cap, V), 1.0 / 1000.0, np.float32)
+    touched = np.zeros((cap, V), bool)
+    eff = np.zeros((cap, V), np.int8)
+    arrs = (mean.reshape(T * G, Vall), var.reshape(T * G, Vall), present.reshape(-1),
+            m_ivar, ivar, touched, eff, node_idx, slots)
+    return tuple(torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in arrs)
