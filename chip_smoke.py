@@ -13,7 +13,8 @@ library from ``native/host_preprocess.cpp``) on first use, then:
    scan, max_range 8 m, a moving sensor in a 12 × 12 × 4.3 m box room with
    box obstacles) and writes them as PCDs to a temporary directory.
 
-BGK (``bgkoctomap.yaml``):
+BGK (``bgkoctomap.yaml``), first on the host-ingest path (``device_ingest:
+off``):
 
 3. holds K1 (heavy pass) against its plain PyTorch version on the argument
    tuple of a real 16-scan dispatch: |Δ| ≤ 1e-5 + 1e-5·|plain|;
@@ -21,36 +22,55 @@ BGK (``bgkoctomap.yaml``):
    accumulator and pool state: eff and touched equal, A and B within 1e-6;
 5. runs the main path — ``pipeline.run_static`` on 12 and on 60 scans and
    ``OnlineIntegrator`` on 12 scans one by one — with ``BGKOctoMap(cfg)``
-   on the card, asserting each kernel's launch count;
-6. runs the first 3 scans on the card and on the CPU and compares the maps
+   on the card, asserting each kernel's launch count, and counts the host
+   syncs of one 16-scan dispatch (PyTorch's sync debug mode);
+6. profiles the 60-scan run once more (torch.profiler): device time by
+   kernel, device busy share and host time;
+7. runs the first scan on the card and on the CPU and compares the maps
    voxel by voxel (A/B within 5e-3; eff and touched equal except where the
    voxel's added mass is ≤ 1e-5, the k̄ > 0 gate's clamp boundary);
-7. profiles the 60-scan run once more (torch.profiler): device time by
-   kernel, device busy share and host time.
+
+then on the device-ingest path, the default of a CUDA map:
+
+8. records the device-ingest kernels' calls of a real 16-scan dispatch and
+   holds each against its plain version: K7a (outlier mask and voxel keys
+   of the raw points; range filter and beam samples of the hit voxels) —
+   keys and in-range flags equal, samples equal (the control, the samples
+   in f64, must differ); K7b (compensated centroids, hits and frees) —
+   within 2^-23·(|plain| + leaf) (the control, the uncompensated mean, must
+   fail it); K7c (closed-box memberships) — keys equal; K1′ (the aligned
+   heavy pass) — |Δ| ≤ 1e-5 + 1e-5·|plain| (the control, the plain version
+   on TF32-rounded coordinates, must fail it);
+9. runs the main path as in 5 with ``BGKOctoMap(cfg)`` on its default,
+   asserting per dispatch two K7a, two K7b, one K7c and one K1′ launches,
+   one K2 per scan, no K1 and no chunk on the host path; counts the host
+   syncs as in 5; profiles the 60-scan run as in 6; compares card and CPU
+   (both ``device_ingest: on``) on 3 scans within 1e-5 + 1e-5·|CPU|, eff and
+   touched as in 7.
 
 BGKLV (``bgklvoctomap.yaml``, the demo, and ``bgklvoctomap_large_map.yaml``
-with ``original_size``):
+with ``original_size``; LV reads no ``device_ingest`` flag):
 
-8. holds K3 (tile row engine) against its plain version on the argument
-   tuple of a real 12-scan dispatch: A/B within 1e-5 + 1e-5·|plain| and
-   touched equal, except at voxels whose plain k̄ lies within 1e-5 of the
-   0.001 gate (counted and printed);
-9. holds K8 (tile-major prune) against its plain version on the pool state
-   of a real large-map prune, and on the same blocks made collapsible at
-   every level (16³ and 32³ groups included, which the real scene does not
-   collapse): A, B, touched and eff equal;
-10. runs the main path — ``run_static`` on 12 and 60 demo scans,
+10. holds K3 (tile row engine) against its plain version on the argument
+    tuple of a real 12-scan dispatch: A/B within 1e-5 + 1e-5·|plain| and
+    touched equal, except at voxels whose plain k̄ lies within 1e-5 of the
+    0.001 gate (counted and printed);
+11. holds K8 (tile-major prune) against its plain version on the pool state
+    of a real large-map prune, and on the same blocks made collapsible at
+    every level (16³ and 32³ groups included, which the real scene does not
+    collapse): A, B, touched and eff equal;
+12. runs the main path — ``run_static`` on 12 and 60 demo scans,
     ``OnlineIntegrator`` on 12 scans, ``run_static`` on 12 large-map scans
     (one K3 and one K8 per scan) — asserting every launch count;
-11. compares the first demo scan on the card and on the CPU, as in 6 with
-    the gate at 0.001 (one scan: the CPU's LV pass takes about 10 s a
-    scan, and the script keeps to 120 s);
-12. profiles the 60-scan demo run as in 7.
+13. compares the first demo scan on the card and on the CPU, as in 7 with
+    the gate at 0.001 (one scan: the CPU's LV pass takes about 10 s a scan);
+14. profiles the 60-scan demo run as in 6.
 
 GP (``gpoctomap.yaml``, the demo, and ``gpoctomap_large_map.yaml``, depth 4
-with ``original_size``, ``max_range`` cut to the scene's 8 m):
+with ``original_size``, ``max_range`` cut to the scene's 8 m), first on the
+host-ingest path:
 
-13. holds K4 (GP heavy pass) against its plain version (``torch.linalg``,
+15. holds K4 (GP heavy pass) against its plain version (``torch.linalg``,
     i.e. cuSOLVER/cuBLAS, on the JAX step's batch padded to the tier's
     largest count) on every size tier of a real 16-scan demo dispatch (base
     tier), of a 12-scan large-map dispatch (base tier at 4095 queries a
@@ -59,24 +79,33 @@ with ``original_size``, ``max_range`` cut to the scene's 8 m):
     (overflow) on means and 1e-5 on variances, ``present`` equal, no failed
     factorisation; each limit must fail the control, the plain version on
     TF32-rounded coordinates;
-14. holds K5 (BCM light pass + prune) against its plain version on the
+16. holds K5 (BCM light pass + prune) against its plain version on the
     demo dispatch's tables and pool (V 64, 2 prune levels) and on the
     large-map dispatch's (V 512, 3 levels), scan by scan from the plain
     pool: m_ivar/ivar, eff and touched equal, except in blocks holding a
     voxel whose plain pre-prune p lies within 1e-5 of a threshold or whose
     ivar lies within 1e-5·min_known_ivar of the chop (counted and printed);
-15. runs the main path — ``run_static`` on 12 and 60 demo scans,
+17. runs the main path — ``run_static`` on 12 and 60 demo scans,
     ``OnlineIntegrator`` on 12 scans, ``run_static`` on 12 large-map scans —
     asserting K4 = the (dispatch, size tier) pairs the map built (an
     overflow tier on the large map), K5 = the scans, no failed
-    factorisation, finite leaves, occupied and free leaves;
-16. compares 3 demo scans on the card and on the CPU: m_ivar/ivar within
+    factorisation, finite leaves, occupied and free leaves; counts the host
+    syncs of a 16-scan dispatch as in 5; profiles the 60-scan demo run as
+    in 6;
+18. compares 3 demo scans on the card and on the CPU: m_ivar/ivar within
     5e-2 + 5e-3·|CPU| (f32 factors in another rounding order, amplified by
     the BCM weights 1/σ²; the control, the card's map with the heavy pass on
     TF32-rounded coordinates, must fail it), touched equal, state equal
     except within 1e-3 of a threshold or the chop, eff equal in blocks
     without such a voxel;
-17. profiles the 60-scan demo run as in 7.
+
+then on the device-ingest path:
+
+19. holds K7a, K7b and K7c against their plain versions on a real 16-scan
+    GP dispatch (81 free samples a beam), as in 8;
+20. runs the main path as in 9 (K4 = the map's size tiers, K5 per scan, no
+    failed factorisation), counts the host syncs, profiles, and compares
+    card and CPU (both on) as in 18.
 
 Last, a ``kernels`` JSON line and the device JSON line.  Every kernel time
 (``ms``) is the device time of the work named in its ``work`` key, by a pair
@@ -103,8 +132,10 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from la3dm_tpu_torch import pipeline  # noqa: E402
 from la3dm_tpu_torch.geometry import blocks as geo, native  # noqa: E402
 from la3dm_tpu_torch.io.pcd import save_pcd  # noqa: E402
-from la3dm_tpu_torch.kernels import (_build, bgk_heavy, bgk_light,  # noqa: E402
-                                     gp_heavy, gp_light, lv_prune, lv_rows)
+from la3dm_tpu_torch.kernels import (_build, bgk_aligned_heavy, bgk_heavy,  # noqa: E402
+                                     bgk_light, gp_heavy, gp_light, ingest_beams,
+                                     ingest_downsample, ingest_keys, ingest_members,
+                                     lv_prune, lv_rows)
 from la3dm_tpu_torch.models import posterior  # noqa: E402
 from la3dm_tpu_torch.models.bgk import BGKOctoMap  # noqa: E402
 from la3dm_tpu_torch.models.bgklv import BGKLVOctoMap  # noqa: E402
@@ -400,6 +431,10 @@ def check_k2(args, statics, acc, reps: int = 5) -> dict:
 
 
 def reset_counts() -> None:
+    ingest_beams.launches = 0
+    ingest_downsample.launches = 0
+    ingest_members.launches = 0
+    bgk_aligned_heavy.launches = 0
     bgk_heavy.launches = 0
     bgk_light.launches = 0
     lv_rows.launches = 0
@@ -489,12 +524,12 @@ def profile_main_path(cfg, pcd_dir: str, kernels: dict, launches: dict) -> dict:
             "device_ms": dev}
 
 
-def card_vs_cpu(cfg, pcd_dir: str, n_scans: int = 3) -> float:
-    """The first ``n_scans`` scans on the card and on the CPU, voxel by voxel.  The
-    voxels whose added mass is ≤ 1e-5 sit on the update gate's boundary
-    (k̄ > 0 for BGK: the clamp; k̄ > 0.001 for BGKLV), where the card's and
-    the CPU's last ulp may decide apart; eff and touched must agree
-    elsewhere."""
+def card_vs_cpu(cfg, pcd_dir: str, n_scans: int = 3, tol=(5e-3, 0.0)) -> float:
+    """The first ``n_scans`` scans on the card and on the CPU, voxel by voxel:
+    A/B within tol[0] + tol[1]·|CPU|.  The voxels whose added mass is ≤ 1e-5
+    sit on the update gate's boundary (k̄ > 0 for BGK: the clamp; k̄ > 0.001
+    for BGKLV), where the card's and the CPU's last ulp may decide apart;
+    eff and touched must agree elsewhere."""
     ds = DatasetConfig(name="synth", dir=pcd_dir, prefix="synth", scan_num=n_scans,
                        max_range=MAX_RANGE)
     gpu = pipeline.run_static(cfg, ds, device="cuda").map
@@ -513,6 +548,8 @@ def card_vs_cpu(cfg, pcd_dir: str, n_scans: int = 3) -> float:
     g = {k: gpu._gather_rows(v, rows) for k, v in gpu.pool.fields.items()}
     c = {k: cpu._gather_rows(v, rows) for k, v in cpu.pool.fields.items()}
     dev = max(float(np.abs(g[k] - c[k]).max()) for k in g)
+    ratio = max(float((np.abs(g[k] - c[k]) / (tol[0] + tol[1] * np.abs(c[k]))).max())
+                for k in g)
     prior = np.array([cfg.prior_A, cfg.prior_B], np.float32)
     mass = np.maximum(
         np.maximum(np.abs(g["A"] - prior[0]), np.abs(g["B"] - prior[1])),
@@ -525,10 +562,12 @@ def card_vs_cpu(cfg, pcd_dir: str, n_scans: int = 3) -> float:
     n_eff = int((eff_g != eff_c).sum())
     n_eff_away = int(((eff_g != eff_c) & away).sum())
     n_t_away = int(((t_g != t_c) & away).sum())
-    print(f"card vs CPU, {cfg.method} {n_scans} scans: {nb} blocks, max |A/B| deviation {dev:.3e}, "
+    print(f"card vs CPU, {cfg.method} {n_scans} scans (device ingest "
+          f"{cfg.device_ingest}): {nb} blocks, max |A/B| deviation {dev:.3e}, "
+          f"largest deviation / ({tol[0]:g} + {tol[1]:g}*|CPU|) = {ratio:.3f}, "
           f"eff differs at {n_eff} voxels ({n_eff_away} with mass > 1e-5), "
           f"touched differs at {n_t_away} voxels with mass > 1e-5")
-    require(dev <= 5e-3, "card and CPU maps differ beyond 5e-3")
+    require(ratio <= 1.0, f"card and CPU maps differ beyond {tol[0]:g} + {tol[1]:g}*|CPU|")
     require(n_eff_away == 0 and n_t_away == 0,
             "eff/touched differ off the gate boundary")
     return dev
@@ -1086,7 +1125,8 @@ def card_vs_cpu_gp(cfg, pcd_dir: str) -> dict:
     n_eff = int((eff_g[calm] != eff_c[calm]).sum())
     out = {"ratio": ratio(g), "ratio_control": ratio(x)}
     needs = {f"{a:g}": (rel_need(g, a), rel_need(x, a)) for a in (1e-2, 2e-2, 5e-2)}
-    print(f"card vs CPU, gp 3 scans: {nb} blocks, max |m_ivar| deviation "
+    print(f"card vs CPU, gp 3 scans (device ingest {cfg.device_ingest}): {nb} blocks, "
+          f"max |m_ivar| deviation "
           f"{dev['m_ivar']:.3e}, max |ivar| deviation {dev['ivar']:.3e}, largest "
           f"deviation / ({tol_a:g} + {tol_r:g}*|CPU|) = {out['ratio']:.3f} (control, "
           f"the heavy pass on TF32-rounded coordinates: {out['ratio_control']:.3f}); "
@@ -1100,6 +1140,293 @@ def card_vs_cpu_gp(cfg, pcd_dir: str) -> dict:
     require(out["ratio_control"] > 1.0, "the card-vs-CPU limit passes the TF32 control")
     require(np.array_equal(t_g, t_c) and n_state == 0 and n_eff == 0,
             "touched, state or eff differ away from the thresholds")
+    return out
+
+
+
+# ---------------------------------------------------- device-ingest phases
+
+#: the device-ingest kernels: label → (wrapper module, wrapper name); K7a is
+#: two launches a dispatch (the raw points, then the beams)
+INGEST_WRAPPERS = {
+    "ingest_points": (ingest_beams, "point_keys"),
+    "ingest_beams": (ingest_beams, "beam_samples"),
+    "ingest_downsample": (ingest_downsample, "centroids"),
+    "ingest_members": (ingest_members, "memberships"),
+    "bgk_aligned_heavy": (bgk_aligned_heavy, "bgk_aligned_heavy"),
+}
+#: f32 relative spacing: K7b's limit is one ulp of the plain centroid
+F32_EPS = 2.0 ** -23
+
+
+def record_ingest(cfg, scans) -> dict:
+    """Insert ``scans`` (one dispatch) into a map of ``cfg`` on the card and
+    record every device-ingest kernel call: label → [(args, kwargs, out)],
+    the tensor arguments copied."""
+    calls = {k: [] for k in INGEST_WRAPPERS}
+    saved = {}
+    for label, (mod, name) in INGEST_WRAPPERS.items():
+        orig = saved[label] = getattr(mod, name)
+
+        def rec(*a, _orig=orig, _label=label, **kw):
+            args = tuple(x.clone() if torch.is_tensor(x) else x for x in a)
+            out = _orig(*a, **kw)
+            calls[_label].append((args, kw, out))
+            return out
+
+        setattr(mod, name, rec)
+    try:
+        cls = BGKOctoMap if cfg.method == "bgk" else GPOctoMap
+        m = cls(cfg, device="cuda")
+        require(m._ingest_enabled(), "device ingest is off on a CUDA map")
+        m.insert_pointclouds([c for c, _ in scans], [o for _, o in scans],
+                             ds_resolution=cfg.resolution,
+                             free_resolution=cfg.free_resolution, max_range=MAX_RANGE)
+        torch.cuda.synchronize()
+    finally:
+        for label, (mod, name) in INGEST_WRAPPERS.items():
+            setattr(mod, name, saved[label])
+    return calls
+
+
+def _timed(fn) -> tuple[object, float]:
+    """fn()'s result and its device time (ms) by one CUDA event pair."""
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    e0.record()
+    out = fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return out, e0.elapsed_time(e1)
+
+
+def check_k7(calls, what: str, reps: int = 5) -> dict:
+    """K7a, K7b and K7c against their plain versions on one dispatch's
+    recorded calls: integer tables (keys, in-range flags) equal; K7a's
+    sample coordinates equal (control: the samples in f64 must differ);
+    K7b's centroids within one ulp, |Δ| ≤ 2^-23·(|plain| + leaf) (control:
+    the uncompensated mean must fail it)."""
+    SENT = ingest_keys.SENT
+    (pa, pkw, pout), = calls["ingest_points"]
+    (ba, bkw, bout), = calls["ingest_beams"]
+    (ma, mkw, mout), = calls["ingest_members"]
+    ds_calls = calls["ingest_downsample"]
+    require(len(ds_calls) == 2, "K7b did not run twice (hits, frees)")
+    out = {}
+
+    # K7a
+    pref, pplain_ms = _timed(lambda: ingest_beams.point_keys_plain(*pa, **pkw))
+    bref, bplain_ms = _timed(lambda: ingest_beams.beam_samples_plain(*ba, **bkw))
+    keep = bref[1] != SENT
+    ctl = ingest_beams.beam_samples_plain(ba[0].double(), ba[1], ba[2].double(), ba[3],
+                                          **bkw)[0].float()
+    err = float((bout[0] - bref[0])[keep].abs().max())
+    err_ctl = float((ctl - bref[0])[keep].abs().max())
+    n_ctl = int(((ctl - bref[0])[keep] != 0).any(1).sum())
+    same = (torch.equal(pout, pref), torch.equal(bout[1], bref[1]),
+            torch.equal(bout[2], bref[2]))
+    N, R, S = pa[0].shape[0], ba[0].shape[0], bkw["kf"] + 2
+    print(f"K7a, {what}: {N} raw points, {R} hit voxels x {S} samples, {int(keep.sum())} "
+          f"kept; point keys, sample keys, in-range flags equal to the plain version "
+          f"{same}; max |sample kernel - plain| = {err:.3e} (limit 0; control, the samples "
+          f"in f64: {err_ctl:.3e} at {n_ctl} samples)")
+    require(all(same), f"K7a disagrees with its plain version ({what})")
+    require(err == 0.0, f"K7a samples differ from the plain version ({what})")
+    require(err_ctl > 0.0, f"the K7a limit passes the f64 control ({what})")
+    ms = launch_ms([lambda _: ingest_beams.point_keys(*pa, **pkw),
+                    lambda _: ingest_beams.beam_samples(*ba, **bkw)], reps)
+    # each input read once, each output written once; ~20 operations a row
+    b_ms, b_by = bound(20 * (N + R * S),
+                       nbytes(*pa) + nbytes(pout) + nbytes(*ba[:2]) + nbytes(*bout))
+    out["ingest_beams"] = {"max_abs_err": err, "control_err": err_ctl, "ms": ms,
+                           "plain_ms": pplain_ms + bplain_ms, "bound_ms": b_ms,
+                           "bound_by": b_by}
+    print(f"K7a, {what}: {ms:.4f} ms device time for its 2 launches (plain "
+          f"{pplain_ms + bplain_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by})")
+
+    # K7b, the hit and the free downsample
+    err = worst = 0.0
+    bad = bad_ctl = 0
+    plain_ms = 0.0
+    nbyte = 0
+    pts_total = 0
+    for a, kw, cent in ds_calls:
+        ref, t_ms = _timed(lambda a=a, kw=kw: ingest_downsample.centroids_plain(*a, **kw))
+        plain_ms += t_ms
+        pts, perm, starts, counts, run_keys, _ = a
+        lim = F32_EPS * (ref.abs() + kw["leaf"])
+        d = (cent - ref).abs()
+        rid = torch.repeat_interleave(torch.arange(len(counts), device=pts.device), counts)
+        n_in = int(counts.sum())
+        naive = torch.zeros_like(ref).index_add_(0, rid, pts[perm[:n_in]]) \
+            / counts.to(torch.float32)[:, None]
+        dc = (naive - ref).abs()
+        err, worst = max(err, float(d.max())), max(worst, float((d / lim).max()))
+        bad += int((d > lim).sum())
+        bad_ctl += int((dc > lim).sum())
+        pts_total += n_in
+        nbyte += n_in * (12 + 8) + nbytes(starts, counts, run_keys, cent)
+    print(f"K7b, {what}: {[len(c[2]) for c in ds_calls]} voxels (hits, frees) from "
+          f"{pts_total} points; max |kernel - plain| = {err:.3e}, {bad} coordinates "
+          f"outside 2^-23*(|plain| + leaf) (largest ratio {worst:.3f}); control, the "
+          f"uncompensated mean: {bad_ctl} outside")
+    require(bad == 0, f"K7b disagrees with its plain version ({what})")
+    require(bad_ctl > 0, f"the K7b limit passes the uncompensated control ({what})")
+    ms = launch_ms([lambda _, a=a, kw=kw: ingest_downsample.centroids(*a, **kw)
+                    for a, kw, _ in ds_calls], reps)
+    b_ms, b_by = bound(6 * pts_total, nbyte)
+    out["ingest_downsample"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                "bound_ms": b_ms, "bound_by": b_by,
+                                "outside_control": bad_ctl}
+    print(f"K7b, {what}: {ms:.4f} ms device time for its 2 launches (plain "
+          f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by})")
+
+    # K7c
+    mref, m_plain = _timed(lambda: ingest_members.memberships_plain(*ma, **mkw))
+    E = ma[0].shape[0]
+    same = torch.equal(mout, mref)
+    n_mem = int((mref != SENT).sum())
+    print(f"K7c, {what}: {E} entries, {n_mem} memberships; keys equal to the plain "
+          f"version {same}")
+    require(same, f"K7c disagrees with its plain version ({what})")
+    ms = launch_ms([lambda _: ingest_members.memberships(*ma, **mkw)], reps)
+    b_ms, b_by = bound(40 * E, nbytes(*ma) + nbytes(mout))
+    out["ingest_members"] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": m_plain,
+                             "bound_ms": b_ms, "bound_by": b_by}
+    print(f"K7c, {what}: {ms:.4f} ms device time (plain {m_plain:.3f} ms, bound "
+          f"{b_ms:.4f} ms by {b_by})")
+    return out
+
+
+def check_k1p(calls, reps: int = 5) -> dict:
+    """K1′ against its plain version on one dispatch's recorded call:
+    |Δ| ≤ 1e-5 + 1e-5·|plain| (K1's limit); control: the plain version on
+    TF32-rounded coordinates must fail it."""
+    (a, kw, acc), = calls["bgk_aligned_heavy"]
+    ent_rel, labels, ustart, ucount, tb_u, ext = a
+    ref, plain_ms = _timed(lambda: bgk_aligned_heavy.bgk_aligned_heavy_plain(*a, **kw))
+    ctl = bgk_aligned_heavy.bgk_aligned_heavy_plain(
+        tf32_round(ent_rel), labels, ustart, ucount, tb_u, tf32_round(ext), **kw)
+    lim = 1e-5 + 1e-5 * ref.abs()
+    d, dc = (acc - ref).abs(), (ctl - ref).abs()
+    bad, bad_ctl = int((d > lim).sum()), int((dc > lim).sum())
+    err = float(d.max())
+    G, U = kw["G"], ucount.shape[0]
+    Vall = ext.shape[0] // G
+    u = tb_u.reshape(-1)
+    evals = int(ucount[u[u < U]].sum()) * Vall
+    print(f"K1', {tuple(acc.shape)}: max |kernel - plain| = {err:.3e}, {bad} elements "
+          f"outside 1e-5 + 1e-5*|plain|; control, the plain version on TF32-rounded "
+          f"coordinates: {bad_ctl} outside (max |Δ| {float(dc.max()):.3e})")
+    require(bool(torch.isfinite(acc).all()), "K1' gave non-finite values")
+    require(bad == 0, "K1' disagrees with its plain version")
+    require(bad_ctl > 0, "the K1' limit passes the TF32 control")
+    ms = launch_ms([lambda _: bgk_aligned_heavy.bgk_aligned_heavy(*a, **kw)], reps)
+    b_ms, b_by = bound(bgk_aligned_heavy.FLOP_PER_EVAL * evals, nbytes(*a, acc))
+    print(f"K1': {ms:.3f} ms device time (plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms by "
+          f"{b_by}; {evals} kernel evaluations)")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "evaluations": evals, "outside_control": bad_ctl}
+
+
+def ingest_counts() -> dict:
+    return {"ingest_beams": ingest_beams.launches,
+            "ingest_downsample": ingest_downsample.launches,
+            "ingest_members": ingest_members.launches,
+            "bgk_aligned_heavy": bgk_aligned_heavy.launches, "bgk_heavy": bgk_heavy.launches,
+            "bgk_light": bgk_light.launches, "gp_heavy": gp_heavy.launches,
+            "gp_light": gp_light.launches}
+
+
+def host_syncs(cfg, scans) -> dict:
+    """Host syncs of one dispatch of ``scans`` on ``cfg``'s ingest path, as
+    PyTorch's sync debug mode reports them (the explicit wait for the key and
+    count copy included), by the line that made them."""
+    import warnings
+
+    cls = BGKOctoMap if cfg.method == "bgk" else GPOctoMap
+    m = cls(cfg, device="cuda")
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            m.insert_pointclouds([c for c, _ in scans], [o for _, o in scans],
+                                 ds_resolution=cfg.resolution,
+                                 free_resolution=cfg.free_resolution, max_range=MAX_RANGE)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    sites = {}
+    for w in seen:
+        if "synchroniz" in str(w.message):
+            parent, name = os.path.split(w.filename)
+            site = f"{os.path.basename(parent)}/{name}:{w.lineno}"
+            sites[site] = sites.get(site, 0) + 1
+    return {"total": sum(sites.values()), "by_line": sites}
+
+
+def main_path_ingest(cfg, pcd_dir: str, scans) -> dict:
+    """run_static on 12 and 60 scans and OnlineIntegrator on 12 scans on the
+    default path of a CUDA map, device ingest: per dispatch two K7a, two K7b,
+    one K7c launches, then K1′ once and K2 per scan (BGK) or K4 per size tier
+    and K5 per scan (GP); no chunk on the host path."""
+    gp = cfg.method == "gp"
+    cls = GPOctoMap if gp else BGKOctoMap
+    out = {}
+
+    def expect(m, dispatches, n_scans, what):
+        got = ingest_counts()
+        want = {"ingest_beams": 2 * dispatches, "ingest_downsample": 2 * dispatches,
+                "ingest_members": dispatches, "bgk_heavy": 0,
+                "bgk_aligned_heavy": 0 if gp else dispatches,
+                "bgk_light": 0 if gp else n_scans, "gp_light": n_scans if gp else 0,
+                "gp_heavy": m.stats["heavy_tiers"] if gp else 0}
+        print(f"{cfg.method} {what}: launches {got}")
+        require(got == want, f"{what}: launches {got}, expected {want}")
+        require(m.stats["ingest_host_chunks"] == 0, f"{what}: a chunk took the host path")
+        if gp:
+            require(m.stats["heavy_tiers"] >= dispatches and int(m.failed_models) == 0,
+                    f"{what}: K4 tiers or a failed factorisation")
+        return got
+
+    for n_scans in (12, 60):
+        ds = DatasetConfig(name="synth", dir=pcd_dir, prefix="synth", scan_num=n_scans,
+                           max_range=MAX_RANGE)
+        reset_counts()
+        res = pipeline.run_static(cfg, ds)
+        m = res.map
+        ex = pipeline.export_leaves(m)
+        n_occ, n_free = len(ex["occupied"]["x"]), len(ex["free"]["x"])
+        print(f"{cfg.method} device ingest, run_static {n_scans} scans: "
+              f"{res.scans_per_second:.2f} scans/s ({res.total_seconds:.3f} s), "
+              f"{m.pool.n_blocks} blocks, {n_occ} occupied / {n_free} free leaves, "
+              f"host_s {m.stats['host_s'] * 1e3:.1f} ms")
+        got = expect(m, -(-n_scans // cls.SCAN_BATCH), n_scans, f"run_static {n_scans}")
+        require(n_occ > 0 and n_free > 0, "no occupied or no free leaves")
+        require(all(np.isfinite(ex["all"][k]).all() for k in ("prob", "var", "x")),
+                "non-finite leaves")
+        out[f"static{n_scans}"] = {"scans_per_s": res.scans_per_second,
+                                   "seconds": res.total_seconds,
+                                   "host_s": m.stats["host_s"], "launches": got}
+
+    m = cls(cfg)
+    online = pipeline.OnlineIntegrator(m)
+    lat = []
+    reset_counts()
+    for cloud, origin in scans[:12]:
+        t0 = time.perf_counter()
+        online.offer(cloud, origin)
+        m.synchronize()
+        lat.append(time.perf_counter() - t0)
+    med = float(np.median(lat)) * 1e3
+    print(f"{cfg.method} device ingest, OnlineIntegrator 12 scans: {online.n_integrated} "
+          f"integrated, median latency {med:.2f} ms (min {min(lat) * 1e3:.2f}, max "
+          f"{max(lat) * 1e3:.2f})")
+    require(online.n_integrated == 12, "the online gate skipped scans")
+    got = expect(m, 12, 12, "OnlineIntegrator 12")
+    out["online12"] = {"median_ms": med, "integrated": online.n_integrated,
+                       "launches": got}
     return out
 
 
@@ -1126,7 +1453,10 @@ def main() -> int:
     if _build.build_log:
         print(_build.build_log.strip())
 
-    cfg = load_method_config("bgk", max_range=MAX_RANGE)
+    # the host-ingest phases name ``device_ingest: off``; the default on a
+    # CUDA map is device ingest, whose phases follow each family's
+    cfg = load_method_config("bgk", max_range=MAX_RANGE, device_ingest="off")
+    cfg_on = load_method_config("bgk", max_range=MAX_RANGE)
     with tempfile.TemporaryDirectory(prefix="la3dm_smoke_") as tmp:
         t0 = time.perf_counter()
         scans = synthetic_scans(60)
@@ -1134,18 +1464,47 @@ def main() -> int:
         print(f"scenes: 60 scans × {len(scans[0][0])} beams "
               f"({time.perf_counter() - t0:.1f} s)")
 
-        stamp("BGK: K1, K2")
+        stamp("BGK host ingest: K1, K2")
         args, statics = capture_dispatch(cfg, scans[:16], "cuda")
         k1 = check_k1(args, statics)
         k2 = check_k2(args, statics, k1.pop("acc"))
         del args
 
-        stamp("BGK: main path, profile, card vs CPU")
+        stamp("BGK host ingest: main path, profile, card vs CPU")
         path = main_path(cfg, tmp, scans)
+        path["host_syncs_per_dispatch"] = host_syncs(cfg, scans[:16])
+        print(f"bgk host ingest: host syncs in a 16-scan dispatch "
+              f"{path['host_syncs_per_dispatch']}")
         path["profile60"] = profile_main_path(
             cfg, tmp, {"bgk_heavy": "bgk_heavy_kernel", "bgk_light": "bgk_light_kernel"},
             path["static60"]["launches"])
-        dev = card_vs_cpu(cfg, tmp)
+        # one scan (three before device ingest joined the script): the CPU's
+        # K1 pass takes about 5 s a scan; the device-ingest comparison below
+        # keeps three
+        dev = card_vs_cpu(cfg, tmp, n_scans=1)
+
+        stamp("BGK device ingest: K7a, K7b, K7c, K1'")
+        calls = record_ingest(cfg_on, scans[:16])
+        k7 = check_k7(calls, "16-scan BGK demo dispatch")
+        k1p = check_k1p(calls)
+        del calls
+        stamp("BGK device ingest: main path, host syncs, profile, card vs CPU")
+        path_on = main_path_ingest(cfg_on, tmp, scans)
+        path_on["host_syncs_per_dispatch"] = host_syncs(cfg_on, scans[:16])
+        print(f"bgk device ingest: host syncs in a 16-scan dispatch "
+              f"{path_on['host_syncs_per_dispatch']}")
+        ingest_names = {"ingest_points": "ingest_points_kernel",
+                        "ingest_beams": "ingest_beams_kernel",
+                        "ingest_downsample": "ingest_downsample_kernel",
+                        "ingest_members": "ingest_members_kernel"}
+        d60 = path_on["static60"]["launches"]["ingest_members"]
+        path_on["profile60"] = profile_main_path(
+            cfg_on, tmp, {**ingest_names, "bgk_aligned_heavy": "bgk_aligned_heavy_kernel",
+                          "bgk_light": "bgk_light_kernel"},
+            {"ingest_points": d60, "ingest_beams": d60, "ingest_downsample": 2 * d60,
+             "ingest_members": d60, "bgk_aligned_heavy": d60, "bgk_light": 60})
+        dev_on = card_vs_cpu(load_method_config("bgk", max_range=MAX_RANGE,
+                                                device_ingest="on"), tmp, tol=(1e-5, 1e-5))
 
         cfg_lv = load_method_config("bgklv", max_range=MAX_RANGE)
         cfg_large = load_method_config("bgklvoctomap_large_map", max_range=MAX_RANGE)
@@ -1165,9 +1524,11 @@ def main() -> int:
         # takes about 10 s a scan
         dev_lv = card_vs_cpu(cfg_lv, tmp, n_scans=1)
 
-        cfg_gp = load_method_config("gp", max_range=MAX_RANGE)
-        cfg_gp_large = load_method_config("gpoctomap_large_map", max_range=MAX_RANGE)
-        stamp("GP: K4 (base and overflow tiers), K5")
+        cfg_gp = load_method_config("gp", max_range=MAX_RANGE, device_ingest="off")
+        cfg_gp_on = load_method_config("gp", max_range=MAX_RANGE)
+        cfg_gp_large = load_method_config("gpoctomap_large_map", max_range=MAX_RANGE,
+                                          device_ingest="off")
+        stamp("GP host ingest: K4 (base and overflow tiers), K5")
         args, statics = capture_gp(cfg_gp, scans[:16])
         k4 = check_k4(args, statics, "16-scan demo dispatch")
         k5 = check_k5(args, statics, k4.pop("tables"), "16-scan demo dispatch")
@@ -1181,15 +1542,36 @@ def main() -> int:
         k4_d.pop("tables")
         del args
 
-        stamp("GP: main path")
+        stamp("GP host ingest: main path")
         path_gp = main_path_gp(cfg_gp, cfg_gp_large, tmp, scans)
+        path_gp["host_syncs_per_dispatch"] = host_syncs(cfg_gp, scans[:16])
+        print(f"gp host ingest: host syncs in a 16-scan dispatch "
+              f"{path_gp['host_syncs_per_dispatch']}")
         path_gp["profile60"] = profile_main_path(
             cfg_gp, tmp, {"gp_heavy": "gp_heavy_kernel", "gp_light": "gp_light_kernel"},
             path_gp["static60"]["launches"])
-        stamp("GP: card vs CPU")
+        stamp("GP host ingest: card vs CPU")
         dev_gp = card_vs_cpu_gp(cfg_gp, tmp)
 
+        stamp("GP device ingest: K7a, K7b, K7c")
+        k7_gp = check_k7(record_ingest(cfg_gp_on, scans[:16]), "16-scan GP demo dispatch")
+        stamp("GP device ingest: main path, host syncs, profile, card vs CPU")
+        path_gp_on = main_path_ingest(cfg_gp_on, tmp, scans)
+        path_gp_on["host_syncs_per_dispatch"] = host_syncs(cfg_gp_on, scans[:16])
+        print(f"gp device ingest: host syncs in a 16-scan dispatch "
+              f"{path_gp_on['host_syncs_per_dispatch']}")
+        d60 = path_gp_on["static60"]["launches"]["ingest_members"]
+        path_gp_on["profile60"] = profile_main_path(
+            cfg_gp_on, tmp, {**ingest_names, "gp_heavy": "gp_heavy_kernel",
+                             "gp_light": "gp_light_kernel"},
+            {"ingest_points": d60, "ingest_beams": d60, "ingest_downsample": 2 * d60,
+             "ingest_members": d60,
+             "gp_heavy": path_gp_on["static60"]["launches"]["gp_heavy"], "gp_light": 60})
+        dev_gp_on = card_vs_cpu_gp(load_method_config("gp", max_range=MAX_RANGE,
+                                                      device_ingest="on"), tmp)
+
     launches = path["static60"]["launches"]
+    launches_on = path_on["static60"]["launches"]
     kernels = [
         {"name": "bgk_heavy", "route": "cuda",
          "source": "la3dm_tpu_torch/csrc/bgk_heavy.cu",
@@ -1223,17 +1605,46 @@ def main() -> int:
          "launches": path_gp["static60"]["launches"]["gp_light"],
          "work": "the 16 per-scan launches of one 16-scan demo dispatch", **k5,
          "library_ms": None, "large_map": k5_l},
+        {"name": "ingest_beams", "route": "cuda",
+         "source": "la3dm_tpu_torch/csrc/ingest_beams.cu",
+         "replaces": "la3dm_tpu/geometry/device_ingest.py:390",
+         "launches": launches_on["ingest_beams"],
+         "work": "the 2 launches (raw points, beams) of one 16-scan BGK demo dispatch",
+         **k7["ingest_beams"], "library_ms": None, "gp": k7_gp["ingest_beams"]},
+        {"name": "ingest_downsample", "route": "cuda",
+         "source": "la3dm_tpu_torch/csrc/ingest_downsample.cu",
+         "replaces": "la3dm_tpu/geometry/device_ingest.py:192",
+         "launches": launches_on["ingest_downsample"],
+         "work": "the 2 launches (hits, frees) of one 16-scan BGK demo dispatch",
+         **k7["ingest_downsample"], "library_ms": None, "gp": k7_gp["ingest_downsample"]},
+        {"name": "ingest_members", "route": "cuda",
+         "source": "la3dm_tpu_torch/csrc/ingest_members.cu",
+         "replaces": "la3dm_tpu/geometry/device_ingest.py:256",
+         "launches": launches_on["ingest_members"],
+         "work": "one 16-scan BGK demo dispatch", **k7["ingest_members"],
+         "library_ms": None, "gp": k7_gp["ingest_members"]},
+        {"name": "bgk_aligned_heavy", "route": "cuda",
+         "source": "la3dm_tpu_torch/csrc/bgk_aligned_heavy.cu",
+         "replaces": "la3dm_tpu/models/bgk.py:204",
+         "launches": launches_on["bgk_aligned_heavy"],
+         "work": "one 16-scan BGK demo dispatch", **k1p, "library_ms": None},
     ]
     summary = {"card": smi, "main_path": path, "card_vs_cpu_max_dev": dev,
+               "main_path_ingest": path_on, "card_vs_cpu_max_dev_ingest": dev_on,
                "main_path_lv": path_lv, "card_vs_cpu_max_dev_lv": dev_lv,
-               "main_path_gp": path_gp, "card_vs_cpu_gp": dev_gp}
-    print(f"main path on {smi}: BGK {path['static60']['scans_per_s']:.2f} scans/s "
-          f"(60 scans), median online latency {path['online12']['median_ms']:.2f} ms; "
+               "main_path_gp": path_gp, "card_vs_cpu_gp": dev_gp,
+               "main_path_gp_ingest": path_gp_on, "card_vs_cpu_gp_ingest": dev_gp_on}
+    print(f"main path on {smi}: BGK {path_on['static60']['scans_per_s']:.2f} scans/s "
+          f"(60 scans, device ingest; host ingest {path['static60']['scans_per_s']:.2f}), "
+          f"median online latency {path_on['online12']['median_ms']:.2f} ms (host ingest "
+          f"{path['online12']['median_ms']:.2f}); "
           f"BGKLV {path_lv['static60']['scans_per_s']:.2f} scans/s (60 scans), "
           f"median online latency {path_lv['online12']['median_ms']:.2f} ms, large "
           f"map {path_lv['large12']['scans_per_s']:.2f} scans/s (12 scans); GP "
-          f"{path_gp['static60']['scans_per_s']:.2f} scans/s (60 scans), median online "
-          f"latency {path_gp['online12']['median_ms']:.2f} ms, large map "
+          f"{path_gp_on['static60']['scans_per_s']:.2f} scans/s (60 scans, device ingest; "
+          f"host ingest {path_gp['static60']['scans_per_s']:.2f}), median online "
+          f"latency {path_gp_on['online12']['median_ms']:.2f} ms (host ingest "
+          f"{path_gp['online12']['median_ms']:.2f}), large map "
           f"{path_gp['large12']['scans_per_s']:.2f} scans/s (12 scans)")
     stamp("done")
     print(json.dumps(summary))

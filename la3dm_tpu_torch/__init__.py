@@ -9,7 +9,9 @@ heavy pass (K1) and the light pass with the prune (K2) as CUDA kernels, and
 the BGKLV family (``BGKLVOctoMap``), with the tile row engine (K3) and the
 tile-major prune (K8) as CUDA kernels, and the GP family (``GPOctoMap``),
 with the GP heavy pass (K4) and the BCM light pass with the prune (K5) as
-CUDA kernels.
+CUDA kernels.  BGK and GP maps on a CUDA device ingest their scans on the
+card (``device_ingest: auto``): the ingest pipeline (K7a/b/c) and, for BGK,
+the aligned heavy pass (K1′) are CUDA kernels too.
 
 Maps run on the GPU unless the caller passes ``device="cpu"``; there is no
 silent fall-back to the CPU.

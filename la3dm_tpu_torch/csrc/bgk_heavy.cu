@@ -29,15 +29,16 @@
 // Parity with la3dm_tpu/kernels/math.py: per-axis direct subtraction,
 // d2 = ((dx*dx) + dy*dy) + dz*dz, both operands divided by ell (no
 // reciprocal), node + centre added before the division, and
-// TWO_PI = float32(2 * 3.1415926).
+// TWO_PI = float32(2 * 3.1415926) (sparse_kernel.cuh).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sparse_kernel.cuh"
+
 namespace {
 
 constexpr int kW = 64;                      // entry-row width (_ROW_W)
-constexpr float kTwoPi = 0x1.921fb4p+2f;   // float32(2 * 3.1415926)
 
 template <int G>
 __global__ void bgk_heavy_kernel(const float* __restrict__ entries,   // [N,3]
@@ -100,16 +101,7 @@ __global__ void bgk_heavy_kernel(const float* __restrict__ entries,   // [N,3]
         rk[g] = 0.f;
       }
       for (int w = 0; w < cnt; ++w) {
-        const float dx = xv - sx[w];
-        const float dy = yv - sy[w];
-        const float dz = zv - sz[w];
-        float d2 = dx * dx;
-        d2 = d2 + dy * dy;
-        d2 = d2 + dz * dz;
-        const float rr = sqrtf(d2);
-        const float a = kTwoPi * rr;
-        float k = ((2.0f + cosf(a)) * (1.0f - rr) / 3.0f + sinf(a) / kTwoPi) * sf2;
-        k = fmaxf(k, 0.0f);
+        const float k = sparse_kernel_d2(dist2(xv - sx[w], yv - sy[w], zv - sz[w]), sf2);
         const float ky = k * sl[w];
         const int gw = sg[w];
 #pragma unroll

@@ -88,7 +88,7 @@ def build() -> str:
 
 
 def _bind(lib):
-    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    vp, ci, cf, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
     lib.la3dm_bgk_heavy.restype = ci
     lib.la3dm_bgk_heavy.argtypes = [vp] * 9 + [ci, ci, ci, cf, cf, vp, vp]
     lib.la3dm_bgk_light.restype = ci
@@ -101,6 +101,16 @@ def _bind(lib):
     lib.la3dm_gp_heavy.argtypes = [vp] * 12 + [ci] * 7 + [cf] * 3 + [vp]
     lib.la3dm_gp_light.restype = ci
     lib.la3dm_gp_light.argtypes = [vp] * 9 + [ci] * 7 + [cf] * 6 + [vp]
+    lib.la3dm_ingest_points.restype = ci
+    lib.la3dm_ingest_points.argtypes = [vp] * 4 + [cl, cf, cf, vp, vp]
+    lib.la3dm_ingest_beams.restype = ci
+    lib.la3dm_ingest_beams.argtypes = [vp] * 4 + [cl, ci] + [cf] * 3 + [vp] * 4
+    lib.la3dm_ingest_downsample.restype = ci
+    lib.la3dm_ingest_downsample.argtypes = [vp] * 6 + [cl, cf, vp, vp]
+    lib.la3dm_ingest_members.restype = ci
+    lib.la3dm_ingest_members.argtypes = [vp] * 4 + [cl, cf, cf, vp, vp]
+    lib.la3dm_bgk_aligned_heavy.restype = ci
+    lib.la3dm_bgk_aligned_heavy.argtypes = [vp] * 6 + [cl, cl, ci, ci, cf, cf, vp, vp]
     return lib
 
 

@@ -64,9 +64,8 @@ class BGKLVOctoMap(base.OccupancyMapBase):
     SERVER_DOWNSAMPLE = False
 
     def __init__(self, cfg: MapConfig, device=None):
-        if cfg.device_ingest == "on":
-            raise NotImplementedError(
-                "device ingest is K7, ROADMAP queue 1 (not ported yet)")
+        # ``cfg.device_ingest`` is not read: LV runs its own ray-shortening
+        # host ingest whatever the flag, as the JAX class does
         super().__init__(cfg, device)
         self._vox_base = geo.voxel_offsets(cfg.resolution, cfg.block_depth)
         # tile geometry: 8³ voxels (or the whole block when smaller)

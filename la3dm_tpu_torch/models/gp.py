@@ -12,7 +12,10 @@ ivar chop (gpoctree_node.cpp:36-49).  Free space is labelled −1
 
 The same two-pass engine as the port's BGK:
 
-  host:   scans → training points (native ``bgk_training_data``) →
+  ingest: on the device (``device_ingest`` on, or auto on a CUDA map; K7,
+          models/ingest.py): raw clouds → block-sorted training points, one
+          model per entry block, and the test blocks each serves; or on the
+          host: scans → training points (native ``bgk_training_data``) →
           per-model point segments and served test blocks (native
           ``scan_bucket_tables``)
   device: HEAVY pass (K4, kernels/gp_heavy.py) — once per size tier: every
@@ -39,7 +42,7 @@ import torch
 
 from la3dm_tpu_torch.geometry import blocks as geo, native
 from la3dm_tpu_torch.kernels import gp_heavy, gp_light
-from la3dm_tpu_torch.models import base, posterior
+from la3dm_tpu_torch.models import base, ingest, posterior
 from la3dm_tpu_torch.utils.config import MapConfig
 
 #: max scans per dispatch (one heavy pass per tier, then one light per scan)
@@ -79,22 +82,29 @@ def _gp_seq_step(m_ivar, ivar, touched, eff, all_nodes, node_idx_tab, pts, lab,
                           do_prune=do_prune)
 
 
-class GPOctoMap(base.OccupancyMapBase):
+def _gp_tier_gather(ustart, ucount, nb_row, sel):
+    """One size tier's model tables from the device-ingest tables: the
+    entry blocks ``sel`` (an index tensor) as (starts, counts, nb_rows)
+    int32, K4's arguments (``_gp_tier_gather`` of the JAX package)."""
+    return (ustart[sel].to(torch.int32), ucount[sel].to(torch.int32),
+            nb_row[sel].to(torch.int32))
+
+
+class GPOctoMap(ingest.DeviceIngestMixin, base.OccupancyMapBase):
     """GP occupancy map (ctor params: gpoctomap.cpp:31-56).
 
     ``device`` is where the pool lives and the engine runs: CUDA unless the
     caller names another (``device="cpu"`` runs the plain PyTorch versions of
     the kernels).  ``failed_models`` counts, on the device, the block models
     whose Gram was not positive definite (their predictions are NaN, as in
-    the JAX package).
+    the JAX package).  ``cfg.device_ingest`` picks the ingest path (on, off,
+    or auto: on for a CUDA map).
     """
 
     SCAN_BATCH = _SCAN_BATCH
+    FREE_LABEL = -1.0  # gpoctomap.cpp:399
 
     def __init__(self, cfg: MapConfig, device=None):
-        if cfg.device_ingest == "on":
-            raise NotImplementedError(
-                "device ingest is K7, ROADMAP queue 1 (not ported yet)")
         # min_ivar = 1/max_var etc. (gpoctomap.cpp:39-41)
         self.min_ivar = 1.0 / cfg.max_var
         self.max_ivar = 1.0 / cfg.min_var
@@ -106,6 +116,7 @@ class GPOctoMap(base.OccupancyMapBase):
         self.failed_models = torch.zeros(1, dtype=torch.int32, device=self.device)
         #: heavy passes dispatched, one per (dispatch, size tier)
         self.stats["heavy_tiers"] = 0
+        self.stats["ingest_host_chunks"] = 0
 
     def _field_fills(self):
         return {"m_ivar": 0.0, "ivar": self.min_ivar}
@@ -122,6 +133,9 @@ class GPOctoMap(base.OccupancyMapBase):
                           free_resolution: float | None = None,
                           max_range: float | None = None) -> None:
         """Integrate one scan (reference insert_pointcloud, gpoctomap.cpp)."""
+        if self._insert_device([cloud], [origin], ds_resolution, free_resolution,
+                               max_range):
+            return
         t0 = time.perf_counter()
         t = self._scan_model_tables(cloud, origin, ds_resolution, free_resolution,
                                     max_range)
@@ -134,6 +148,9 @@ class GPOctoMap(base.OccupancyMapBase):
         heavy pass per size tier, usually one, then one light pass per scan).
         Scan preprocessing runs in a thread pool while earlier dispatches run
         on the device (see models/bgk.py::insert_pointclouds)."""
+        if self._insert_device(clouds, origins, ds_resolution, free_resolution,
+                               max_range):
+            return
         with ThreadPoolExecutor(max_workers=min(8, max(len(clouds), 1))) as ex:
             futures = [ex.submit(self._scan_model_tables, c, o, ds_resolution,
                                  free_resolution, max_range)
@@ -247,6 +264,32 @@ class GPOctoMap(base.OccupancyMapBase):
                 tuple(a.clone() if torch.is_tensor(a) else list(a) for a in args),
                 statics)
         _gp_seq_step(*args, **statics)
+
+    def _dispatch_ingest_chunk(self, tabs, ucount, slots, centers, scan_start,
+                               scan_count) -> None:
+        """Device tables of one dispatch → one K4 per size tier (the entry
+        blocks are the models, on absolute points, predicting at the host's
+        block centres), then K5 per scan."""
+        cfg = self.cfg
+        G, Vall = self.num_slots, self._all_nodes.shape[0]
+        counts = ucount.astype(np.int64)
+        self.stats["kernel_evals"] += int((counts ** 2).sum() + counts.sum() * G * Vall)
+        tiers = []
+        base_tier = counts <= gp_heavy.SHARED_MAX_C
+        for sel in (np.nonzero(base_tier)[0], np.nonzero(~base_tier)[0]):
+            if len(sel):
+                tiers.append((*_gp_tier_gather(tabs["ustart"], tabs["ucount"],
+                                               tabs["nb_row"], self._to_device(sel)),
+                              int(counts[sel].max())))
+        self.stats["heavy_tiers"] += len(tiers)
+        _gp_seq_step(self.pool.fields["m_ivar"], self.pool.fields["ivar"],
+                     self.pool.touched, self.pool.eff_level, self._all_nodes,
+                     self._node_idx, tabs["ent"], tabs["lab"], tiers,
+                     self._to_device(slots), self._to_device(centers), scan_start,
+                     scan_count, self.failed_models, G=G, sf2=cfg.sf2, ell=cfg.ell,
+                     noise=cfg.noise, min_known_ivar=self.min_known_ivar,
+                     max_ivar=self.max_ivar, n=self.n, max_level=cfg.block_depth - 1,
+                     state_fn=self._state_fn, do_prune=cfg.block_depth > 1)
 
     def _posterior(self, fields: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
         cfg = self.cfg

@@ -52,8 +52,10 @@ class MapConfig:
     max_z: float = 0.0
     # 27-neighbor extended blocks (reference -DPREDICT, CMakeLists.txt:19)
     predict: bool = False
-    # Scan ingestion placement.  The port has the host path only: "auto" and
-    # "off" take it, "on" (device-side ingest) is not ported yet and raises.
+    # Scan ingestion placement for BGK and GP (geometry/device_ingest.py):
+    # "on" builds the engine tables on the map's device (the plain versions
+    # on a CPU map), "off" on the host, "auto" on the device for a map on a
+    # CUDA device and on the host for a CPU map.  BGKLV reads no flag.
     device_ingest: str = "auto"
 
     @property

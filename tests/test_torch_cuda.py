@@ -11,12 +11,18 @@ it runs apart from tests/conftest.py:
 import pytest
 import torch
 
-from la3dm_tpu_torch.kernels import bgk_heavy, bgk_light, gp_heavy, gp_light, lv_prune, lv_rows
+import numpy as np
+
+from la3dm_tpu_torch.geometry import device_ingest
+from la3dm_tpu_torch.kernels import (bgk_aligned_heavy, bgk_heavy, bgk_light, gp_heavy,
+                                     gp_light, ingest_beams, ingest_downsample,
+                                     ingest_members, lv_prune, lv_rows)
 from la3dm_tpu_torch.models import posterior as po
 
-from torch_cases import (GP_BCM, GP_STATE, GP_STATICS, LV_ROWS_STATICS,  # tests/ on sys.path
-                         LV_STATE, gp_heavy_inputs, gp_light_inputs, heavy_inputs,
-                         light_inputs, lv_prune_inputs, lv_rows_inputs)
+from torch_cases import (GP_BCM, GP_STATE, GP_STATICS, INGEST,  # tests/ on sys.path
+                         LV_ROWS_STATICS, LV_STATE, aligned_heavy_inputs, gp_heavy_inputs,
+                         gp_light_inputs, heavy_inputs, ingest_scene, light_inputs,
+                         lv_prune_inputs, lv_rows_inputs)
 
 
 @pytest.fixture
@@ -149,3 +155,93 @@ def test_gp_light_kernel_matches_plain(cuda_dev, depth):
     for x, y in zip(k, p):
         assert torch.equal(x, y)
     assert int(k[3].max()) == depth - 1
+
+
+def _ingest_params():
+    ds, fr, mr = INGEST["ds"], INGEST["fr"], INGEST["mr"]
+    return dict(inv_leaf=float(np.float32(1 / ds)),
+                lim=float(np.float32((mr + np.sqrt(3.0) * ds) ** 2)),
+                kf=device_ingest.beam_slots(ds, fr, mr, INGEST["block_size"]),
+                mr=float(np.float32(mr)), fr=float(np.float32(fr)), leaf=float(np.float32(ds)))
+
+
+@pytest.mark.cuda
+def test_ingest_beams_kernels_match_plain(cuda_dev):
+    """K7a: point keys and beam samples equal to the plain versions (the same
+    f32 operations, no FMA)."""
+    pts, scan, origins, ca, _ = ingest_scene(40, dev=cuda_dev)
+    p = _ingest_params()
+    before = ingest_beams.launches
+    keys = ingest_beams.point_keys(pts, scan, origins, ca, inv_leaf=p["inv_leaf"], lim=p["lim"])
+    ref = ingest_beams.point_keys_plain(pts, scan, origins, ca, inv_leaf=p["inv_leaf"],
+                                        lim=p["lim"])
+    assert torch.equal(keys, ref)
+    hkey, hits = device_ingest._downsample(pts, keys, ca, p["leaf"])
+    kw = dict(kf=p["kf"], mr=p["mr"], fr=p["fr"], inv_leaf=p["inv_leaf"])
+    out = ingest_beams.beam_samples(hits, hkey, origins, ca, **kw)
+    ref = ingest_beams.beam_samples_plain(hits, hkey, origins, ca, **kw)
+    torch.cuda.synchronize()
+    assert ingest_beams.launches == before + 2
+    keep = ref[1] != device_ingest.ingest_keys.SENT
+    assert torch.equal(out[1], ref[1]) and torch.equal(out[2], ref[2])
+    assert torch.equal(out[0][keep], ref[0][keep]) and int(keep.sum()) > 1000
+
+
+@pytest.mark.cuda
+def test_ingest_downsample_kernel_matches_plain(cuda_dev):
+    """K7b: the same sums in the same order, so equal centroids."""
+    pts, scan, origins, ca, _ = ingest_scene(41, dev=cuda_dev)
+    p = _ingest_params()
+    keys = ingest_beams.point_keys_plain(pts, scan, origins, ca, inv_leaf=p["inv_leaf"],
+                                         lim=p["lim"])
+    _, perm, ukey, starts, counts = device_ingest._runs(keys)
+    before = ingest_downsample.launches
+    cent = ingest_downsample.centroids(pts, perm, starts, counts, ukey, ca, leaf=p["leaf"])
+    ref = ingest_downsample.centroids_plain(pts, perm, starts, counts, ukey, ca,
+                                            leaf=p["leaf"])
+    torch.cuda.synchronize()
+    assert ingest_downsample.launches == before + 1
+    assert torch.equal(cent, ref) and int(counts.max()) >= 30
+
+
+@pytest.mark.cuda
+def test_ingest_members_kernel_matches_plain(cuda_dev):
+    pts, scan, _, _, ba = ingest_scene(42, dev=cuda_dev)
+    valid = torch.arange(len(pts), device=cuda_dev) % 7 != 0
+    before = ingest_members.launches
+    keys = ingest_members.memberships(pts, scan, valid, ba, block_size=INGEST["block_size"])
+    ref = ingest_members.memberships_plain(pts, scan, valid, ba,
+                                           block_size=INGEST["block_size"])
+    torch.cuda.synchronize()
+    assert ingest_members.launches == before + 1
+    assert torch.equal(keys, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [7, 27])
+def test_aligned_heavy_kernel_matches_plain(cuda_dev, G):
+    a = aligned_heavy_inputs(43, G=G, dev=cuda_dev)
+    before = bgk_aligned_heavy.launches
+    acc = bgk_aligned_heavy.bgk_aligned_heavy(**a, G=G, sf2=1.0, ell=0.2)
+    assert bgk_aligned_heavy.launches == before + 1
+    ref = bgk_aligned_heavy.bgk_aligned_heavy_plain(**a, G=G, sf2=1.0, ell=0.2)
+    torch.cuda.synchronize()
+    assert ((acc - ref).abs() <= 1e-5 + 1e-5 * ref.abs()).all()
+    assert (ref[..., G:] > 0).sum() > 1000
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["bgk", "gp"])
+def test_cuda_map_auto_takes_the_device_path(cuda_dev, method):
+    from la3dm_tpu_torch import pipeline
+    from la3dm_tpu_torch.utils.config import load_method_config
+
+    pts, scan, origins, _, _ = ingest_scene(44, n_scans=2)
+    clouds = [pts[scan == s].numpy() for s in range(2)]
+    m = pipeline.build_map(load_method_config(method, max_range=INGEST["mr"]))
+    assert m.cfg.device_ingest == "auto" and m._ingest_enabled()
+    before = ingest_members.launches
+    m.insert_pointclouds(clouds, [o.numpy() for o in origins])
+    m.synchronize()
+    assert ingest_members.launches == before + 1
+    assert m.stats["ingest_host_chunks"] == 0 and m.pool.n_blocks > 0

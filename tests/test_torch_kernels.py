@@ -11,19 +11,23 @@ import torch
 
 import jax.numpy as jnp
 
-from la3dm_tpu.geometry import blocks as jgeo
+from la3dm_tpu.geometry import blocks as jgeo, device_ingest as jdi
 from la3dm_tpu.kernels import gp as jgpk, math as jkm, predict as jkp
-from la3dm_tpu.models import bgklv as jlv, gp as jgp, posterior as jpo, pruning as jpr
+from la3dm_tpu.models import (bgk as jbgk, bgklv as jlv, gp as jgp, posterior as jpo,
+                              pruning as jpr)
 
-from la3dm_tpu_torch.geometry import blocks as geo
-from la3dm_tpu_torch.kernels import (bgk_heavy, bgk_light, gp as kgp, gp_heavy, gp_light,
-                                     lv_prune, lv_rows, math as km, predict as kp)
+from la3dm_tpu_torch.geometry import blocks as geo, device_ingest
+from la3dm_tpu_torch.kernels import (bgk_aligned_heavy, bgk_heavy, bgk_light, gp as kgp,
+                                     gp_heavy, gp_light, ingest_beams, ingest_downsample,
+                                     ingest_keys, ingest_members, lv_prune, lv_rows,
+                                     math as km, predict as kp)
 from la3dm_tpu_torch.models import posterior as po, pruning as pr
 
-from torch_cases import (GP_BCM, GP_STATE, GP_STATICS, LV_ROWS_STATICS, LV_STATE,
-                         gp_heavy_inputs, gp_light_inputs, heavy_inputs as _heavy_inputs,
+from torch_cases import (GP_BCM, GP_STATE, GP_STATICS, INGEST, LV_ROWS_STATICS,  # noqa: F401
+                         LV_STATE, aligned_heavy_inputs, gp_heavy_inputs, gp_light_inputs,
+                         heavy_inputs as _heavy_inputs, ingest_scene,
                          light_inputs as _light_inputs, lv_prune_inputs, lv_rows_inputs,
-                         one_torch_thread)  # noqa: F401  (autouse fixture)
+                         one_torch_thread)  # (one_torch_thread: autouse fixture)
 
 
 def _t(x):
@@ -576,3 +580,141 @@ def test_gp_wrappers_reject_devices_without_a_kernel():
     with pytest.raises(ValueError, match="device"):
         gp_light.gp_light(am, av, pr_, *pool, node_idx, slots, 0, 4, G=7, **GP_BCM, n=4,
                           max_level=2, state_fn=po.GPStateFn(**GP_STATE), do_prune=True)
+
+
+# ------------------------------------------------------------- device ingest
+
+def _face_entries(seed, n=400):
+    """Entries round a few blocks, a quarter of their coordinates on block
+    faces or centre planes (multiples of bs/2 = 0.2), two on block corners."""
+    rng = np.random.default_rng(seed)
+    e = rng.uniform(-1.0, 1.0, (n, 3)).astype(np.float32)
+    on = rng.uniform(size=e.shape) < 0.25
+    face = (rng.integers(-5, 6, e.shape) * np.float32(0.2)).astype(np.float32)
+    corners = np.float32([[0.2, 0.2, 0.2], [-0.2, 0.6, -0.6]])
+    return np.concatenate([np.where(on, face, e), corners]).astype(np.float32)
+
+
+def test_closed_box_memberships_match_jax():
+    e = _face_entries(30)
+    valid = np.random.default_rng(31).uniform(size=len(e)) > 0.1
+    mc, mok = ingest_members.closed_box_memberships(_t(e), _t(valid), 0.4)
+    jmc, jmok = jdi._closed_box_memberships(jnp.asarray(e), jnp.asarray(valid), 0.4)
+    np.testing.assert_array_equal(mok.numpy(), np.asarray(jmok))
+    ok = mok.numpy()
+    np.testing.assert_array_equal(mc.numpy()[ok], np.asarray(jmc)[ok])
+    assert (ok.sum(1) == 8).any() and (ok.sum(1) == 2).any()   # corners and faces
+
+
+def test_membership_keys_sort_as_jax_local_keys():
+    """The port's keys (anchored 16-bit fields) and JAX's ``_local_keys``
+    (10 bits from the scan's minimum) name the same blocks, and a stable sort
+    orders the memberships alike."""
+    e = _face_entries(32)
+    valid = np.ones(len(e), bool)
+    anchor = np.array([[1, -2, 0]], np.int32)
+    keys = ingest_members.memberships_plain(_t(e), torch.zeros(len(e), dtype=torch.int32),
+                                            _t(valid), _t(anchor), block_size=0.4).numpy()
+    jmc, jmok = jdi._closed_box_memberships(jnp.asarray(e), jnp.asarray(valid), 0.4)
+    jkey, bmin = jdi._local_keys(jmc, jmok)
+    jkey = np.asarray(jkey).reshape(-1)
+    np.testing.assert_array_equal(keys == ingest_keys.SENT, jkey == jdi._SENT)
+    ok = keys != ingest_keys.SENT
+    np.testing.assert_array_equal(ingest_keys.unpack_np(keys[ok], anchor)[1],
+                                  jdi.unpack_local_keys(jkey[ok], np.asarray(bmin)))
+    np.testing.assert_array_equal(np.argsort(keys, kind="stable"),
+                                  np.argsort(jkey, kind="stable"))
+
+
+def test_downsample_plain_matches_jax():
+    """Hit downsample of one scan (outlier masked, a voxel of origin copies
+    on a block face): the same voxels in the same z-major order, centroids
+    within 1e-6·(1 + |JAX|) (JAX sums each voxel in a tree, the port in
+    sorted order), the origin's voxel exact in both."""
+    pts, scan, origins, cell_anchor, _ = ingest_scene(33, n_scans=1)
+    ds, mr = INGEST["ds"], INGEST["mr"]
+    inv = float(np.float32(1 / ds))
+    lim = float(np.float32((mr + np.sqrt(3.0) * ds) ** 2))
+    before = ingest_beams.launches, ingest_downsample.launches
+    keys = ingest_beams.point_keys(pts, scan, origins, cell_anchor, inv_leaf=inv, lim=lim)
+    ukey, cent = device_ingest._downsample(pts, keys, cell_anchor, float(np.float32(ds)))
+    assert (ingest_beams.launches, ingest_downsample.launches) == before
+    spec = jdi.spec_for(type("C", (), {"method": "bgk", "block_size": 0.4})(), ds, 0.5, mr,
+                        len(pts))
+    valid = jdi._outlier_mask(jnp.asarray(pts.numpy()), jnp.asarray(origins[0].numpy()), spec)
+    np.testing.assert_array_equal(keys.numpy() != ingest_keys.SENT, np.asarray(valid))
+    jc, jok, jn = jdi._downsample(jnp.asarray(pts.numpy()), valid, ds, len(pts))
+    jc = np.asarray(jc)[np.asarray(jok)]
+    assert int(jn) == len(cent) > 100
+    np.testing.assert_allclose(cent.numpy(), jc, rtol=1e-6, atol=1e-6)
+    o = origins[0].numpy()
+    assert (cent.numpy() == o).all(1).sum() == 1 and (jc == o).all(1).sum() == 1
+
+
+def test_centroids_plain_sums_in_sorted_order():
+    """Each run is summed member by member in sorted order, compensated."""
+    pts, scan, origins, cell_anchor, _ = ingest_scene(34, n_scans=2, n=100)
+    keys = ingest_beams.point_keys(pts, scan, origins, cell_anchor, inv_leaf=10.0, lim=100.0)
+    skey, perm, ukey, starts, counts = device_ingest._runs(keys)
+    cent = ingest_downsample.centroids(pts, perm, starts, counts, ukey, cell_anchor, leaf=0.1)
+    corner = ingest_keys.unpack(ukey, cell_anchor).to(torch.float32) * 0.1
+    for r in range(len(ukey)):
+        s = torch.zeros(3)
+        for q in range(int(starts[r]), int(starts[r] + counts[r])):
+            s = s + (pts[perm[q]] - corner[r])
+        assert torch.equal(cent[r], corner[r] + s / float(counts[r]))
+
+
+def test_aligned_heavy_plain_matches_jax():
+    """K1′'s plain version against JAX ``_aligned_heavy`` + the ``u_targets``
+    gather on random Wa-aligned tables: 1e-5 + 1e-5·|JAX|."""
+    a = aligned_heavy_inputs(35, U=12, T=20)
+    G, U = 7, 12
+    ucount = a["ucount"].numpy()
+    Vall = a["ext_nodes"].shape[0] // G
+    # the JAX layout: each block's run padded to a multiple of Wa = 8
+    pad = -(-ucount // 8) * 8
+    jstart = np.concatenate([[0], np.cumsum(pad)[:-1]])
+    M = int(pad.sum())
+    ent = np.zeros((M, 3), np.float32)
+    lab = np.zeros(M, np.float32)
+    vm = np.zeros(M, bool)
+    urank = np.zeros(M // 8, np.int32)
+    for u in range(U):
+        s0, c = int(a["ustart"][u]), int(ucount[u])
+        ent[jstart[u]:jstart[u] + c] = a["ent_rel"][s0:s0 + c].numpy()
+        lab[jstart[u]:jstart[u] + c] = a["labels"][s0:s0 + c].numpy()
+        vm[jstart[u]:jstart[u] + c] = True
+        urank[jstart[u] // 8:(jstart[u] + pad[u]) // 8] = u
+    u_tgt, tb_rows = jdi.u_targets(jnp.asarray(urank[None]), jnp.asarray(a["tb_u"].numpy()[None]),
+                                   U, G)
+    acc = jbgk._aligned_heavy(jnp.zeros((U + 1, 2 * G * Vall), jnp.float32),
+                              jnp.asarray(a["ext_nodes"].numpy()), jnp.asarray(ent),
+                              jnp.asarray(lab), jnp.asarray(vm), u_tgt, Wa=8, chunk=1,
+                              G=G, sf2=1.0, ell=0.2, segments=False)
+    acc4 = np.asarray(acc).reshape(U + 1, 2, G, Vall)
+    rows = np.asarray(tb_rows)
+    ref = np.stack([acc4[rows, 0, np.arange(G)], acc4[rows, 1, np.arange(G)]], 2)
+    before = bgk_aligned_heavy.launches
+    ours = bgk_aligned_heavy.bgk_aligned_heavy(**a, G=G, sf2=1.0, ell=0.2)
+    assert bgk_aligned_heavy.launches == before
+    ours = ours.numpy().reshape(-1, Vall, 2, G).transpose(0, 3, 2, 1)
+    assert (ref[:, :, 1] > 0).sum() > 500 and (ref[:, :, 1] == 0).sum() > 500
+    np.testing.assert_allclose(ours, ref, rtol=1e-5, atol=1e-5)
+
+
+def test_ingest_wrappers_reject_devices_without_a_kernel():
+    pts, scan, origins, ca, ba = (x.to("meta") for x in ingest_scene(36, n_scans=1, n=20))
+    with pytest.raises(ValueError, match="device"):
+        ingest_beams.point_keys(pts, scan, origins, ca, inv_leaf=10.0, lim=1.0)
+    hk = torch.zeros(4, dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError, match="device"):
+        ingest_beams.beam_samples(pts[:4], hk, origins, ca, kf=3, mr=8.0, fr=0.5,
+                                  inv_leaf=10.0)
+    with pytest.raises(ValueError, match="device"):
+        ingest_downsample.centroids(pts, hk, hk, hk, hk, ca, leaf=0.1)
+    with pytest.raises(ValueError, match="device"):
+        ingest_members.memberships(pts, scan, scan.bool(), ba, block_size=0.4)
+    a = {k: v.to("meta") for k, v in aligned_heavy_inputs(36).items()}
+    with pytest.raises(ValueError, match="device"):
+        bgk_aligned_heavy.bgk_aligned_heavy(**a, G=7, sf2=1.0, ell=0.2)

@@ -40,6 +40,8 @@ def test_import_pulls_in_no_jax():
         "import la3dm_tpu_torch.models.bgklv, la3dm_tpu_torch.kernels.lv_rows\n"
         "import la3dm_tpu_torch.kernels.lv_prune, la3dm_tpu_torch.models.gp\n"
         "import la3dm_tpu_torch.kernels.gp_heavy, la3dm_tpu_torch.kernels.gp_light\n"
+        "import la3dm_tpu_torch.geometry.device_ingest, la3dm_tpu_torch.models.ingest\n"
+        "import la3dm_tpu_torch.kernels.bgk_aligned_heavy\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "assert not bad, bad\n"
@@ -96,7 +98,10 @@ def test_kernel_library_binds_every_entry_point():
 
     lib = _build._bind(Lib())
     n_args = {"la3dm_bgk_heavy": 16, "la3dm_bgk_light": 19, "la3dm_lv_rows": 25,
-              "la3dm_lv_prune": 18, "la3dm_gp_heavy": 23, "la3dm_gp_light": 23}
+              "la3dm_lv_prune": 18, "la3dm_gp_heavy": 23, "la3dm_gp_light": 23,
+              "la3dm_ingest_points": 9, "la3dm_ingest_beams": 13,
+              "la3dm_ingest_downsample": 10, "la3dm_ingest_members": 9,
+              "la3dm_bgk_aligned_heavy": 14}
     for name, n in n_args.items():
         fn = getattr(lib, name)
         assert fn.restype is ctypes.c_int and len(fn.argtypes) == n, name
@@ -117,14 +122,18 @@ def test_gp_map_without_device_does_not_fall_back_to_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         pipeline.build_map(cfg)
     assert GPOctoMap(cfg, device="cpu").device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="K7"):
-        GPOctoMap(load_method_config("gp", device_ingest="on"), device="cpu")
+    assert GPOctoMap(load_method_config("gp", device_ingest="on"), device="cpu")._ingest_enabled()
 
 
 def test_device_ingest_on_is_not_ported():
-    cfg = load_method_config("bgk", max_range=8.0, device_ingest="on")
-    with pytest.raises(NotImplementedError, match="K7"):
-        BGKOctoMap(cfg, device="cpu")
+    """Every family takes ``device_ingest: on`` (BGK and GP ingest on the
+    map's device, BGKLV reads no flag), and ``auto`` leaves a CPU map on
+    the host path."""
+    for method in ("bgk", "gp", "bgklv"):
+        for mode, on in (("on", True), ("auto", False), ("off", False)):
+            m = {"bgk": BGKOctoMap, "gp": GPOctoMap, "bgklv": BGKLVOctoMap}[method](
+                load_method_config(method, max_range=8.0, device_ingest=mode), device="cpu")
+            assert getattr(m, "_ingest_enabled", lambda: False)() == (on and method != "bgklv")
 
 
 def test_kernel_build_flags_keep_parity():

@@ -285,3 +285,60 @@ def gp_light_inputs(seed, depth=3, T=12, cap=32, G=7, dev="cpu"):
     arrs = (mean.reshape(T * G, Vall), var.reshape(T * G, Vall), present.reshape(-1),
             m_ivar, ivar, touched, eff, node_idx, slots)
     return tuple(torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in arrs)
+
+
+#: device-ingest parameters of ingest_scene (the BGK demo's leaves, an 8 m
+#: range, 0.4 m blocks)
+INGEST = dict(ds=0.1, fr=0.5, mr=8.0, block_size=0.4)
+
+
+def ingest_scene(seed, n_scans=3, n=400, dev="cpu"):
+    """Raw clouds of ``n_scans`` scans, concatenated as the map hands them to
+    device ingest: per scan a noisy box room round an origin (the first
+    origin on a block face, y = −0.2, with 30 copies of itself in its cloud),
+    one far outlier and a few points beyond the range.  Returns (pts [N,3],
+    scan [N] int32, origins [K,3], cell anchors, block anchors)."""
+    from la3dm_tpu_torch.geometry import device_ingest
+
+    rng = np.random.default_rng(seed)
+    pts, scan, origins = [], [], []
+    for s in range(n_scans):
+        o = np.array([0.1 + 0.3 * s, -0.2, 0.3], np.float32)
+        d = rng.normal(size=(n, 3))
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        t = np.min(np.abs(np.where(d > 0, 4.0, -3.0) / np.where(d == 0, 1e-9, d)), axis=1)
+        c = o + d * (t + rng.normal(0, 0.01, n))[:, None]
+        extra = [np.repeat(o[None], 30 if s == 0 else 0, 0),
+                 np.float32([[-200.0, -200.0, -200.0]]),
+                 o + rng.uniform(9.0, 12.0, (5, 3))]
+        c = np.concatenate([c, *extra]).astype(np.float32)
+        pts.append(c)
+        scan.append(np.full(len(c), s, np.int32))
+        origins.append(o)
+    origins = np.stack(origins)
+    arrs = (np.concatenate(pts), np.concatenate(scan), origins,
+            device_ingest.anchors(origins, INGEST["ds"]),
+            device_ingest.anchors(origins, INGEST["block_size"]))
+    return tuple(torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in arrs)
+
+
+def aligned_heavy_inputs(seed, G=7, U=40, T=60, dev="cpu"):
+    """K1′'s arguments on random tables: U entry blocks of 0..150 entries
+    (relative coordinates within ±0.3 m, labels 0/1) stored back to back,
+    T test blocks whose slots name an entry block or none (U), and the
+    shifted node tables of the depth-3 demo (0.4 m blocks).  Returns a dict
+    of the wrapper's arguments."""
+    rng = np.random.default_rng(seed)
+    nodes, _ = geo.all_level_nodes(0.1, 3)
+    offs = geo.FACE_NEIGHBOR_OFFSETS if G == 7 else geo.full_neighbor_offsets()
+    ext = (nodes[None] - offs[:, None, :].astype(np.float32) * np.float32(0.4)).reshape(-1, 3)
+    ucount = rng.integers(0, 150, U)
+    ustart = np.concatenate([[0], np.cumsum(ucount)[:-1]])
+    M = int(ucount.sum()) + 3
+    ent_rel = rng.uniform(-0.3, 0.3, (M, 3)).astype(np.float32)
+    labels = (rng.uniform(size=M) > 0.5).astype(np.float32)
+    tb_u = rng.integers(0, U + 1, (T, G))
+    out = dict(ent_rel=ent_rel, labels=labels, ustart=ustart.astype(np.int64),
+               ucount=ucount.astype(np.int64), tb_u=tb_u.astype(np.int64),
+               ext_nodes=ext.astype(np.float32))
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in out.items()}
