@@ -107,6 +107,41 @@ then on the device-ingest path:
     failed factorisation), counts the host syncs, profiles, and compares
     card and CPU (both on) as in 18.
 
+BGKL (``bgkloctomap.yaml``: gate 0.001, free_resolution 0.3, 27 backward
+samples a beam), first on the host-ingest path, after the BGK phases:
+
+21. holds K1's segment branch against its plain version on the argument
+    tuple of a real 16-scan dispatch: |Δ| ≤ 1e-5 + 1e-5·|plain| (the
+    control, the plain version on TF32-rounded coordinates, must fail it),
+    the (block, node, slot) k̄ within 1e-5 of the 0.001 gate counted and
+    none decided apart;
+22. runs the main path as in 5 (``BGKLOctoMap(cfg)``), counts the host
+    syncs, profiles the 60-scan run and compares card and CPU on 1 scan as
+    in 7;
+
+then on device ingest, its default on the card:
+
+23. holds K7d (the ray pass: occ, ray segments, proxy samples, their block
+    keys, the per-ray dedup) against its plain version on a real 16-scan
+    dispatch — every output equal and the (ray, block) pair list identical
+    (the control, the samples in f64, must move a membership) — and K1′'s
+    segment branch as in 21;
+24. runs the main path as in 9 (per dispatch one K7a, one K7b, the two
+    launches of K7d, one K7c, one K1′; K2 per scan), counts the host syncs,
+    profiles, and compares card and CPU (both on) on 2 scans within
+    1e-5 + 1e-5·|CPU|.
+
+Raycast, last:
+
+25. ``raycast_snapshot`` and ``raycast_device`` over 1,000,000 rays cast from
+    the 60 scan origins into the 60-scan BGK demo map (device ingest) at
+    max_range 8 m, and over 100,000 rays into the 60-scan BGKL and BGKLV
+    maps: snapshot and ray times apart, one K6 launch a call; K6 against its
+    plain version on the same call (hit and steps equal, dist bit-equal;
+    the control, the plain version in f64, must differ on a ray) and, on
+    the first rays, against its plain version on the CPU (bit-equal); the
+    host stepper ``raycast``'s agreement on those rays is printed.
+
 Last, a ``kernels`` JSON line and the device JSON line.  Every kernel time
 (``ms``) is the device time of the work named in its ``work`` key, by a pair
 of CUDA events around its launches queued back to back behind a spin of the
@@ -135,9 +170,8 @@ from la3dm_tpu_torch.io.pcd import save_pcd  # noqa: E402
 from la3dm_tpu_torch.kernels import (_build, bgk_aligned_heavy, bgk_heavy,  # noqa: E402
                                      bgk_light, gp_heavy, gp_light, ingest_beams,
                                      ingest_downsample, ingest_keys, ingest_members,
-                                     lv_prune, lv_rows)
-from la3dm_tpu_torch.models import posterior  # noqa: E402
-from la3dm_tpu_torch.models.bgk import BGKOctoMap  # noqa: E402
+                                     ingest_rays, lv_prune, lv_rows, raycast as k6)
+from la3dm_tpu_torch.models import posterior, raycast as rc  # noqa: E402
 from la3dm_tpu_torch.models.bgklv import BGKLVOctoMap  # noqa: E402
 from la3dm_tpu_torch.models.gp import GPOctoMap  # noqa: E402
 from la3dm_tpu_torch.utils.config import DatasetConfig, load_method_config  # noqa: E402
@@ -145,9 +179,6 @@ from la3dm_tpu_torch.utils.config import DatasetConfig, load_method_config  # no
 # H100 SXM peaks (NVIDIA data sheet): FP32 on the CUDA cores, HBM3 rate
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
-#: operations per sparse-kernel evaluation (distance, cos, sin, clamp,
-#: two accumulations), the count the JAX package's bench uses
-FLOP_PER_EVAL = 50
 
 BEAMS_AZ, BEAMS_EL = 175, 20            # 3500 beams per scan
 ELEVATION = np.deg2rad(15.0)            # ±15°
@@ -346,8 +377,8 @@ def bound(flops: float, nbyte: float) -> tuple[float, str]:
 
 def capture_dispatch(cfg, scans, device):
     """Argument tuple and statics of the first dispatch of ``scans``
-    (≤ 16 scans), as the main path builds it."""
-    m = BGKOctoMap(cfg, device=device)
+    (≤ 16 scans) of a BGK or BGKL map, as the main path builds it."""
+    m = pipeline.MAP_CLASSES[cfg.method](cfg, device=device)
     m._capture_step_args = True
     m.insert_pointclouds([c for c, _ in scans], [o for _, o in scans],
                          ds_resolution=cfg.resolution,
@@ -355,32 +386,62 @@ def capture_dispatch(cfg, scans, device):
     return m._last_step_call
 
 
-def check_k1(args, statics, reps: int = 5) -> dict:
-    """K1 against its plain version on one dispatch's arguments."""
+def gate_apart(acc_k, acc_p, G: int, gate: float, what: str) -> dict:
+    """The per-slot update gate k̄_g > gate on a heavy pass's accumulator
+    [T, Vall, 2G], kernel against plain: the (block, node, slot) k̄ within
+    GATE_MARGIN of the gate are counted, and none may be decided apart."""
+    kk, kp = acc_k[..., G:], acc_p[..., G:]
+    near = int(((kp - gate).abs() <= GATE_MARGIN).sum())
+    apart = int(((kk > gate) != (kp > gate)).sum())
+    print(f"{what}: {near} (block, node, slot) k-bar within {GATE_MARGIN} of the "
+          f"{gate} gate, {apart} decided apart")
+    require(apart == 0, f"{what}: the kernel and its plain version decide the gate apart")
+    return {"gate_boundary": near, "decided_apart": apart}
+
+
+def check_k1(args, statics, reps: int = 5, gate: float | None = None) -> dict:
+    """K1 against its plain version on one dispatch's arguments: point
+    entries (BGK) or segments (BGKL).  With ``gate`` (BGKL's 0.001), the
+    limit must also fail the control (the plain version on TF32-rounded
+    coordinates), and no k̄ may be decided apart at the gate."""
     (_, _, _, _, all_nodes, _, ent, lab, ids, gs, rb, rs, rn, _, ctr, _, _) = args
     hargs = (ent, lab, ids, gs, rb, rs, rn, ctr, all_nodes)
     kw = dict(G=statics["G"], sf2=statics["sf2"], ell=statics["ell"])
+    seg = ent.shape[1] == 6
+    name = "K1 (segments)" if seg else "K1"
     acc_k = bgk_heavy.bgk_heavy(*hargs, **kw)
-    acc_p = bgk_heavy.bgk_heavy_plain(*hargs, **kw)
+    acc_p, plain_ms = _timed(lambda: bgk_heavy.bgk_heavy_plain(*hargs, **kw))
     torch.cuda.synchronize()
+    lim = 1e-5 + 1e-5 * acc_p.abs()
     err = (acc_k - acc_p).abs()
-    bad = int((err > 1e-5 + 1e-5 * acc_p.abs()).sum())
+    bad = int((err > lim).sum())
     max_err = float(err.max())
-    print(f"K1: acc {tuple(acc_k.shape)}, max |kernel - plain| = {max_err:.3e}, "
-          f"{bad} elements outside 1e-5 + 1e-5*|plain|")
-    require(bool(torch.isfinite(acc_k).all()), "K1 gave non-finite values")
-    require(bad == 0, "K1 disagrees with its plain version")
+    out = {}
+    msg = ""
+    if gate is not None:
+        ctl = bgk_heavy.bgk_heavy_plain(tf32_round(ent), lab, ids, gs, rb, rs, rn,
+                                        tf32_round(ctr), tf32_round(all_nodes), **kw)
+        out["outside_control"] = bad_ctl = int(((ctl - acc_p).abs() > lim).sum())
+        msg = f"; control, the plain version on TF32-rounded coordinates: {bad_ctl} outside"
+    print(f"{name}: acc {tuple(acc_k.shape)}, max |kernel - plain| = {max_err:.3e}, "
+          f"{bad} elements outside 1e-5 + 1e-5*|plain|{msg}")
+    require(bool(torch.isfinite(acc_k).all()), f"{name} gave non-finite values")
+    require(bad == 0, f"{name} disagrees with its plain version")
+    if gate is not None:
+        require(out["outside_control"] > 0, f"the {name} limit passes the TF32 control")
+        out.update(gate_apart(acc_k, acc_p, statics["G"], gate, name))
     event_ms = cuda_ms(lambda _: bgk_heavy.bgk_heavy(*hargs, **kw), reps)
     ms = launch_ms([lambda _: bgk_heavy.bgk_heavy(*hargs, **kw)], reps)
-    plain_ms = cuda_ms(lambda _: bgk_heavy.bgk_heavy_plain(*hargs, **kw), 2)
     evals = int(rn.sum()) * all_nodes.shape[0]
-    b_ms, b_by = bound(FLOP_PER_EVAL * evals,
+    per_eval = bgk_heavy.FLOP_PER_EVAL_SEGMENT if seg else bgk_heavy.FLOP_PER_EVAL
+    b_ms, b_by = bound(per_eval * evals,
                        nbytes(ent, lab, ids, gs, rb, rs, rn, ctr, all_nodes, acc_k))
-    print(f"K1: {ms:.3f} ms device time (event window {event_ms:.3f} ms; plain "
+    print(f"{name}: {ms:.3f} ms device time (event window {event_ms:.3f} ms; plain "
           f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by}; {evals} kernel "
           f"evaluations)")
     return {"acc": acc_k, "max_abs_err": max_err, "ms": ms, "event_ms": event_ms,
-            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "evaluations": evals, **out}
 
 
 def check_k2(args, statics, acc, reps: int = 5) -> dict:
@@ -431,6 +492,8 @@ def check_k2(args, statics, acc, reps: int = 5) -> dict:
 
 
 def reset_counts() -> None:
+    ingest_rays.launches = 0
+    k6.launches = 0
     ingest_beams.launches = 0
     ingest_downsample.launches = 0
     ingest_members.launches = 0
@@ -444,7 +507,9 @@ def reset_counts() -> None:
 
 
 def main_path(cfg, pcd_dir: str, scans) -> dict:
-    """run_static on 12 and 60 scans, then OnlineIntegrator on 12 scans."""
+    """The host-ingest path of a BGK or BGKL map: run_static on 12 and 60
+    scans, then OnlineIntegrator on 12 scans."""
+    cls = pipeline.MAP_CLASSES[cfg.method]
     out = {}
     for n_scans in (12, 60):
         ds = DatasetConfig(name="synth", dir=pcd_dir, prefix="synth",
@@ -452,10 +517,10 @@ def main_path(cfg, pcd_dir: str, scans) -> dict:
         reset_counts()
         res = pipeline.run_static(cfg, ds)
         k1, k2 = bgk_heavy.launches, bgk_light.launches
-        dispatches = -(-n_scans // BGKOctoMap.SCAN_BATCH)
+        dispatches = -(-n_scans // cls.SCAN_BATCH)
         ex = pipeline.export_leaves(res.map)
         n_occ, n_free = len(ex["occupied"]["x"]), len(ex["free"]["x"])
-        print(f"run_static {n_scans} scans: {res.scans_per_second:.2f} scans/s "
+        print(f"{cfg.method} run_static {n_scans} scans: {res.scans_per_second:.2f} scans/s "
               f"({res.total_seconds:.3f} s), {res.map.pool.n_blocks} blocks, "
               f"{n_occ} occupied / {n_free} free leaves; launches K1 {k1} "
               f"K2 {k2}")
@@ -469,7 +534,7 @@ def main_path(cfg, pcd_dir: str, scans) -> dict:
                                    "seconds": res.total_seconds,
                                    "launches": {"bgk_heavy": k1, "bgk_light": k2}}
 
-    m = BGKOctoMap(cfg)
+    m = cls(cfg)
     online = pipeline.OnlineIntegrator(m)
     lat = []
     reset_counts()
@@ -480,7 +545,7 @@ def main_path(cfg, pcd_dir: str, scans) -> dict:
         lat.append(time.perf_counter() - t0)
     k1, k2 = bgk_heavy.launches, bgk_light.launches
     med = float(np.median(lat)) * 1e3
-    print(f"OnlineIntegrator 12 scans: {online.n_integrated} integrated, median "
+    print(f"{cfg.method} OnlineIntegrator 12 scans: {online.n_integrated} integrated, median "
           f"latency {med:.2f} ms (min {min(lat) * 1e3:.2f}, max "
           f"{max(lat) * 1e3:.2f}); launches K1 {k1} K2 {k2}")
     require(online.n_integrated == 12 and k1 == k2 == online.n_integrated,
@@ -1153,6 +1218,7 @@ INGEST_WRAPPERS = {
     "ingest_beams": (ingest_beams, "beam_samples"),
     "ingest_downsample": (ingest_downsample, "centroids"),
     "ingest_members": (ingest_members, "memberships"),
+    "ingest_rays": (ingest_rays, "ray_pairs"),
     "bgk_aligned_heavy": (bgk_aligned_heavy, "bgk_aligned_heavy"),
 }
 #: f32 relative spacing: K7b's limit is one ulp of the plain centroid
@@ -1176,8 +1242,7 @@ def record_ingest(cfg, scans) -> dict:
 
         setattr(mod, name, rec)
     try:
-        cls = BGKOctoMap if cfg.method == "bgk" else GPOctoMap
-        m = cls(cfg, device="cuda")
+        m = pipeline.MAP_CLASSES[cfg.method](cfg, device="cuda")
         require(m._ingest_enabled(), "device ingest is off on a CUDA map")
         m.insert_pointclouds([c for c, _ in scans], [o for _, o in scans],
                              ds_resolution=cfg.resolution,
@@ -1298,12 +1363,15 @@ def check_k7(calls, what: str, reps: int = 5) -> dict:
     return out
 
 
-def check_k1p(calls, reps: int = 5) -> dict:
-    """K1′ against its plain version on one dispatch's recorded call:
-    |Δ| ≤ 1e-5 + 1e-5·|plain| (K1's limit); control: the plain version on
-    TF32-rounded coordinates must fail it."""
+def check_k1p(calls, reps: int = 5, gate: float | None = None) -> dict:
+    """K1′ against its plain version on one dispatch's recorded call (point
+    or segment entries): |Δ| ≤ 1e-5 + 1e-5·|plain| (K1's limit); control:
+    the plain version on TF32-rounded coordinates must fail it.  With
+    ``gate`` (BGKL), no k̄ may be decided apart at the gate."""
     (a, kw, acc), = calls["bgk_aligned_heavy"]
     ent_rel, labels, ustart, ucount, tb_u, ext = a
+    seg = ent_rel.shape[1] == 6
+    name = "K1' (segments)" if seg else "K1'"
     ref, plain_ms = _timed(lambda: bgk_aligned_heavy.bgk_aligned_heavy_plain(*a, **kw))
     ctl = bgk_aligned_heavy.bgk_aligned_heavy_plain(
         tf32_round(ent_rel), labels, ustart, ucount, tb_u, tf32_round(ext), **kw)
@@ -1315,24 +1383,67 @@ def check_k1p(calls, reps: int = 5) -> dict:
     Vall = ext.shape[0] // G
     u = tb_u.reshape(-1)
     evals = int(ucount[u[u < U]].sum()) * Vall
-    print(f"K1', {tuple(acc.shape)}: max |kernel - plain| = {err:.3e}, {bad} elements "
+    print(f"{name}, {tuple(acc.shape)}: max |kernel - plain| = {err:.3e}, {bad} elements "
           f"outside 1e-5 + 1e-5*|plain|; control, the plain version on TF32-rounded "
           f"coordinates: {bad_ctl} outside (max |Δ| {float(dc.max()):.3e})")
-    require(bool(torch.isfinite(acc).all()), "K1' gave non-finite values")
-    require(bad == 0, "K1' disagrees with its plain version")
-    require(bad_ctl > 0, "the K1' limit passes the TF32 control")
+    require(bool(torch.isfinite(acc).all()), f"{name} gave non-finite values")
+    require(bad == 0, f"{name} disagrees with its plain version")
+    require(bad_ctl > 0, f"the {name} limit passes the TF32 control")
+    gates = gate_apart(acc, ref, G, gate, name) if gate is not None else {}
     ms = launch_ms([lambda _: bgk_aligned_heavy.bgk_aligned_heavy(*a, **kw)], reps)
-    b_ms, b_by = bound(bgk_aligned_heavy.FLOP_PER_EVAL * evals, nbytes(*a, acc))
-    print(f"K1': {ms:.3f} ms device time (plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms by "
-          f"{b_by}; {evals} kernel evaluations)")
+    per_eval = bgk_heavy.FLOP_PER_EVAL_SEGMENT if seg else bgk_heavy.FLOP_PER_EVAL
+    b_ms, b_by = bound(per_eval * evals, nbytes(*a, acc))
+    print(f"{name}: {ms:.3f} ms device time (plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms "
+          f"by {b_by}; {evals} kernel evaluations)")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "evaluations": evals, "outside_control": bad_ctl}
+            "bound_by": b_by, "evaluations": evals, "outside_control": bad_ctl, **gates}
+
+
+def check_k7d(calls, reps: int = 5) -> dict:
+    """K7d against its plain version on one dispatch's recorded call: occ,
+    the ray segments, inr and the samples equal, the (ray, block key) pair
+    list identical (the main path's call, without samples, too).  Control:
+    the plain version on the samples in f64 must move at least one
+    membership, so the limit (equality) is not met by chance."""
+    (a, kw, main), = calls["ingest_rays"]
+    hits, hkey, origins, anchors = a
+    ks = ingest_rays.ray_pairs(*a, **kw, want_samples=True)
+    ref, plain_ms = _timed(lambda: ingest_rays.ray_pairs_plain(*a, **kw, want_samples=True))
+    names = ("occ", "seg", "inr", "pair_ray", "pair_key", "samples")
+    same = {n: bool(x.shape == y.shape and torch.equal(x, y)) for n, x, y in zip(names, ks, ref)}
+    same_main = all(torch.equal(x, y) for x, y in zip(main[:5], ref[:5]))
+    ctl = ingest_rays.ray_pairs_plain(hits.double(), hkey, origins.double(), anchors, **kw)
+    pairs = torch.cat([torch.stack([ref[3], ref[4]], 1), torch.stack([ctl[3], ctl[4]], 1)])
+    _, cnt = torch.unique(pairs, dim=0, return_counts=True)
+    n_ctl = int((cnt == 1).sum())
+    err = max(float((x - y).abs().max()) for x, y in ((ks[0], ref[0]), (ks[1], ref[1]),
+                                                       (ks[5], ref[5])))
+    R, S, P = hits.shape[0], kw["kf"] + 1, ingest_rays.row_width(kw["kf"])
+    n_pairs = ref[3].numel()
+    print(f"K7d: {R} rays x {S} samples (rows of {P} keys), {n_pairs} (ray, block) pairs "
+          f"({n_pairs / max(R, 1):.2f} a ray); equal to the plain version {same}, the main "
+          f"path's call {same_main}; control, the samples in f64: {n_ctl} pairs differ")
+    require(all(same.values()) and same_main, "K7d disagrees with its plain version")
+    require(n_ctl > 0, "the K7d limit passes the f64 control")
+    # K7d's wrapper waits for the list's size, so launch_ms times it without
+    # a spin: the window also holds the prefix sum between the two launches
+    ms = launch_ms([lambda _: ingest_rays.ray_pairs(*a, **kw)], reps)
+    L = int(np.log2(P))
+    # a sample's position and memberships ≈ 60 operations; the sort's
+    # compare-exchanges P/2 · L(L+1)/2, 3 operations each
+    ops = R * (60 * S + 3 * (P // 2) * L * (L + 1) // 2)
+    b_ms, b_by = bound(ops, nbytes(hits, hkey, origins, anchors) + R * (12 + 24 + 1)
+                       + 16 * n_pairs)
+    print(f"K7d: {ms:.4f} ms device time for its 2 launches and the prefix sum between "
+          f"them (plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by})")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "rays": R, "pairs": n_pairs, "control_pairs_differ": n_ctl}
 
 
 def ingest_counts() -> dict:
     return {"ingest_beams": ingest_beams.launches,
             "ingest_downsample": ingest_downsample.launches,
-            "ingest_members": ingest_members.launches,
+            "ingest_members": ingest_members.launches, "ingest_rays": ingest_rays.launches,
             "bgk_aligned_heavy": bgk_aligned_heavy.launches, "bgk_heavy": bgk_heavy.launches,
             "bgk_light": bgk_light.launches, "gp_heavy": gp_heavy.launches,
             "gp_light": gp_light.launches}
@@ -1344,8 +1455,7 @@ def host_syncs(cfg, scans) -> dict:
     count copy included), by the line that made them."""
     import warnings
 
-    cls = BGKOctoMap if cfg.method == "bgk" else GPOctoMap
-    m = cls(cfg, device="cuda")
+    m = pipeline.MAP_CLASSES[cfg.method](cfg, device="cuda")
     torch.cuda.synchronize()
     with warnings.catch_warnings(record=True) as seen:
         warnings.simplefilter("always")
@@ -1369,16 +1479,19 @@ def host_syncs(cfg, scans) -> dict:
 def main_path_ingest(cfg, pcd_dir: str, scans) -> dict:
     """run_static on 12 and 60 scans and OnlineIntegrator on 12 scans on the
     default path of a CUDA map, device ingest: per dispatch two K7a, two K7b,
-    one K7c launches, then K1′ once and K2 per scan (BGK) or K4 per size tier
-    and K5 per scan (GP); no chunk on the host path."""
-    gp = cfg.method == "gp"
-    cls = GPOctoMap if gp else BGKOctoMap
+    one K7c launches (BGKL: one K7a, one K7b, the two of K7d, one K7c), then
+    K1′ once and K2 per scan (BGK, BGKL) or K4 per size tier and K5 per scan
+    (GP); no chunk on the host path."""
+    gp, seg = cfg.method == "gp", cfg.method == "bgkl"
+    cls = pipeline.MAP_CLASSES[cfg.method]
     out = {}
 
     def expect(m, dispatches, n_scans, what):
         got = ingest_counts()
-        want = {"ingest_beams": 2 * dispatches, "ingest_downsample": 2 * dispatches,
-                "ingest_members": dispatches, "bgk_heavy": 0,
+        per = 1 if seg else 2
+        want = {"ingest_beams": per * dispatches, "ingest_downsample": per * dispatches,
+                "ingest_members": dispatches, "ingest_rays": 2 * dispatches if seg else 0,
+                "bgk_heavy": 0,
                 "bgk_aligned_heavy": 0 if gp else dispatches,
                 "bgk_light": 0 if gp else n_scans, "gp_light": n_scans if gp else 0,
                 "gp_heavy": m.stats["heavy_tiers"] if gp else 0}
@@ -1428,6 +1541,96 @@ def main_path_ingest(cfg, pcd_dir: str, scans) -> dict:
     out["online12"] = {"median_ms": med, "integrated": online.n_integrated,
                        "launches": got}
     return out
+
+
+# ------------------------------------------------------------- raycast phases
+
+#: rays of the raycast phase: one million over the BGK demo map (the load
+#: the JAX package sizes its device raycast for), 100,000 over the BGKL and
+#: BGKLV maps
+RAYS_MAIN, RAYS_OTHER = 1_000_000, 100_000
+
+
+def ray_set(scans, n: int, seed: int):
+    """``n`` rays from the scans' origins (an equal share each) in seeded
+    uniform directions (not normalised: raycast_device normalises)."""
+    rng = np.random.default_rng(seed)
+    origins = np.stack([o for _, o in scans]).astype(np.float32)
+    return origins[np.arange(n) % len(origins)], rng.normal(size=(n, 3))
+
+
+def check_k6(m, scans, n: int, what: str, host_subset: int, seed: int,
+             reps: int = 3) -> dict:
+    """Raycast over the map ``m`` through its entry points: the snapshot,
+    then ``raycast_device`` on ``n`` rays at MAX_RANGE (one K6 launch,
+    counted), each timed on the host clock to its synchronised end; then K6
+    against its plain version on the same call: hit and steps equal, dist
+    bit-equal (control: the plain version in f64 must differ on a ray); the
+    first ``host_subset`` rays on the CPU (the plain version, which the CPU
+    tests hold against the JAX package's DDA) bit-equal to the card's.  The
+    host stepper ``raycast`` (f64 steps) replays those rays and its agreement
+    is printed, not held to a limit: every DDA voxel centre lies on a face of
+    the blocks' voxel grid, so the voxel read there is decided by rounding,
+    and the f32 and the f64 steppers part on a share of the rays (the JAX
+    package's own DDA and host stepper too, tests/test_torch_raycast.py)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    snap = rc.raycast_snapshot(m)
+    torch.cuda.synchronize()
+    snap_ms = (time.perf_counter() - t0) * 1e3
+    o, d = ray_set(scans, n, seed)
+    reset_counts()
+    t0 = time.perf_counter()
+    res = rc.raycast_device(m, o, d, MAX_RANGE, snapshot=snap)
+    ray_ms = (time.perf_counter() - t0) * 1e3
+    launches = k6.launches
+    require(launches == 1, f"raycast_device launched K6 {launches} times, not once")
+    dn = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    args = (snap.state_tab, snap.tab_hi, snap.tab_lo, snap.tab_slot,
+            torch.as_tensor(o, device="cuda"), torch.as_tensor(dn, device="cuda"))
+    kw = dict(res=snap.res, bs=snap.bs, n=snap.n,
+              max_steps=int(np.ceil(MAX_RANGE / snap.res) * 3 + 8),
+              target=posterior.OCCUPIED, max_range=MAX_RANGE, max_probes=snap.max_probes)
+    hk, dk, sk = k6.raycast(*args, **kw)
+    (hp, dp, sp), plain_ms = _timed(lambda: k6.raycast_plain(*args, **kw))
+    hc, dc, sc = k6.raycast_plain(*args[:4], args[4].double(), args[5].double(), **kw)
+    same = (torch.equal(hk, hp), torch.equal(sk, sp), torch.equal(dk, dp))
+    same_main = (np.array_equal(res["hit"], hk.cpu().numpy())
+                 and np.array_equal(res["steps"], sk.cpu().numpy())
+                 and np.array_equal(res["distance"], dk.cpu().numpy()))
+    n_ctl = int(((hc != hp) | (sc != sp) | (dc.float() != dp)).sum())
+    nh = int(hk.sum())
+    err = float((dk[hk] - dp[hk]).abs().max()) if nh else 0.0
+    finite = bool(torch.isfinite(dk[hk]).all() and (dk[hk] <= MAX_RANGE).all())
+    steps_total, lookups = int(sk.sum()), int(sk.sum()) + nh
+    cpu = k6.raycast_plain(*(x.cpu() for x in args[:4]),
+                           *(x[:host_subset].cpu() for x in args[4:]), **kw)
+    same_cpu = all(torch.equal(x, y[:host_subset].cpu()) for x, y in zip(cpu, (hk, dk, sk)))
+    hs = rc.raycast(m, o[:host_subset], d[:host_subset], MAX_RANGE)
+    agree = float(np.mean((hs["hit"] == res["hit"][:host_subset])
+                          & (hs["steps"] == res["steps"][:host_subset])))
+    print(f"raycast, {what}: {m.pool.n_blocks} blocks, {n} rays, snapshot {snap_ms:.2f} ms "
+          f"(hash of {snap.tab_hi.numel()} entries, {snap.max_probes} probes), rays "
+          f"{ray_ms:.2f} ms ({n / ray_ms * 1e3:.4g} rays/s, copies included); {nh} hits, "
+          f"{steps_total} steps ({steps_total / n:.1f} a ray); K6 launches {launches}; "
+          f"hit, steps, dist equal to the plain version {same}, to raycast_device's "
+          f"{same_main}; control, the plain version in f64: {n_ctl} rays differ; the "
+          f"first {host_subset} rays equal on the CPU {same_cpu}; the host stepper agrees "
+          f"in hit and steps on {100 * agree:.2f}% of them")
+    require(all(same) and same_main, f"K6 disagrees with its plain version ({what})")
+    require(n_ctl > 0, f"the K6 limit passes the f64 control ({what})")
+    require(finite and 0 < nh < n, f"raycast ({what}): no hits, all hits or bad distances")
+    require(same_cpu, f"K6 on the card and its plain version on the CPU differ ({what})")
+    ms = launch_ms([lambda _: k6.raycast(*args, **kw)], reps)
+    # each lookup reads a state byte and one probe's hash entry (hi, lo,
+    # slot); each ray reads 24 bytes and writes 9; k6.OPS_PER_STEP a lookup
+    b_ms, b_by = bound(k6.OPS_PER_STEP * lookups, n * (24 + 9) + lookups * (1 + 12))
+    print(f"K6, {what}: {ms:.3f} ms device time (plain {plain_ms:.3f} ms, bound "
+          f"{b_ms:.4f} ms by {b_by}; {lookups} state lookups)")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "launches": launches, "rays": n, "snapshot_ms": snap_ms,
+            "rays_ms": ray_ms, "rays_per_s": n / ray_ms * 1e3, "hits": nh,
+            "steps": steps_total, "control_rays_differ": n_ctl, "host_agreement": agree}
 
 
 def main() -> int:
@@ -1506,6 +1709,48 @@ def main() -> int:
         dev_on = card_vs_cpu(load_method_config("bgk", max_range=MAX_RANGE,
                                                 device_ingest="on"), tmp, tol=(1e-5, 1e-5))
 
+        cfg_l = load_method_config("bgkl", max_range=MAX_RANGE, device_ingest="off")
+        cfg_l_on = load_method_config("bgkl", max_range=MAX_RANGE)
+        stamp("BGKL host ingest: K1 (segments)")
+        args, statics = capture_dispatch(cfg_l, scans[:16], "cuda")
+        k1s = check_k1(args, statics, gate=statics["gate"])
+        k1s.pop("acc")
+        del args
+        stamp("BGKL host ingest: main path, host syncs, profile, card vs CPU")
+        path_l = main_path(cfg_l, tmp, scans)
+        path_l["host_syncs_per_dispatch"] = host_syncs(cfg_l, scans[:16])
+        print(f"bgkl host ingest: host syncs in a 16-scan dispatch "
+              f"{path_l['host_syncs_per_dispatch']}")
+        path_l["profile60"] = profile_main_path(
+            cfg_l, tmp, {"bgk_heavy": "bgk_heavy_kernel", "bgk_light": "bgk_light_kernel"},
+            path_l["static60"]["launches"])
+        # one scan: the CPU's segment heavy pass takes about 6 s a scan
+        dev_l = card_vs_cpu(cfg_l, tmp, n_scans=1)
+
+        stamp("BGKL device ingest: K7d, K1' (segments)")
+        calls = record_ingest(cfg_l_on, scans[:16])
+        k7d = check_k7d(calls)
+        k1ps = check_k1p(calls, gate=statics["gate"])
+        del calls
+        stamp("BGKL device ingest: main path, host syncs, profile, card vs CPU")
+        path_l_on = main_path_ingest(cfg_l_on, tmp, scans)
+        path_l_on["host_syncs_per_dispatch"] = host_syncs(cfg_l_on, scans[:16])
+        print(f"bgkl device ingest: host syncs in a 16-scan dispatch "
+              f"{path_l_on['host_syncs_per_dispatch']}")
+        d60 = path_l_on["static60"]["launches"]["ingest_members"]
+        path_l_on["profile60"] = profile_main_path(
+            cfg_l_on, tmp, {"ingest_points": "ingest_points_kernel",
+                            "ingest_downsample": "ingest_downsample_kernel",
+                            "ingest_rays": "ingest_rays_kernel",
+                            "ingest_members": "ingest_members_kernel",
+                            "bgk_aligned_heavy": "bgk_aligned_heavy_kernel",
+                            "bgk_light": "bgk_light_kernel"},
+            {"ingest_points": d60, "ingest_downsample": d60, "ingest_rays": 2 * d60,
+             "ingest_members": d60, "bgk_aligned_heavy": d60, "bgk_light": 60})
+        dev_l_on = card_vs_cpu(load_method_config("bgkl", max_range=MAX_RANGE,
+                                                  device_ingest="on"), tmp, n_scans=2,
+                               tol=(1e-5, 1e-5))
+
         cfg_lv = load_method_config("bgklv", max_range=MAX_RANGE)
         cfg_large = load_method_config("bgklvoctomap_large_map", max_range=MAX_RANGE)
         stamp("BGKLV: K3, K8")
@@ -1570,6 +1815,17 @@ def main() -> int:
         dev_gp_on = card_vs_cpu_gp(load_method_config("gp", max_range=MAX_RANGE,
                                                       device_ingest="on"), tmp)
 
+        stamp("raycast: K6 over 1,000,000 rays on the BGK demo map, 100,000 on the BGKL "
+              "and BGKLV maps")
+        ds60 = DatasetConfig(name="synth", dir=tmp, prefix="synth", scan_num=60,
+                             max_range=MAX_RANGE)
+        rays = {"bgk": check_k6(pipeline.run_static(cfg_on, ds60).map, scans, RAYS_MAIN,
+                                "BGK demo map, 60 scans", host_subset=2000, seed=1),
+                "bgkl": check_k6(pipeline.run_static(cfg_l_on, ds60).map, scans, RAYS_OTHER,
+                                 "BGKL demo map, 60 scans", host_subset=500, seed=2),
+                "bgklv": check_k6(pipeline.run_static(cfg_lv, ds60).map, scans, RAYS_OTHER,
+                                  "BGKLV demo map, 60 scans", host_subset=500, seed=3)}
+
     launches = path["static60"]["launches"]
     launches_on = path_on["static60"]["launches"]
     kernels = [
@@ -1628,12 +1884,35 @@ def main() -> int:
          "replaces": "la3dm_tpu/models/bgk.py:204",
          "launches": launches_on["bgk_aligned_heavy"],
          "work": "one 16-scan BGK demo dispatch", **k1p, "library_ms": None},
+        {"name": "bgk_heavy_segment", "route": "cuda",
+         "source": "la3dm_tpu_torch/csrc/bgk_heavy.cu",
+         "replaces": "la3dm_tpu/models/bgk.py:121",
+         "launches": path_l["static60"]["launches"]["bgk_heavy"],
+         "work": "one 16-scan BGKL demo dispatch", **k1s, "library_ms": None},
+        {"name": "bgk_aligned_heavy_segment", "route": "cuda",
+         "source": "la3dm_tpu_torch/csrc/bgk_aligned_heavy.cu",
+         "replaces": "la3dm_tpu/models/bgk.py:229",
+         "launches": path_l_on["static60"]["launches"]["bgk_aligned_heavy"],
+         "work": "one 16-scan BGKL demo dispatch", **k1ps, "library_ms": None},
+        {"name": "ingest_rays", "route": "cuda",
+         "source": "la3dm_tpu_torch/csrc/ingest_rays.cu",
+         "replaces": "la3dm_tpu/geometry/device_ingest.py:497",
+         "launches": path_l_on["static60"]["launches"]["ingest_rays"],
+         "work": "the 2 launches (count, write) of one 16-scan BGKL demo dispatch",
+         **k7d, "library_ms": None},
+        {"name": "raycast", "route": "cuda", "source": "la3dm_tpu_torch/csrc/raycast.cu",
+         "replaces": "la3dm_tpu/models/raycast.py:145", **rays["bgk"],
+         "work": "1,000,000 rays over the 60-scan BGK demo map", "library_ms": None,
+         "bgkl": rays["bgkl"], "bgklv": rays["bgklv"]},
     ]
     summary = {"card": smi, "main_path": path, "card_vs_cpu_max_dev": dev,
                "main_path_ingest": path_on, "card_vs_cpu_max_dev_ingest": dev_on,
                "main_path_lv": path_lv, "card_vs_cpu_max_dev_lv": dev_lv,
                "main_path_gp": path_gp, "card_vs_cpu_gp": dev_gp,
-               "main_path_gp_ingest": path_gp_on, "card_vs_cpu_gp_ingest": dev_gp_on}
+               "main_path_gp_ingest": path_gp_on, "card_vs_cpu_gp_ingest": dev_gp_on,
+               "main_path_bgkl": path_l, "card_vs_cpu_max_dev_bgkl": dev_l,
+               "main_path_bgkl_ingest": path_l_on, "card_vs_cpu_max_dev_bgkl_ingest": dev_l_on,
+               "raycast": rays}
     print(f"main path on {smi}: BGK {path_on['static60']['scans_per_s']:.2f} scans/s "
           f"(60 scans, device ingest; host ingest {path['static60']['scans_per_s']:.2f}), "
           f"median online latency {path_on['online12']['median_ms']:.2f} ms (host ingest "
@@ -1645,7 +1924,13 @@ def main() -> int:
           f"host ingest {path_gp['static60']['scans_per_s']:.2f}), median online "
           f"latency {path_gp_on['online12']['median_ms']:.2f} ms (host ingest "
           f"{path_gp['online12']['median_ms']:.2f}), large map "
-          f"{path_gp['large12']['scans_per_s']:.2f} scans/s (12 scans)")
+          f"{path_gp['large12']['scans_per_s']:.2f} scans/s (12 scans); BGKL "
+          f"{path_l_on['static60']['scans_per_s']:.2f} scans/s (60 scans, device ingest; "
+          f"host ingest {path_l['static60']['scans_per_s']:.2f}), median online latency "
+          f"{path_l_on['online12']['median_ms']:.2f} ms (host ingest "
+          f"{path_l['online12']['median_ms']:.2f}); raycast "
+          f"{rays['bgk']['rays_per_s']:.4g} rays/s over 1,000,000 rays (snapshot "
+          f"{rays['bgk']['snapshot_ms']:.2f} ms)")
     stamp("done")
     print(json.dumps(summary))
     print(json.dumps({"kernels": kernels}))

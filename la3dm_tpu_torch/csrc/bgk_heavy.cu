@@ -1,8 +1,10 @@
-// K1 — the BGK heavy pass, hand-written for Hopper (sm_90a).
+// K1 — the BGK heavy pass, hand-written for Hopper (sm_90a), for point
+// entries (BGK) and segment entries (BGKL).
 //
 // Replaces the heavy half of la3dm_tpu/models/bgk.py::_bgk_seq_step
-// (lines 106-138: a chunked lax.scan of cov_sparse · _slot_rhs, scattered
-// into acc[Tp, Vall, 2G] at row_block).
+// (lines 106-138: a chunked lax.scan of cov_sparse, or of
+// cov_sparse_segment(lv=False) for segments (lines 121-122), times
+// _slot_rhs, scattered into acc[Tp, Vall, 2G] at row_block).
 //
 // For each test block t and each of its rows of <= 64 merged neighbour
 // entries, the sparse kernel k(node, entry) between the block's all-level
@@ -17,8 +19,11 @@
 //   deterministic.  The 2G sums live in registers (G is a template
 //   parameter) and are written once; each row is summed on its own and
 //   then added in, as the plain version adds its per-row products.
-// * Each row's entries (pre-divided by ell), labels and slot ids are
-//   staged in shared memory and read by every node thread.
+// * Each row's entries, labels and slot ids are staged in shared memory and
+//   read by every node thread: D = 3 (points) pre-divided by ell; D = 6
+//   (segments: start, end) with their terms u, u.u and |u|
+//   (segment_dist.cuh), computed once per entry.
+// * The entry width D is a template parameter, as is G.
 // * What bounds it: FP32 arithmetic on the CUDA cores — about 50 operations
 //   per kernel evaluation, sinf/cosf included.  Tensor cores are out: the
 //   distances feed a clamp whose sign is decided in the last ulp (the
@@ -29,19 +34,22 @@
 // Parity with la3dm_tpu/kernels/math.py: per-axis direct subtraction,
 // d2 = ((dx*dx) + dy*dy) + dz*dz, both operands divided by ell (no
 // reciprocal), node + centre added before the division, and
-// TWO_PI = float32(2 * 3.1415926) (sparse_kernel.cuh).
+// TWO_PI = float32(2 * 3.1415926) (sparse_kernel.cuh).  Segments: the
+// distance of segment_dist.cuh between the node (node + centre) and the
+// segment, then r = d / ell (a division) into the kernel clamped at 0.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "segment_dist.cuh"
 #include "sparse_kernel.cuh"
 
 namespace {
 
 constexpr int kW = 64;                      // entry-row width (_ROW_W)
 
-template <int G>
-__global__ void bgk_heavy_kernel(const float* __restrict__ entries,   // [N,3]
+template <int G, int D>
+__global__ void bgk_heavy_kernel(const float* __restrict__ entries,   // [N,D]
                                  const float* __restrict__ labels,    // [N]
                                  const int32_t* __restrict__ ids,     // [F]
                                  const int8_t* __restrict__ gslot,    // [F]
@@ -52,7 +60,8 @@ __global__ void bgk_heavy_kernel(const float* __restrict__ entries,   // [N,3]
                                  const float* __restrict__ all_nodes, // [Vall,3]
                                  int Vall, float sf2, float ell,
                                  float* __restrict__ acc) {           // [Tp,Vall,2G]
-  __shared__ float sx[kW], sy[kW], sz[kW], sl[kW];
+  // points: sa = entry / ell; segments: sa = start, sb = end, su = end - start
+  __shared__ float sa[3][kW], sb[3][kW], su[3][kW], sc2[kW], slen[kW], sl[kW];
   __shared__ int sg[kW];
 
   const int t = blockIdx.x;
@@ -67,9 +76,14 @@ __global__ void bgk_heavy_kernel(const float* __restrict__ entries,   // [N,3]
     const bool live = v < Vall;
     float xv = 0.f, yv = 0.f, zv = 0.f;
     if (live) {
-      xv = (all_nodes[3 * v + 0] + cx) / ell;
-      yv = (all_nodes[3 * v + 1] + cy) / ell;
-      zv = (all_nodes[3 * v + 2] + cz) / ell;
+      xv = all_nodes[3 * v + 0] + cx;
+      yv = all_nodes[3 * v + 1] + cy;
+      zv = all_nodes[3 * v + 2] + cz;
+      if (D == 3) {
+        xv = xv / ell;
+        yv = yv / ell;
+        zv = zv / ell;
+      }
     }
     float yb[G], kb[G];
 #pragma unroll
@@ -84,9 +98,23 @@ __global__ void bgk_heavy_kernel(const float* __restrict__ entries,   // [N,3]
       __syncthreads();  // the previous row's entries are consumed
       for (int w = threadIdx.x; w < cnt; w += blockDim.x) {
         const int id = ids[st + w];
-        sx[w] = entries[3 * (size_t)id + 0] / ell;
-        sy[w] = entries[3 * (size_t)id + 1] / ell;
-        sz[w] = entries[3 * (size_t)id + 2] / ell;
+        const float* e = entries + (size_t)D * id;
+        if (D == 3) {
+#pragma unroll
+          for (int ax = 0; ax < 3; ++ax) sa[ax][w] = e[ax] / ell;
+        } else {
+#pragma unroll
+          for (int ax = 0; ax < 3; ++ax) {
+            sa[ax][w] = e[ax];
+            sb[ax][w] = e[3 + ax];
+          }
+          const SegTerms tm = segment_terms(e[0], e[1], e[2], e[3], e[4], e[5]);
+          su[0][w] = tm.ux;
+          su[1][w] = tm.uy;
+          su[2][w] = tm.uz;
+          sc2[w] = tm.c2;
+          slen[w] = tm.len;
+        }
         sl[w] = labels[id];
         sg[w] = gslot[st + w];
       }
@@ -101,7 +129,15 @@ __global__ void bgk_heavy_kernel(const float* __restrict__ entries,   // [N,3]
         rk[g] = 0.f;
       }
       for (int w = 0; w < cnt; ++w) {
-        const float k = sparse_kernel_d2(dist2(xv - sx[w], yv - sy[w], zv - sz[w]), sf2);
+        float k;
+        if (D == 3) {
+          k = sparse_kernel_d2(dist2(xv - sa[0][w], yv - sa[1][w], zv - sa[2][w]), sf2);
+        } else {
+          const float d = segment_dist(xv, yv, zv, sa[0][w], sa[1][w], sa[2][w], sb[0][w],
+                                       sb[1][w], sb[2][w], su[0][w], su[1][w], su[2][w],
+                                       sc2[w], slen[w]);
+          k = sparse_kernel_r(d / ell, sf2);
+        }
         const float ky = k * sl[w];
         const int gw = sg[w];
 #pragma unroll
@@ -130,30 +166,46 @@ __global__ void bgk_heavy_kernel(const float* __restrict__ entries,   // [N,3]
   }
 }
 
+template <int G, int D>
+void launch(const float* entries, const float* labels, const int32_t* ids,
+            const int8_t* gslot, const int32_t* row_start, const int32_t* row_count,
+            const int64_t* block_rows, const float* centers, const float* all_nodes,
+            int Tp, int threads, int Vall, float sf2, float ell, float* acc,
+            cudaStream_t s) {
+  bgk_heavy_kernel<G, D><<<Tp, threads, 0, s>>>(entries, labels, ids, gslot, row_start,
+                                                row_count, block_rows, centers, all_nodes,
+                                                Vall, sf2, ell, acc);
+}
+
 }  // namespace
 
 // Launch K1 on ``stream``: Tp CTAs, one thread per node (at most 256, the
-// CTA loops over nodes beyond that).  Returns cudaGetLastError().
+// CTA loops over nodes beyond that); entries of width D (3: points, 6:
+// segments).  Returns cudaGetLastError().
 extern "C" int la3dm_bgk_heavy(const float* entries, const float* labels,
                                const int32_t* ids, const int8_t* gslot,
                                const int32_t* row_start, const int32_t* row_count,
                                const int64_t* block_rows, const float* centers,
-                               const float* all_nodes, int Tp, int Vall, int G,
+                               const float* all_nodes, int Tp, int Vall, int G, int D,
                                float sf2, float ell, float* acc, void* stream) {
   if (Tp <= 0 || Vall <= 0) return (int)cudaErrorInvalidValue;
   int threads = ((Vall + 31) / 32) * 32;
   if (threads > 256) threads = 256;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (G == 7) {
-    bgk_heavy_kernel<7><<<Tp, threads, 0, s>>>(entries, labels, ids, gslot,
-                                               row_start, row_count, block_rows,
-                                               centers, all_nodes, Vall, sf2, ell, acc);
-  } else if (G == 27) {
-    bgk_heavy_kernel<27><<<Tp, threads, 0, s>>>(entries, labels, ids, gslot,
-                                                row_start, row_count, block_rows,
-                                                centers, all_nodes, Vall, sf2, ell, acc);
+#define LA3DM_K1(GG, DD)                                                                  \
+  launch<GG, DD>(entries, labels, ids, gslot, row_start, row_count, block_rows, centers, \
+                 all_nodes, Tp, threads, Vall, sf2, ell, acc, s)
+  if (G == 7 && D == 3) {
+    LA3DM_K1(7, 3);
+  } else if (G == 27 && D == 3) {
+    LA3DM_K1(27, 3);
+  } else if (G == 7 && D == 6) {
+    LA3DM_K1(7, 6);
+  } else if (G == 27 && D == 6) {
+    LA3DM_K1(27, 6);
   } else {
     return (int)cudaErrorInvalidValue;
   }
+#undef LA3DM_K1
   return (int)cudaGetLastError();
 }

@@ -34,13 +34,16 @@
 //   the kbar > 0.001 gate sits on the kernel's support boundary).
 //
 // Parity with the JAX package: slab test, flat axis at |n| < 1e-12 with
-// +-inf sentinels, ceil/floor of (l - d)/fr with real divisions; sums of
-// squares in x, y, z order; c2 floored at 1e-30 for the projection; r = d/ell
-// (a division) clamped to <= 1; TWO_PI = float32(2 * 3.1415926).
+// +-inf sentinels, ceil/floor of (l - d)/fr with real divisions; the
+// point-to-segment distance of segment_dist.cuh (shared with K1 and K1' in
+// segment mode); r = d/ell (a division) clamped to <= 1;
+// TWO_PI = float32(2 * 3.1415926).
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+#include "segment_dist.cuh"
 
 namespace {
 
@@ -162,29 +165,10 @@ __global__ void lv_rows_kernel(const float* __restrict__ entries,    // [E,6]
         const bool in_beam = (k_min <= k_max) && (dhi >= dlo);
         if (!(in_a || in_beam)) continue;  // K = 0: adds nothing
 
-        // --- point-to-segment distance
-        const float ux = s_u[0][w], uy = s_u[1][w], uz = s_u[2][w];
-        const float d0x = px - s_a[0][w], d0y = py - s_a[1][w], d0z = pz - s_a[2][w];
-        const float d1x = px - s_b[0][w], d1y = py - s_b[1][w], d1z = pz - s_b[2][w];
-        float d0sq = d0x * d0x;
-        d0sq = d0sq + d0y * d0y;
-        d0sq = d0sq + d0z * d0z;
-        float d1sq = d1x * d1x;
-        d1sq = d1sq + d1y * d1y;
-        d1sq = d1sq + d1z * d1z;
-        float c1 = d0x * ux;
-        c1 = c1 + d0y * uy;
-        c1 = c1 + d0z * uz;
-        const float c2 = s_c2[w];
-        const float bb = c1 / fmaxf(c2, 1e-30f);
-        const float mx = px - (s_a[0][w] + ux * bb);
-        const float my = py - (s_a[1][w] + uy * bb);
-        const float mz = pz - (s_a[2][w] + uz * bb);
-        float dmsq = mx * mx;
-        dmsq = dmsq + my * my;
-        dmsq = dmsq + mz * mz;
-        float d = c1 <= 0.0f ? sqrtf(d0sq) : (c2 <= c1 ? sqrtf(d1sq) : sqrtf(dmsq));
-        if (l < 1e-4f) d = sqrtf(d0sq);
+        // --- point-to-segment distance (segment_dist.cuh)
+        const float d = segment_dist(px, py, pz, s_a[0][w], s_a[1][w], s_a[2][w], s_b[0][w],
+                                     s_b[1][w], s_b[2][w], s_u[0][w], s_u[1][w], s_u[2][w],
+                                     s_c2[w], s_l[w]);
 
         // --- LV sparse kernel: r clamped to <= 1, no output clamp
         const float rr = fminf(d / ell, 1.0f);

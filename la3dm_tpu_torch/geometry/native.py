@@ -4,8 +4,9 @@ Builds the repository's C++ source ``native/host_preprocess.cpp`` into the
 port's build directory (``la3dm_tpu_torch/build/``, git-ignored) at first
 use, and rebuilds it when the source is newer.  Bound: the BGK and GP
 host-ingest paths (:func:`bgk_training_data`, :func:`scan_bucket_tables`,
-:func:`row_tables`) and the BGKLV one (:func:`lv_training_data`,
-:func:`lv_tile_tables_ray`).  There is no numpy stand-in: if the library
+:func:`row_tables`), the BGKL one (:func:`bgkl_training_data`,
+:func:`bgkl_scan_tables`, then :func:`row_tables`) and the BGKLV one
+(:func:`lv_training_data`, :func:`lv_tile_tables_ray`).  There is no numpy stand-in: if the library
 cannot be built, the call raises.
 """
 
@@ -86,6 +87,22 @@ def _bind(lib):
         i64p, i32p, i32p, i32p, ip,
         i64p, i32p, i32p, ip,
         ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ]
+    lib.bgkl_training_data.restype = ctypes.c_int
+    lib.bgkl_training_data.argtypes = [
+        f32p, ctypes.c_int, f32p,
+        ctypes.c_float, ctypes.c_float, ctypes.c_float,
+        f32p, ip, f32p, ip, f32p, i32p, ip,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ]
+    lib.bgkl_scan_tables.restype = ctypes.c_int
+    lib.bgkl_scan_tables.argtypes = [
+        f32p, ctypes.c_int, f32p, ctypes.c_int,
+        f32p, i32p, ctypes.c_int,
+        ctypes.c_double, i64p, ctypes.c_int,
+        f32p, f32p, ip,
+        i64p, i32p, i32p, ip,
+        ctypes.c_int, ctypes.c_int,
     ]
     lib.lv_training_data.restype = ctypes.c_int
     lib.lv_training_data.argtypes = [
@@ -211,6 +228,82 @@ def row_tables(starts: np.ndarray, counts: np.ndarray, W: int):
         raise RuntimeError(f"row_tables failed (rc={rc})")
     return (ids[:nf.value], gslot[:nf.value], row_block[:nr.value],
             row_start[:nr.value], row_count[:nr.value], totals[:B])
+
+
+def bgkl_training_data(cloud: np.ndarray, origin: np.ndarray, ds: float, fr: float,
+                       max_range: float) -> SegmentTrainingData:
+    """Native BGKL training-data build (bgkloctomap.cpp:285-344), identical
+    to :func:`la3dm_tpu_torch.geometry.preprocess.bgkl_training_data`: the
+    in-range hits recomputed as origin + n·l, their free rays (origin,
+    origin + n·(l − fr)) and the rays' proxy samples (the origin, then the
+    backward beam samples)."""
+    lib = _load()
+    cloud = np.ascontiguousarray(cloud, np.float32)
+    origin = np.ascontiguousarray(np.asarray(origin, np.float32).reshape(3))
+    n = len(cloud)
+    max_h = n + 8
+    max_s = 64
+    while True:
+        max_s = max(max_s, int((max(max_range, 1.0) / max(fr, 1e-6) + 2) * max_h))
+        hits = np.empty((max_h, 3), np.float32)
+        rays = np.empty((max_h, 6), np.float32)
+        samples = np.empty((max_s, 3), np.float32)
+        sample_ray = np.empty(max_s, np.int32)
+        nh, nr, ns = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+        rc = lib.bgkl_training_data(
+            cloud.reshape(-1), n, origin, ds, fr, max_range,
+            hits.reshape(-1), ctypes.byref(nh), rays.reshape(-1), ctypes.byref(nr),
+            samples.reshape(-1), sample_ray, ctypes.byref(ns),
+            max_h, max_h, max_s)
+        if rc == 0:
+            break
+        max_h *= 2
+        max_s *= 2
+    return SegmentTrainingData(
+        hits=hits[:nh.value].copy(), rays=rays[:nr.value].copy(),
+        samples=samples[:ns.value].copy(),
+        sample_ray=sample_ray[:ns.value].astype(np.int64))
+
+
+def bgkl_scan_tables(hits: np.ndarray, rays: np.ndarray, samples: np.ndarray,
+                     sample_ray: np.ndarray, block_size: float,
+                     nb_offsets: np.ndarray) -> dict:
+    """Fused BGKL bucketing (host_preprocess.cpp): hits as degenerate
+    segments in their closed-box blocks, each ray once in every block that
+    holds one of its proxy samples; per block the hits first, then the rays
+    by id.  Returns the block-sorted ``entries`` [E,6] / ``labels`` and the
+    test side (``test_coords``, per-slot ``starts`` / ``counts``)."""
+    lib = _load()
+    hits = np.ascontiguousarray(hits, np.float32)
+    rays = np.ascontiguousarray(rays, np.float32)
+    samples = np.ascontiguousarray(samples, np.float32)
+    sample_ray = np.ascontiguousarray(sample_ray, np.int32)
+    off = np.ascontiguousarray(np.asarray(nb_offsets, np.int64))
+    H, R, S, G = len(hits), len(rays), len(samples), len(off)
+    max_ent = 2 * H + 24 * max(R, 1) + 64  # rays touch many blocks
+    max_test = 8 * (H + R) + 1024  # retry-doubled on overflow
+    while True:
+        ent = np.empty((max_ent, 6), np.float32)
+        lab = np.empty(max_ent, np.float32)
+        tc = np.empty((max_test, 3), np.int64)
+        ts = np.empty((max_test, G), np.int32)
+        tn = np.empty((max_test, G), np.int32)
+        ne, nt = ctypes.c_int(), ctypes.c_int()
+        rc = lib.bgkl_scan_tables(
+            hits.reshape(-1), H, rays.reshape(-1), R,
+            samples.reshape(-1), sample_ray, S,
+            float(block_size), off.reshape(-1), G,
+            ent.reshape(-1), lab, ctypes.byref(ne),
+            tc.reshape(-1), ts.reshape(-1), tn.reshape(-1), ctypes.byref(nt),
+            max_ent, max_test)
+        if rc == 0:
+            break
+        max_ent *= 2
+        max_test *= 2
+    E, B = ne.value, nt.value
+    return {"entries": ent[:E].copy(), "labels": lab[:E].copy(),
+            "test_coords": tc[:B].copy(), "starts": ts[:B].copy(),
+            "counts": tn[:B].copy()}
 
 
 def lv_training_data(cloud: np.ndarray, origin: np.ndarray, ds: float, fr: float,

@@ -90,7 +90,7 @@ def build() -> str:
 def _bind(lib):
     vp, ci, cf, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
     lib.la3dm_bgk_heavy.restype = ci
-    lib.la3dm_bgk_heavy.argtypes = [vp] * 9 + [ci, ci, ci, cf, cf, vp, vp]
+    lib.la3dm_bgk_heavy.argtypes = [vp] * 9 + [ci, ci, ci, ci, cf, cf, vp, vp]
     lib.la3dm_bgk_light.restype = ci
     lib.la3dm_bgk_light.argtypes = ([vp] * 7 + [ci] * 6 + [cf, ci, cf, cf, cf, vp])
     lib.la3dm_lv_rows.restype = ci
@@ -109,8 +109,12 @@ def _bind(lib):
     lib.la3dm_ingest_downsample.argtypes = [vp] * 6 + [cl, cf, vp, vp]
     lib.la3dm_ingest_members.restype = ci
     lib.la3dm_ingest_members.argtypes = [vp] * 4 + [cl, cf, cf, vp, vp]
+    lib.la3dm_ingest_rays.restype = ci
+    lib.la3dm_ingest_rays.argtypes = ([vp] * 4 + [cl, ci] + [cf] * 4 + [ci, ci] + [vp] * 9)
+    lib.la3dm_raycast.restype = ci
+    lib.la3dm_raycast.argtypes = [vp] * 6 + [cl] + [ci] * 6 + [cf] * 3 + [vp] * 4
     lib.la3dm_bgk_aligned_heavy.restype = ci
-    lib.la3dm_bgk_aligned_heavy.argtypes = [vp] * 6 + [cl, cl, ci, ci, cf, cf, vp, vp]
+    lib.la3dm_bgk_aligned_heavy.argtypes = [vp] * 6 + [cl, cl, ci, ci, ci, cf, cf, vp, vp]
     return lib
 
 

@@ -1,18 +1,20 @@
 """K1 — the BGK heavy pass: wrapper, plain version and launch counter.
 
 Replaces the heavy half of ``la3dm_tpu/models/bgk.py::_bgk_seq_step``
-(lines 106-138, with ``kernels/math.py::cov_sparse`` and
+(lines 106-138, with ``kernels/math.py::cov_sparse`` — or, for BGKL's
+segment entries, ``cov_sparse_segment(lv=False)``, lines 121-122 — and
 ``kernels/predict.py::_slot_rhs``).  For each row of ≤ W merged neighbour
 entries of one test block: the sparse kernel K[Vall, W] between the block's
-all-level node centres and the entries, masked by the row count, times the
-one-hot slot RHS [W, 2G], accumulated into acc[Tp, Vall, 2G] at
-``row_block``.
+all-level node centres and the entries (points [N,3], or segments [N,6]:
+start, end), masked by the row count, times the one-hot slot RHS [W, 2G],
+accumulated into acc[Tp, Vall, 2G] at ``row_block``.
 
 On a CUDA tensor :func:`bgk_heavy` launches the hand-written kernel
 (``csrc/bgk_heavy.cu``: one CTA per test block, one thread per node, no
 atomics); on a CPU tensor it runs :func:`bgk_heavy_plain`.  What bounds the
-kernel is FP32 arithmetic on the CUDA cores (≈ 50 operations per kernel
-evaluation); parity keeps it off the tensor cores (see the source note).
+kernel is FP32 arithmetic on the CUDA cores (:data:`FLOP_PER_EVAL` per
+kernel evaluation, :data:`FLOP_PER_EVAL_SEGMENT` with segments); parity
+keeps it off the tensor cores (see the source note).
 """
 
 from __future__ import annotations
@@ -25,6 +27,14 @@ from la3dm_tpu_torch.kernels import _build, math as km, predict as kp
 ROW_W = 64
 #: kernel launches since the counter was last reset (one per dispatch)
 launches = 0
+#: operations per point evaluation (distance, cos, sin, clamp, two
+#: accumulations), the count the JAX package's bench uses
+FLOP_PER_EVAL = 50
+#: per segment evaluation: the point distance's 9 replaced by the
+#: point-to-segment distance's 43 (two squared distances 16, c1 5, the
+#: projection 2, the midpoint and its square 14, three square roots and
+#: three comparisons 6) and the division by ℓ
+FLOP_PER_EVAL_SEGMENT = 85
 
 _INT_ARGS = ("ids", "row_start", "row_count", "row_block")
 
@@ -32,7 +42,8 @@ _INT_ARGS = ("ids", "row_start", "row_count", "row_block")
 def bgk_heavy(entries, labels, ids, gslot, row_block, row_start, row_count,
               centers, all_nodes, *, G: int, sf2: float, ell: float):
     """acc [Tp, Vall, 2G] f32: per (test block, node) the slot-grouped
-    (ȳ_g | k̄_g).  ``row_block`` must be non-decreasing (rows of a block are
+    (ȳ_g | k̄_g).  ``entries`` are points [N,3] or segments [N,6] (start,
+    end).  ``row_block`` must be non-decreasing (rows of a block are
     contiguous); a row with count 0 is padding."""
     if entries.device.type == "cpu":
         return bgk_heavy_plain(entries, labels, ids, gslot, row_block, row_start,
@@ -54,7 +65,8 @@ def bgk_heavy(entries, labels, ids, gslot, row_block, row_start, row_count,
     if G not in (7, 27):
         raise ValueError(f"bgk_heavy: G={G} (the kernel takes 7 or 27)")
     R = row_block.shape[0]
-    if (entries.shape[1:] != (3,) or centers.shape[1:] != (3,)
+    D = entries.shape[1] if entries.dim() == 2 else 0
+    if (D not in (3, 6) or centers.shape[1:] != (3,)
             or all_nodes.shape[1:] != (3,) or labels.shape[0] != entries.shape[0]
             or gslot.shape[0] != ids.shape[0]
             or row_start.shape[0] != R or row_count.shape[0] != R):
@@ -68,7 +80,7 @@ def bgk_heavy(entries, labels, ids, gslot, row_block, row_start, row_count,
     code = _build.lib().la3dm_bgk_heavy(
         entries.data_ptr(), labels.data_ptr(), ids.data_ptr(), gslot.data_ptr(),
         row_start.data_ptr(), row_count.data_ptr(), block_rows.data_ptr(),
-        centers.data_ptr(), all_nodes.data_ptr(), Tp, Vall, G,
+        centers.data_ptr(), all_nodes.data_ptr(), Tp, Vall, G, D,
         float(sf2), float(ell), acc.data_ptr(), stream)
     _build.check(code, "bgk_heavy")
     launches += 1
@@ -77,13 +89,16 @@ def bgk_heavy(entries, labels, ids, gslot, row_block, row_start, row_count,
 
 def bgk_heavy_plain(entries, labels, ids, gslot, row_block, row_start, row_count,
                     centers, all_nodes, *, G: int, sf2: float, ell: float,
-                    chunk: int = 2048):
-    """The plain PyTorch heavy pass: rows in chunks of ``chunk``; each row's
-    [Vall, W] × [W, 2G] product summed over the entries in order, as the
-    kernel sums them (a library matmul would pick its order by the thread
-    count), then index-added at ``row_block`` in row order."""
+                    chunk: int | None = None):
+    """The plain PyTorch heavy pass: rows in chunks of ``chunk`` (2048 for
+    points, 512 for segments, whose distance holds more temporaries); each
+    row's [Vall, W] × [W, 2G] product summed over the entries in order, as
+    the kernel sums them (a library matmul would pick its order by the
+    thread count), then index-added at ``row_block`` in row order."""
     Tp, Vall = centers.shape[0], all_nodes.shape[0]
     dev = entries.device
+    segments = entries.shape[1] == 6
+    chunk = chunk or (512 if segments else 2048)
     acc = torch.zeros((Tp, Vall, 2 * G), dtype=torch.float32, device=dev)
     F, R = ids.shape[0], row_block.shape[0]
     if F == 0 or R == 0:
@@ -94,9 +109,12 @@ def bgk_heavy_plain(entries, labels, ids, gslot, row_block, row_start, row_count
         fidx = torch.clamp_max(row_start[c0:c0 + chunk].long()[:, None] + wcol, F - 1)
         valid = wcol < row_count[c0:c0 + chunk].long()[:, None]       # [c,W]
         eid = ids[fidx].long()
-        ent = entries[eid]                                            # [c,W,3]
+        ent = entries[eid]                                            # [c,W,D]
         vox = all_nodes[None] + centers[blk][:, None, :]              # [c,Vall,3]
-        K = km.cov_sparse(vox, ent, sf2, ell)                         # [c,Vall,W]
+        if segments:
+            K = km.cov_sparse_segment(vox, ent, sf2, ell)             # [c,Vall,W]
+        else:
+            K = km.cov_sparse(vox, ent, sf2, ell)
         K = torch.where(valid[:, None, :], K, 0.0)
         rhs = kp._slot_rhs(labels[eid], gslot[fidx], valid, G)        # [c,W,2G]
         part = torch.zeros((len(blk), Vall, 2 * G), dtype=torch.float32, device=dev)

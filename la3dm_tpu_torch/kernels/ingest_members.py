@@ -19,7 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from la3dm_tpu_torch.kernels import _build, ingest_keys
+from la3dm_tpu_torch.kernels import _build, ingest_keys, math as km
 
 #: kernel launches since the counter was last reset (one per dispatch)
 launches = 0
@@ -68,7 +68,7 @@ def memberships(ent, scan, evalid, anchors, *, block_size: float):
 def closed_box_memberships(ent, evalid, block_size: float):
     """(mcoord [E,8,3] int32, mok [E,8] bool): the JAX function's outputs."""
     bs, half = _sizes(block_size)
-    base = torch.floor(ent / bs + 0.5).to(torch.int32)
+    base = torch.floor(km.div(ent, bs) + 0.5).to(torch.int32)
 
     def in_box(coord):
         ctr = coord.to(torch.float32) * bs

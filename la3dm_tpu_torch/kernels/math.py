@@ -10,7 +10,10 @@ decides:
 * distances by per-axis direct subtraction, summed x, y, z in that order
   (no Gram expansion, no matmul);
 * each operand divided by ℓ (no reciprocal multiply);
-* ``TWO_PI = float32(2·3.1415926)`` as the reference's 3.1415926f.
+* ``TWO_PI = float32(2·3.1415926)`` as the reference's 3.1415926f;
+* a division by a constant divides by a 0-dim tensor on the operand's
+  device (:func:`div`): PyTorch's CUDA division by a Python number
+  multiplies by its reciprocal, which the kernels do not.
 
 Reference formula (``bgkinference.h:113-126``):
 ``sf2·[(2+cos 2πr)(1−r)/3 + sin(2πr)/2π]`` with r = d/ℓ, negatives clamped
@@ -29,6 +32,12 @@ SQRT3 = float(np.float32(1.73205))           # reference uses 1.73205f
 SEG_EPSILON = float(np.float32(1e-4))
 
 
+def div(x: torch.Tensor, c: float) -> torch.Tensor:
+    """``x / c`` as an IEEE division in x's dtype on every device (a Python
+    divisor would become a reciprocal multiply on CUDA)."""
+    return x / torch.full((), c, dtype=x.dtype, device=x.device)
+
+
 def pairwise_dist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Euclidean distances [..., M, N] between a [..., M, 3] and b [..., N, 3]
     by direct per-axis subtraction (``bgkinference.h:88-93``)."""
@@ -41,8 +50,8 @@ def pairwise_dist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def sparse_kernel(r: torch.Tensor, sf2: float) -> torch.Tensor:
     """Sparse kernel on normalised distance r = d/ℓ, negatives clamped to 0."""
-    k = ((2.0 + torch.cos(TWO_PI * r)) * (1.0 - r) / 3.0
-         + torch.sin(TWO_PI * r) / TWO_PI) * float(np.float32(sf2))
+    k = (div((2.0 + torch.cos(TWO_PI * r)) * (1.0 - r), 3.0)
+         + div(torch.sin(TWO_PI * r), TWO_PI)) * float(np.float32(sf2))
     return torch.clamp_min(k, 0.0)
 
 
@@ -53,7 +62,7 @@ def cov_sparse(x: torch.Tensor, z: torch.Tensor, sf2: float, ell: float) -> torc
     to the last ulp at the kernel's support boundary.
     """
     e = float(np.float32(ell))
-    return sparse_kernel(pairwise_dist(x / e, z / e), sf2)
+    return sparse_kernel(pairwise_dist(div(x, e), div(z, e)), sf2)
 
 
 def matern32(d: torch.Tensor, sf2: float, ell: float) -> torch.Tensor:
@@ -78,8 +87,8 @@ def sparse_kernel_lv(r: torch.Tensor, sf2: float) -> torch.Tensor:
     """LV sparse kernel (bgklvinference.h:143-157): r clamped to ≤ 1 before
     the kernel, no output clamp."""
     r = torch.clamp_max(r, 1.0)
-    return ((2.0 + torch.cos(TWO_PI * r)) * (1.0 - r) / 3.0
-            + torch.sin(TWO_PI * r) / TWO_PI) * float(np.float32(sf2))
+    return (div((2.0 + torch.cos(TWO_PI * r)) * (1.0 - r), 3.0)
+            + div(torch.sin(TWO_PI * r), TWO_PI)) * float(np.float32(sf2))
 
 
 def _sq3(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
@@ -125,5 +134,5 @@ def cov_sparse_segment(p: torch.Tensor, seg: torch.Tensor, sf2: float, ell: floa
     bgklinference.h:183-197); ``lv=True``: LV semantics (r clamped ≤ 1
     first, bgklvinference.h:143-157).
     """
-    r = point_to_segment_dist(p, seg) / float(np.float32(ell))
+    r = div(point_to_segment_dist(p, seg), float(np.float32(ell)))
     return sparse_kernel_lv(r, sf2) if lv else sparse_kernel(r, sf2)

@@ -208,6 +208,11 @@ class OccupancyMapBase:
         """[N, V] raster-order columns → stored order (host numpy)."""
         return rows
 
+    def _stored_to_raster_dev(self, arr: torch.Tensor) -> torch.Tensor:
+        """[N, V] stored-order tensor → raster order, on its device (the
+        raycast snapshot reads the state in raster order)."""
+        return arr
+
     # -- queries ----------------------------------------------------------
 
     def _gather_rows(self, arr: torch.Tensor, slots: np.ndarray) -> np.ndarray:

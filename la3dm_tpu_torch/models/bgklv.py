@@ -75,6 +75,7 @@ class BGKLVOctoMap(base.OccupancyMapBase):
         self._tile_vox_map = geo.tile_vox_map(self.n)          # [tpb, Vt]
         self._vox_perm = self._tile_vox_map.reshape(-1)       # stored → raster
         self._vox_inv = np.argsort(self._vox_perm)            # raster → stored
+        self._vox_inv_dev = torch.as_tensor(self._vox_inv, device=self.device)
         self._vox_base_t = torch.as_tensor(self._vox_base[self._tile_vox_map],
                                            device=self.device)  # [tpb,Vt,3]
         self._last_free_res = float(cfg.free_resolution)
@@ -89,6 +90,9 @@ class BGKLVOctoMap(base.OccupancyMapBase):
 
     def _raster_to_stored(self, rows):
         return rows[:, self._vox_perm]
+
+    def _stored_to_raster_dev(self, arr):
+        return arr[:, self._vox_inv_dev]
 
     def _field_fills(self):
         return {"A": self.cfg.prior_A, "B": self.cfg.prior_B}

@@ -1,4 +1,4 @@
-"""Device-side scan ingest for the map families (BGK and GP).
+"""Device-side scan ingest for the map families (BGK, BGKL and GP).
 
 The port of ``la3dm_tpu/models/ingest.py``: :class:`DeviceIngestMixin`
 drives :mod:`la3dm_tpu_torch.geometry.device_ingest` over a scan sequence,
@@ -15,8 +15,9 @@ for a CPU map (the JAX rule, "on the accelerator", with the card as the
 accelerator).  Configs the bounds of ``device_ingest.beam_slots`` reject take
 the host path, counted in ``stats["ingest_host_chunks"]``.
 
-Host syncs per dispatch: the four of ``device_ingest.ingest_batch`` and one
-for the key and count copy (every host→device copy is pinned and does not
+Host syncs per dispatch: the four of ``device_ingest.ingest_batch`` (or of
+``ingest_batch_bgkl`` for a family with ``SEGMENTS``) and one for the key
+and count copy (every host→device copy is pinned and does not
 wait).  The next dispatch's host work (concatenation, pinned copies)
 overlaps the current dispatch's engine launches, which the host does not
 wait for.
@@ -40,6 +41,8 @@ class DeviceIngestMixin:
     SCAN_BATCH = 16
     #: label of free-space entries (0 for BGK, −1 for GP, gpoctomap.cpp:399)
     FREE_LABEL = 0.0
+    #: segment entries (BGKL): the ray pipeline ``ingest_batch_bgkl``
+    SEGMENTS = False
 
     def _ingest_enabled(self) -> bool:
         if getattr(self, "_capture_step_args", False):
@@ -80,9 +83,13 @@ class DeviceIngestMixin:
                 dev(banchor), dev(ingest_keys.pack_offsets(self._neighbor_offsets)))
         self.stats["host_s"] += time.perf_counter() - t0
 
-        tabs = device_ingest.ingest_batch(
-            *args, ds=ds, fr=fr, mr=mr, kf=kf, block_size=self.block_size,
-            free_label=self.FREE_LABEL)
+        if self.SEGMENTS:
+            tabs = device_ingest.ingest_batch_bgkl(*args, ds=ds, fr=fr, mr=mr, kf=kf,
+                                                   block_size=self.block_size)
+        else:
+            tabs = device_ingest.ingest_batch(
+                *args, ds=ds, fr=fr, mr=mr, kf=kf, block_size=self.block_size,
+                free_label=self.FREE_LABEL)
         self.stats["scans"] += n
         if tabs is None:
             return

@@ -24,12 +24,14 @@ from la3dm_tpu_torch.geometry.preprocess import voxel_downsample
 from la3dm_tpu_torch.io.pcd import load_pcd
 from la3dm_tpu_torch.models.base import OccupancyMapBase, State
 from la3dm_tpu_torch.models.bgk import BGKOctoMap
+from la3dm_tpu_torch.models.bgkl import BGKLOctoMap
 from la3dm_tpu_torch.models.bgklv import BGKLVOctoMap
 from la3dm_tpu_torch.models.gp import GPOctoMap
 from la3dm_tpu_torch.utils.config import DatasetConfig, MapConfig
 
 MAP_CLASSES = {
     "bgk": BGKOctoMap,
+    "bgkl": BGKLOctoMap,
     "bgklv": BGKLVOctoMap,
     "gp": GPOctoMap,
 }

@@ -16,13 +16,13 @@ import numpy as np
 from la3dm_tpu_torch.geometry import device_ingest
 from la3dm_tpu_torch.kernels import (bgk_aligned_heavy, bgk_heavy, bgk_light, gp_heavy,
                                      gp_light, ingest_beams, ingest_downsample,
-                                     ingest_members, lv_prune, lv_rows)
+                                     ingest_members, ingest_rays, lv_prune, lv_rows, raycast)
 from la3dm_tpu_torch.models import posterior as po
 
 from torch_cases import (GP_BCM, GP_STATE, GP_STATICS, INGEST,  # tests/ on sys.path
                          LV_ROWS_STATICS, LV_STATE, aligned_heavy_inputs, gp_heavy_inputs,
                          gp_light_inputs, heavy_inputs, ingest_scene, light_inputs,
-                         lv_prune_inputs, lv_rows_inputs)
+                         lv_prune_inputs, lv_rows_inputs, ray_inputs, raycast_inputs)
 
 
 @pytest.fixture
@@ -44,6 +44,21 @@ def test_bgk_heavy_kernel_matches_plain(cuda_dev, G):
     ref = bgk_heavy.bgk_heavy_plain(**a, G=G, sf2=1.0, ell=0.2)
     torch.cuda.synchronize()
     assert ((acc - ref).abs() <= 1e-5 + 1e-5 * ref.abs()).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [7, 27])
+def test_bgk_heavy_segment_kernel_matches_plain(cuda_dev, G):
+    """K1's segment branch (BGKL): degenerate, sub-threshold and axis-aligned
+    segments among the rays."""
+    a = heavy_inputs(19, G=G, n_blocks=40, dev=cuda_dev, segments=True)
+    before = bgk_heavy.launches
+    acc = bgk_heavy.bgk_heavy(**a, G=G, sf2=0.1, ell=0.2)
+    assert bgk_heavy.launches == before + 1
+    ref = bgk_heavy.bgk_heavy_plain(**a, G=G, sf2=0.1, ell=0.2)
+    torch.cuda.synchronize()
+    assert ((acc - ref).abs() <= 1e-5 + 1e-5 * ref.abs()).all()
+    assert (ref[..., G:] > 0).sum() > 1000
 
 
 @pytest.mark.cuda
@@ -231,7 +246,53 @@ def test_aligned_heavy_kernel_matches_plain(cuda_dev, G):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("method", ["bgk", "gp"])
+@pytest.mark.parametrize("G", [7, 27])
+def test_aligned_heavy_segment_kernel_matches_plain(cuda_dev, G):
+    """K1′'s segment branch (BGKL), on the same segment mix as K1's."""
+    a = aligned_heavy_inputs(47, G=G, dev=cuda_dev, segments=True)
+    before = bgk_aligned_heavy.launches
+    acc = bgk_aligned_heavy.bgk_aligned_heavy(**a, G=G, sf2=0.1, ell=0.2)
+    assert bgk_aligned_heavy.launches == before + 1
+    ref = bgk_aligned_heavy.bgk_aligned_heavy_plain(**a, G=G, sf2=0.1, ell=0.2)
+    torch.cuda.synchronize()
+    assert ((acc - ref).abs() <= 1e-5 + 1e-5 * ref.abs()).all()
+    assert (ref[..., G:] > 0).sum() > 1000
+
+
+@pytest.mark.cuda
+def test_ingest_rays_kernel_matches_plain(cuda_dev):
+    """K7d: occ, the segments, inr and the samples equal to the plain
+    version's (the same f32 operations, no FMA), and the (ray, key) pair
+    list identical (the plain version sorts each row with torch.sort)."""
+    args, kw = ray_inputs(45, dev=cuda_dev)
+    before = ingest_rays.launches
+    out = ingest_rays.ray_pairs(*args, **kw, want_samples=True)
+    assert ingest_rays.launches == before + 2
+    ref = ingest_rays.ray_pairs_plain(*args, **kw, want_samples=True)
+    torch.cuda.synchronize()
+    for x, y in zip(out, ref):
+        assert x.shape == y.shape and torch.equal(x, y)
+    assert out[3].numel() > 5 * args[0].shape[0]
+    main = ingest_rays.ray_pairs(*args, **kw)         # the main path's call
+    assert main[5] is None and torch.equal(main[4], ref[4])
+
+
+@pytest.mark.cuda
+def test_raycast_kernel_matches_plain(cuda_dev):
+    """K6: hit and steps equal, distances bit-equal, on rays that start in
+    absent blocks and rays along an axis."""
+    args, kw = raycast_inputs(46, dev=cuda_dev)
+    before = raycast.launches
+    hit, dist, steps = raycast.raycast(*args, **kw)
+    assert raycast.launches == before + 1
+    rh, rd, rs = raycast.raycast_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(hit, rh) and torch.equal(steps, rs) and torch.equal(dist, rd)
+    assert 0 < int(hit.sum()) < hit.numel()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["bgk", "bgkl", "gp"])
 def test_cuda_map_auto_takes_the_device_path(cuda_dev, method):
     from la3dm_tpu_torch import pipeline
     from la3dm_tpu_torch.utils.config import load_method_config
@@ -240,8 +301,9 @@ def test_cuda_map_auto_takes_the_device_path(cuda_dev, method):
     clouds = [pts[scan == s].numpy() for s in range(2)]
     m = pipeline.build_map(load_method_config(method, max_range=INGEST["mr"]))
     assert m.cfg.device_ingest == "auto" and m._ingest_enabled()
-    before = ingest_members.launches
+    before = ingest_members.launches, ingest_rays.launches
     m.insert_pointclouds(clouds, [o.numpy() for o in origins])
     m.synchronize()
-    assert ingest_members.launches == before + 1
+    assert ingest_members.launches == before[0] + 1
+    assert ingest_rays.launches == before[1] + (2 if method == "bgkl" else 0)
     assert m.stats["ingest_host_chunks"] == 0 and m.pool.n_blocks > 0

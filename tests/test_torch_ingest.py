@@ -28,19 +28,19 @@ import torch
 
 from la3dm_tpu import pipeline as jpipe
 from la3dm_tpu.geometry import device_ingest as jdi
-from la3dm_tpu.models import bgk as jbgk, bgklv as jbgklv, gp as jgp
+from la3dm_tpu.models import bgk as jbgk, bgkl as jbgkl, bgklv as jbgklv, gp as jgp
 from la3dm_tpu.utils.config import DatasetConfig as JDatasetConfig
 
 from la3dm_tpu_torch import pipeline
 from la3dm_tpu_torch.geometry import blocks as geo, device_ingest
 from la3dm_tpu_torch.io.pcd import save_pcd
 from la3dm_tpu_torch.kernels import (bgk_aligned_heavy, bgk_heavy, ingest_beams,
-                                     ingest_keys, ingest_members)
-from la3dm_tpu_torch.models import bgk, bgklv, gp
+                                     ingest_keys, ingest_members, ingest_rays)
+from la3dm_tpu_torch.models import bgk, bgkl, bgklv, gp
 from la3dm_tpu_torch.utils.config import DatasetConfig, MapConfig
 
 from tests.test_bgk_vs_oracle import CFG, synthetic_scan
-from tests.test_families_vs_oracle import GP_CFG, LV_CFG
+from tests.test_families_vs_oracle import BGKL_CFG, GP_CFG, LV_CFG
 from tests.test_torch_bgk import MASS_TOL, _pool
 from tests.test_torch_gp import assert_matches_jax
 from torch_cases import one_torch_thread  # noqa: F401  (autouse fixture)
@@ -48,6 +48,12 @@ from torch_cases import one_torch_thread  # noqa: F401  (autouse fixture)
 MAX_RANGE = 6.0
 #: entry coordinates, port against JAX: |Δ| ≤ CENTROID_TOL·(1 + |JAX|)
 CENTROID_TOL = 1e-6
+#: BGKL entries (occ = origin + ndir·l and the ray ends, from the
+#: centroids), port against JAX: |Δ| ≤ ENTRY_TOL·(1 + |JAX|): the centroids'
+#: largest deviation (1.24e-7) plus one f32 rounding (2^-23): XLA's CPU code
+#: fuses origin + ndir·l into one rounding (a multiply-add), the port rounds
+#: the product and the sum apart, as the parity rules ask; 1.58e-7 seen
+ENTRY_TOL = 1.24e-7 + 2.0 ** -23
 
 BGK_ON = dataclasses.replace(CFG, device_ingest="on")
 GP_ON = dataclasses.replace(GP_CFG, device_ingest="on")
@@ -85,8 +91,10 @@ def _port_tables(cfg, scans, ds, fr, mr, free_label):
 
 def _jax_tables(cfg, scans, ds, fr, mr):
     """JAX ``ingest_batch`` on the same clouds, at the spec and batch padding
-    its BGK map dispatches with (so the executable is shared)."""
-    jm = jbgk.BGKOctoMap(dataclasses.replace(cfg, device_ingest="on"))
+    its BGK (or BGKL) map dispatches with (so the executable is shared); no
+    table of the scene overflows its pad (BGKL: no ray is cut at Rmax)."""
+    cls = jbgkl.BGKLOctoMap if cfg.method == "bgkl" else jbgk.BGKOctoMap
+    jm = cls(dataclasses.replace(cfg, device_ingest="on"))
     spec = jm._ingest_spec(ds, fr, mr, max(len(c) for c, _ in scans))
     K = len(scans)
     K_pad = 1 if K == 1 else jm.SCAN_BATCH
@@ -100,7 +108,8 @@ def _jax_tables(cfg, scans, ds, fr, mr):
     out = jdi.ingest_batch(jnp.asarray(cp), jnp.asarray(npts), jnp.asarray(op),
                            jm._off_keys_dev, spec)
     out = {k: np.asarray(v)[:K] for k, v in out.items()}
-    assert (out["counts"][:, [0, 1, 3, 4]] <= [spec.Ph, spec.Pf, spec.Bu, spec.T]).all()
+    assert (out["counts"][:, [0, 1, 3, 4, 5]]
+            <= [spec.Ph, spec.Pf, spec.Bu, spec.T, spec.Rmax]).all()
     return out, spec
 
 
@@ -147,6 +156,75 @@ def test_k7_tables_match_jax(seed):
         np.testing.assert_array_equal(tb == U, jtb >= out["ukey"].shape[1])
         np.testing.assert_array_equal(tb[tb < U] - u0, jtb[jtb < out["ukey"].shape[1]])
     assert worst <= CENTROID_TOL
+
+
+@pytest.mark.parametrize("seed", [0, 5])
+def test_bgkl_k7_tables_match_jax(seed):
+    """BGKL (K7a, K7b, K7d, K7c): per scan the entry-block set, the per-block
+    entry counts and labels, the test blocks, and each ray's set of distinct
+    blocks (from the port's pair list and, on the JAX side, from its ray
+    entries) exactly equal; entries within ENTRY_TOL·(1 + |JAX|)."""
+    scans = _scans(seed)
+    cfg = BGKL_CFG
+    ds, fr = cfg.ds_resolution, cfg.free_resolution
+    origins = np.stack([o for _, o in scans]).astype(np.float32)
+    pts = np.concatenate([c for c, _ in scans]).astype(np.float32)
+    scan = np.repeat(np.arange(len(scans), dtype=np.int32), [len(c) for c, _ in scans])
+    banchor = device_ingest.anchors(origins, cfg.block_size)
+    kf = device_ingest.beam_slots(ds, fr, MAX_RANGE, cfg.block_size)
+    t = torch.from_numpy
+    tabs = device_ingest.ingest_batch_bgkl(
+        t(pts), t(scan), t(origins), t(device_ingest.anchors(origins, ds)), t(banchor),
+        t(ingest_keys.pack_offsets(geo.FACE_NEIGHBOR_OFFSETS)), ds=ds, fr=fr, mr=MAX_RANGE,
+        kf=kf, block_size=cfg.block_size)
+    out, _ = _jax_tables(cfg, scans, ds, fr, MAX_RANGE)
+    assert tabs["ent"].shape[1] == tabs["ent_rel"].shape[1] == 6
+    # the port's rays: its K7d call on the same hits (the pipeline's own)
+    inv = float(np.float32(1.0 / ds))
+    lim = float(np.float32((MAX_RANGE + np.sqrt(3.0) * ds) ** 2))
+    keys = ingest_beams.point_keys(t(pts), t(scan), t(origins),
+                                   t(device_ingest.anchors(origins, ds)), inv_leaf=inv, lim=lim)
+    hkey, hits = device_ingest._downsample(t(pts), keys, t(device_ingest.anchors(origins, ds)),
+                                           float(np.float32(ds)))
+    _, seg, inr, pray, pkey, _ = ingest_rays.ray_pairs(
+        hits, hkey, t(origins), t(banchor), kf=kf, mr=float(np.float32(MAX_RANGE)),
+        fr=float(np.float32(fr)), block_size=cfg.block_size)
+    rscan = (hkey >> 48).numpy()
+    _, pcoords = ingest_keys.unpack_np(pkey.numpy(), banchor)
+    ours_sets = {r: set() for r in range(len(hits))}
+    for r, c in zip(pray.numpy(), pcoords):
+        ours_sets[int(r)].add(tuple(c))
+    jax_sets = {r: set() for r in range(len(hits))}
+
+    pscan, pcoord = ingest_keys.unpack_np(tabs["ukey"].numpy(), banchor)
+    tscan, tcoord = ingest_keys.unpack_np(tabs["tkey"].numpy(), banchor)
+    ustart, ucount = tabs["ustart"].numpy(), tabs["ucount"].numpy()
+    worst = 0.0
+    seg_np = seg.numpy()
+    for s in range(len(scans)):
+        ok = out["ucount"][s] > 0
+        jcoord = jdi.unpack_local_keys(out["ukey"][s][ok], out["bias"][s])
+        mine = pscan == s
+        np.testing.assert_array_equal(pcoord[mine], jcoord)
+        np.testing.assert_array_equal(ucount[mine], out["ucount"][s][ok])
+        tok = out["tkey"][s] != jdi._SENT
+        np.testing.assert_array_equal(
+            tcoord[tscan == s], jdi.unpack_local_keys(out["tkey"][s][tok], out["bias"][s]))
+        rays_s = np.nonzero(rscan == s)[0]
+        for a, b, c, bc in zip(ustart[mine], out["ustart"][s][ok], ucount[mine], jcoord):
+            pe, je = tabs["ent"][a:a + c].numpy(), out["ent"][s][b:b + c]
+            pl = tabs["lab"][a:a + c].numpy()
+            np.testing.assert_array_equal(pl, out["lab"][s][b:b + c])
+            worst = max(worst, float((np.abs(pe - je) / (1 + np.abs(je))).max()))
+            # each JAX ray entry is the ray whose segment it matches
+            for e in je[pl == 0]:
+                dist = np.abs(seg_np[rays_s] - e).max(axis=1)
+                r = rays_s[int(np.argmin(dist))]
+                assert dist.min() <= 1e-5
+                jax_sets[int(r)].add(tuple(bc))
+    assert ours_sets == jax_sets
+    assert sum(len(v) for v in ours_sets.values()) > 5 * len(hits) and inr.all()
+    assert worst <= ENTRY_TOL, worst
 
 
 def test_downsample_keeps_an_origin_on_a_block_face_exact():
@@ -231,6 +309,44 @@ def test_aligned_heavy_plain_matches_jax(seed):
     ref = ref[tvalid]
     assert (ref[:, :, 1] > 0).sum() > 1000
     np.testing.assert_allclose(ours, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("seed", [0, 5])
+def test_aligned_heavy_segment_plain_matches_jax(seed):
+    """K1′'s segment branch (plain) on the JAX BGKL ingest tables of one scan
+    against JAX ``_aligned_heavy(segments=True)`` plus the ``u_targets``
+    gather: 1e-5 + 1e-5·|JAX|, and the 0.001 gate decided alike wherever k̄
+    is not within 1e-5 of it."""
+    out, spec = _jax_tables(BGKL_CFG, _scans(seed, k=1), BGKL_CFG.ds_resolution,
+                            BGKL_CFG.free_resolution, MAX_RANGE)
+    assert spec.segments and out["ent_rel"].shape[-1] == 6
+    m = bgkl.BGKLOctoMap(_t(dataclasses.replace(BGKL_CFG, device_ingest="on")), device="cpu")
+    ext = m._ext_nodes.numpy()
+    G, Bu = m.num_slots, spec.Bu
+    Vall = ext.shape[0] // G
+    u_tgt, tb_rows = jdi.u_targets(jnp.asarray(out["urank_rows"]), jnp.asarray(out["tb_u"]),
+                                   Bu, G)
+    chunk = next(c for c in (64, 32, 16, 8, 4, 2, 1) if spec.R2 % c == 0)
+    acc = _jax_aligned_heavy(jnp.zeros((Bu + 1, 2 * G * Vall), jnp.float32),
+                             jnp.asarray(ext), jnp.asarray(out["ent_rel"][0]),
+                             jnp.asarray(out["lab"][0]), jnp.asarray(out["vmask"][0]),
+                             u_tgt, Wa=spec.Wa, chunk=chunk, G=G, sf2=BGKL_CFG.sf2,
+                             ell=BGKL_CFG.ell, segments=True)
+    acc4 = np.asarray(acc).reshape(Bu + 1, 2, G, Vall)
+    rows = np.asarray(tb_rows)
+    ref = np.stack([acc4[rows, 0, np.arange(G)], acc4[rows, 1, np.arange(G)]], 2)
+    t = lambda x: torch.from_numpy(np.array(x))  # noqa: E731
+    ours = bgk_aligned_heavy.bgk_aligned_heavy(
+        t(out["ent_rel"][0]), t(out["lab"][0]), t(out["ustart"][0].astype(np.int64)),
+        t(out["ucount"][0].astype(np.int64)), t(out["tb_u"][0].astype(np.int64)),
+        m._ext_nodes, G=G, sf2=BGKL_CFG.sf2, ell=BGKL_CFG.ell).numpy()
+    tvalid = out["tkey"][0] != jdi._SENT
+    ours = ours[tvalid].reshape(-1, Vall, 2, G).transpose(0, 3, 2, 1)
+    ref = ref[tvalid]
+    assert (ref[:, :, 1] > 0).sum() > 1000
+    np.testing.assert_allclose(ours, ref, rtol=1e-5, atol=1e-5)
+    far = np.abs(ref[:, :, 1] - 0.001) > 1e-5
+    np.testing.assert_array_equal((ours[:, :, 1] > 0.001)[far], (ref[:, :, 1] > 0.001)[far])
 
 
 # ------------------------------------------------------------ BGK maps

@@ -19,15 +19,16 @@ from la3dm_tpu.models import (bgk as jbgk, bgklv as jlv, gp as jgp, posterior as
 from la3dm_tpu_torch.geometry import blocks as geo, device_ingest
 from la3dm_tpu_torch.kernels import (bgk_aligned_heavy, bgk_heavy, bgk_light, gp as kgp,
                                      gp_heavy, gp_light, ingest_beams, ingest_downsample,
-                                     ingest_keys, ingest_members, lv_prune, lv_rows,
-                                     math as km, predict as kp)
+                                     ingest_keys, ingest_members, ingest_rays, lv_prune,
+                                     lv_rows, math as km, predict as kp, raycast as k6)
 from la3dm_tpu_torch.models import posterior as po, pruning as pr
 
 from torch_cases import (GP_BCM, GP_STATE, GP_STATICS, INGEST, LV_ROWS_STATICS,  # noqa: F401
                          LV_STATE, aligned_heavy_inputs, gp_heavy_inputs, gp_light_inputs,
                          heavy_inputs as _heavy_inputs, ingest_scene,
                          light_inputs as _light_inputs, lv_prune_inputs, lv_rows_inputs,
-                         one_torch_thread)  # (one_torch_thread: autouse fixture)
+                         one_torch_thread, ray_inputs,  # (one_torch_thread: autouse fixture)
+                         raycast_inputs)
 
 
 def _t(x):
@@ -164,14 +165,18 @@ def test_all_level_nodes_copy_matches_jax():
 # ------------------------------------------------------- K1 / K2 plain paths
 
 def _heavy_reference(a, G, sf2, ell):
-    """The heavy pass through the JAX package's cov_sparse and _slot_rhs,
-    one row at a time."""
+    """The heavy pass through the JAX package's cov_sparse (or, for segment
+    entries, cov_sparse_segment(lv=False)) and _slot_rhs, one row at a
+    time."""
     x = {k: v.numpy() for k, v in a.items()}
     acc = np.zeros((len(x["centers"]), len(x["all_nodes"]), 2 * G), np.float32)
     for b, s, c in zip(x["row_block"], x["row_start"], x["row_count"]):
         ids = x["ids"][s:s + c]
-        K = jkm.cov_sparse(jnp.asarray(x["all_nodes"] + x["centers"][b]),
-                           jnp.asarray(x["entries"][ids]), sf2, ell)
+        vox, ent = jnp.asarray(x["all_nodes"] + x["centers"][b]), jnp.asarray(x["entries"][ids])
+        if ent.shape[1] == 6:
+            K = jkm.cov_sparse_segment(vox, ent, sf2, ell, lv=False)
+        else:
+            K = jkm.cov_sparse(vox, ent, sf2, ell)
         rhs = jkp._slot_rhs(jnp.asarray(x["labels"][ids]),
                             jnp.asarray(x["gslot"][s:s + c]),
                             jnp.ones(c, bool), G)
@@ -188,6 +193,24 @@ def test_bgk_heavy_plain_matches_jax(G):
     assert acc.shape == (5, 73, 2 * G)
     np.testing.assert_allclose(acc.numpy(), _heavy_reference(a, G, 1.0, 0.2),
                                atol=1e-5, rtol=1e-6)
+
+
+@pytest.mark.parametrize("G", [7, 27])
+def test_bgk_heavy_segment_plain_matches_jax(G):
+    """K1's segment branch (BGKL): rays, degenerate hits, segments shorter
+    than the 1e-4 threshold and axis-aligned ones."""
+    a = _heavy_inputs(15, G=G, segments=True)
+    assert a["entries"].shape[1] == 6
+    before = bgk_heavy.launches
+    acc = bgk_heavy.bgk_heavy(**a, G=G, sf2=0.1, ell=0.2)
+    assert bgk_heavy.launches == before
+    ref = _heavy_reference(a, G, 0.1, 0.2)
+    assert (ref[..., G:] > 0).sum() > 500
+    np.testing.assert_allclose(acc.numpy(), ref, atol=1e-5, rtol=1e-6)
+    # the 0.001 gate decided alike wherever k̄ is not within 1e-5 of it
+    kk, kr = acc.numpy()[..., G:], ref[..., G:]
+    far = np.abs(kr - 0.001) > 1e-5
+    np.testing.assert_array_equal((kk > 0.001)[far], (kr > 0.001)[far])
 
 
 def test_bgk_heavy_padding_rows_are_inert():
@@ -718,3 +741,63 @@ def test_ingest_wrappers_reject_devices_without_a_kernel():
     a = {k: v.to("meta") for k, v in aligned_heavy_inputs(36).items()}
     with pytest.raises(ValueError, match="device"):
         bgk_aligned_heavy.bgk_aligned_heavy(**a, G=7, sf2=1.0, ell=0.2)
+
+
+# ------------------------------------------------------- K7d, K6 plain paths
+
+def test_ray_pairs_plain_dedups_like_the_host_tables():
+    """K7d's plain version: each ray's distinct closed-box blocks of its
+    proxy samples (the origin and the backward samples), in ray order and
+    key order — the set the host path's ``segment_block_entries`` takes for
+    the same samples."""
+    from la3dm_tpu_torch.geometry import blocks as g
+
+    args, kw = ray_inputs(45)
+    hits, hkey, origins, ba = args
+    before = ingest_rays.launches
+    occ, seg, inr, pray, pkey, samples = ingest_rays.ray_pairs(*args, **kw, want_samples=True)
+    assert ingest_rays.launches == before                # CPU tensors: plain version
+    R, S = hits.shape[0], kw["kf"] + 1
+    assert samples.shape == (R, S, 3) and inr.sum() > 0.9 * R
+    assert (torch.diff(pray) >= 0).all()
+    same_ray = pray[1:] == pray[:-1]
+    assert (pkey[1:][same_ray] > pkey[:-1][same_ray]).all()          # distinct, ascending
+    scan, coords = ingest_keys.unpack_np(pkey.numpy(), ba.numpy())
+    smask = np.ones((R, S), bool)
+    d = (torch.sqrt(((hits - origins[hkey >> 48]) ** 2).sum(1))[:, None]
+         - torch.arange(1, S).float() * kw["fr"]).numpy()
+    smask[:, 1:] = d > 0
+    smask &= inr.numpy()[:, None]
+    ray_of = np.repeat(np.arange(R), S)[smask.reshape(-1)]
+    mc, mi = g.point_block_memberships(samples.reshape(-1, 3).numpy()[smask.reshape(-1)],
+                                       kw["block_size"])
+    want = {(int(r), tuple(c)) for r, c in zip(ray_of[mi], mc)}
+    got = {(int(r), tuple(c)) for r, c in zip(pray.numpy(), coords)}
+    assert got == want and len(got) > 5 * R
+
+
+def test_raycast_plain_steps_and_exits():
+    """K6's plain version on synthetic tables: a ray stops at its first
+    target voxel (dist = t there) or once past the range; steps never exceed
+    max_steps; a state table of UNKNOWN only gives no hits."""
+    args, kw = raycast_inputs(7, n_rays=300)
+    before = k6.launches
+    hit, dist, steps = k6.raycast(*args, **kw)
+    assert k6.launches == before                         # CPU tensors: plain version
+    assert hit.any() and (~hit).any() and int(steps.max()) <= kw["max_steps"]
+    assert torch.isinf(dist[~hit]).all() and (dist[hit] <= kw["max_range"]).all()
+    blank = (torch.full_like(args[0], po.UNKNOWN),) + args[1:]
+    h2, d2, s2 = k6.raycast(*blank, **kw)
+    assert not h2.any() and (s2 >= steps).all()
+    # the f64 control runs the same loop; it reads other voxels at ties
+    hc, dc, sc = k6.raycast_plain(*args[:4], args[4].double(), args[5].double(), **kw)
+    assert dc.dtype == torch.float64 and 0.8 < (hc == hit).float().mean() < 1.0
+
+
+def test_ray_and_raycast_wrappers_reject_devices_without_a_kernel():
+    args, kw = ray_inputs(45)
+    with pytest.raises(ValueError, match="device"):
+        ingest_rays.ray_pairs(*(x.to("meta") for x in args), **kw)
+    args, kw = raycast_inputs(8, n_rays=10)
+    with pytest.raises(ValueError, match="device"):
+        k6.raycast(*(x.to("meta") for x in args), **kw)

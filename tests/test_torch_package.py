@@ -11,7 +11,8 @@ import sys
 import pytest
 import torch
 
-from la3dm_tpu_torch import BGKLVOctoMap, BGKOctoMap, GPOctoMap, load_method_config
+from la3dm_tpu_torch import (BGKLOctoMap, BGKLVOctoMap, BGKOctoMap, GPOctoMap,
+                             load_method_config)
 from la3dm_tpu_torch.kernels import _build
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -41,7 +42,8 @@ def test_import_pulls_in_no_jax():
         "import la3dm_tpu_torch.kernels.lv_prune, la3dm_tpu_torch.models.gp\n"
         "import la3dm_tpu_torch.kernels.gp_heavy, la3dm_tpu_torch.kernels.gp_light\n"
         "import la3dm_tpu_torch.geometry.device_ingest, la3dm_tpu_torch.models.ingest\n"
-        "import la3dm_tpu_torch.kernels.bgk_aligned_heavy\n"
+        "import la3dm_tpu_torch.kernels.bgk_aligned_heavy, la3dm_tpu_torch.models.bgkl\n"
+        "import la3dm_tpu_torch.models.raycast, la3dm_tpu_torch.kernels.ingest_rays\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "assert not bad, bad\n"
@@ -97,11 +99,12 @@ def test_kernel_library_binds_every_entry_point():
             return fn
 
     lib = _build._bind(Lib())
-    n_args = {"la3dm_bgk_heavy": 16, "la3dm_bgk_light": 19, "la3dm_lv_rows": 25,
+    n_args = {"la3dm_bgk_heavy": 17, "la3dm_bgk_light": 19, "la3dm_lv_rows": 25,
               "la3dm_lv_prune": 18, "la3dm_gp_heavy": 23, "la3dm_gp_light": 23,
               "la3dm_ingest_points": 9, "la3dm_ingest_beams": 13,
               "la3dm_ingest_downsample": 10, "la3dm_ingest_members": 9,
-              "la3dm_bgk_aligned_heavy": 14}
+              "la3dm_bgk_aligned_heavy": 15, "la3dm_ingest_rays": 21,
+              "la3dm_raycast": 20}
     for name, n in n_args.items():
         fn = getattr(lib, name)
         assert fn.restype is ctypes.c_int and len(fn.argtypes) == n, name
@@ -110,6 +113,25 @@ def test_kernel_library_binds_every_entry_point():
     srcs = "".join(open(os.path.join(_build.CSRC_DIR, f)).read()
                    for f in sorted(os.listdir(_build.CSRC_DIR)) if f.endswith(".cu"))
     assert sorted(re.findall(r'extern "C" int (\w+)\(', srcs)) == sorted(n_args)
+
+
+def test_bgkl_map_without_device_does_not_fall_back_to_cpu(monkeypatch):
+    from la3dm_tpu_torch import pipeline
+    from la3dm_tpu_torch.models import raycast
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = load_method_config("bgkl", max_range=8.0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        BGKLOctoMap(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pipeline.build_map(cfg)
+    m = BGKLOctoMap(cfg, device="cpu")
+    assert m.device.type == "cpu" and not m._ingest_enabled()
+    assert BGKLOctoMap(load_method_config("bgkl", device_ingest="on"),
+                       device="cpu")._ingest_enabled()
+    # the raycast snapshot lives on the map's device
+    snap = raycast.raycast_snapshot(m)
+    assert snap.state_tab.device.type == snap.tab_hi.device.type == "cpu"
 
 
 def test_gp_map_without_device_does_not_fall_back_to_cpu(monkeypatch):
@@ -129,9 +151,10 @@ def test_device_ingest_on_is_not_ported():
     """Every family takes ``device_ingest: on`` (BGK and GP ingest on the
     map's device, BGKLV reads no flag), and ``auto`` leaves a CPU map on
     the host path."""
-    for method in ("bgk", "gp", "bgklv"):
+    for method in ("bgk", "bgkl", "gp", "bgklv"):
         for mode, on in (("on", True), ("auto", False), ("off", False)):
-            m = {"bgk": BGKOctoMap, "gp": GPOctoMap, "bgklv": BGKLVOctoMap}[method](
+            m = {"bgk": BGKOctoMap, "bgkl": BGKLOctoMap, "gp": GPOctoMap,
+                 "bgklv": BGKLVOctoMap}[method](
                 load_method_config(method, max_range=8.0, device_ingest=mode), device="cpu")
             assert getattr(m, "_ingest_enabled", lambda: False)() == (on and method != "bgklv")
 

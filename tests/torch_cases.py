@@ -20,9 +20,26 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
-def heavy_inputs(seed, G=7, n_blocks=5, ell=0.2, dev="cpu"):
-    """A small dispatch: entries round each test block, ragged rows of ≤ 64
-    merged entries per block, row_block non-decreasing."""
+def segments_near(rng, starts):
+    """Segments [N,6] from ``starts`` [N,3]: free rays of 0.05–0.8 m in
+    random directions, with every 7th degenerate (a hit, end = start), every
+    11th shorter than the 1e-4 threshold and every 13th along the z axis."""
+    N = len(starts)
+    d = rng.normal(size=(N, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    length = rng.uniform(0.05, 0.8, (N, 1))
+    i = np.arange(N)
+    length[i % 11 == 5] = 5e-5
+    d[i % 13 == 3] = [0.0, 0.0, 1.0]
+    ends = starts + d * length
+    ends[i % 7 == 0] = starts[i % 7 == 0]
+    return np.concatenate([starts, ends], axis=1).astype(np.float32)
+
+
+def heavy_inputs(seed, G=7, n_blocks=5, ell=0.2, dev="cpu", segments=False):
+    """A small dispatch: entries round each test block (points, or segments
+    [N,6] from :func:`segments_near`), ragged rows of ≤ 64 merged entries
+    per block, row_block non-decreasing."""
     rng = np.random.default_rng(seed)
     nodes, _ = geo.all_level_nodes(0.1, 3)
     centers = rng.uniform(-1, 1, (n_blocks, 3)).astype(np.float32)
@@ -30,7 +47,8 @@ def heavy_inputs(seed, G=7, n_blocks=5, ell=0.2, dev="cpu"):
     ent, lab, ids, gs, rb, rs, rn = [], [], [], [], [], [], []
     for b, cnt in enumerate(per_block):
         base = sum(len(e) for e in ent)
-        ent.append(centers[b] + rng.uniform(-0.4, 0.4, (cnt, 3)).astype(np.float32))
+        e = (centers[b] + rng.uniform(-0.4, 0.4, (cnt, 3))).astype(np.float32)
+        ent.append(segments_near(rng, e) if segments else e)
         lab.append((rng.uniform(size=cnt) > 0.5).astype(np.float32))
         start = len(ids)
         ids.extend(base + rng.permutation(cnt))
@@ -39,7 +57,7 @@ def heavy_inputs(seed, G=7, n_blocks=5, ell=0.2, dev="cpu"):
             rb.append(b)
             rs.append(start + r0)
             rn.append(min(64, cnt - r0))
-    out = dict(entries=np.concatenate(ent).astype(np.float32),
+    out = dict(entries=np.concatenate(ent).reshape(-1, 6 if segments else 3).astype(np.float32),
                labels=np.concatenate(lab).astype(np.float32),
                ids=np.array(ids, np.int32), gslot=np.array(gs, np.int8),
                row_block=np.array(rb, np.int32), row_start=np.array(rs, np.int32),
@@ -322,9 +340,10 @@ def ingest_scene(seed, n_scans=3, n=400, dev="cpu"):
     return tuple(torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in arrs)
 
 
-def aligned_heavy_inputs(seed, G=7, U=40, T=60, dev="cpu"):
+def aligned_heavy_inputs(seed, G=7, U=40, T=60, dev="cpu", segments=False):
     """K1′'s arguments on random tables: U entry blocks of 0..150 entries
-    (relative coordinates within ±0.3 m, labels 0/1) stored back to back,
+    (relative coordinates within ±0.3 m — points, or segments [M,6] from
+    :func:`segments_near` —, labels 0/1) stored back to back,
     T test blocks whose slots name an entry block or none (U), and the
     shifted node tables of the depth-3 demo (0.4 m blocks).  Returns a dict
     of the wrapper's arguments."""
@@ -336,9 +355,63 @@ def aligned_heavy_inputs(seed, G=7, U=40, T=60, dev="cpu"):
     ustart = np.concatenate([[0], np.cumsum(ucount)[:-1]])
     M = int(ucount.sum()) + 3
     ent_rel = rng.uniform(-0.3, 0.3, (M, 3)).astype(np.float32)
+    if segments:
+        ent_rel = segments_near(rng, ent_rel)
     labels = (rng.uniform(size=M) > 0.5).astype(np.float32)
     tb_u = rng.integers(0, U + 1, (T, G))
     out = dict(ent_rel=ent_rel, labels=labels, ustart=ustart.astype(np.int64),
                ucount=ucount.astype(np.int64), tb_u=tb_u.astype(np.int64),
                ext_nodes=ext.astype(np.float32))
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in out.items()}
+
+
+def ray_inputs(seed, dev="cpu"):
+    """K7d's arguments: the downsampled hits of :func:`ingest_scene` (3 scans,
+    the first origin on a block face) with their keys, the origins and the
+    block anchors, and the statics of :data:`INGEST` (Kf = 17)."""
+    from la3dm_tpu_torch.geometry import device_ingest
+    from la3dm_tpu_torch.kernels import ingest_beams
+
+    pts, scan, origins, ca, ba = ingest_scene(seed, dev=dev)
+    ds, fr, mr, bs = INGEST["ds"], INGEST["fr"], INGEST["mr"], INGEST["block_size"]
+    keys = ingest_beams.point_keys_plain(pts, scan, origins, ca,
+                                         inv_leaf=float(np.float32(1 / ds)),
+                                         lim=float(np.float32((mr + np.sqrt(3.0) * ds) ** 2)))
+    hkey, hits = device_ingest._downsample(pts, keys, ca, float(np.float32(ds)))
+    kw = dict(kf=device_ingest.beam_slots(ds, fr, mr, bs), mr=float(np.float32(mr)),
+              fr=float(np.float32(fr)), block_size=bs)
+    return (hits, hkey, origins, ba), kw
+
+
+def raycast_inputs(seed, n_rays=3000, depth=3, res=0.1, dev="cpu"):
+    """K6's arguments over a synthetic map: a 7 × 7 × 3 slab of blocks (a
+    tenth of them absent) round the origin, each voxel FREE, OCCUPIED (4 %)
+    or UNKNOWN (10 %), the pool slots shuffled, and its block hash; rays
+    from random origins inside the slab (some in absent blocks), every 10th
+    along an axis (|d| < 1e-12 on the others), 8 m range.  Returns
+    (args, kw) for ``kernels.raycast.raycast``."""
+    from la3dm_tpu_torch.models import raycast as rc
+
+    rng = np.random.default_rng(seed)
+    n = 2 ** (depth - 1)
+    bs, V = res * n, n ** 3
+    g = np.stack(np.meshgrid(np.arange(-3, 4), np.arange(-3, 4), np.arange(-1, 2),
+                             indexing="ij"), -1).reshape(-1, 3)
+    coords = g[rng.uniform(size=len(g)) > 0.1]
+    cap = len(coords) + 5
+    slots = rng.permutation(cap)[:len(coords)].astype(np.int32)
+    state = rng.choice([0, 1, 2], size=(cap, V), p=[0.86, 0.04, 0.10]).astype(np.int8)
+    state = np.concatenate([state, np.full((1, V), 2, np.int8)])
+    hi, lo, sl, H, maxp = rc._build_block_hash(coords, slots, cap)
+    origins = rng.uniform(-3 * bs, 3 * bs, (n_rays, 3)).astype(np.float32)
+    origins[:, 2] *= 0.3
+    d = rng.normal(size=(n_rays, 3))
+    axis = np.arange(n_rays) % 10 == 0
+    d[axis] = np.eye(3)[rng.integers(0, 3, int(axis.sum()))] * rng.choice([-1, 1], (int(
+        axis.sum()), 1))
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)  # noqa: E731
+    args = (t(state), t(hi), t(lo), t(sl), t(origins), t(d))
+    kw = dict(res=res, bs=bs, n=n, max_steps=int(np.ceil(8.0 / res) * 3 + 8), target=1,
+              max_range=8.0, max_probes=max(4, 1 << int(np.ceil(np.log2(maxp)))))
+    return args, kw
