@@ -117,7 +117,8 @@ samples a beam), first on the host-ingest path, after the BGK phases:
     none decided apart;
 22. runs the main path as in 5 (``BGKLOctoMap(cfg)``), counts the host
     syncs, profiles the 60-scan run and compares card and CPU on 1 scan as
-    in 7;
+    in 7, A/B within 1e-5 + 1e-5·|CPU| (the control, the card's map with K1
+    on TF32-rounded coordinates, must fail it);
 
 then on device ingest, its default on the card:
 
@@ -129,7 +130,8 @@ then on device ingest, its default on the card:
 24. runs the main path as in 9 (per dispatch one K7a, one K7b, the two
     launches of K7d, one K7c, one K1′; K2 per scan), counts the host syncs,
     profiles, and compares card and CPU (both on) on 2 scans within
-    1e-5 + 1e-5·|CPU|.
+    1e-5 + 1e-5·|CPU| (the control, with K1′ on TF32-rounded coordinates,
+    must fail it).
 
 Raycast, last:
 
@@ -140,7 +142,9 @@ Raycast, last:
     plain version on the same call (hit and steps equal, dist bit-equal;
     the control, the plain version in f64, must differ on a ray) and, on
     the first rays, against its plain version on the CPU (bit-equal); the
-    host stepper ``raycast``'s agreement on those rays is printed.
+    host stepper ``raycast`` replays those rays, and each ray where it
+    parts from K6 must show a tie (its first voxel, an axis choice, a voxel
+    read at a face, or the range limit, within f32 rounding).
 
 Last, a ``kernels`` JSON line and the device JSON line.  Every kernel time
 (``ms``) is the device time of the work named in its ``work`` key, by a pair
@@ -589,15 +593,28 @@ def profile_main_path(cfg, pcd_dir: str, kernels: dict, launches: dict) -> dict:
             "device_ms": dev}
 
 
-def card_vs_cpu(cfg, pcd_dir: str, n_scans: int = 3, tol=(5e-3, 0.0)) -> float:
+def card_vs_cpu(cfg, pcd_dir: str, n_scans: int = 3, tol=(5e-3, 0.0),
+                control=None) -> float:
     """The first ``n_scans`` scans on the card and on the CPU, voxel by voxel:
     A/B within tol[0] + tol[1]·|CPU|.  The voxels whose added mass is ≤ 1e-5
     sit on the update gate's boundary (k̄ > 0 for BGK: the clamp; k̄ > 0.001
-    for BGKLV), where the card's and the CPU's last ulp may decide apart;
-    eff and touched must agree elsewhere."""
+    for BGKL and BGKLV), where the card's and the CPU's last ulp may decide
+    apart; eff and touched must agree elsewhere.  ``control`` = (module,
+    wrapper name, stand-in): the card's map once more with the wrapper
+    replaced (the heavy pass on TF32-rounded coordinates), which must fail
+    the limit."""
     ds = DatasetConfig(name="synth", dir=pcd_dir, prefix="synth", scan_num=n_scans,
                        max_range=MAX_RANGE)
     gpu = pipeline.run_static(cfg, ds, device="cuda").map
+    ctl = None
+    if control is not None:
+        mod, name, stand_in = control
+        kernel = getattr(mod, name)
+        setattr(mod, name, stand_in)
+        try:
+            ctl = pipeline.run_static(cfg, ds, device="cuda").map
+        finally:
+            setattr(mod, name, kernel)
     # the CPU reference on one thread: its sums then do not depend on how
     # PyTorch splits the work
     threads = torch.get_num_threads()
@@ -613,8 +630,19 @@ def card_vs_cpu(cfg, pcd_dir: str, n_scans: int = 3, tol=(5e-3, 0.0)) -> float:
     g = {k: gpu._gather_rows(v, rows) for k, v in gpu.pool.fields.items()}
     c = {k: cpu._gather_rows(v, rows) for k, v in cpu.pool.fields.items()}
     dev = max(float(np.abs(g[k] - c[k]).max()) for k in g)
-    ratio = max(float((np.abs(g[k] - c[k]) / (tol[0] + tol[1] * np.abs(c[k]))).max())
-                for k in g)
+
+    def ratio_of(f):
+        return max(float((np.abs(f[k] - c[k]) / (tol[0] + tol[1] * np.abs(c[k]))).max())
+                   for k in c)
+
+    ratio = ratio_of(g)
+    msg = ""
+    if ctl is not None:
+        require(ctl.pool.n_blocks == nb and np.array_equal(ctl.pool.coords[:nb],
+                                                           cpu.pool.coords[:nb]),
+                "the control's block set differs")
+        ratio_ctl = ratio_of({k: ctl._gather_rows(v, rows) for k, v in ctl.pool.fields.items()})
+        msg = f" (control, the heavy pass on TF32-rounded coordinates: {ratio_ctl:.3f})"
     prior = np.array([cfg.prior_A, cfg.prior_B], np.float32)
     mass = np.maximum(
         np.maximum(np.abs(g["A"] - prior[0]), np.abs(g["B"] - prior[1])),
@@ -629,10 +657,12 @@ def card_vs_cpu(cfg, pcd_dir: str, n_scans: int = 3, tol=(5e-3, 0.0)) -> float:
     n_t_away = int(((t_g != t_c) & away).sum())
     print(f"card vs CPU, {cfg.method} {n_scans} scans (device ingest "
           f"{cfg.device_ingest}): {nb} blocks, max |A/B| deviation {dev:.3e}, "
-          f"largest deviation / ({tol[0]:g} + {tol[1]:g}*|CPU|) = {ratio:.3f}, "
+          f"largest deviation / ({tol[0]:g} + {tol[1]:g}*|CPU|) = {ratio:.3f}{msg}, "
           f"eff differs at {n_eff} voxels ({n_eff_away} with mass > 1e-5), "
           f"touched differs at {n_t_away} voxels with mass > 1e-5")
     require(ratio <= 1.0, f"card and CPU maps differ beyond {tol[0]:g} + {tol[1]:g}*|CPU|")
+    if ctl is not None:
+        require(ratio_ctl > 1.0, "the card-vs-CPU limit passes the TF32 control")
     require(n_eff_away == 0 and n_t_away == 0,
             "eff/touched differ off the gate boundary")
     return dev
@@ -1125,6 +1155,20 @@ def main_path_gp(cfg, cfg_large, pcd_dir: str, scans) -> dict:
 GP_CPU_TOL = (5e-2, 5e-3)
 
 
+def tf32_k1(entries, labels, ids, gslot, row_block, row_start, row_count, centers,
+            all_nodes, **kw):
+    """The control's K1: its plain version on TF32-rounded coordinates."""
+    return bgk_heavy.bgk_heavy_plain(tf32_round(entries), labels, ids, gslot, row_block,
+                                     row_start, row_count, tf32_round(centers),
+                                     tf32_round(all_nodes), **kw)
+
+
+def tf32_k1p(ent_rel, labels, ustart, ucount, tb_u, ext, **kw):
+    """The control's K1′: its plain version on TF32-rounded coordinates."""
+    return bgk_aligned_heavy.bgk_aligned_heavy_plain(tf32_round(ent_rel), labels, ustart,
+                                                     ucount, tb_u, tf32_round(ext), **kw)
+
+
 def tf32_heavy(pts, lab, st, ct, nb, centers, all_nodes, *rest, **kw) -> None:
     """The control's heavy pass: K4's plain version on TF32-rounded
     coordinates."""
@@ -1428,16 +1472,23 @@ def check_k7d(calls, reps: int = 5) -> dict:
     # K7d's wrapper waits for the list's size, so launch_ms times it without
     # a spin: the window also holds the prefix sum between the two launches
     ms = launch_ms([lambda _: ingest_rays.ray_pairs(*a, **kw)], reps)
-    L = int(np.log2(P))
-    # a sample's position and memberships ≈ 60 operations; the sort's
-    # compare-exchanges P/2 · L(L+1)/2, 3 operations each
-    ops = R * (60 * S + 3 * (P // 2) * L * (L + 1) // 2)
+    # what these rays need, not the padded sort K7d runs: each proxy sample
+    # in range ≈ 60 operations (its position, its memberships), and the
+    # dedup of a ray's m memberships a comparison sort's m·⌈log2 m⌉
+    # comparisons, 3 operations each
+    n_smp, n_mem = ingest_rays.ray_work(hits, hkey, origins, kf=kw["kf"], mr=kw["mr"],
+                                        fr=kw["fr"], block_size=kw["block_size"])
+    mem = n_mem.double()
+    ops = 60 * float(n_smp.sum()) + 3 * float((mem * torch.ceil(torch.log2(
+        torch.clamp_min(mem, 1)))).sum())
     b_ms, b_by = bound(ops, nbytes(hits, hkey, origins, anchors) + R * (12 + 24 + 1)
                        + 16 * n_pairs)
     print(f"K7d: {ms:.4f} ms device time for its 2 launches and the prefix sum between "
-          f"them (plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by})")
+          f"them (plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by}; "
+          f"{int(n_smp.sum())} samples in range, {int(n_mem.sum())} memberships)")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "rays": R, "pairs": n_pairs, "control_pairs_differ": n_ctl}
+            "bound_by": b_by, "rays": R, "pairs": n_pairs, "samples": int(n_smp.sum()),
+            "memberships": int(n_mem.sum()), "control_pairs_differ": n_ctl}
 
 
 def ingest_counts() -> dict:
@@ -1559,6 +1610,105 @@ def ray_set(scans, n: int, seed: int):
     return origins[np.arange(n) % len(origins)], rng.normal(size=(n, 3))
 
 
+def dda_path(o, d, res: float, n_steps: int, dt):
+    """The voxels [n_steps+1, 3], the t at each and the t_max before each
+    step [n_steps, 3] of one ray's DDA in the dtype ``dt``: K6's f32
+    expressions, or the host stepper's in f64."""
+    r, o, d = dt(res), o.astype(dt), d.astype(dt)
+    idx = np.floor(o / r + dt(0.5)).astype(np.int64)
+    step = np.where(d > 0, 1, -1)
+    tiny = np.abs(d) < dt(1e-12)
+    safe = np.where(tiny, dt(1e-12), d).astype(dt)
+    bnd = (idx + (step > 0)).astype(dt) * r - r / dt(2)
+    with np.errstate(divide="ignore"):
+        t_max = np.where(tiny, dt(np.inf), (bnd - o) / safe).astype(dt)
+    t_delta = np.abs(r / safe).astype(dt)
+    path, ts, tms = [idx.copy()], [dt(0)], []
+    for _ in range(n_steps):
+        tms.append(t_max.copy())
+        ax = int(np.argmin(t_max))
+        ts.append(t_max[ax])
+        idx[ax] += step[ax]
+        t_max[ax] = t_max[ax] + t_delta[ax]
+        path.append(idx.copy())
+    return np.stack(path), np.array(ts, np.float64), np.array(tms, np.float64).reshape(-1, 3)
+
+
+def host_stepper_ties(m, snap, o, d, k6_out, host, max_range: float) -> dict:
+    """Every ray on which the host stepper ``raycast`` (f64 steps, the map's
+    ``search`` on f32 voxel centres) and K6 (f32 steps, the snapshot) part in
+    hit or steps must show a tie, one of:
+
+    * ``start``: the first voxel differs, o/res + 1/2 within f32 rounding
+      of an integer;
+    * ``path``: the two steppers step along different axes first, where the
+      two axes' f64 t_max lie within the f32 error of the steps so far;
+    * ``voxel``: on the common path a voxel's state differs, and wherever
+      one does, ``search`` and K6 read different voxels (block or local
+      index): every DDA voxel centre lies on a face of the blocks' voxel
+      grid, where the last ulp picks the voxel;
+    * ``range``: the paths and states agree, and the last t lies within
+      f32 rounding of ``max_range``.
+
+    A ray that shows none fails the run: the two read the same voxel and
+    disagree, or part without a tie.  Returns the count of each kind."""
+    res, bs, n = snap.res, snap.bs, snap.n
+    eps = 2.0 ** -23
+    dn32 = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    dn64 = d / np.linalg.norm(d, axis=1, keepdims=True)
+    parted = np.nonzero((host["hit"] != k6_out["hit"]) | (host["steps"] != k6_out["steps"]))[0]
+    tabs = tuple(x.cpu() for x in (snap.state_tab, snap.tab_hi, snap.tab_lo, snap.tab_slot))
+    r32, b32 = np.float32(res), np.float32(bs)
+    kinds = {"start": 0, "path": 0, "voxel": 0, "range": 0}
+    for i in parted:
+        sk, sh = int(k6_out["steps"][i]), int(host["steps"][i])
+        L, m0 = max(sk, sh) + 1, min(sk, sh)
+        p32, t32, tm32 = dda_path(o[i], dn32[i], res, L, np.float32)
+        p64, t64, tm64 = dda_path(o[i].astype(np.float64), dn64[i], res, L, np.float64)
+        split = np.nonzero((p32 != p64).any(1))[0]
+        j = int(split[0]) if len(split) else L + 1
+        if j == 0:
+            x = o[i].astype(np.float64) / res + 0.5
+            ok = bool((np.abs(x - np.round(x)) <= 4 * eps * (np.abs(x) + 1)).any())
+            kind = "start"
+        elif j <= m0:
+            a, b = int(np.argmin(tm32[j - 1])), int(np.argmin(tm64[j - 1]))
+            ta, tb = tm64[j - 1, a], tm64[j - 1, b]
+            # f32 t_max: (bound - o) / d rounded, then j additions
+            lever = (np.abs(p64[j - 1, [a, b]]).max() * res + np.abs(o[i]).max()) / min(
+                abs(dn64[i, a]), abs(dn64[i, b]))
+            ok = a != b and abs(ta - tb) <= 4 * eps * (8 * lever + (j + 2) * max(ta, tb))
+            kind = "path"
+        else:
+            vox = p32[:m0 + 1]
+            st_k, _ = k6.state_plain(*tabs, torch.as_tensor(vox, dtype=torch.int32),
+                                     res=torch.tensor(r32), bs=torch.tensor(b32), n=n,
+                                     max_probes=snap.max_probes)
+            ctr_h = (vox * res).astype(np.float32)               # the host stepper's
+            st_h = m.search(ctr_h)["state"]
+            apart = np.nonzero((st_k.numpy() == posterior.OCCUPIED)
+                               != (st_h == posterior.OCCUPIED))[0]
+            if len(apart):
+                pk = vox[apart].astype(np.float32) * r32
+                blk_k = np.floor(pk / b32 + np.float32(0.5)).astype(np.int64)
+                v = np.clip(((pk - blk_k.astype(np.float32) * b32) / r32
+                             + np.float32(n) / np.float32(2)).astype(np.int32), 0, n - 1)
+                vi_k = v[:, 0] + v[:, 1] * n + v[:, 2] * n * n
+                c_h = ctr_h[apart]
+                blk_h = geo.point_to_block_coord(c_h, bs)
+                vi_h = geo.point_to_voxel_index(c_h, m.block_centers(blk_h), res, n)
+                ok = bool(((blk_k != blk_h).any(1) | (vi_k != vi_h)).all())
+                kind = "voxel"
+            else:
+                tl = t64[max(m0 - 1, 0):m0 + 2]
+                ok = bool((np.abs(tl - max_range) <= 4 * eps * (m0 + 8) * max_range).any())
+                kind = "range"
+        require(ok, f"ray {i}: the host stepper and K6 part without a tie ({kind}: "
+                    f"steps {sh} and {sk})")
+        kinds[kind] += 1
+    return kinds
+
+
 def check_k6(m, scans, n: int, what: str, host_subset: int, seed: int,
              reps: int = 3) -> dict:
     """Raycast over the map ``m`` through its entry points: the snapshot,
@@ -1568,11 +1718,8 @@ def check_k6(m, scans, n: int, what: str, host_subset: int, seed: int,
     bit-equal (control: the plain version in f64 must differ on a ray); the
     first ``host_subset`` rays on the CPU (the plain version, which the CPU
     tests hold against the JAX package's DDA) bit-equal to the card's.  The
-    host stepper ``raycast`` (f64 steps) replays those rays and its agreement
-    is printed, not held to a limit: every DDA voxel centre lies on a face of
-    the blocks' voxel grid, so the voxel read there is decided by rounding,
-    and the f32 and the f64 steppers part on a share of the rays (the JAX
-    package's own DDA and host stepper too, tests/test_torch_raycast.py)."""
+    host stepper ``raycast`` (f64 steps) replays those rays; every ray where
+    it parts from K6 must show a tie (:func:`host_stepper_ties`)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     snap = rc.raycast_snapshot(m)
@@ -1592,7 +1739,8 @@ def check_k6(m, scans, n: int, what: str, host_subset: int, seed: int,
               max_steps=int(np.ceil(MAX_RANGE / snap.res) * 3 + 8),
               target=posterior.OCCUPIED, max_range=MAX_RANGE, max_probes=snap.max_probes)
     hk, dk, sk = k6.raycast(*args, **kw)
-    (hp, dp, sp), plain_ms = _timed(lambda: k6.raycast_plain(*args, **kw))
+    (hp, dp, sp, probes), plain_ms = _timed(
+        lambda: k6.raycast_plain(*args, **kw, count_probes=True))
     hc, dc, sc = k6.raycast_plain(*args[:4], args[4].double(), args[5].double(), **kw)
     same = (torch.equal(hk, hp), torch.equal(sk, sp), torch.equal(dk, dp))
     same_main = (np.array_equal(res["hit"], hk.cpu().numpy())
@@ -1602,7 +1750,7 @@ def check_k6(m, scans, n: int, what: str, host_subset: int, seed: int,
     nh = int(hk.sum())
     err = float((dk[hk] - dp[hk]).abs().max()) if nh else 0.0
     finite = bool(torch.isfinite(dk[hk]).all() and (dk[hk] <= MAX_RANGE).all())
-    steps_total, lookups = int(sk.sum()), int(sk.sum()) + nh
+    steps_total, lookups, n_probes = int(sk.sum()), int(sk.sum()) + nh, int(probes.sum())
     cpu = k6.raycast_plain(*(x.cpu() for x in args[:4]),
                            *(x[:host_subset].cpu() for x in args[4:]), **kw)
     same_cpu = all(torch.equal(x, y[:host_subset].cpu()) for x, y in zip(cpu, (hk, dk, sk)))
@@ -1612,25 +1760,33 @@ def check_k6(m, scans, n: int, what: str, host_subset: int, seed: int,
     print(f"raycast, {what}: {m.pool.n_blocks} blocks, {n} rays, snapshot {snap_ms:.2f} ms "
           f"(hash of {snap.tab_hi.numel()} entries, {snap.max_probes} probes), rays "
           f"{ray_ms:.2f} ms ({n / ray_ms * 1e3:.4g} rays/s, copies included); {nh} hits, "
-          f"{steps_total} steps ({steps_total / n:.1f} a ray); K6 launches {launches}; "
-          f"hit, steps, dist equal to the plain version {same}, to raycast_device's "
-          f"{same_main}; control, the plain version in f64: {n_ctl} rays differ; the "
-          f"first {host_subset} rays equal on the CPU {same_cpu}; the host stepper agrees "
-          f"in hit and steps on {100 * agree:.2f}% of them")
+          f"{steps_total} steps ({steps_total / n:.1f} a ray), {lookups} lookups taking "
+          f"{n_probes} hash probes ({n_probes / max(lookups, 1):.2f} a lookup); K6 launches "
+          f"{launches}; hit, steps, dist equal to the plain version {same}, to "
+          f"raycast_device's {same_main}; control, the plain version in f64: {n_ctl} rays "
+          f"differ; the first {host_subset} rays equal on the CPU {same_cpu}; the host "
+          f"stepper agrees in hit and steps on {100 * agree:.2f}% of them")
     require(all(same) and same_main, f"K6 disagrees with its plain version ({what})")
     require(n_ctl > 0, f"the K6 limit passes the f64 control ({what})")
     require(finite and 0 < nh < n, f"raycast ({what}): no hits, all hits or bad distances")
     require(same_cpu, f"K6 on the card and its plain version on the CPU differ ({what})")
+    ties = host_stepper_ties(m, snap, o[:host_subset], d[:host_subset],
+                             {"hit": hk[:host_subset].cpu().numpy(),
+                              "steps": sk[:host_subset].cpu().numpy()}, hs, MAX_RANGE)
+    print(f"raycast, {what}: the host stepper parts from K6 on "
+          f"{sum(ties.values())} of {host_subset} rays, each at a tie: {ties}")
     ms = launch_ms([lambda _: k6.raycast(*args, **kw)], reps)
-    # each lookup reads a state byte and one probe's hash entry (hi, lo,
-    # slot); each ray reads 24 bytes and writes 9; k6.OPS_PER_STEP a lookup
-    b_ms, b_by = bound(k6.OPS_PER_STEP * lookups, n * (24 + 9) + lookups * (1 + 12))
+    # bytes: the tables (state, hash) once, each ray's 24 bytes in and 9 out;
+    # operations: those of the lookups, steps and hash probes the rays took
+    b_ms, b_by = bound(k6.OPS_PER_LOOKUP * lookups + k6.OPS_PER_PROBE * n_probes,
+                       nbytes(*args[:4]) + n * (24 + 9))
     print(f"K6, {what}: {ms:.3f} ms device time (plain {plain_ms:.3f} ms, bound "
-          f"{b_ms:.4f} ms by {b_by}; {lookups} state lookups)")
+          f"{b_ms:.4f} ms by {b_by}; {lookups} state lookups, {n_probes} probes)")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "launches": launches, "rays": n, "snapshot_ms": snap_ms,
             "rays_ms": ray_ms, "rays_per_s": n / ray_ms * 1e3, "hits": nh,
-            "steps": steps_total, "control_rays_differ": n_ctl, "host_agreement": agree}
+            "steps": steps_total, "lookups": lookups, "probes": n_probes,
+            "control_rays_differ": n_ctl, "host_agreement": agree, "host_ties": ties}
 
 
 def main() -> int:
@@ -1725,7 +1881,8 @@ def main() -> int:
             cfg_l, tmp, {"bgk_heavy": "bgk_heavy_kernel", "bgk_light": "bgk_light_kernel"},
             path_l["static60"]["launches"])
         # one scan: the CPU's segment heavy pass takes about 6 s a scan
-        dev_l = card_vs_cpu(cfg_l, tmp, n_scans=1)
+        dev_l = card_vs_cpu(cfg_l, tmp, n_scans=1, tol=(1e-5, 1e-5),
+                            control=(bgk_heavy, "bgk_heavy", tf32_k1))
 
         stamp("BGKL device ingest: K7d, K1' (segments)")
         calls = record_ingest(cfg_l_on, scans[:16])
@@ -1749,7 +1906,8 @@ def main() -> int:
              "ingest_members": d60, "bgk_aligned_heavy": d60, "bgk_light": 60})
         dev_l_on = card_vs_cpu(load_method_config("bgkl", max_range=MAX_RANGE,
                                                   device_ingest="on"), tmp, n_scans=2,
-                               tol=(1e-5, 1e-5))
+                               tol=(1e-5, 1e-5),
+                               control=(bgk_aligned_heavy, "bgk_aligned_heavy", tf32_k1p))
 
         cfg_lv = load_method_config("bgklv", max_range=MAX_RANGE)
         cfg_large = load_method_config("bgklvoctomap_large_map", max_range=MAX_RANGE)

@@ -24,11 +24,12 @@
 // * Parity: every operation is the JAX step's f32 operation in its order
 //   (divisions, not reciprocals; t_max += t_delta in f32; tiny = |d| <
 //   1e-12 gives t_max = inf).  Built with --fmad=false.
-// * What bounds it: the operations of the steps the rays take (about 60 a
-//   step with one probe) on the CUDA cores; the tables (a few MB) stay in
-//   L2, so the bytes that must move are the rays' 24 in and 9 out, and the
-//   state and hash entries a step reads.  Rays of one warp diverge in their
-//   step counts; the warp runs as long as its longest ray.
+// * What bounds it: the operations of the lookups, steps and hash probes
+//   the rays take (about 55 a lookup and step, 5 a probe) on the CUDA
+//   cores.  The bytes that must move are the tables once (a few MB, which
+//   stay in L2) and the rays' 24 in and 9 out.  Rays of one warp diverge in
+//   their step counts and probe chains; the warp runs as long as its
+//   longest ray.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>

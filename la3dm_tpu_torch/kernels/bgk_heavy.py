@@ -94,7 +94,10 @@ def bgk_heavy_plain(entries, labels, ids, gslot, row_block, row_start, row_count
     points, 512 for segments, whose distance holds more temporaries); each
     row's [Vall, W] × [W, 2G] product summed over the entries in order, as
     the kernel sums them (a library matmul would pick its order by the
-    thread count), then index-added at ``row_block`` in row order."""
+    thread count), then added at ``row_block`` in row order: the k-th rows
+    of the chunk's blocks in one ``index_add_`` for each k, whose targets are
+    distinct (one ``index_add_`` of a block's several rows adds them in no
+    fixed order on the card)."""
     Tp, Vall = centers.shape[0], all_nodes.shape[0]
     dev = entries.device
     segments = entries.shape[1] == 6
@@ -120,5 +123,8 @@ def bgk_heavy_plain(entries, labels, ids, gslot, row_block, row_start, row_count
         part = torch.zeros((len(blk), Vall, 2 * G), dtype=torch.float32, device=dev)
         for w in range(ROW_W):
             part += K[:, :, w, None] * rhs[:, None, w, :]
-        acc.index_add_(0, blk, part)
+        rank = torch.arange(len(blk), device=dev) - torch.searchsorted(blk, blk)
+        for k in range(int(rank.max()) + 1):
+            sel = rank == k
+            acc.index_add_(0, blk[sel], part[sel])
     return acc

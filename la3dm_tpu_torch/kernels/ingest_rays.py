@@ -100,12 +100,12 @@ def ray_pairs(hits, hit_keys, origins, anchors, *, kf: int, mr: float, fr: float
     return occ, seg, inr, pair_ray, pair_key, samples
 
 
-def ray_pairs_plain(hits, hit_keys, origins, anchors, *, kf: int, mr: float, fr: float,
-                    block_size: float, want_samples: bool = False):
-    """The plain PyTorch :func:`ray_pairs`: the JAX step's expressions, the
-    memberships of :func:`ingest_members.closed_box_memberships`, and a
-    ``torch.sort`` of each ray's row with first-in-run flags."""
-    R, S, dev = hits.shape[0], kf + 1, hits.device
+def _rays_plain(hits, hit_keys, origins, *, kf: int, mr: float, fr: float,
+                block_size: float):
+    """The plain ray pass up to the memberships: (scan, occ, seg, inr,
+    samples [R,S,3], their mask [R,S] (in range, d > 0), their block
+    coordinates [R·S,8,3] and membership flags [R·S,8])."""
+    dev = hits.device
     scan = hit_keys >> 48
     o = origins[scan]
     diff = hits - o
@@ -121,6 +121,17 @@ def ray_pairs_plain(hits, hit_keys, origins, anchors, *, kf: int, mr: float, fr:
     smask = torch.cat([inr[:, None], (d > 0.0) & inr[:, None]], dim=1)   # [R,S]
     mcoord, mok = ingest_members.closed_box_memberships(samples.reshape(-1, 3),
                                                         smask.reshape(-1), block_size)
+    return scan, occ, seg, inr, samples, smask, mcoord, mok
+
+
+def ray_pairs_plain(hits, hit_keys, origins, anchors, *, kf: int, mr: float, fr: float,
+                    block_size: float, want_samples: bool = False):
+    """The plain PyTorch :func:`ray_pairs`: the JAX step's expressions, the
+    memberships of :func:`ingest_members.closed_box_memberships`, and a
+    ``torch.sort`` of each ray's row with first-in-run flags."""
+    R, S = hits.shape[0], kf + 1
+    scan, occ, seg, inr, samples, _, mcoord, mok = _rays_plain(
+        hits, hit_keys, origins, kf=kf, mr=mr, fr=fr, block_size=block_size)
     keys = ingest_keys.pack(scan.repeat_interleave(S * 8), mcoord.reshape(-1, 3), anchors)
     keys = torch.where(mok.reshape(-1), keys, ingest_keys.SENT).reshape(R, S * 8)
     skey = torch.sort(keys, dim=1).values
@@ -129,3 +140,13 @@ def ray_pairs_plain(hits, hit_keys, origins, anchors, *, kf: int, mr: float, fr:
                       dim=1)
     ray, col = torch.nonzero(first, as_tuple=True)                       # row-major
     return occ, seg, inr, ray, skey[ray, col], samples if want_samples else None
+
+
+def ray_work(hits, hit_keys, origins, *, kf: int, mr: float, fr: float,
+             block_size: float):
+    """(samples [R], memberships [R]) int64: each ray's proxy samples (in
+    range, d > 0) and their closed-box block memberships, the work the
+    ray pass needs for these hits (the count of K7d's bound)."""
+    *_, smask, _, mok = _rays_plain(hits, hit_keys, origins, kf=kf, mr=mr, fr=fr,
+                                    block_size=block_size)
+    return smask.sum(1), mok.reshape(hits.shape[0], -1).sum(1)

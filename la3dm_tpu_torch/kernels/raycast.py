@@ -16,7 +16,8 @@ ray steps (so the voxel reached by the last step is never checked).
 On CUDA tensors :func:`raycast` launches ``csrc/raycast.cu`` (one thread per
 ray); on CPU tensors it runs :func:`raycast_plain`, a ``max_steps`` loop of
 vector operations as the JAX step is.  What bounds the kernel is the
-operations of the steps the rays take (see the source note).
+operations of the lookups, steps and probes the rays take (see the source
+note; :func:`raycast_plain` counts the probes).
 """
 
 from __future__ import annotations
@@ -31,10 +32,11 @@ launches = 0
 #: the block hash's multiplicative constants (int32) and key-field bias,
 #: the JAX package's (``la3dm_tpu/models/raycast.py:92-97``)
 HC1, HC2, KB = -1640531527, -862048943, 524288
-#: operations per DDA step (the state lookup with one probe: voxel centre,
-#: block coordinate, key split, hash, the probe's compares, local index; the
-#: step: argmin, t, index, t_max), the count the bound uses
-OPS_PER_STEP = 60
+#: operations per state lookup and step, probes apart (voxel centre, block
+#: coordinate, key split, hash, local index, the state's compare; the step:
+#: argmin, t, index, t_max, the range test), and per probe (its position,
+#: the hi, lo and empty compares): the counts the bound uses
+OPS_PER_LOOKUP, OPS_PER_PROBE = 55, 5
 
 
 def _check(want: dict) -> torch.device:
@@ -87,23 +89,58 @@ def _f32(x: float) -> float:
     return float(np.float32(x))
 
 
+def state_plain(state_tab, tab_hi, tab_lo, tab_slot, idx, *, res, bs, n: int,
+                max_probes: int):
+    """(state [M] int8, probes [M] int64) of the voxels ``idx`` [M,3] int32
+    (global base-resolution indices) as K6 reads them: the state, and the
+    hash probes the lookup takes (to a match or an empty entry, at most
+    ``max_probes``).  ``res`` and ``bs`` are 0-d tensors of the computing
+    dtype (f32, or f64 for a control)."""
+    M, dev, ft = idx.shape[0], idx.device, res.dtype
+    cap, H = state_tab.shape[0] - 1, tab_hi.shape[0]
+    p = idx.to(ft) * res                                            # voxel centre
+    blk = torch.floor(p / bs + 0.5).to(torch.int32)
+    c32 = blk + KB
+    hi = (c32[:, 0] << 10) | (c32[:, 1] >> 10)
+    lo = ((c32[:, 1] & 1023) << 20) | c32[:, 2]
+    # the hash wraps in 32 bits: products in int64, cut to 32 bits
+    h = ((hi.long() * HC1) ^ (lo.long() * HC2)) & (H - 1)
+    slot = torch.full((M,), cap, dtype=torch.int32, device=dev)
+    done = torch.zeros(M, dtype=torch.bool, device=dev)
+    probes = torch.zeros(M, dtype=torch.int64, device=dev)
+    for j in range(max_probes):
+        pos = (h + j) & (H - 1)
+        probes += ~done
+        match = (tab_hi[pos] == hi) & (tab_lo[pos] == lo)
+        slot = torch.where(~done & match, tab_slot[pos], slot)
+        done = done | match | (tab_hi[pos] == -1)
+        if j % 8 == 7 and bool(done.all()):
+            break
+    ctr = blk.to(ft) * bs
+    v = torch.clamp(((p - ctr) / res + torch.full((), n, dtype=ft, device=dev) / 2.0)
+                    .to(torch.int32), 0, n - 1)
+    vi = v[:, 0] + v[:, 1] * n + v[:, 2] * n * n
+    return state_tab[torch.clamp_max(slot, cap).long(), vi.long()], probes
+
+
 def raycast_plain(state_tab, tab_hi, tab_lo, tab_slot, origins, d, *, res: float, bs: float,
-                  n: int, max_steps: int, target: int, max_range: float, max_probes: int):
+                  n: int, max_steps: int, target: int, max_range: float, max_probes: int,
+                  count_probes: bool = False):
     """The plain PyTorch :func:`raycast`: the JAX step's vector loop over all
     rays, ``max_steps`` iterations of ``max_probes`` probes, except that it
     looks every 8 iterations (and probes) whether every ray has stopped (has
     found its slot) and then leaves: stopped rays change nothing.  Divisions
     by a constant divide by a tensor (``math.div``'s rule).  It computes in
     the rays' dtype: f32, or f64 (with the constants unrounded) for a
-    control."""
+    control.  With ``count_probes`` it also returns the hash probes each ray
+    took over its lookups ([N] int64), the count of K6's bound."""
     N, dev = origins.shape[0], origins.device
     ft = origins.dtype
 
     def c(x):
         return torch.full((), _f32(x) if ft == torch.float32 else x, dtype=ft, device=dev)
 
-    resf, bsf, half_n = c(res), c(bs), c(n) / 2.0
-    cap, H = state_tab.shape[0] - 1, tab_hi.shape[0]
+    resf, bsf = c(res), c(bs)
     rows = torch.arange(N, device=dev)
 
     idx = torch.floor(origins / resf + 0.5).to(torch.int32)
@@ -115,38 +152,20 @@ def raycast_plain(state_tab, tab_hi, tab_lo, tab_slot, origins, d, *, res: float
                         (bound - origins) / safe_d)
     t_delta = (resf / safe_d).abs()
 
-    def state_at(idx):
-        p = idx.to(ft) * resf                                       # voxel centre
-        blk = torch.floor(p / bsf + 0.5).to(torch.int32)
-        c32 = blk + KB
-        hi = (c32[:, 0] << 10) | (c32[:, 1] >> 10)
-        lo = ((c32[:, 1] & 1023) << 20) | c32[:, 2]
-        # the hash wraps in 32 bits: products in int64, cut to 32 bits
-        h = ((hi.long() * HC1) ^ (lo.long() * HC2)) & (H - 1)
-        slot = torch.full((N,), cap, dtype=torch.int32, device=dev)
-        done = torch.zeros(N, dtype=torch.bool, device=dev)
-        for j in range(max_probes):
-            pos = (h + j) & (H - 1)
-            match = (tab_hi[pos] == hi) & (tab_lo[pos] == lo)
-            slot = torch.where(~done & match, tab_slot[pos], slot)
-            done = done | match | (tab_hi[pos] == -1)
-            if j % 8 == 7 and bool(done.all()):
-                break
-        ctr = blk.to(ft) * bsf
-        v = torch.clamp(((p - ctr) / resf + half_n).to(torch.int32), 0, n - 1)
-        vi = v[:, 0] + v[:, 1] * n + v[:, 2] * n * n
-        return state_tab[torch.clamp_max(slot, cap).long(), vi.long()]
-
     t = torch.zeros(N, dtype=ft, device=dev)
     hit = torch.zeros(N, dtype=torch.bool, device=dev)
     dist = torch.full((N,), float("inf"), dtype=ft, device=dev)
     steps = torch.zeros(N, dtype=torch.int32, device=dev)
+    probes = torch.zeros(N, dtype=torch.int64, device=dev)
     active = torch.ones(N, dtype=torch.bool, device=dev)
     mr = c(max_range)
     for it in range(max_steps):
         if it % 8 == 7 and not bool(active.any()):
             break
-        found = active & (state_at(idx) == target)
+        state, taken = state_plain(state_tab, tab_hi, tab_lo, tab_slot, idx, res=resf,
+                                   bs=bsf, n=n, max_probes=max_probes)
+        probes += torch.where(active, taken, 0)
+        found = active & (state == target)
         hit = hit | found
         dist = torch.where(found, t, dist)
         active = active & ~found
@@ -159,4 +178,4 @@ def raycast_plain(state_tab, tab_hi, tab_lo, tab_slot, origins, d, *, res: float
         t_max = torch.where(active[:, None], t_max + adv, t_max)
         steps = torch.where(active, steps + 1, steps)
         active = active & (t <= mr)
-    return hit, dist, steps
+    return (hit, dist, steps, probes) if count_probes else (hit, dist, steps)

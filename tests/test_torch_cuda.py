@@ -62,6 +62,20 @@ def test_bgk_heavy_segment_kernel_matches_plain(cuda_dev, G):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("segments", [False, True])
+def test_bgk_heavy_kernel_equals_plain_bit_for_bit(cuda_dev, segments):
+    """K1 sums each row, then adds a block's rows in row order, as its plain
+    version does: on blocks of up to three rows the two agree bit for bit."""
+    a = heavy_inputs(29, G=7, n_blocks=40, dev=cuda_dev, segments=segments)
+    assert int(torch.bincount(a["row_block"].long()).max()) >= 3
+    kw = dict(G=7, sf2=0.1 if segments else 1.0, ell=0.2)
+    acc = bgk_heavy.bgk_heavy(**a, **kw)
+    ref = bgk_heavy.bgk_heavy_plain(**a, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(acc, ref)
+
+
+@pytest.mark.cuda
 def test_bgk_light_kernel_matches_plain(cuda_dev):
     acc, A, B, touched, eff, node_idx, slots = light_inputs(10, dev=cuda_dev)
     kw = dict(G=7, gate=0.0, n=4, max_level=2,

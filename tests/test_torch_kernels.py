@@ -225,6 +225,19 @@ def test_bgk_heavy_padding_rows_are_inert():
     assert torch.equal(bgk_heavy.bgk_heavy(**pad, G=7, sf2=1.0, ell=0.2), acc)
 
 
+@pytest.mark.parametrize("segments", [False, True])
+def test_bgk_heavy_plain_adds_rows_in_row_order(segments):
+    """The plain version adds a block's rows in row order whatever its chunk
+    (the kernel's order): one row a chunk, chunks that split a block's rows
+    and the default chunk give the same bits."""
+    a = _heavy_inputs(16, segments=segments)
+    kw = dict(G=7, sf2=0.1 if segments else 1.0, ell=0.2)
+    assert int(torch.bincount(a["row_block"].long()).max()) >= 3
+    acc = bgk_heavy.bgk_heavy_plain(**a, **kw)
+    for chunk in (1, 3):
+        assert torch.equal(bgk_heavy.bgk_heavy_plain(**a, **kw, chunk=chunk), acc)
+
+
 def test_bgk_light_plain_applies_scans_in_order():
     acc, A, B, touched, eff, node_idx, slots = _light_inputs(7)
     kw = dict(G=7, gate=0.0, n=4, max_level=2,
@@ -774,6 +787,20 @@ def test_ray_pairs_plain_dedups_like_the_host_tables():
     want = {(int(r), tuple(c)) for r, c in zip(ray_of[mi], mc)}
     got = {(int(r), tuple(c)) for r, c in zip(pray.numpy(), coords)}
     assert got == want and len(got) > 5 * R
+
+
+def test_ray_work_counts_the_samples_and_memberships():
+    """K7d's bound counts what the rays need: each in-range ray's proxy
+    samples with d > 0 (the origin among them) and their closed-box
+    memberships, of which the dedup keeps the distinct blocks."""
+    args, kw = ray_inputs(47)
+    hits, hkey, origins, _ = args
+    n_smp, n_mem = ingest_rays.ray_work(hits, hkey, origins, **kw)
+    _, _, inr, pray, _, _ = ingest_rays.ray_pairs_plain(*args, **kw)
+    assert (n_smp[~inr] == 0).all() and (n_smp[inr] >= 1).all()
+    assert (n_smp <= kw["kf"] + 1).all() and (n_mem >= n_smp).all()
+    kept = torch.bincount(pray, minlength=hits.shape[0])
+    assert (kept <= n_mem).all() and int(n_mem.sum()) > int(kept.sum())
 
 
 def test_raycast_plain_steps_and_exits():

@@ -32,7 +32,7 @@ from la3dm_tpu_torch.utils.config import MapConfig
 
 from tests.test_bgk_vs_oracle import CFG, synthetic_scan
 from tests.test_families_vs_oracle import LV_CFG
-from torch_cases import one_torch_thread  # noqa: F401  (autouse fixture)
+from torch_cases import one_torch_thread, raycast_inputs  # noqa: F401  (autouse fixture)
 
 
 def _carry(jm, cls, tmp_path):
@@ -171,6 +171,33 @@ def assert_matches_jax_device(m, jm, o, d, max_range, snapshot=None, jsnapshot=N
         tie = (blk_exact == np.round(blk_exact)) | (loc_exact == np.round(loc_exact))
         assert tie.all(), f"ray {i}: a voxel read apart off a face"
     return ours, named
+
+
+def test_raycast_plain_counts_the_probes_each_lookup_takes():
+    """``count_probes``: per ray, the hash probes of the lookups it made —
+    from the voxel's hash slot to the matching or an empty entry, at most
+    ``max_probes`` — walked here in numpy over the ray's f32 path.  The
+    count K6's bound uses."""
+    args, kw = raycast_inputs(9, n_rays=200)
+    hit, dist, steps, probes = k6.raycast_plain(*args, **kw, count_probes=True)
+    for x, y in zip((hit, dist, steps), k6.raycast_plain(*args, **kw)):
+        assert torch.equal(x, y)
+    _, hi, lo, _, o, d = (x.numpy() for x in args)
+    H, res, bs = len(hi), np.float32(kw["res"]), np.float32(kw["bs"])
+    assert int(probes.sum()) > int(steps.sum() + hit.sum())   # chains longer than 1
+    for i in range(0, 200, 7):
+        lookups = int(steps[i]) + int(hit[i])
+        count = 0
+        for idx in _path(o[i], d[i], kw["res"], int(steps[i]))[:lookups]:
+            blk = np.floor(idx.astype(np.float32) * res / bs + np.float32(0.5))
+            khi, klo = (int(k) for k in rc._split_keys(blk.astype(np.int64)))
+            h = ((khi * k6.HC1) ^ (klo * k6.HC2)) & (H - 1)
+            for j in range(kw["max_probes"]):
+                pos = (h + j) & (H - 1)
+                if (hi[pos] == khi and lo[pos] == klo) or hi[pos] == -1:
+                    break
+            count += j + 1
+        assert int(probes[i]) == count, i
 
 
 # ------------------------------------------------ tables
