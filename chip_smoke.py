@@ -19,7 +19,7 @@ off``):
 3. holds K1 (heavy pass) against its plain PyTorch version on the argument
    tuple of a real 16-scan dispatch: |Δ| ≤ 1e-5 + 1e-5·|plain|;
 4. holds K2 (light pass + prune) against its plain version on the same
-   accumulator and pool state: eff and touched equal, A and B within 1e-6;
+   accumulator and pool state: A, B, touched and eff bit for bit;
 5. runs the main path — ``pipeline.run_static`` on 12 and on 60 scans and
    ``OnlineIntegrator`` on 12 scans one by one — with ``BGKOctoMap(cfg)``
    on the card, asserting each kernel's launch count, and counts the host
@@ -82,7 +82,7 @@ host-ingest path:
 16. holds K5 (BCM light pass + prune) against its plain version on the
     demo dispatch's tables and pool (V 64, 2 prune levels) and on the
     large-map dispatch's (V 512, 3 levels), scan by scan from the plain
-    pool: m_ivar/ivar, eff and touched equal, except in blocks holding a
+    pool: m_ivar/ivar, eff and touched bit for bit, except in blocks holding a
     voxel whose plain pre-prune p lies within 1e-5 of a threshold or whose
     ivar lies within 1e-5·min_known_ivar of the chop (counted and printed);
 17. runs the main path — ``run_static`` on 12 and 60 demo scans,
@@ -146,7 +146,40 @@ Raycast, last:
     parts from K6 must show a tie (its first voxel, an axis choice, a voxel
     read at a face, or the range limit, within f32 rounding).
 
-Last, a ``kernels`` JSON line and the device JSON line.  Every kernel time
+The large maps, after raycast (the BGK-family ones at their YAML's own
+``max_range`` of 30 m; every hit of the room lies within about 17.5 m):
+
+26. BGKL large map (``bgkloctomap_large_map.yaml``, block_depth 5: 16³ =
+    4096 voxels and 4681 nodes a block): K1's segment branch on a captured
+    12-scan host-ingest dispatch as in 21 (the accumulator's bytes printed,
+    and what a 16-scan dispatch would hold); K2 against its plain version
+    over the dispatch's scans in order, bit for bit (one CTA per 8³ tile,
+    the 16³ level in each block's last CTA), then twice more from the same
+    pool with its blocks made collapsible at every level (raster, Beta
+    templates), bit for bit each time, the 16³ groups collapsed counted and
+    required; run_static on 12 scans and OnlineIntegrator on 12 on both
+    ingest paths with their launch counts; card vs CPU within 1e-5 +
+    1e-5·|CPU| on the host path (1 scan) and device ingest (2 scans), each
+    failing its TF32 control;
+27. BGK large map (``bgkoctomap_large_map.yaml``, block_depth 3): the same
+    main paths, card vs CPU within 5e-3 (host, 1 scan) and 1e-5 +
+    1e-5·|CPU| (device ingest, 2 scans);
+28. GP at block_depth 5 (``gpoctomap_large_map`` with ``block_depth=5``,
+    8 m, host ingest): K4 on every size tier of a 12-scan dispatch at 4681
+    nodes a block as in 15 (one launch a tier, timed alone) — its overflow
+    tier holds models of about 2,100 points, four times the largest that
+    15's limits were measured on, so that tier is held to the plain version
+    in f64: the kernel's largest |Δ|/(1+|f64|) at most twice the f32 plain
+    version's, the control's above that; K5 scan by scan as in 16 (bit for
+    bit away from the thresholds) and on collapsible blocks as K2 in 26 (GP
+    templates); run_static on 12 scans; card vs CPU on 1 scan as in 18,
+    the m_ivar/ivar limit held against the map with f64 factors (the CPU's
+    f32 factors part from it by more than the limit at these models; its
+    deviation and the card-vs-CPU ratio are printed).
+
+Last, a ``kernels`` JSON line (K2's and K5's entries carry a ``large_block``
+record for 16³-voxel blocks beside their 4³ figures) and the device JSON
+line.  Every kernel time
 (``ms``) is the device time of the work named in its ``work`` key, by a pair
 of CUDA events around its launches queued back to back behind a spin of the
 stream (:func:`launch_ms`); the same window without the spin (``event_ms``)
@@ -156,6 +189,7 @@ failure exits non-zero.  Without a CUDA card it exits 2 at once.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -175,7 +209,7 @@ from la3dm_tpu_torch.kernels import (_build, bgk_aligned_heavy, bgk_heavy,  # no
                                      bgk_light, gp_heavy, gp_light, ingest_beams,
                                      ingest_downsample, ingest_keys, ingest_members,
                                      ingest_rays, lv_prune, lv_rows, raycast as k6)
-from la3dm_tpu_torch.models import posterior, raycast as rc  # noqa: E402
+from la3dm_tpu_torch.models import gp as gp_model, posterior, raycast as rc  # noqa: E402
 from la3dm_tpu_torch.models.bgklv import BGKLVOctoMap  # noqa: E402
 from la3dm_tpu_torch.models.gp import GPOctoMap  # noqa: E402
 from la3dm_tpu_torch.utils.config import DatasetConfig, load_method_config  # noqa: E402
@@ -386,7 +420,7 @@ def capture_dispatch(cfg, scans, device):
     m._capture_step_args = True
     m.insert_pointclouds([c for c, _ in scans], [o for _, o in scans],
                          ds_resolution=cfg.resolution,
-                         free_resolution=cfg.free_resolution, max_range=MAX_RANGE)
+                         free_resolution=cfg.free_resolution, max_range=cfg.max_range)
     return m._last_step_call
 
 
@@ -448,9 +482,10 @@ def check_k1(args, statics, reps: int = 5, gate: float | None = None) -> dict:
             "evaluations": evals, **out}
 
 
-def check_k2(args, statics, acc, reps: int = 5) -> dict:
+def check_k2(args, statics, acc, reps: int = 5, what: str = "16-scan demo dispatch") -> dict:
     """K2 against its plain version on the same accumulator and pool state,
-    over every scan of the dispatch in order."""
+    over every scan of the dispatch in order: A, B, touched and eff equal
+    bit for bit."""
     (A, B, T, E, _, node_idx, _, _, _, _, _, _, _, slots, _, ss, sc) = args
     kw = {k: statics[k] for k in ("G", "gate", "n", "max_level", "state_fn",
                                   "do_prune")}
@@ -467,32 +502,38 @@ def check_k2(args, statics, acc, reps: int = 5) -> dict:
     p = run(bgk_light.bgk_light_plain, pool())
     torch.cuda.synchronize()
     max_err = max(float((k[0] - p[0]).abs().max()), float((k[1] - p[1]).abs().max()))
-    eff_eq = bool(torch.equal(k[3], p[3]))
-    tch_eq = bool(torch.equal(k[2], p[2]))
-    print(f"K2: {len(ss)} scans, max |A/B kernel - plain| = {max_err:.3e}, "
-          f"eff equal {eff_eq}, touched equal {tch_eq}, "
-          f"pruned voxels {int((k[3] > 0).sum())}")
-    require(eff_eq and tch_eq and max_err <= 1e-6,
-            "K2 disagrees with its plain version")
+    same = [bool(torch.equal(x, y)) for x, y in zip(k, p)]
+    V = A.shape[1]
+    print(f"K2, {what}: {len(ss)} scans, blocks of {V} voxels, max |A/B kernel - plain| "
+          f"= {max_err:.3e}, A, B, touched, eff equal {same}, voxels by eff level "
+          f"{light_levels(k[3], slots, statics['max_level'])}")
+    require(all(same), f"K2 disagrees with its plain version ({what})")
     event_ms = cuda_ms(lambda st: run(bgk_light.bgk_light, st), reps, setup=pool)
     count = len(ss)
     ms = launch_ms([lambda st, s=s, c=c: bgk_light.bgk_light(acc, *st, node_idx, slots, s,
                                                              c, **kw)
                     for s, c in zip(ss, sc)], reps, setup=pool)
     plain_ms = cuda_ms(lambda st: run(bgk_light.bgk_light_plain, st), 2, setup=pool)
-    V, G = A.shape[1], statics["G"]
+    G = statics["G"]
     blocks = int(sum(sc))
     # per block: each voxel's 2G accumulator values read, the pool row
     # (A, B f32; touched, eff 1 byte) read and written, its slot read
     per_block = V * 2 * G * 4 + 2 * V * (4 + 4 + 1 + 1) + 4
     b_ms, b_by = bound(0, blocks * per_block + nbytes(node_idx))
-    print(f"K2: {ms:.4f} ms device time over {count} launches "
+    print(f"K2, {what}: {ms:.4f} ms device time over {count} launches "
           f"({1e3 * ms / count:.2f} us each; the event window, which holds the "
           f"host's launch gaps, {event_ms:.3f} ms); plain {plain_ms:.3f} ms, "
           f"bound {b_ms:.4f} ms by {b_by}; {blocks} blocks")
     return {"max_abs_err": max_err, "ms": ms, "event_ms": event_ms,
             "ms_per_launch": ms / count, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by}
+            "bound_ms": b_ms, "bound_by": b_by, "voxels_per_block": V, "blocks": blocks}
+
+
+def light_levels(eff, slots, max_level: int) -> list:
+    """Voxels of the pool rows ``slots`` (padding dropped) by eff level."""
+    sl = slots.long()
+    sl = torch.unique(sl[sl < eff.shape[0]])
+    return [int((eff[sl] == L).sum()) for L in range(max_level + 1)]
 
 
 def reset_counts() -> None:
@@ -510,21 +551,22 @@ def reset_counts() -> None:
     gp_light.launches = 0
 
 
-def main_path(cfg, pcd_dir: str, scans) -> dict:
-    """The host-ingest path of a BGK or BGKL map: run_static on 12 and 60
-    scans, then OnlineIntegrator on 12 scans."""
+def main_path(cfg, pcd_dir: str, scans, runs=(12, 60)) -> dict:
+    """The host-ingest path of a BGK or BGKL map: run_static on each of
+    ``runs`` scans, then OnlineIntegrator on 12 scans."""
     cls = pipeline.MAP_CLASSES[cfg.method]
     out = {}
-    for n_scans in (12, 60):
+    for n_scans in runs:
         ds = DatasetConfig(name="synth", dir=pcd_dir, prefix="synth",
-                           scan_num=n_scans, max_range=MAX_RANGE)
+                           scan_num=n_scans, max_range=cfg.max_range)
         reset_counts()
         res = pipeline.run_static(cfg, ds)
         k1, k2 = bgk_heavy.launches, bgk_light.launches
         dispatches = -(-n_scans // cls.SCAN_BATCH)
         ex = pipeline.export_leaves(res.map)
         n_occ, n_free = len(ex["occupied"]["x"]), len(ex["free"]["x"])
-        print(f"{cfg.method} run_static {n_scans} scans: {res.scans_per_second:.2f} scans/s "
+        print(f"{cfg.method} (block_depth {cfg.block_depth}, max_range {cfg.max_range:g}) "
+              f"run_static {n_scans} scans: {res.scans_per_second:.2f} scans/s "
               f"({res.total_seconds:.3f} s), {res.map.pool.n_blocks} blocks, "
               f"{n_occ} occupied / {n_free} free leaves; launches K1 {k1} "
               f"K2 {k2}")
@@ -567,7 +609,7 @@ def profile_main_path(cfg, pcd_dir: str, kernels: dict, launches: dict) -> dict:
     from torch.autograd import DeviceType
 
     ds = DatasetConfig(name="synth", dir=pcd_dir, prefix="synth", scan_num=60,
-                       max_range=MAX_RANGE)
+                       max_range=cfg.max_range)
 
     def run():
         t0 = time.perf_counter()
@@ -604,7 +646,7 @@ def card_vs_cpu(cfg, pcd_dir: str, n_scans: int = 3, tol=(5e-3, 0.0),
     replaced (the heavy pass on TF32-rounded coordinates), which must fail
     the limit."""
     ds = DatasetConfig(name="synth", dir=pcd_dir, prefix="synth", scan_num=n_scans,
-                       max_range=MAX_RANGE)
+                       max_range=cfg.max_range)
     gpu = pipeline.run_static(cfg, ds, device="cuda").map
     ctl = None
     if control is not None:
@@ -746,29 +788,43 @@ def check_k3(args, statics, reps: int = 5) -> dict:
             "gate_boundary_voxels": n_near, "decided_apart": n_moved}
 
 
-def collapsible_pool(pool0, slots, n: int, seed: int = 0):
+#: (f0, f1) templates of :func:`collapsible_pool`, one state each: LV (A, B)
+#: occupied, free, uncertain under the BGKLV large-map thresholds; Beta
+#: (A, B) occupied, free; GP (m_ivar, ivar) occupied, free — far enough from
+#: every threshold that a scan's update leaves each voxel's state
+LV_TEMPLATES = ((100.0, 0.001), (0.001, 100.0), (1.0, 1.0))
+BETA_TEMPLATES = ((1000.0, 0.001), (0.001, 1000.0))
+GP_TEMPLATES = ((1e4, 500.0), (-1e4, 500.0))
+
+
+def collapsible_pool(pool0, slots, n: int, seed: int = 0, templates=LV_TEMPLATES,
+                     raster: bool = False):
     """A copy of the pool whose blocks ``slots`` collapse at every level,
-    the levels across tiles included: block i holds one (A, B) template per
-    cube of edge (n, 16, 8, 4)[i % 4] (one state per cube: occupied, free
-    or uncertain under the large-map thresholds), ±5 % noise so that
-    collapse copies show, every voxel touched at eff 0; edge-4 blocks also
-    get 3 % stray voxels, so that their tiles are not uniform."""
+    the levels across tiles included: block i holds one (f0, f1) template
+    per cube of edge (n, 16, 8, 4)[i % 4] (one state per cube), ±5 % noise
+    so that collapse copies show, every voxel touched at eff 0; edge-4
+    blocks also get 3 % stray voxels, so that their tiles are not uniform.
+    The pool is BGKLV's tile-major one, or with ``raster`` K2's and K5's
+    raster one."""
     rng = np.random.default_rng(seed)
-    tmpl = np.array([[100.0, 0.001], [0.001, 100.0], [1.0, 1.0]], np.float32)
+    tmpl = np.array(templates, np.float32)
     sl = slots.long()
     sl = sl[sl < pool0[0].shape[0]].cpu().numpy()
+    sl = sl[np.sort(np.unique(sl, return_index=True)[1])]   # each block once, in order
     S = len(sl)
     vox = np.empty((S, n ** 3), np.int64)
     for i in range(S):
         edge = (n, 16, 8, 4)[i % 4]
         g = n // edge
-        t = rng.integers(0, 3, (g, g, g)).repeat(edge, 0).repeat(edge, 1).repeat(edge, 2)
+        k = len(tmpl)
+        t = rng.integers(0, k, (g, g, g)).repeat(edge, 0).repeat(edge, 1).repeat(edge, 2)
         vox[i] = t.reshape(-1)
         if edge == 4:
             stray = rng.uniform(size=n ** 3) < 0.03
-            vox[i] = np.where(stray, rng.integers(0, 3, n ** 3), vox[i])
+            vox[i] = np.where(stray, rng.integers(0, k, n ** 3), vox[i])
     AB = tmpl[vox] * rng.uniform(0.95, 1.05, (S, n ** 3, 2)).astype(np.float32)
-    perm = geo.tile_vox_map(n).reshape(-1)            # stored column → raster
+    # stored column → raster voxel
+    perm = np.arange(n ** 3) if raster else geo.tile_vox_map(n).reshape(-1)
     dev = pool0[0].device
     pool = [x.clone() for x in pool0]
     rows = torch.as_tensor(sl, device=dev)
@@ -893,22 +949,71 @@ def main_path_lv(cfg, cfg_large, pcd_dir: str, scans) -> dict:
 #: variances 1e-5 (3.4e-6 seen).  Each limit must fail the control, the
 #: plain version on TF32-rounded coordinates (PERF.md has both readings).
 K4_TOL = {"base": (1e-3, 1e-5), "overflow": (4e-3, 1e-5)}
+#: the largest model those limits were measured on; a tier of larger models
+#: (block_depth 5: up to about 2100 points) is held to the plain version in
+#: f64 instead — |Δ|/(1+|f64|) of the kernel at most K4_F64_FACTOR times the
+#: f32 plain version's (cuSOLVER/cuBLAS), and the control's above that
+K4_CALIBRATED_MAX_C = 512
+K4_F64_FACTOR = 2.0
 #: plain pre-prune p this close to a threshold, or ivar this close (relative)
 #: to the chop, may be decided apart by the kernel's own division
 STATE_MARGIN = 1e-5
 
 
-def capture_gp(cfg, scans=None, training=None):
+def k4_vs_f64(ins, cmax, kw, rows, k, p, ctl, G, Vall, T, what) -> dict:
+    """One tier of K4 (tables ``k``), its f32 plain version (``p``) and the
+    control (``ctl``) against the plain version in f64: per field the
+    largest |Δ|/(1+|f64|); the kernel's may be at most K4_F64_FACTOR times
+    the f32 plain version's, the control's must exceed that."""
+    dev = ins[0].device
+    r64 = {"acc_mean": torch.zeros((T * G, Vall), dtype=torch.float64, device=dev),
+           "acc_var": torch.ones((T * G, Vall), dtype=torch.float64, device=dev),
+           "present": torch.zeros(T * G, dtype=torch.bool, device=dev),
+           "failed": torch.zeros(1, dtype=torch.int32, device=dev)}
+    pts, lab, st, ct, nb, centers, all_nodes = ins
+    gp_heavy.gp_heavy_plain(pts.double(), lab.double(), st, ct, nb, centers.double(),
+                            all_nodes.double(), **r64, cmax=cmax, **kw)
+    out = {}
+    for name in ("acc_mean", "acc_var"):
+        ref = r64[name][rows]
+        scale = 1.0 + ref.abs()
+        out[name] = {who: float(((t[name][rows].double() - ref).abs() / scale).max())
+                     for who, t in (("kernel", k), ("plain", p), ("control", ctl))}
+    print(f"K4, {what}: models of up to {cmax} points against the plain version in "
+          f"f64, largest |Δ|/(1+|f64|): " + "; ".join(
+              f"{n[4:]} kernel {e['kernel']:.3e}, f32 plain {e['plain']:.3e}, control "
+              f"{e['control']:.3e}" for n, e in out.items())
+          + f" (the kernel's limit: {K4_F64_FACTOR:g} times the f32 plain version's)")
+    require(int(r64["failed"]) == 0, f"K4 ({what}): an f64 factorisation failed")
+    for n, e in out.items():
+        require(e["kernel"] <= K4_F64_FACTOR * e["plain"],
+                f"K4 ({what}): {n} further from f64 than {K4_F64_FACTOR:g} times the "
+                "f32 plain version")
+        require(e["control"] > K4_F64_FACTOR * e["plain"],
+                f"the K4 f64 limit passes the TF32 control ({what}, {n})")
+    return out
+
+
+def capture_gp(cfg, scans=None, training=None, run_step: bool = True):
     """A GP map on the card that keeps copies of the arguments of its last
-    dispatch: of ``scans`` (≤ 16: one dispatch) or of ``training`` points."""
+    dispatch: of ``scans`` (≤ 16: one dispatch) or of ``training`` points.
+    Without ``run_step`` the dispatch is captured and not run: the checks
+    run its kernels on the copies."""
     m = GPOctoMap(cfg, device="cuda")
     m._capture_step_args = True
-    if training is not None:
-        m.insert_training_data(*training)
-    else:
-        m.insert_pointclouds([c for c, _ in scans], [o for _, o in scans],
-                             ds_resolution=cfg.resolution,
-                             free_resolution=cfg.free_resolution, max_range=MAX_RANGE)
+    step = gp_model._gp_seq_step
+    if not run_step:
+        gp_model._gp_seq_step = lambda *a, **kw: None
+    try:
+        if training is not None:
+            m.insert_training_data(*training)
+        else:
+            m.insert_pointclouds([c for c, _ in scans], [o for _, o in scans],
+                                 ds_resolution=cfg.resolution,
+                                 free_resolution=cfg.free_resolution,
+                                 max_range=cfg.max_range)
+    finally:
+        gp_model._gp_seq_step = step
     return m._last_step_call
 
 
@@ -956,7 +1061,7 @@ def check_k4(args, statics, what: str, reps: int = 3) -> dict:
         def kernel(_):
             gp_heavy.gp_heavy(*ins, **k, cmax=cmax, **kw)
 
-        kernel(None)
+        _, first_ms = _timed(lambda: kernel(None))
         # the control first: it also warms the plain version up for its timing
         gp_heavy.gp_heavy_plain(*rounded[:2], st, ct, nb, *rounded[2:], **ctl,
                                 cmax=cmax, **kw)
@@ -966,6 +1071,7 @@ def check_k4(args, statics, what: str, reps: int = 3) -> dict:
         rows = (nbl * G + gcol)[(nbl >= 0) & (nbl < T)]
         tier_name = "base" if cmax <= gp_heavy.SHARED_MAX_C else "overflow"
         tols = K4_TOL[tier_name]
+        calibrated = cmax <= K4_CALIBRATED_MAX_C
         errs, need, need_ctl, bad, bad_ctl = {}, {}, {}, 0, 0
         for name, tol in zip(("acc_mean", "acc_var"), tols):
             ref = p[name][rows]
@@ -985,14 +1091,23 @@ def check_k4(args, statics, what: str, reps: int = 3) -> dict:
               f" mean {need['acc_mean']:.3e}, var {need['acc_var']:.3e} (control, the "
               f"plain version on TF32-rounded coordinates: mean "
               f"{need_ctl['acc_mean']:.3e}, var {need_ctl['acc_var']:.3e}); limit "
-              f"{tols[0]:g} (mean) / {tols[1]:g} (var) times 1+|plain|: {bad} elements "
-              f"outside, control {bad_ctl}")
+              f"{tols[0]:g} (mean) / {tols[1]:g} (var) times 1+|plain|"
+              + (f": {bad} elements outside, control {bad_ctl}" if calibrated else
+                 f" (measured up to {K4_CALIBRATED_MAX_C} points; not applied)"))
         require(finite, f"K4 ({what}, {tier_name} tier) gave non-finite values")
-        require(bad == 0, f"K4 disagrees with its plain version ({what}, {tier_name} tier)")
-        require(bad_ctl > 0, f"the K4 limit passes the TF32 control ({what}, "
-                             f"{tier_name} tier)")
-        event_ms = cuda_ms(kernel, reps, warmup=0)
-        ms = launch_ms([kernel], reps)
+        f64 = None
+        if calibrated:
+            require(bad == 0, f"K4 disagrees with its plain version ({what}, "
+                              f"{tier_name} tier)")
+            require(bad_ctl > 0, f"the K4 limit passes the TF32 control ({what}, "
+                                 f"{tier_name} tier)")
+        else:
+            f64 = k4_vs_f64(ins, cmax, kw, rows, k, p, ctl, G, Vall, T, what)
+        if reps:
+            event_ms = cuda_ms(kernel, reps, warmup=0)
+            ms = launch_ms([kernel], reps)
+        else:  # the first launch, timed alone (a tier of large models runs for seconds)
+            event_ms = ms = first_ms
         flops = gp_heavy.flops(ct.cpu().numpy(), G * Vall)
         b_ms, b_by = bound(flops, nbytes(*ins) + rows.numel() * Vall * 8 + T * G)
         print(f"K4, {what}, {tier_name} tier: {ms:.3f} ms device time (event window "
@@ -1001,7 +1116,8 @@ def check_k4(args, statics, what: str, reps: int = 3) -> dict:
         results.append({"tier": tier_name, "models": int(ct.numel()), "cmax": int(cmax),
                         "max_abs_err": max(errs.values()), "rel_err": need,
                         "rel_err_control": need_ctl, "ms": ms, "event_ms": event_ms,
-                        "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by})
+                        "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                        **({"vs_f64": f64} if f64 else {})})
     torch.cuda.synchronize()
     failed, failed_p = int(k["failed"]), int(p["failed"])
     same_present = bool(torch.equal(k["present"], p["present"]))
@@ -1045,15 +1161,15 @@ def check_k5(args, statics, tables, what: str, timed: bool = True,
         for x, y in zip(k[:2], p[:2]):
             d = (x[rows] - y[rows]).abs()
             max_err = max(max_err, float(d.max()) if d.numel() else 0.0)
-            bad += int((d > 1e-6 * (1.0 + y[rows].abs())).sum())
+            bad += int((d != 0).sum())
         bad += int((k[2][rows] != p[2][rows]).sum() + (k[3][rows] != p[3][rows]).sum())
     torch.cuda.synchronize()
     V = pool0[0].shape[1]
     levels = [int((p[3][slots.long()] == L).sum()) for L in range(kw["max_level"] + 1)]
     print(f"K5, {what}: {len(ss)} scans, {int(sum(sc))} blocks of {V} voxels; max "
           f"|m_ivar/ivar kernel - plain| "
-          f"= {max_err:.3e}, {bad} voxels outside 1e-6*(1+|plain|) or with eff/touched "
-          f"differing; {n_near} voxels near a threshold or the chop, {n_blocks_excused} "
+          f"= {max_err:.3e}, {bad} voxels with m_ivar, ivar, eff or touched not bit-equal "
+          f"(blocks not excused); {n_near} voxels near a threshold or the chop, {n_blocks_excused} "
           f"blocks excused; voxels by eff level {levels}")
     require(bad == 0, f"K5 disagrees with its plain version ({what})")
     checked = {"max_abs_err": max_err, "near_threshold_voxels": n_near,
@@ -1088,44 +1204,51 @@ def check_k5(args, statics, tables, what: str, timed: bool = True,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
 
 
+def gp_static(c, pcd_dir: str, n_scans: int, overflow: bool | None = None) -> dict:
+    """GP run_static on ``n_scans`` scans: K4 launched once per (dispatch,
+    size tier) the map built (with ``overflow``, more or no more often than
+    once per dispatch: an overflow tier is or is not required), K5 once per
+    scan, no failed factorisation, finite leaves, occupied and free ones."""
+    ds = DatasetConfig(name="synth", dir=pcd_dir, prefix="synth", scan_num=n_scans,
+                       max_range=c.max_range)
+    reset_counts()
+    res = pipeline.run_static(c, ds)
+    k4, k5 = gp_heavy.launches, gp_light.launches
+    m = res.map
+    want4 = m.stats["heavy_tiers"]
+    dispatches = -(-n_scans // GPOctoMap.SCAN_BATCH)
+    failed = int(m.failed_models)
+    ex = pipeline.export_leaves(m, original_size=c.original_size)
+    leaves = ex["all"]
+    n_occ, n_free = len(ex["occupied"]["x"]), len(ex["free"]["x"])
+    n_pruned = int((m.pool.eff_level > 0).sum())
+    print(f"GP run_static {n_scans} scans (block_depth {c.block_depth}"
+          f"{', large map' if c.original_size else ', demo'}): "
+          f"{res.scans_per_second:.2f} scans/s ({res.total_seconds:.3f} s), "
+          f"{m.pool.n_blocks} blocks, {int(m.pool.touched.sum())} touched voxels, "
+          f"{n_pruned} pruned, {n_occ} occupied / {n_free} free leaves, "
+          f"{failed} failed factorisations; launches K4 {k4} (expected {want4}) "
+          f"K5 {k5}")
+    tiers_ok = {None: want4 >= dispatches, True: want4 > dispatches,
+                False: want4 == dispatches}[overflow]
+    require(k4 == want4 and tiers_ok,
+            f"K4 launched {k4} times for {want4} (dispatch, tier) pairs over "
+            f"{dispatches} dispatches")
+    require(k5 == n_scans, f"K5 launched {k5} times, expected {n_scans}")
+    require(failed == 0, "a GP factorisation failed on real scans")
+    require(n_occ > 0 and n_free > 0, "no occupied or no free leaves")
+    require(all(np.isfinite(leaves[k]).all() for k in ("prob", "var", "x")),
+            "non-finite leaves")
+    return {"scans_per_s": res.scans_per_second, "seconds": res.total_seconds,
+            "launches": {"gp_heavy": k4, "gp_light": k5}, "pruned_voxels": n_pruned}
+
+
 def main_path_gp(cfg, cfg_large, pcd_dir: str, scans) -> dict:
-    """GP: run_static on 12 and 60 demo scans and 12 large-map scans, then
-    OnlineIntegrator on 12 demo scans."""
-    out = {}
-    for c, n_scans in ((cfg, 12), (cfg, 60), (cfg_large, 12)):
-        ds = DatasetConfig(name="synth", dir=pcd_dir, prefix="synth",
-                           scan_num=n_scans, max_range=MAX_RANGE)
-        reset_counts()
-        res = pipeline.run_static(c, ds)
-        k4, k5 = gp_heavy.launches, gp_light.launches
-        m = res.map
-        large = c.original_size
-        # one K4 per (dispatch, size tier) the map built; the large map's
-        # dispatch holds an overflow tier
-        want4 = m.stats["heavy_tiers"]
-        dispatches = -(-n_scans // GPOctoMap.SCAN_BATCH)
-        failed = int(m.failed_models)
-        ex = pipeline.export_leaves(m, original_size=large)
-        leaves = ex["all"]
-        n_occ, n_free = len(ex["occupied"]["x"]), len(ex["free"]["x"])
-        n_pruned = int((m.pool.eff_level > 0).sum())
-        name = f"{'large' if large else 'static'}{n_scans}"
-        print(f"GP run_static {n_scans} scans ({'large map' if large else 'demo'}): "
-              f"{res.scans_per_second:.2f} scans/s ({res.total_seconds:.3f} s), "
-              f"{m.pool.n_blocks} blocks, {int(m.pool.touched.sum())} touched voxels, "
-              f"{n_pruned} pruned, {n_occ} occupied / {n_free} free leaves, "
-              f"{failed} failed factorisations; launches K4 {k4} (expected {want4}) "
-              f"K5 {k5}")
-        require(k4 == want4 and (want4 > dispatches if large else want4 >= dispatches),
-                f"K4 launched {k4} times for {want4} (dispatch, tier) pairs over "
-                f"{dispatches} dispatches")
-        require(k5 == n_scans, f"K5 launched {k5} times, expected {n_scans}")
-        require(failed == 0, "a GP factorisation failed on real scans")
-        require(n_occ > 0 and n_free > 0, "no occupied or no free leaves")
-        require(all(np.isfinite(leaves[k]).all() for k in ("prob", "var", "x")),
-                "non-finite leaves")
-        out[name] = {"scans_per_s": res.scans_per_second, "seconds": res.total_seconds,
-                     "launches": {"gp_heavy": k4, "gp_light": k5}}
+    """GP: run_static on 12 and 60 demo scans and 12 large-map scans (the
+    large map's dispatch holds an overflow tier), then OnlineIntegrator on
+    12 demo scans."""
+    out = {"static12": gp_static(cfg, pcd_dir, 12), "static60": gp_static(cfg, pcd_dir, 60),
+           "large12": gp_static(cfg_large, pcd_dir, 12, overflow=True)}
 
     m = GPOctoMap(cfg)
     online = pipeline.OnlineIntegrator(m)
@@ -1176,22 +1299,42 @@ def tf32_heavy(pts, lab, st, ct, nb, centers, all_nodes, *rest, **kw) -> None:
                             tf32_round(all_nodes), *rest, **kw)
 
 
-def card_vs_cpu_gp(cfg, pcd_dir: str) -> dict:
-    """The first 3 demo scans on the card and on the CPU, voxel by voxel:
+def f64_heavy(pts, lab, st, ct, nb, centers, all_nodes, acc_mean, acc_var, *rest,
+              **kw) -> None:
+    """The reference map's heavy pass: K4's plain version in f64, rounded
+    once into the f32 tables."""
+    m64, v64 = acc_mean.double(), acc_var.double()
+    gp_heavy.gp_heavy_plain(pts.double(), lab.double(), st, ct, nb, centers.double(),
+                            all_nodes.double(), m64, v64, *rest, **kw)
+    acc_mean.copy_(m64)
+    acc_var.copy_(v64)
+
+
+def card_vs_cpu_gp(cfg, pcd_dir: str, n_scans: int = 3, f64_ref: bool = False) -> dict:
+    """The first ``n_scans`` scans on the card and on the CPU, voxel by voxel:
     m_ivar/ivar within GP_CPU_TOL (f32 factors in another rounding order,
     amplified by the BCM weights 1/σ²), touched equal, state equal except
     where either p lies within 1e-3 of a threshold or ivar within
     1e-3·min_known_ivar of the chop, eff equal in blocks without such a
     voxel.  The control, the card's map with the heavy pass on TF32-rounded
-    coordinates (:func:`tf32_heavy`), is held to the same limit.  Returns the
-    largest deviation over the limit, for the card and for the control."""
-    ds = DatasetConfig(name="synth", dir=pcd_dir, prefix="synth", scan_num=3,
-                       max_range=MAX_RANGE)
+    coordinates (:func:`tf32_heavy`), is held to the same limit.  With
+    ``f64_ref`` (models far larger than GP_CPU_TOL was measured on, whose
+    f32 factors on the CPU part from f64 by more than it) the m_ivar/ivar
+    limit is held against the map whose heavy pass runs in f64
+    (:func:`f64_heavy`) in place of the CPU's map, for the card and the
+    control; the CPU's own deviation from it and the card-vs-CPU ratio are
+    printed.  Returns the largest deviation over the limit, for the card and
+    for the control."""
+    ds = DatasetConfig(name="synth", dir=pcd_dir, prefix="synth", scan_num=n_scans,
+                       max_range=cfg.max_range)
     gpu = pipeline.run_static(cfg, ds, device="cuda").map
     kernel = gp_heavy.gp_heavy
     gp_heavy.gp_heavy = tf32_heavy
     try:
         ctl = pipeline.run_static(cfg, ds, device="cuda").map
+        if f64_ref:
+            gp_heavy.gp_heavy = f64_heavy
+            ref = pipeline.run_static(cfg, ds, device="cuda").map
     finally:
         gp_heavy.gp_heavy = kernel
     # on all CPU threads: the tolerance is far above a sum-order change
@@ -1208,8 +1351,9 @@ def card_vs_cpu_gp(cfg, pcd_dir: str) -> dict:
     dev = {k: float(np.abs(g[k] - c[k]).max()) for k in g}
     tol_a, tol_r = GP_CPU_TOL
 
-    def ratio(f, a=tol_a, r=tol_r):
-        return max(float((np.abs(f[k] - c[k]) / (a + r * np.abs(c[k]))).max()) for k in c)
+    def ratio(f, base=c, a=tol_a, r=tol_r):
+        return max(float((np.abs(f[k] - base[k]) / (a + r * np.abs(base[k]))).max())
+                   for k in base)
 
     def rel_need(f, a):
         """The least REL that passes f at ABS = a."""
@@ -1233,8 +1377,19 @@ def card_vs_cpu_gp(cfg, pcd_dir: str) -> dict:
     n_state = int(((s_g != s_c) & ~excused).sum())
     n_eff = int((eff_g[calm] != eff_c[calm]).sum())
     out = {"ratio": ratio(g), "ratio_control": ratio(x)}
+    msg = ""
+    if f64_ref:
+        require(ref.pool.n_blocks == nb, "the f64 map's block set differs")
+        r64 = {k: ref._gather_rows(v, rows) for k, v in ref.pool.fields.items()}
+        out["vs_f64"] = {who: ratio(f, r64) for who, f in (("card", g), ("cpu", c),
+                                                            ("control", x))}
+        v = out["vs_f64"]
+        msg = (f"; against the map with f64 factors, largest deviation / ({tol_a:g} + "
+               f"{tol_r:g}*|f64|): card {v['card']:.3f}, CPU {v['cpu']:.3f}, control "
+               f"{v['control']:.3f}")
     needs = {f"{a:g}": (rel_need(g, a), rel_need(x, a)) for a in (1e-2, 2e-2, 5e-2)}
-    print(f"card vs CPU, gp 3 scans (device ingest {cfg.device_ingest}): {nb} blocks, "
+    print(f"card vs CPU, gp (block_depth {cfg.block_depth}) {n_scans} scans (device "
+          f"ingest {cfg.device_ingest}): {nb} blocks, "
           f"max |m_ivar| deviation "
           f"{dev['m_ivar']:.3e}, max |ivar| deviation {dev['ivar']:.3e}, largest "
           f"deviation / ({tol_a:g} + {tol_r:g}*|CPU|) = {out['ratio']:.3f} (control, "
@@ -1243,9 +1398,15 @@ def card_vs_cpu_gp(cfg, pcd_dir: str) -> dict:
               f"{a}: {n[0]:.3e} (control {n[1]:.3e})" for a, n in needs.items())
           + f"; touched equal {bool(np.array_equal(t_g, t_c))}; {int(excused.sum())} "
           f"voxels near a threshold ({int((~calm).sum())} blocks); state differs at "
-          f"{n_state} other voxels, eff at {n_eff} voxels of the other blocks")
-    require(out["ratio"] <= 1.0,
-            f"card and CPU GP maps differ beyond {tol_a:g} + {tol_r:g}*|CPU|")
+          f"{n_state} other voxels, eff at {n_eff} voxels of the other blocks{msg}")
+    if f64_ref:
+        v = out["vs_f64"]
+        require(v["card"] <= 1.0, f"the card's GP map differs from the f64 map beyond "
+                                  f"{tol_a:g} + {tol_r:g}*|f64|")
+        require(v["control"] > 1.0, "the f64-map limit passes the TF32 control")
+    else:
+        require(out["ratio"] <= 1.0,
+                f"card and CPU GP maps differ beyond {tol_a:g} + {tol_r:g}*|CPU|")
     require(out["ratio_control"] > 1.0, "the card-vs-CPU limit passes the TF32 control")
     require(np.array_equal(t_g, t_c) and n_state == 0 and n_eff == 0,
             "touched, state or eff differ away from the thresholds")
@@ -1290,7 +1451,7 @@ def record_ingest(cfg, scans) -> dict:
         require(m._ingest_enabled(), "device ingest is off on a CUDA map")
         m.insert_pointclouds([c for c, _ in scans], [o for _, o in scans],
                              ds_resolution=cfg.resolution,
-                             free_resolution=cfg.free_resolution, max_range=MAX_RANGE)
+                             free_resolution=cfg.free_resolution, max_range=cfg.max_range)
         torch.cuda.synchronize()
     finally:
         for label, (mod, name) in INGEST_WRAPPERS.items():
@@ -1514,7 +1675,7 @@ def host_syncs(cfg, scans) -> dict:
         try:
             m.insert_pointclouds([c for c, _ in scans], [o for _, o in scans],
                                  ds_resolution=cfg.resolution,
-                                 free_resolution=cfg.free_resolution, max_range=MAX_RANGE)
+                                 free_resolution=cfg.free_resolution, max_range=cfg.max_range)
         finally:
             torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
@@ -1527,9 +1688,9 @@ def host_syncs(cfg, scans) -> dict:
     return {"total": sum(sites.values()), "by_line": sites}
 
 
-def main_path_ingest(cfg, pcd_dir: str, scans) -> dict:
-    """run_static on 12 and 60 scans and OnlineIntegrator on 12 scans on the
-    default path of a CUDA map, device ingest: per dispatch two K7a, two K7b,
+def main_path_ingest(cfg, pcd_dir: str, scans, runs=(12, 60)) -> dict:
+    """run_static on each of ``runs`` scans and OnlineIntegrator on 12 scans
+    on the default path of a CUDA map, device ingest: per dispatch two K7a, two K7b,
     one K7c launches (BGKL: one K7a, one K7b, the two of K7d, one K7c), then
     K1′ once and K2 per scan (BGK, BGKL) or K4 per size tier and K5 per scan
     (GP); no chunk on the host path."""
@@ -1554,15 +1715,16 @@ def main_path_ingest(cfg, pcd_dir: str, scans) -> dict:
                     f"{what}: K4 tiers or a failed factorisation")
         return got
 
-    for n_scans in (12, 60):
+    for n_scans in runs:
         ds = DatasetConfig(name="synth", dir=pcd_dir, prefix="synth", scan_num=n_scans,
-                           max_range=MAX_RANGE)
+                           max_range=cfg.max_range)
         reset_counts()
         res = pipeline.run_static(cfg, ds)
         m = res.map
         ex = pipeline.export_leaves(m)
         n_occ, n_free = len(ex["occupied"]["x"]), len(ex["free"]["x"])
-        print(f"{cfg.method} device ingest, run_static {n_scans} scans: "
+        print(f"{cfg.method} (block_depth {cfg.block_depth}, max_range {cfg.max_range:g}) "
+              f"device ingest, run_static {n_scans} scans: "
               f"{res.scans_per_second:.2f} scans/s ({res.total_seconds:.3f} s), "
               f"{m.pool.n_blocks} blocks, {n_occ} occupied / {n_free} free leaves, "
               f"host_s {m.stats['host_s'] * 1e3:.1f} ms")
@@ -1789,6 +1951,72 @@ def check_k6(m, scans, n: int, what: str, host_subset: int, seed: int,
             "control_rays_differ": n_ctl, "host_agreement": agree, "host_ties": ties}
 
 
+# ------------------------------------------------------------- large-map phases
+
+def table_bytes(what: str, rows: int, row_bytes: int, scans: int) -> dict:
+    """Print and return the size of a dispatch's heavy-pass tables: ``rows``
+    test blocks of ``row_bytes`` each over ``scans`` scans, and what a
+    16-scan dispatch of the same scene holds at the same blocks a scan."""
+    total = rows * row_bytes
+    per16 = total * 16 / scans
+    print(f"{what}: {rows} test blocks x {row_bytes / 1e3:.1f} KB a block row = "
+          f"{total / 1e6:.1f} MB over {scans} scans; a 16-scan dispatch holds about "
+          f"{per16 / 1e6:.1f} MB of the card's "
+          f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.1f} GB")
+    return {"bytes": total, "row_bytes": row_bytes, "rows": rows,
+            "bytes_16_scans": per16}
+
+
+def check_light_collapsible(name: str, fn, plain, lead, pool0, node_idx, slots, ss, sc,
+                            kw, templates) -> dict:
+    """A light pass (K2 or K5, ``fn``) against its plain version over the
+    dispatch's scans in order, from the dispatch's pool with its blocks made
+    collapsible at every level (raster; the real scene collapses no 16³
+    group): twice, each run bit for bit equal to the plain one; prints the
+    groups collapsed at each level across tiles (edge > 8)."""
+    n, max_level = kw["n"], kw["max_level"]
+    start = collapsible_pool(pool0, slots, n, templates=templates, raster=True)
+
+    def run(f):
+        st = [x.clone() for x in start]
+        for s, c in zip(ss, sc):
+            f(*lead, *st, node_idx, slots, s, c, **kw)
+        return st
+
+    runs = [run(fn), run(fn)]
+    ref = run(plain)
+    torch.cuda.synchronize()
+    same = [all(torch.equal(x, y) for x, y in zip(k, ref)) for k in runs]
+    levels = light_levels(ref[3], slots, max_level)
+    across = {L: levels[L] // 8 ** L for L in range(4, max_level + 1)}
+    print(f"{name}, collapsible blocks: {len(ss)} scans, pool rows equal to the plain "
+          f"version's in both runs {same}; voxels by eff level {levels}; groups "
+          f"collapsed across tiles by level {across}")
+    require(all(same), f"{name} disagrees with its plain version on collapsible blocks")
+    require(sum(across.values()) > 0, f"{name}: no group collapsed across tiles")
+    return {"levels": levels, "cross_tile_groups": across, "runs_equal": same}
+
+
+def large_bgk_family(cfg_off, cfg_on, pcd_dir: str, scans, heavy: bool) -> dict:
+    """A BGK-family large map on both ingest paths: run_static on 12 scans
+    and OnlineIntegrator on 12 (launch counts asserted), card vs CPU on the
+    host path (1 scan) and on device ingest (2 scans), at PERF.md §2's
+    limits (BGK's host path 5e-3; BGKL's and device ingest 1e-5 +
+    1e-5·|CPU|, with the TF32 control where ``heavy``)."""
+    seg = cfg_off.method == "bgkl"
+    out = {"host": main_path(cfg_off, pcd_dir, scans, runs=(12,)),
+           "device": main_path_ingest(cfg_on, pcd_dir, scans, runs=(12,))}
+    host_tol = (1e-5, 1e-5) if seg else (5e-3, 0.0)
+    out["card_vs_cpu_host"] = card_vs_cpu(
+        cfg_off, pcd_dir, n_scans=1, tol=host_tol,
+        control=(bgk_heavy, "bgk_heavy", tf32_k1) if heavy else None)
+    forced = dataclasses.replace(cfg_on, device_ingest="on")
+    out["card_vs_cpu_device"] = card_vs_cpu(
+        forced, pcd_dir, n_scans=2, tol=(1e-5, 1e-5),
+        control=(bgk_aligned_heavy, "bgk_aligned_heavy", tf32_k1p) if heavy else None)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1984,6 +2212,54 @@ def main() -> int:
                 "bgklv": check_k6(pipeline.run_static(cfg_lv, ds60).map, scans, RAYS_OTHER,
                                   "BGKLV demo map, 60 scans", host_subset=500, seed=3)}
 
+        # the large maps at their YAML's own max_range (30 m; every hit of the
+        # room lies within about 17.5 m), GP at block_depth 5 at the GP large
+        # map's 8 m
+        cfg_ll = load_method_config("bgkloctomap_large_map", device_ingest="off")
+        cfg_ll_on = load_method_config("bgkloctomap_large_map")
+        stamp("BGKL large map (block_depth 5, 16^3 voxels a block): K1 (segments), K2")
+        args, statics = capture_dispatch(cfg_ll, scans[:12], "cuda")
+        k1_ll = check_k1(args, statics, reps=2, gate=statics["gate"])
+        acc = k1_ll.pop("acc")
+        mem_ll = table_bytes("K1 accumulator [T, Vall, 2G] f32, 12-scan BGKL large-map "
+                             "dispatch", acc.shape[0], acc.shape[1] * acc.shape[2] * 4, 12)
+        k2_ll = check_k2(args, statics, acc, what="12-scan BGKL large-map dispatch")
+        kw = {k: statics[k] for k in ("G", "gate", "n", "max_level", "state_fn",
+                                      "do_prune")}
+        k2_ll["collapsible"] = check_light_collapsible(
+            "K2", bgk_light.bgk_light, bgk_light.bgk_light_plain, (acc,), args[:4], args[5],
+            args[13], args[15], args[16], kw, BETA_TEMPLATES)
+        del args, acc
+        stamp("BGKL large map: main path on both ingest paths, card vs CPU")
+        path_ll = large_bgk_family(cfg_ll, cfg_ll_on, tmp, scans, heavy=True)
+        stamp("BGK large map (block_depth 3): main path on both ingest paths, card vs CPU")
+        path_bl = large_bgk_family(
+            load_method_config("bgkoctomap_large_map", device_ingest="off"),
+            load_method_config("bgkoctomap_large_map"), tmp, scans, heavy=False)
+
+        stamp("GP at block_depth 5 (host ingest): K4, K5, main path, card vs CPU")
+        cfg_gp5 = load_method_config("gpoctomap_large_map", block_depth=5,
+                                     max_range=MAX_RANGE, device_ingest="off")
+        args, statics = capture_gp(cfg_gp5, scans[:12], run_step=False)
+        k4_5 = check_k4(args, statics, "12-scan GP depth-5 dispatch", reps=0)
+        tables = k4_5.pop("tables")
+        G5 = statics["G"]
+        mem_gp5 = table_bytes("K4 tables (mean, var) f32, 12-scan GP depth-5 dispatch",
+                              tables["acc_mean"].shape[0] // G5,
+                              G5 * tables["acc_mean"].shape[1] * 8, 12)
+        k5_5 = check_k5(args, statics, tables, "12-scan GP depth-5 dispatch")
+        kw5 = {k: statics[k] for k in ("G", "sf2", "min_known_ivar", "max_ivar", "n",
+                                       "max_level", "state_fn", "do_prune")}
+        k5_5["collapsible"] = check_light_collapsible(
+            "K5", gp_light.gp_light, gp_light.gp_light_plain,
+            (tables["acc_mean"], tables["acc_var"], tables["present"]), args[:4], args[5],
+            args[9], args[11], args[12], kw5, GP_TEMPLATES)
+        del args, tables
+        path_gp5 = {"static12": gp_static(cfg_gp5, tmp, 12)}
+        # one scan: the CPU factors models of up to about 2100 points, whose
+        # f32 factors part from f64 by more than GP_CPU_TOL
+        dev_gp5 = card_vs_cpu_gp(cfg_gp5, tmp, n_scans=1, f64_ref=True)
+
     launches = path["static60"]["launches"]
     launches_on = path_on["static60"]["launches"]
     kernels = [
@@ -1995,7 +2271,11 @@ def main() -> int:
          "source": "la3dm_tpu_torch/csrc/bgk_light.cu",
          "replaces": "la3dm_tpu/models/bgk.py:140", "launches": launches["bgk_light"],
          "work": "the 16 per-scan launches of one 16-scan dispatch", **k2,
-         "library_ms": None},
+         "library_ms": None,
+         "large_block": {
+             "work": "the 12 per-scan launches of one 12-scan BGKL large-map dispatch "
+                     "(16^3 voxels a block)",
+             "launches": path_ll["host"]["static12"]["launches"]["bgk_light"], **k2_ll}},
         {"name": "lv_rows", "route": "cuda",
          "source": "la3dm_tpu_torch/csrc/lv_rows.cu",
          "replaces": "la3dm_tpu/models/bgklv.py:127",
@@ -2012,13 +2292,17 @@ def main() -> int:
          "launches": path_gp["static60"]["launches"]["gp_heavy"],
          "work": "the base tier of one 16-scan demo dispatch", **k4["tiers"][0],
          "library_ms": None, "large_map_tiers": k4_l["tiers"],
-         "forced_block_tiers": k4_d["tiers"]},
+         "forced_block_tiers": k4_d["tiers"], "depth5_tiers": k4_5["tiers"]},
         {"name": "gp_light", "route": "cuda",
          "source": "la3dm_tpu_torch/csrc/gp_light.cu",
          "replaces": "la3dm_tpu/models/gp.py:128",
          "launches": path_gp["static60"]["launches"]["gp_light"],
          "work": "the 16 per-scan launches of one 16-scan demo dispatch", **k5,
-         "library_ms": None, "large_map": k5_l},
+         "library_ms": None, "large_map": k5_l,
+         "large_block": {
+             "work": "the 12 per-scan launches of one 12-scan GP depth-5 dispatch "
+                     "(16^3 voxels a block)",
+             "launches": path_gp5["static12"]["launches"]["gp_light"], **k5_5}},
         {"name": "ingest_beams", "route": "cuda",
          "source": "la3dm_tpu_torch/csrc/ingest_beams.cu",
          "replaces": "la3dm_tpu/geometry/device_ingest.py:390",
@@ -2070,7 +2354,10 @@ def main() -> int:
                "main_path_gp_ingest": path_gp_on, "card_vs_cpu_gp_ingest": dev_gp_on,
                "main_path_bgkl": path_l, "card_vs_cpu_max_dev_bgkl": dev_l,
                "main_path_bgkl_ingest": path_l_on, "card_vs_cpu_max_dev_bgkl_ingest": dev_l_on,
-               "raycast": rays}
+               "raycast": rays,
+               "bgkl_large_map": {**path_ll, "k1_segments": k1_ll, "accumulator": mem_ll},
+               "bgk_large_map": path_bl,
+               "gp_depth5": {**path_gp5, "card_vs_cpu": dev_gp5, "tables": mem_gp5}}
     print(f"main path on {smi}: BGK {path_on['static60']['scans_per_s']:.2f} scans/s "
           f"(60 scans, device ingest; host ingest {path['static60']['scans_per_s']:.2f}), "
           f"median online latency {path_on['online12']['median_ms']:.2f} ms (host ingest "
@@ -2088,7 +2375,16 @@ def main() -> int:
           f"{path_l_on['online12']['median_ms']:.2f} ms (host ingest "
           f"{path_l['online12']['median_ms']:.2f}); raycast "
           f"{rays['bgk']['rays_per_s']:.4g} rays/s over 1,000,000 rays (snapshot "
-          f"{rays['bgk']['snapshot_ms']:.2f} ms)")
+          f"{rays['bgk']['snapshot_ms']:.2f} ms); large maps (12 scans): BGKL "
+          f"{path_ll['device']['static12']['scans_per_s']:.2f} scans/s on device ingest "
+          f"(host ingest {path_ll['host']['static12']['scans_per_s']:.2f}), median online "
+          f"latency {path_ll['device']['online12']['median_ms']:.2f} ms (host ingest "
+          f"{path_ll['host']['online12']['median_ms']:.2f}), BGK "
+          f"{path_bl['device']['static12']['scans_per_s']:.2f} (host ingest "
+          f"{path_bl['host']['static12']['scans_per_s']:.2f}), GP at block_depth 5 "
+          f"{path_gp5['static12']['scans_per_s']:.2f} (host ingest); K2 "
+          f"{1e3 * k2_ll['ms_per_launch']:.2f} us a launch at 16^3 voxels a block, "
+          f"{1e3 * k2['ms_per_launch']:.2f} us at 4^3")
     stamp("done")
     print(json.dumps(summary))
     print(json.dumps({"kernels": kernels}))

@@ -34,6 +34,15 @@
 // in a global workspace of ``ws_stride`` floats per CTA (allocated by the
 // wrapper), and a grid of at most ``grid`` CTAs walks the models.
 //
+// Accumulation: the base tier sums in f32 (the sums run over <= 128
+// terms).  The overflow tier keeps L and v in f32 but carries the solves
+// (alpha in place) and each query's sums (the substitution r, the mean,
+// sum v^2) in f64: those sums run over up to c terms, and in f32 they
+// part from the exact result by more than the f32 cuSOLVER path does at a
+// few thousand points (block_depth 5 models reach about 2,100); the
+// factor's own f32 rounding is the smaller part.  The tier is bound by
+// its v traffic, not by the f64 arithmetic.
+//
 // What bounds it: FP32 arithmetic on the CUDA cores — the Gram (c^2/2
 // Matern evaluations), the factor (c^3/3 multiply-adds), the two solves
 // (c^2) and the predict (Q * (c Matern evaluations + c^2/2 multiply-adds)
@@ -63,6 +72,7 @@ __device__ __forceinline__ float dist3(float ax, float ay, float az, float bx,
   return sqrtf(d2);
 }
 
+template <typename Acc>  // float (base tier) or double (overflow tier)
 __global__ void gp_heavy_kernel(const float* __restrict__ pts,       // [N,3]
                                 const float* __restrict__ lab,       // [N]
                                 const int32_t* __restrict__ starts,  // [M]
@@ -77,15 +87,15 @@ __global__ void gp_heavy_kernel(const float* __restrict__ pts,       // [N,3]
                                 float* __restrict__ acc_var,         // [Tp*G,Vall]
                                 uint8_t* __restrict__ present,       // [Tp*G]
                                 int32_t* __restrict__ failed) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int s_fail;
   const int nt = blockDim.x;
   const int tid = threadIdx.x;
-  float* px = smem;  // scaled training points and, in place, y -> z -> alpha
+  Acc* a = reinterpret_cast<Acc*>(smem);  // in place: y -> z -> alpha
+  float* px = reinterpret_cast<float*>(a + cmax);  // scaled training points
   float* py = px + cmax;
   float* pz = py + cmax;
-  float* a = pz + cmax;
-  float* Lm = ws != nullptr ? ws + (size_t)blockIdx.x * ws_stride : a + cmax;
+  float* Lm = ws != nullptr ? ws + (size_t)blockIdx.x * ws_stride : pz + cmax;
   const float nan = __int_as_float(0x7fc00000);
   const int Q = G * Vall;
 
@@ -144,18 +154,19 @@ __global__ void gp_heavy_kernel(const float* __restrict__ pts,       // [N,3]
     if (ok) {
       // forward L z = y, then back L^T alpha = z, in place in a[]
       for (int k = 0; k < c; ++k) {
-        if (tid == 0) a[k] = a[k] / Lm[(size_t)k * c + k];
+        if (tid == 0) a[k] = a[k] / (Acc)Lm[(size_t)k * c + k];
         __syncthreads();
-        const float zk = a[k];
+        const Acc zk = a[k];
         for (int i = k + 1 + tid; i < c; i += nt)
-          a[i] = a[i] - Lm[(size_t)i * c + k] * zk;
+          a[i] = a[i] - (Acc)Lm[(size_t)i * c + k] * zk;
         __syncthreads();
       }
       for (int k = c - 1; k >= 0; --k) {
-        if (tid == 0) a[k] = a[k] / Lm[(size_t)k * c + k];
+        if (tid == 0) a[k] = a[k] / (Acc)Lm[(size_t)k * c + k];
         __syncthreads();
-        const float ak = a[k];
-        for (int i = tid; i < k; i += nt) a[i] = a[i] - Lm[(size_t)k * c + i] * ak;
+        const Acc ak = a[k];
+        for (int i = tid; i < k; i += nt)
+          a[i] = a[i] - (Acc)Lm[(size_t)k * c + i] * ak;
         __syncthreads();
       }
     }
@@ -170,19 +181,19 @@ __global__ void gp_heavy_kernel(const float* __restrict__ pts,       // [N,3]
         const float zx = (all_nodes[3 * v + 0] + centers[3 * (size_t)nb + 0]) * s;
         const float zy = (all_nodes[3 * v + 1] + centers[3 * (size_t)nb + 1]) * s;
         const float zz = (all_nodes[3 * v + 2] + centers[3 * (size_t)nb + 2]) * s;
-        float mu = 0.0f, ss = 0.0f;
+        Acc mu = 0, ss = 0;
         for (int i = 0; i < c; ++i) {
           const float ks = matern32(dist3(px[i], py[i], pz[i], zx, zy, zz), sf2);
-          mu = mu + ks * a[i];
+          mu = mu + (Acc)ks * a[i];
           const float* Li = Lm + (size_t)i * c;
-          float r = ks;
-          for (int k = 0; k < i; ++k) r = r - Li[k] * Vw[(size_t)k * nt + tid];
-          const float vi = r / Li[i];
+          Acc r = ks;
+          for (int k = 0; k < i; ++k) r = r - (Acc)Li[k] * (Acc)Vw[(size_t)k * nt + tid];
+          const float vi = (float)(r / (Acc)Li[i]);
           Vw[(size_t)i * nt + tid] = vi;
-          ss = ss + vi * vi;
+          ss = ss + (Acc)vi * (Acc)vi;
         }
-        mean = mu;
-        var = sf2 - ss;
+        mean = (float)mu;
+        var = (float)((Acc)sf2 - ss);
       }
       const size_t row = (size_t)nb * G + g;
       acc_mean[row * Vall + v] = mean;
@@ -213,22 +224,30 @@ extern "C" int la3dm_gp_heavy(const float* pts, const float* lab, const int32_t*
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool shared = ws == nullptr;
   const int nt = threads;
-  size_t smem = 4 * (size_t)cmax * sizeof(float);
-  if (shared) smem += ((size_t)cmax * cmax + (size_t)cmax * nt) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      gp_heavy_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  cudaError_t err;
   if (shared) {
-    gp_heavy_kernel<<<M, nt, smem, st>>>(pts, lab, starts, counts, nb_rows, centers,
-                                         all_nodes, nullptr, 0, M, Tp, G, Vall, cmax, s,
-                                         sf2, noise, acc_mean, acc_var, present, failed);
+    // alpha, the points, then L and the v columns, all f32
+    const size_t smem =
+        (4 * (size_t)cmax + (size_t)cmax * cmax + (size_t)cmax * nt) * sizeof(float);
+    err = cudaFuncSetAttribute(gp_heavy_kernel<float>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    gp_heavy_kernel<float><<<M, nt, smem, st>>>(pts, lab, starts, counts, nb_rows,
+                                                centers, all_nodes, nullptr, 0, M, Tp, G,
+                                                Vall, cmax, s, sf2, noise, acc_mean,
+                                                acc_var, present, failed);
   } else {
     if (grid <= 0) return (int)cudaErrorInvalidValue;
+    // alpha in f64 and the points in shared memory; L and v in ws
+    const size_t smem = (size_t)cmax * sizeof(double) + 3 * (size_t)cmax * sizeof(float);
+    err = cudaFuncSetAttribute(gp_heavy_kernel<double>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
     const size_t stride = (size_t)cmax * cmax + (size_t)cmax * nt;
-    gp_heavy_kernel<<<grid, nt, smem, st>>>(pts, lab, starts, counts, nb_rows, centers,
-                                            all_nodes, ws, stride, M, Tp, G, Vall, cmax, s,
-                                            sf2, noise, acc_mean, acc_var, present,
-                                            failed);
+    gp_heavy_kernel<double><<<grid, nt, smem, st>>>(pts, lab, starts, counts, nb_rows,
+                                                    centers, all_nodes, ws, stride, M, Tp,
+                                                    G, Vall, cmax, s, sf2, noise, acc_mean,
+                                                    acc_var, present, failed);
   }
   return (int)cudaGetLastError();
 }

@@ -92,7 +92,7 @@ def _bind(lib):
     lib.la3dm_bgk_heavy.restype = ci
     lib.la3dm_bgk_heavy.argtypes = [vp] * 9 + [ci, ci, ci, ci, cf, cf, vp, vp]
     lib.la3dm_bgk_light.restype = ci
-    lib.la3dm_bgk_light.argtypes = ([vp] * 7 + [ci] * 6 + [cf, ci, cf, cf, cf, vp])
+    lib.la3dm_bgk_light.argtypes = [vp] * 7 + [ci] * 6 + [cf, ci, cf, cf, cf] + [vp] * 5
     lib.la3dm_lv_rows.restype = ci
     lib.la3dm_lv_rows.argtypes = [vp] * 16 + [ci] * 4 + [cf] * 4 + [vp]
     lib.la3dm_lv_prune.restype = ci
@@ -100,7 +100,7 @@ def _bind(lib):
     lib.la3dm_gp_heavy.restype = ci
     lib.la3dm_gp_heavy.argtypes = [vp] * 12 + [ci] * 7 + [cf] * 3 + [vp]
     lib.la3dm_gp_light.restype = ci
-    lib.la3dm_gp_light.argtypes = [vp] * 9 + [ci] * 7 + [cf] * 6 + [vp]
+    lib.la3dm_gp_light.argtypes = [vp] * 9 + [ci] * 7 + [cf] * 6 + [vp] * 5
     lib.la3dm_ingest_points.restype = ci
     lib.la3dm_ingest_points.argtypes = [vp] * 4 + [cl, cf, cf, vp, vp]
     lib.la3dm_ingest_beams.restype = ci

@@ -10,8 +10,10 @@ scan: the per-slot gate k̄_g > gate, ΔA = Σ gated ȳ and ΔB = Σ gated
 tensors are updated in place.
 
 On a CUDA tensor :func:`bgk_light` launches the hand-written kernel
-(``csrc/bgk_light.cu``: one CTA per block, one thread per voxel, the prune
-in shared memory); on a CPU tensor it runs :func:`bgk_light_plain`.  The
+(``csrc/bgk_light.cu``, one thread per voxel: one CTA per block up to 8³
+voxels, the prune in shared memory; one CTA per 8³ tile for blocks of 16³
+to 64³ voxels, the levels across tiles run by each block's last CTA over
+per-tile summaries); on a CPU tensor it runs :func:`bgk_light_plain`.  The
 kernel is bound by memory: it moves each accumulator and pool byte once.
 """
 
@@ -24,6 +26,39 @@ from la3dm_tpu_torch.models import pruning
 
 #: kernel launches since the counter was last reset (one per scan)
 launches = 0
+
+#: the largest block edge the kernels take (block_depth 7), as K8's
+MAX_N = 64
+#: voxels per tile edge of the tiled kernels (blocks of n > TILE_EDGE)
+TILE_EDGE = 8
+
+
+def check_block_edge(name: str, n: int, V: int) -> None:
+    """Raise unless the pool rows hold blocks of n³ voxels with n a power of
+    two no larger than :data:`MAX_N`."""
+    if n <= 0 or n & (n - 1) or n > MAX_N or V != n ** 3:
+        raise ValueError(f"{name}: blocks of n³ voxels with n a power of two "
+                         f"≤ {MAX_N} (block_depth ≤ 7); got n={n}, {V} voxels a row")
+
+
+def tile_scratch(device, n: int, count: int) -> tuple:
+    """Scratch of a tiled launch over ``count`` blocks of edge ``n`` (shared
+    with K5): tile summaries (eff, state) int8 [.,2], (f0, f1) f32 [.,2],
+    touched u8 [.], and the per-block counters int32 [count], zeroed on the
+    launch's stream; none for n ≤ TILE_EDGE.  The caller holds the tensors
+    until the launch is queued."""
+    if n <= TILE_EDGE:
+        return ()
+    tiles = count * (n // TILE_EDGE) ** 3
+    return (torch.empty((tiles, 2), dtype=torch.int8, device=device),
+            torch.empty((tiles, 2), dtype=torch.float32, device=device),
+            torch.empty((tiles,), dtype=torch.uint8, device=device),
+            torch.zeros((count,), dtype=torch.int32, device=device))
+
+
+def scratch_ptrs(scratch: tuple) -> list:
+    """The launcher's four scratch pointers (0 where there is none)."""
+    return [x.data_ptr() for x in scratch] or [0, 0, 0, 0]
 
 
 def bgk_light(acc, A, Bv, touched, eff, node_idx_tab, slots, start: int,
@@ -40,7 +75,6 @@ def bgk_light(acc, A, Bv, touched, eff, node_idx_tab, slots, start: int,
     if acc.device.type != "cuda":
         raise ValueError(f"bgk_light: unsupported device {acc.device}")
     global launches
-    V = n ** 3
     want = {"acc": (acc, torch.float32), "A": (A, torch.float32),
             "Bv": (Bv, torch.float32), "touched": (touched, torch.bool),
             "eff": (eff, torch.int8), "node_idx_tab": (node_idx_tab, torch.int32),
@@ -51,23 +85,23 @@ def bgk_light(acc, A, Bv, touched, eff, node_idx_tab, slots, start: int,
                              f"on {acc.device}")
     if not A.shape == Bv.shape == touched.shape == eff.shape:
         raise ValueError("bgk_light: pool tensors differ in shape")
-    if V > 1024 or A.shape[1] != V:
-        raise ValueError(f"bgk_light: V={V} voxels per block (the kernel takes "
-                         "one thread per voxel, at most 1024)")
+    check_block_edge("bgk_light", n, A.shape[1])
     if (acc.shape[0] != slots.shape[0] or acc.shape[2] != 2 * G
-            or node_idx_tab.shape[1] != V or start < 0
+            or node_idx_tab.shape[1] != A.shape[1] or start < 0
             or start + count > slots.shape[0]):
         raise ValueError("bgk_light: accumulator, node table or scan range "
                          "out of shape")
     if count <= 0:
         return
     stream = torch.cuda.current_stream(acc.device).cuda_stream
+    scratch = tile_scratch(acc.device, n, count)
     code = _build.lib().la3dm_bgk_light(
         acc.data_ptr(), slots.data_ptr(), node_idx_tab.data_ptr(),
         A.data_ptr(), Bv.data_ptr(), touched.data_ptr(), eff.data_ptr(),
         int(start), int(count), A.shape[0], n, acc.shape[1], G, float(gate),
         max_level if do_prune else 0, float(state_fn.var_thresh),
-        float(state_fn.free_thresh), float(state_fn.occupied_thresh), stream)
+        float(state_fn.free_thresh), float(state_fn.occupied_thresh),
+        *scratch_ptrs(scratch), stream)
     _build.check(code, "bgk_light")
     launches += 1
 

@@ -18,9 +18,10 @@ so any padded size ≥ the true count gives the same numbers.
 On a CUDA tensor :func:`gp_heavy` launches the hand-written kernel
 (``csrc/gp_heavy.cu``: one CTA per model on its true point count; for
 cmax ≤ 128, the base tier, the factor lives in shared memory, otherwise in
-a global workspace); on a CPU tensor it runs :func:`gp_heavy_plain`, the
-JAX step's padded, chunked batch at S = cmax.  What bounds the kernel is
-FP32 arithmetic on the CUDA cores (:func:`flops`).
+a global workspace, with the solves and each query's sums carried in f64);
+on a CPU tensor it runs :func:`gp_heavy_plain`, the JAX step's padded,
+chunked batch at S = cmax.  What bounds the kernel is FP32 arithmetic on
+the CUDA cores (:func:`flops`).
 """
 
 from __future__ import annotations

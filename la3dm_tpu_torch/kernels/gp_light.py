@@ -10,8 +10,9 @@ the scan's blocks are pruned bottom-up.  The pool tensors are updated in
 place.
 
 On a CUDA tensor :func:`gp_light` launches the hand-written kernel
-(``csrc/gp_light.cu``: one CTA per block, one thread per voxel, the prune in
-shared memory as K2's); on a CPU tensor it runs :func:`gp_light_plain`.
+(``csrc/gp_light.cu``, one thread per voxel in K2's shapes: one CTA per
+block up to 8³ voxels, one CTA per 8³ tile above, with K2's cross-tile
+prune and scratch); on a CPU tensor it runs :func:`gp_light_plain`.
 The kernel is bound by memory: it moves each selected prediction and pool
 byte once.
 """
@@ -20,7 +21,7 @@ from __future__ import annotations
 
 import torch
 
-from la3dm_tpu_torch.kernels import _build, gp as kgp
+from la3dm_tpu_torch.kernels import _build, bgk_light, gp as kgp
 from la3dm_tpu_torch.models import pruning
 
 #: kernel launches since the counter was last reset (one per scan)
@@ -43,7 +44,6 @@ def gp_light(acc_mean, acc_var, present, m_ivar, ivar, touched, eff, node_idx_ta
     if acc_mean.device.type != "cuda":
         raise ValueError(f"gp_light: unsupported device {acc_mean.device}")
     global launches
-    V = n ** 3
     want = {"acc_mean": (acc_mean, torch.float32), "acc_var": (acc_var, torch.float32),
             "present": (present, torch.bool), "m_ivar": (m_ivar, torch.float32),
             "ivar": (ivar, torch.float32), "touched": (touched, torch.bool),
@@ -55,25 +55,25 @@ def gp_light(acc_mean, acc_var, present, m_ivar, ivar, touched, eff, node_idx_ta
                              f"on {acc_mean.device}")
     if not m_ivar.shape == ivar.shape == touched.shape == eff.shape:
         raise ValueError("gp_light: pool tensors differ in shape")
-    if V > 1024 or m_ivar.shape[1] != V:
-        raise ValueError(f"gp_light: V={V} voxels per block (the kernel takes "
-                         "one thread per voxel, at most 1024)")
+    bgk_light.check_block_edge("gp_light", n, m_ivar.shape[1])
     Tp = slots.shape[0]
     if (acc_mean.shape != acc_var.shape or acc_mean.shape[0] != Tp * G
-            or present.shape != (Tp * G,) or node_idx_tab.shape[1] != V
+            or present.shape != (Tp * G,) or node_idx_tab.shape[1] != m_ivar.shape[1]
             or start < 0 or start + count > Tp):
         raise ValueError("gp_light: prediction tables, node table or scan range "
                          "out of shape")
     if count <= 0:
         return
     stream = torch.cuda.current_stream(acc_mean.device).cuda_stream
+    scratch = bgk_light.tile_scratch(acc_mean.device, n, count)
     code = _build.lib().la3dm_gp_light(
         acc_mean.data_ptr(), acc_var.data_ptr(), present.data_ptr(), slots.data_ptr(),
         node_idx_tab.data_ptr(), m_ivar.data_ptr(), ivar.data_ptr(),
         touched.data_ptr(), eff.data_ptr(), int(start), int(count), m_ivar.shape[0],
         n, acc_mean.shape[1], G, max_level if do_prune else 0, float(sf2),
         float(min_known_ivar), float(max_ivar), float(state_fn.l),
-        float(state_fn.free_thresh), float(state_fn.occupied_thresh), stream)
+        float(state_fn.free_thresh), float(state_fn.occupied_thresh),
+        *bgk_light.scratch_ptrs(scratch), stream)
     _build.check(code, "gp_light")
     launches += 1
 

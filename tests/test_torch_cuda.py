@@ -19,8 +19,9 @@ from la3dm_tpu_torch.kernels import (bgk_aligned_heavy, bgk_heavy, bgk_light, gp
                                      ingest_members, ingest_rays, lv_prune, lv_rows, raycast)
 from la3dm_tpu_torch.models import posterior as po
 
-from torch_cases import (GP_BCM, GP_STATE, GP_STATICS, INGEST,  # tests/ on sys.path
-                         LV_ROWS_STATICS, LV_STATE, aligned_heavy_inputs, gp_heavy_inputs,
+from torch_cases import (BETA_TEMPLATES, GP_BCM, GP_STATE,  # tests/ on sys.path
+                         GP_STATICS, GP_TEMPLATES, INGEST, LV_ROWS_STATICS, LV_STATE,
+                         aligned_heavy_inputs, collapsible_raster_pool, gp_heavy_inputs,
                          gp_light_inputs, heavy_inputs, ingest_scene, light_inputs,
                          lv_prune_inputs, lv_rows_inputs, ray_inputs, raycast_inputs)
 
@@ -88,6 +89,142 @@ def test_bgk_light_kernel_matches_plain(cuda_dev):
     torch.cuda.synchronize()
     assert torch.equal(k[2], p[2]) and torch.equal(k[3], p[3])
     assert (k[0] - p[0]).abs().max() <= 1e-6 and (k[1] - p[1]).abs().max() <= 1e-6
+
+
+def _collapsible_start(pool, slots, templates, seed):
+    """``pool`` with the rows of ``slots`` (padding dropped) replaced by
+    :func:`collapsible_raster_pool` rows."""
+    cap, V = pool[0].shape
+    n = round(V ** (1 / 3))
+    sl = slots[slots < cap].long()
+    rows = collapsible_raster_pool(n, len(sl), templates, seed=seed)
+    out = [x.clone() for x in pool]
+    for x, r in zip(out, rows):
+        x[sl] = torch.from_numpy(r).to(x.device)
+    return out
+
+
+def _light_runs(kernel, plain, args, pool, scans):
+    """The kernel's pool and the plain version's after ``scans``, from
+    copies of ``pool``; ``args`` are the wrapper's leading inputs."""
+    k = [x.clone() for x in pool]
+    p = [x.clone() for x in pool]
+    for s, c in scans:
+        kernel(*args, *k, s, c)
+        plain(*args, *p, s, c)
+    torch.cuda.synchronize()
+    return k, p
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("start", ["prior", "collapsible"])
+@pytest.mark.parametrize("depth", [5, 6, 7])
+def test_bgk_light_tiled_kernel_equals_plain(cuda_dev, depth, start):
+    """K2 on blocks of 16³, 32³ and 64³ voxels (one CTA per 8³ tile, the
+    levels across tiles in each block's last CTA): bit for bit, from the
+    prior and from a raster pool that collapses at every level."""
+    acc, *pool, node_idx, slots = light_inputs(10, depth=depth, dev=cuda_dev)
+    if start == "collapsible":
+        pool = _collapsible_start(pool, slots, BETA_TEMPLATES, seed=depth)
+    n = 2 ** (depth - 1)
+    kw = dict(G=7, gate=0.0, n=n, max_level=depth - 1,
+              state_fn=po.BetaStateFn(100.0, 0.3, 0.7), do_prune=True)
+    before = bgk_light.launches
+
+    def kernel(*a):
+        bgk_light.bgk_light(*a[:5], node_idx, slots, *a[5:], **kw)
+
+    def plain(*a):
+        bgk_light.bgk_light_plain(*a[:5], node_idx, slots, *a[5:], **kw)
+
+    k, p = _light_runs(kernel, plain, (acc,), pool, [(0, 6), (6, 6)])
+    assert bgk_light.launches == before + 2
+    for x, y in zip(k, p):
+        assert torch.equal(x, y)
+    sl = slots[:-1].long()
+    assert int((k[3][sl] == depth - 1).sum()) >= n ** 3   # a whole block collapsed
+    assert start == "prior" or (k[3][sl] == 1).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("start", ["prior", "collapsible"])
+def test_gp_light_tiled_kernel_equals_plain(cuda_dev, start):
+    """K5 on blocks of 16³ voxels: bit for bit with its plain version."""
+    am, av, pr, *pool, node_idx, slots = gp_light_inputs(16, depth=5, dev=cuda_dev)
+    if start == "collapsible":
+        pool = _collapsible_start(pool, slots, GP_TEMPLATES, seed=5)
+    kw = dict(G=7, **GP_BCM, n=16, max_level=4, state_fn=po.GPStateFn(**GP_STATE),
+              do_prune=True)
+    before = gp_light.launches
+
+    def kernel(*a):
+        gp_light.gp_light(*a[:7], node_idx, slots, *a[7:], **kw)
+
+    def plain(*a):
+        gp_light.gp_light_plain(*a[:7], node_idx, slots, *a[7:], **kw)
+
+    k, p = _light_runs(kernel, plain, (am, av, pr), pool, [(0, 6), (6, 6)])
+    assert gp_light.launches == before + 2
+    for x, y in zip(k, p):
+        assert torch.equal(x, y)
+    assert int((k[3][slots[:-1].long()] == 4).sum()) >= 4096
+
+
+@pytest.mark.cuda
+def test_light_tiled_kernels_repeat_and_skip_padding(cuda_dev):
+    """K2 and K5 at 16³: a padding slot inside a scan's range leaves every
+    tile of that block alone (no row outside the scans' slots moves), and a
+    second run from the same start gives the same bits (the last CTA of
+    each block is found anew on every launch)."""
+    acc, *pool, node_idx, slots = light_inputs(12, depth=5, dev=cuda_dev)
+    cap = pool[0].shape[0]
+    slots[3] = cap                                     # padding inside scan 1
+    pool = _collapsible_start(pool, slots, BETA_TEMPLATES, seed=3)
+    kw = dict(G=7, gate=0.0, n=16, max_level=4,
+              state_fn=po.BetaStateFn(100.0, 0.3, 0.7), do_prune=True)
+    am, av, pr, *gpool, gnode_idx, gslots = gp_light_inputs(17, depth=5, dev=cuda_dev)
+    gslots[4] = cap
+    gpool = _collapsible_start(gpool, gslots, GP_TEMPLATES, seed=4)
+    gkw = dict(G=7, **GP_BCM, n=16, max_level=4, state_fn=po.GPStateFn(**GP_STATE),
+               do_prune=True)
+
+    def k2(st):
+        for s, c in ((0, 6), (6, 6)):
+            bgk_light.bgk_light(acc, *st, node_idx, slots, s, c, **kw)
+        return st
+
+    def k5(st):
+        for s, c in ((0, 6), (6, 6)):
+            gp_light.gp_light(am, av, pr, *st, gnode_idx, gslots, s, c, **gkw)
+        return st
+
+    for run, start, sl, plain in (
+            (k2, pool, slots, lambda st: [bgk_light.bgk_light_plain(
+                acc, *st, node_idx, slots, s, c, **kw) for s, c in ((0, 6), (6, 6))]),
+            (k5, gpool, gslots, lambda st: [gp_light.gp_light_plain(
+                am, av, pr, *st, gnode_idx, gslots, s, c, **gkw)
+                for s, c in ((0, 6), (6, 6))])):
+        first = run([x.clone() for x in start])
+        second = run([x.clone() for x in start])
+        p = [x.clone() for x in start]
+        plain(p)
+        torch.cuda.synchronize()
+        outside = torch.ones(cap, dtype=torch.bool, device=cuda_dev)
+        outside[sl[sl < cap].long()] = False
+        for a, b, c, s0 in zip(first, second, p, start):
+            assert torch.equal(a, b) and torch.equal(a, c)
+            assert torch.equal(a[outside], s0[outside])
+        assert (first[3][sl[sl < cap].long()] == 4).any()
+
+
+@pytest.mark.cuda
+def test_light_wrappers_refuse_blocks_above_64_voxels_an_edge(cuda_dev):
+    acc, *pool, node_idx, slots = light_inputs(13, dev=cuda_dev)
+    big = [torch.zeros((1, 128 ** 3), dtype=x.dtype, device=cuda_dev) for x in pool]
+    with pytest.raises(ValueError, match="≤ 64"):
+        bgk_light.bgk_light(acc, *big, node_idx, slots, 0, 1, G=7, gate=0.0, n=128,
+                            max_level=7, state_fn=po.BetaStateFn(100.0, 0.3, 0.7),
+                            do_prune=True)
 
 
 @pytest.mark.cuda

@@ -589,7 +589,7 @@ def _jax_gp_light(pool, am, av, pr_, node_idx, slots, scans, depth):
     return [np.asarray(o)[:cap] for o in out]
 
 
-@pytest.mark.parametrize("depth", [3, 4])
+@pytest.mark.parametrize("depth", [3, 4, 5])
 def test_gp_light_plain_matches_jax(depth):
     am, av, pr_, *pool, node_idx, slots = gp_light_inputs(19, depth=depth)
     scans = [(0, 6), (6, 6)]

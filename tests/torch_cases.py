@@ -65,10 +65,10 @@ def heavy_inputs(seed, G=7, n_blocks=5, ell=0.2, dev="cpu", segments=False):
     return {k: torch.from_numpy(v).to(dev) for k, v in out.items()}
 
 
-def light_inputs(seed, G=7, T=12, cap=32, dev="cpu"):
+def light_inputs(seed, G=7, T=12, cap=32, dev="cpu", depth=3):
     rng = np.random.default_rng(seed)
-    _, node_idx = geo.all_level_nodes(0.1, 3)
-    V, Vall = node_idx.shape[1], 73
+    _, node_idx = geo.all_level_nodes(0.1, depth)
+    V, Vall = node_idx.shape[1], int(node_idx.max()) + 1
     kbar = rng.uniform(-0.1, 3.0, (T, Vall, G)).astype(np.float32)
     kbar[rng.uniform(size=kbar.shape) < 0.4] = 0.0
     ybar = kbar * (rng.uniform(size=kbar.shape) > 0.3)
@@ -85,6 +85,36 @@ def light_inputs(seed, G=7, T=12, cap=32, dev="cpu"):
     eff = np.zeros((cap, V), np.int8)
     t = lambda x: torch.from_numpy(x).to(dev)  # noqa: E731
     return t(acc), t(A), t(B), t(touched), t(eff), t(node_idx), t(slots)
+
+
+#: (f0, f1) templates of :func:`collapsible_raster_pool`: Beta (A, B)
+#: occupied and free, GP (m_ivar, ivar) occupied and free, far enough from
+#: every threshold that a few scans' updates do not move a voxel's state
+BETA_TEMPLATES = ((1000.0, 0.001), (0.001, 1000.0))
+GP_TEMPLATES = ((1e4, 500.0), (-1e4, 500.0))
+
+
+def collapsible_raster_pool(n, S, templates, seed=0):
+    """Pool rows [S, n³] (raster, x fastest) that collapse at every level,
+    the levels across 8³ tiles included: row i holds one (f0, f1) template
+    per cube of edge (n, 8, 4, 2)[i % 4], with ±5 % noise so that collapse
+    copies show, every voxel touched at eff 0; edge-2 rows also get 3 %
+    stray voxels, so that their groups are not all uniform.  Returns
+    (f0, f1, touched, eff) as numpy arrays."""
+    rng = np.random.default_rng(seed)
+    tmpl = np.asarray(templates, np.float32)
+    vox = np.empty((S, n ** 3), np.int64)
+    for i in range(S):
+        edge = min((n, 8, 4, 2)[i % 4], n)
+        g = n // edge
+        t = rng.integers(0, len(tmpl), (g, g, g))
+        vox[i] = t.repeat(edge, 0).repeat(edge, 1).repeat(edge, 2).reshape(-1)
+        if edge == 2:
+            stray = rng.uniform(size=n ** 3) < 0.03
+            vox[i] = np.where(stray, rng.integers(0, len(tmpl), n ** 3), vox[i])
+    f = tmpl[vox] * rng.uniform(0.95, 1.05, (S, n ** 3, 2)).astype(np.float32)
+    return (np.ascontiguousarray(f[..., 0]), np.ascontiguousarray(f[..., 1]),
+            np.ones((S, n ** 3), bool), np.zeros((S, n ** 3), np.int8))
 
 
 #: LV state parameters of the prune cases: the three (A, B) templates below
