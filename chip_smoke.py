@@ -78,7 +78,9 @@ host-ingest path:
     (``insert_training_data``): |Δ|/(1+|plain|) within 1e-3 (base) or 4e-3
     (overflow) on means and 1e-5 on variances, ``present`` equal, no failed
     factorisation; each limit must fail the control, the plain version on
-    TF32-rounded coordinates;
+    TF32-rounded coordinates; each tier timed (``launch_ms``) beside its
+    plain version and its bound (operations of the served (block, slot)
+    rows), the tables after those launches bit-equal to the first's;
 16. holds K5 (BCM light pass + prune) against its plain version on the
     demo dispatch's tables and pool (V 64, 2 prune levels) and on the
     large-map dispatch's (V 512, 3 levels), scan by scan from the plain
@@ -166,11 +168,11 @@ The large maps, after raycast (the BGK-family ones at their YAML's own
     1e-5·|CPU| (device ingest, 2 scans);
 28. GP at block_depth 5 (``gpoctomap_large_map`` with ``block_depth=5``,
     8 m, host ingest): K4 on every size tier of a 12-scan dispatch at 4681
-    nodes a block as in 15 (one launch a tier, timed alone) — its overflow
-    tier holds models of about 2,100 points, four times the largest that
-    15's limits were measured on, so that tier is held to the plain version
-    in f64: the kernel's largest |Δ|/(1+|f64|) at most twice the f32 plain
-    version's, the control's above that; K5 scan by scan as in 16 (bit for
+    nodes a block as in 15 — its overflow tier holds models of about 2,100
+    points, four times the largest that 15's limits were measured on, so
+    that tier is held to the plain version in f64: the kernel's largest
+    |Δ|/(1+|f64|) at most twice the f32 plain version's, the control's
+    above that; K5 scan by scan as in 16 (bit for
     bit away from the thresholds) and on collapsible blocks as K2 in 26 (GP
     templates); run_static on 12 scans; card vs CPU on 1 scan as in 18,
     the m_ivar/ivar limit held against the map with f64 factors (the CPU's
@@ -1055,13 +1057,15 @@ def check_k4(args, statics, what: str, reps: int = 3) -> dict:
     k, p, ctl = tables(), tables(), tables()
     rounded = (tf32_round(pts), lab, tf32_round(centers), tf32_round(all_nodes))
     results = []
-    for st, ct, nb, cmax in tiers:
+    for st, ct, nb, hc in tiers:
         ins = (pts, lab, st, ct, nb, centers, all_nodes)
+        cmax = int(hc.max())
 
         def kernel(_):
-            gp_heavy.gp_heavy(*ins, **k, cmax=cmax, **kw)
+            gp_heavy.gp_heavy(*ins, **k, host_counts=hc, **kw)
 
         _, first_ms = _timed(lambda: kernel(None))
+        first = {n: k[n].clone() for n in ("acc_mean", "acc_var")}
         # the control first: it also warms the plain version up for its timing
         gp_heavy.gp_heavy_plain(*rounded[:2], st, ct, nb, *rounded[2:], **ctl,
                                 cmax=cmax, **kw)
@@ -1069,7 +1073,7 @@ def check_k4(args, statics, what: str, reps: int = 3) -> dict:
                            1, warmup=0)
         nbl = nb.long()
         rows = (nbl * G + gcol)[(nbl >= 0) & (nbl < T)]
-        tier_name = "base" if cmax <= gp_heavy.SHARED_MAX_C else "overflow"
+        tier_name = "base" if cmax <= gp_heavy.BASE_MAX_C else "overflow"
         tols = K4_TOL[tier_name]
         calibrated = cmax <= K4_CALIBRATED_MAX_C
         errs, need, need_ctl, bad, bad_ctl = {}, {}, {}, 0, 0
@@ -1103,16 +1107,21 @@ def check_k4(args, statics, what: str, reps: int = 3) -> dict:
                                  f"{tier_name} tier)")
         else:
             f64 = k4_vs_f64(ins, cmax, kw, rows, k, p, ctl, G, Vall, T, what)
-        if reps:
-            event_ms = cuda_ms(kernel, reps, warmup=0)
-            ms = launch_ms([kernel], reps)
-        else:  # the first launch, timed alone (a tier of large models runs for seconds)
-            event_ms = ms = first_ms
-        flops = gp_heavy.flops(ct.cpu().numpy(), G * Vall)
+        event_ms = cuda_ms(kernel, reps, warmup=0)
+        ms = launch_ms([kernel], reps)
+        # the same rows of every table after 2 * reps more launches: the
+        # summation order is fixed, so bit for bit
+        repeat = all(bool(torch.equal(k[n][rows], first[n][rows])) for n in first)
+        served = gp_heavy.served_rows(nb.cpu().numpy(), T)
+        flops = gp_heavy.flops(hc, served, Vall)
         b_ms, b_by = bound(flops, nbytes(*ins) + rows.numel() * Vall * 8 + T * G)
         print(f"K4, {what}, {tier_name} tier: {ms:.3f} ms device time (event window "
-              f"{event_ms:.3f} ms; plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms by "
-              f"{b_by}; {flops:.4g} operations)")
+              f"{event_ms:.3f} ms, first launch {first_ms:.3f} ms; plain {plain_ms:.3f} ms, "
+              f"bound {b_ms:.4f} ms by {b_by} = {100 * b_ms / ms:.2f}% of the time; "
+              f"{flops:.4g} operations on {int(served.sum())} served rows); "
+              f"{2 * reps} more launches bit-equal {repeat}")
+        require(repeat, f"K4 ({what}, {tier_name} tier): launches on the same inputs "
+                        "differ")
         results.append({"tier": tier_name, "models": int(ct.numel()), "cmax": int(cmax),
                         "max_abs_err": max(errs.values()), "rel_err": need,
                         "rel_err_control": need_ctl, "ms": ms, "event_ms": event_ms,
@@ -1292,20 +1301,22 @@ def tf32_k1p(ent_rel, labels, ustart, ucount, tb_u, ext, **kw):
                                                      ucount, tb_u, tf32_round(ext), **kw)
 
 
-def tf32_heavy(pts, lab, st, ct, nb, centers, all_nodes, *rest, **kw) -> None:
+def tf32_heavy(pts, lab, st, ct, nb, centers, all_nodes, *rest, host_counts,
+               **kw) -> None:
     """The control's heavy pass: K4's plain version on TF32-rounded
     coordinates."""
     gp_heavy.gp_heavy_plain(tf32_round(pts), lab, st, ct, nb, tf32_round(centers),
-                            tf32_round(all_nodes), *rest, **kw)
+                            tf32_round(all_nodes), *rest, cmax=int(host_counts.max()), **kw)
 
 
 def f64_heavy(pts, lab, st, ct, nb, centers, all_nodes, acc_mean, acc_var, *rest,
-              **kw) -> None:
+              host_counts, **kw) -> None:
     """The reference map's heavy pass: K4's plain version in f64, rounded
     once into the f32 tables."""
     m64, v64 = acc_mean.double(), acc_var.double()
     gp_heavy.gp_heavy_plain(pts.double(), lab.double(), st, ct, nb, centers.double(),
-                            all_nodes.double(), m64, v64, *rest, **kw)
+                            all_nodes.double(), m64, v64, *rest,
+                            cmax=int(host_counts.max()), **kw)
     acc_mean.copy_(m64)
     acc_var.copy_(v64)
 
@@ -2179,7 +2190,8 @@ def main() -> int:
         print(f"gp host ingest: host syncs in a 16-scan dispatch "
               f"{path_gp['host_syncs_per_dispatch']}")
         path_gp["profile60"] = profile_main_path(
-            cfg_gp, tmp, {"gp_heavy": "gp_heavy_kernel", "gp_light": "gp_light_kernel"},
+            cfg_gp, tmp, {"gp_heavy": "gp_heavy_kernel", "gp_heavy_factor": "gp_factor",
+                          "gp_light": "gp_light_kernel"},
             path_gp["static60"]["launches"])
         stamp("GP host ingest: card vs CPU")
         dev_gp = card_vs_cpu_gp(cfg_gp, tmp)
@@ -2194,6 +2206,7 @@ def main() -> int:
         d60 = path_gp_on["static60"]["launches"]["ingest_members"]
         path_gp_on["profile60"] = profile_main_path(
             cfg_gp_on, tmp, {**ingest_names, "gp_heavy": "gp_heavy_kernel",
+                             "gp_heavy_factor": "gp_factor",
                              "gp_light": "gp_light_kernel"},
             {"ingest_points": d60, "ingest_beams": d60, "ingest_downsample": 2 * d60,
              "ingest_members": d60,
@@ -2241,7 +2254,7 @@ def main() -> int:
         cfg_gp5 = load_method_config("gpoctomap_large_map", block_depth=5,
                                      max_range=MAX_RANGE, device_ingest="off")
         args, statics = capture_gp(cfg_gp5, scans[:12], run_step=False)
-        k4_5 = check_k4(args, statics, "12-scan GP depth-5 dispatch", reps=0)
+        k4_5 = check_k4(args, statics, "12-scan GP depth-5 dispatch", reps=1)
         tables = k4_5.pop("tables")
         G5 = statics["G"]
         mem_gp5 = table_bytes("K4 tables (mean, var) f32, 12-scan GP depth-5 dispatch",

@@ -98,7 +98,7 @@ def _bind(lib):
     lib.la3dm_lv_prune.restype = ci
     lib.la3dm_lv_prune.argtypes = [vp] * 9 + [ci] * 4 + [cf] * 4 + [vp]
     lib.la3dm_gp_heavy.restype = ci
-    lib.la3dm_gp_heavy.argtypes = [vp] * 12 + [ci] * 7 + [cf] * 3 + [vp]
+    lib.la3dm_gp_heavy.argtypes = [vp] * 10 + [ci] + [vp] * 11 + [ci] * 9 + [cf] * 3 + [vp]
     lib.la3dm_gp_light.restype = ci
     lib.la3dm_gp_light.argtypes = [vp] * 9 + [ci] * 7 + [cf] * 6 + [vp] * 5
     lib.la3dm_ingest_points.restype = ci

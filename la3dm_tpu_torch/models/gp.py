@@ -24,10 +24,10 @@ The same two-pass engine as the port's BGK:
           kernels/gp_light.py) — once per scan, in order: the sequential BCM
           at each voxel's eff-level node, then the prune.
 
-Size tiers: models are split by point count into a base tier (≤ 128 points,
-whose factor fits the kernel's shared memory) and, only when a dispatch
-holds denser blocks, one overflow tier (the JAX step pads it to
-next_pow2(max count); here every tier takes its largest count).  Tensors
+Size tiers: models are split by point count into a base tier (≤ 128 points)
+and, only when a dispatch holds denser blocks, one overflow tier (the JAX
+step pads it to next_pow2(max count); here every model keeps its own count,
+and K4 runs the same kernels on both tiers).  Tensors
 take their exact sizes (no pad ladder), and the pool tensors are updated in
 place.
 """
@@ -58,8 +58,8 @@ def _gp_seq_step(m_ivar, ivar, touched, eff, all_nodes, node_idx_tab, pts, lab,
     pass once per scan, in scan order.  Updates the pool in place and adds
     failed factorisations to ``failed``.
 
-    ``tiers``: (starts [M] i32, counts [M] i32, nb_rows [M, G] i32, largest
-    count) per size tier; pts [N,3] / lab [N] the dispatch's
+    ``tiers``: (starts [M] i32, counts [M] i32, nb_rows [M, G] i32, the
+    counts as a host array) per size tier; pts [N,3] / lab [N] the dispatch's
     block-sorted training points; slots_flat/centers_flat [T] the stacked
     per-scan block lists.
     ``scan_start``/``scan_count`` [K] are host integers: each scan's segment
@@ -70,10 +70,10 @@ def _gp_seq_step(m_ivar, ivar, touched, eff, all_nodes, node_idx_tab, pts, lab,
     acc_mean = torch.zeros((T * G, Vall), dtype=torch.float32, device=dev)
     acc_var = torch.ones((T * G, Vall), dtype=torch.float32, device=dev)
     present = torch.zeros((T * G,), dtype=torch.bool, device=dev)
-    for starts, counts, nb_rows, cmax in tiers:
+    for starts, counts, nb_rows, host_counts in tiers:
         gp_heavy.gp_heavy(pts, lab, starts, counts, nb_rows, centers_flat, all_nodes,
-                          acc_mean, acc_var, present, failed, cmax=cmax, sf2=sf2,
-                          ell=ell, noise=noise)
+                          acc_mean, acc_var, present, failed,
+                          host_counts=host_counts, sf2=sf2, ell=ell, noise=noise)
     for start, count in zip(scan_start, scan_count):
         gp_light.gp_light(acc_mean, acc_var, present, m_ivar, ivar, touched, eff,
                           node_idx_tab, slots_flat, int(start), int(count), G=G,
@@ -238,13 +238,13 @@ class GPOctoMap(ingest.DeviceIngestMixin, base.OccupancyMapBase):
         dev = self._to_device
         counts = cat["ct"]
         tiers = []
-        base_tier = counts <= gp_heavy.SHARED_MAX_C
+        base_tier = counts <= gp_heavy.BASE_MAX_C
         for sel in (np.nonzero(base_tier)[0], np.nonzero(~base_tier)[0]):
             if len(sel):
                 tiers.append((dev(cat["st"][sel].astype(np.int32)),
                               dev(counts[sel].astype(np.int32)),
                               dev(cat["nb"][sel].astype(np.int32)),
-                              int(counts[sel].max())))
+                              counts[sel]))
         self.stats["heavy_tiers"] += len(tiers)
         args = (self.pool.fields["m_ivar"], self.pool.fields["ivar"],
                 self.pool.touched, self.pool.eff_level, self._all_nodes,
@@ -275,12 +275,12 @@ class GPOctoMap(ingest.DeviceIngestMixin, base.OccupancyMapBase):
         counts = ucount.astype(np.int64)
         self.stats["kernel_evals"] += int((counts ** 2).sum() + counts.sum() * G * Vall)
         tiers = []
-        base_tier = counts <= gp_heavy.SHARED_MAX_C
+        base_tier = counts <= gp_heavy.BASE_MAX_C
         for sel in (np.nonzero(base_tier)[0], np.nonzero(~base_tier)[0]):
             if len(sel):
                 tiers.append((*_gp_tier_gather(tabs["ustart"], tabs["ucount"],
                                                tabs["nb_row"], self._to_device(sel)),
-                              int(counts[sel].max())))
+                              counts[sel]))
         self.stats["heavy_tiers"] += len(tiers)
         _gp_seq_step(self.pool.fields["m_ivar"], self.pool.fields["ivar"],
                      self.pool.touched, self.pool.eff_level, self._all_nodes,

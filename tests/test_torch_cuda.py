@@ -267,18 +267,18 @@ def test_lv_prune_kernel_matches_plain(cuda_dev, n):
 @pytest.mark.cuda
 @pytest.mark.parametrize("depth,S", [(3, 128), (4, 128), (3, 256), (4, 512)])
 def test_gp_heavy_kernel_matches_plain(cuda_dev, depth, S):
-    """Both tiers (shared-memory factor up to 128 points, global workspace
+    """Both tiers (models up to 128 points: at most two factor tiles; more
     above) against the plain version (cuSOLVER/cuBLAS through torch.linalg):
     the factor's rounding order differs, so means agree to
     1e-3 + 1e-3·|plain| (α = K⁻¹y carries the Gram's conditioning) and
     variances to 1e-4 + 1e-4·|plain|."""
     a = gp_heavy_inputs(14, depth=depth, S=S, dev=cuda_dev)
     p = {k: v.clone() for k, v in a.items()}
-    cmax = int(a["counts"].max())
+    hc = a["counts"].cpu().numpy()
     before = gp_heavy.launches
-    gp_heavy.gp_heavy(**a, cmax=cmax, **GP_STATICS)
+    gp_heavy.gp_heavy(**a, host_counts=hc, **GP_STATICS)
     assert gp_heavy.launches == before + 1
-    gp_heavy.gp_heavy_plain(**p, cmax=cmax, **GP_STATICS)
+    gp_heavy.gp_heavy_plain(**p, cmax=int(hc.max()), **GP_STATICS)
     torch.cuda.synchronize()
     assert torch.equal(a["present"], p["present"]) and int(a["present"].sum()) > 50
     assert int(a["failed"]) == int(p["failed"]) == 0
@@ -294,13 +294,235 @@ def test_gp_heavy_kernel_fails_like_plain(cuda_dev):
     outputs and counts the model; the one-point model still factors."""
     a = gp_heavy_inputs(15, dev=cuda_dev)
     p = {k: v.clone() for k, v in a.items()}
-    kw = dict(cmax=128, sf2=1.0, ell=1.0, noise=-0.5)
-    gp_heavy.gp_heavy(**a, **kw)
-    gp_heavy.gp_heavy_plain(**p, **kw)
+    kw = dict(sf2=1.0, ell=1.0, noise=-0.5)
+    gp_heavy.gp_heavy(**a, host_counts=a["counts"].cpu().numpy(), **kw)
+    gp_heavy.gp_heavy_plain(**p, cmax=128, **kw)
     torch.cuda.synchronize()
     assert int(a["failed"]) == int(p["failed"]) == a["counts"].numel() - 1
     assert torch.equal(torch.isnan(a["acc_mean"]), torch.isnan(p["acc_mean"]))
     assert torch.equal(torch.isnan(a["acc_var"]), torch.isnan(p["acc_var"]))
+
+
+def _k4(a, **kw):
+    """K4 and its plain version on copies of the inputs ``a``: (kernel
+    tables, plain tables)."""
+    k = {n: v.clone() for n, v in a.items()}
+    p = {n: v.clone() for n, v in a.items()}
+    hc = a["counts"].cpu().numpy()
+    statics = {**GP_STATICS, **kw}
+    gp_heavy.gp_heavy(**k, host_counts=hc, **statics)
+    gp_heavy.gp_heavy_plain(**p, cmax=int(hc.max()), **statics)
+    torch.cuda.synchronize()
+    return k, p
+
+
+def _close(k, p, tol=(1e-3, 1e-5), rows=None):
+    """present equal, no failure, and |Δ|/(1+|plain|) within ``tol``
+    (means, variances) on the served rows."""
+    assert torch.equal(k["present"], p["present"])
+    assert int(k["failed"]) == int(p["failed"]) == 0
+    rows = k["present"] if rows is None else rows
+    for name, t in zip(("acc_mean", "acc_var"), tol):
+        x, y = k[name][rows], p[name][rows]
+        assert torch.isfinite(x).all(), name
+        assert ((x - y).abs() <= t * (1 + y.abs())).all(), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("counts", [[1], [1, 1, 2], [128, 129], [100, 150, 64, 65, 17],
+                                    [300]])
+@pytest.mark.parametrize("depth", [3, 4])
+def test_gp_heavy_kernel_tile_edges(cuda_dev, counts, depth):
+    """Models of 1 point, at the tier boundary (128: two factor tiles; 129:
+    three), counts that are no multiple of a tile (16 or 64), the single
+    300-point model; at depth 3 (73 nodes) and depth 4 (585 nodes, no
+    multiple of the query tile), against the plain version at the limits
+    of chip_smoke.py (means 1e-3 up to 128 points, 4e-3 above; variances
+    1e-5, relative to 1 + |plain|)."""
+    a = gp_heavy_inputs(40, depth=depth, counts=counts, dev=cuda_dev)
+    Vall = a["all_nodes"].shape[0]
+    nq, n_tiles, _ = gp_heavy.predict_tiling(-(-max(counts) // 16) * 16, Vall)
+    assert depth == 3 or (n_tiles > 1 and Vall % nq)
+    k, p = _k4(a)
+    _close(k, p, (1e-3 if max(counts) <= 128 else 4e-3, 1e-5))
+    assert int(k["present"].sum()) > 0
+
+
+@pytest.mark.cuda
+def test_gp_heavy_kernel_skips_models_without_slots(cuda_dev):
+    """A model that serves no slot writes nothing; rows no model serves
+    keep the tables' fill."""
+    a = gp_heavy_inputs(41, n_models=6, dev=cuda_dev)
+    Tp = a["centers"].shape[0]
+    a["nb_rows"][2] = Tp
+    a["nb_rows"][4, :3] = Tp + 3
+    k, p = _k4(a)
+    _close(k, p)
+    idle = ~k["present"]
+    assert idle.any() and (k["acc_var"][idle] == 1).all() and (k["acc_mean"][idle] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [24, 150])
+def test_gp_heavy_kernel_fails_one_model(cuda_dev, S):
+    """One model with a NaN point among good ones: its pivots are NaN, so
+    it fails alone (``failed`` == 1), NaN in exactly its served rows, the
+    other models' rows as the plain version's; models of up to 24 points
+    (factored one a warp, a base tier) and up to 150 (tiles)."""
+    a = gp_heavy_inputs(42, S=S, n_models=6, dev=cuda_dev)
+    bad = 3
+    st = int(a["starts"][bad])
+    a["pts"][st + 5, 1] = float("nan")
+    k = {n: v.clone() for n, v in a.items()}
+    gp_heavy.gp_heavy(**k, host_counts=a["counts"].cpu().numpy(), **GP_STATICS)
+    torch.cuda.synchronize()
+    assert int(k["failed"]) == 1
+    G, Tp = a["nb_rows"].shape[1], a["centers"].shape[0]
+    nb = a["nb_rows"][bad].long()
+    bad_rows = torch.zeros_like(k["present"])
+    bad_rows[(nb * G + torch.arange(G, device=cuda_dev))[nb < Tp]] = True
+    nan_rows = torch.isnan(k["acc_mean"]).all(1) & torch.isnan(k["acc_var"]).all(1)
+    assert torch.equal(nan_rows, bad_rows) and bad_rows.any()
+    assert not torch.isnan(k["acc_mean"][~bad_rows]).any()
+    good = {n: v.clone() for n, v in a.items()}
+    good["pts"][st + 5, 1] = a["pts"][st + 4, 1]
+    good["nb_rows"][bad] = Tp
+    kg, pg = _k4(good)
+    _close(kg, pg, (4e-3, 1e-5))
+    served = kg["present"]
+    for name in ("acc_mean", "acc_var"):
+        assert torch.equal(k[name][served], kg[name][served])
+    assert torch.equal(k["present"], kg["present"] | bad_rows)
+
+
+def _f64_pivot_test_fails(x, noise, sf2=1.0, ell=1.0) -> bool:
+    """LAPACK's pivot test in f64 on the f32 Gram of points ``x`` [c, 3]
+    (the plain version's arithmetic): True where the factor fails."""
+    p = x.astype(np.float32) * np.float32(1.73205 / ell)
+    d = p[:, None, :] - p[None, :, :]
+    d2 = d[..., 0] * d[..., 0]
+    d2 = d2 + d[..., 1] * d[..., 1]
+    d2 = d2 + d[..., 2] * d[..., 2]
+    r = np.sqrt(d2)
+    gram = (np.float32(1) + r) * np.exp(-r) * np.float32(sf2)
+    gram[np.diag_indices(len(x))] += np.float32(noise)
+    try:
+        np.linalg.cholesky(gram.astype(np.float64))
+    except np.linalg.LinAlgError:
+        return True
+    return False
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("noise", ["rounds_away", "c_eps"])
+@pytest.mark.parametrize("S", [24, 100, 150])
+def test_gp_heavy_kernel_near_singular_gram(cuda_dev, S, noise):
+    """K4 factors in f64 from the f32 Gram; the plain version (and the JAX
+    step) factor in f32.  Three models of S points: 0 spaced 3 m apart
+    (well conditioned), 1 the same with points 0 and 1 equal, 2 with its
+    first 24 points equal; noise 1e-9 (1 + noise rounds to 1 in f32: models
+    1 and 2 are singular, their second pivot exactly 0) or S·2⁻²³ (f32 eps
+    times c: the smallest eigenvalue is the noise).  K4 fails exactly the
+    models that LAPACK's pivot test fails in f64 on the same f32 Gram, and
+    never one that the f32 plain version factors; the verdicts are printed
+    (``-s``).  Model 0's rows agree with the plain version's at the base
+    limits of chip_smoke.py."""
+    eps_noise = S * 2.0 ** -23
+    nz = 1e-9 if noise == "rounds_away" else eps_noise
+    a = gp_heavy_inputs(46, counts=[S, S, S], dev=cuda_dev)
+    pts = a["pts"].cpu().numpy()
+    starts = a["starts"].cpu().numpy()
+    line = np.zeros((S, 3), np.float32)
+    line[:, 0] = 3.0 * np.arange(S)
+    for m, dup in enumerate([0, 2, 24]):
+        x = pts[starts[m]] + line
+        x[:dup] = x[0]
+        pts[starts[m]:starts[m] + S] = x
+    a["pts"] = torch.from_numpy(pts).to(cuda_dev)
+    ref = [_f64_pivot_test_fails(pts[starts[m]:starts[m] + S], nz) for m in range(3)]
+    assert ref == ([False, True, True] if noise == "rounds_away" else [False] * 3)
+    k, p = _k4(a, noise=nz)
+    G, Tp = a["nb_rows"].shape[1], a["centers"].shape[0]
+
+    def failed_models(t):
+        out = []
+        for m in range(3):
+            nb = a["nb_rows"][m].long()
+            rows = (nb * G + torch.arange(G, device=cuda_dev))[nb < Tp]
+            out.append(bool(torch.isnan(t["acc_mean"][rows]).all()))
+        return out
+
+    kf, pf = failed_models(k), failed_models(p)
+    print(f"S {S}, noise {nz:.3g}: f64 pivot test fails {ref}, K4 {kf} "
+          f"(failed {int(k['failed'])}), f32 plain {pf} (failed {int(p['failed'])})")
+    assert torch.equal(k["present"], p["present"])
+    assert kf == ref and int(k["failed"]) == sum(ref)
+    assert all(pm or not km for km, pm in zip(kf, pf))
+    nb = a["nb_rows"][0].long()
+    rows = (nb * G + torch.arange(G, device=cuda_dev))[nb < Tp]
+    for name, t in (("acc_mean", 1e-3), ("acc_var", 1e-5)):
+        x, y = k[name][rows], p[name][rows]
+        assert torch.isfinite(x).all() and ((x - y).abs() <= t * (1 + y.abs())).all(), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [60, 300])
+def test_gp_heavy_kernel_repeats_bit_for_bit(cuda_dev, S):
+    """Two launches on the same inputs give equal tables: no float atomics,
+    a fixed summation order (a base tier's warp units and the CTA units
+    above)."""
+    a = gp_heavy_inputs(43, depth=4, S=S, dev=cuda_dev)
+    k1, _ = _k4(a)
+    k2 = {n: v.clone() for n, v in a.items()}
+    gp_heavy.gp_heavy(**k2, host_counts=a["counts"].cpu().numpy(), **GP_STATICS)
+    torch.cuda.synchronize()
+    for name in ("acc_mean", "acc_var", "present", "failed"):
+        assert torch.equal(k1[name], k2[name]), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [100, 200])
+def test_gp_heavy_kernel_global_ks_and_chunks_equal_shared(cuda_dev, monkeypatch, S):
+    """The tier cut into several workspace chunks and, above the base tier,
+    Ks in the global workspace (a shared-memory budget too small for 16
+    columns) run the same sums: bit-equal tables."""
+    a = gp_heavy_inputs(44, depth=4, S=S, dev=cuda_dev)
+    ref, _ = _k4(a)
+    monkeypatch.setattr(gp_heavy, "_SMEM_BYTES", 4096)
+    monkeypatch.setattr(gp_heavy, "_WS_ELEMS", 3 * (2 * S) ** 2 // 4)
+    hc = a["counts"].cpu().numpy()
+    if S > gp_heavy.BASE_MAX_C:  # a base tier's Ks is always in shared memory
+        assert not gp_heavy.predict_tiling(int(-(-hc.max() // 16) * 16), 585)[2]
+    assert len(gp_heavy.plan_chunks(hc)) > 2
+    k = {n: v.clone() for n, v in a.items()}
+    gp_heavy.gp_heavy(**k, host_counts=hc, **GP_STATICS)
+    torch.cuda.synchronize()
+    for name in ("acc_mean", "acc_var", "present"):
+        assert torch.equal(k[name], ref[name]), name
+
+
+@pytest.mark.cuda
+def test_gp_heavy_kernel_2000_points_near_f64(cuda_dev):
+    """One model of 2,000 points in a 3.2 m block (block_depth 5 at 0.2 m,
+    ℓ = 1): held against the plain version in f64, the kernel's largest
+    |Δ|/(1+|f64|) at most twice the f32 plain version's (cuSOLVER), as
+    chip_smoke.py holds the block_depth-5 tier."""
+    a = gp_heavy_inputs(45, depth=5, counts=[2000], G=3, dev=cuda_dev)
+    k, p = _k4(a)
+    assert torch.equal(k["present"], p["present"]) and int(k["failed"]) == 0
+    r = {n: v.clone() for n, v in a.items()}
+    r["acc_mean"], r["acc_var"] = r["acc_mean"].double(), r["acc_var"].double()
+    gp_heavy.gp_heavy_plain(**{**r, **{n: r[n].double() for n in
+                                       ("pts", "lab", "centers", "all_nodes")}},
+                            cmax=2000, **GP_STATICS)
+    torch.cuda.synchronize()
+    rows = k["present"]
+    assert rows.sum() >= 2
+    for name in ("acc_mean", "acc_var"):
+        ref = r[name][rows]
+        def err(t):
+            return float(((t[name][rows].double() - ref).abs() / (1 + ref.abs())).max())
+        assert err(k) <= 2 * err(p), (name, err(k), err(p))
 
 
 @pytest.mark.cuda

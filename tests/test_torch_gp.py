@@ -188,7 +188,8 @@ def test_large_map_overflow_tier_matches_jax(monkeypatch):
     tiers = []
     orig = gp_heavy.gp_heavy
     monkeypatch.setattr(gp_heavy, "gp_heavy",
-                        lambda *a, **k: (tiers.append(k["cmax"]), orig(*a, **k)))
+                        lambda *a, **k: (tiers.append(int(k["host_counts"].max())),
+                                         orig(*a, **k)))
     cloud, origin = _scans(53, 1)[0]
     ours, jm = _port(LARGE_CFG), _jax(JLARGE_CFG)
     ours.insert_pointcloud(cloud, origin, ds_resolution=0.1)
@@ -212,7 +213,7 @@ def test_insert_training_data_overflow_tier_matches_jax(monkeypatch):
     tiers = []
     orig = gp_heavy.gp_heavy
     monkeypatch.setattr(gp_heavy, "gp_heavy",
-                        lambda *a, **k: (tiers.append((k["cmax"], len(a[2]))),
+                        lambda *a, **k: (tiers.append((int(k["host_counts"].max()), len(a[2]))),
                                          orig(*a, **k)))
     ours, jm = _port(LARGE_CFG), _jax(JLARGE_CFG)
     ours.insert_training_data(pts, lab)

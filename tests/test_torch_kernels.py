@@ -553,7 +553,7 @@ def test_gp_heavy_plain_matches_jax(depth, S):
     a = gp_heavy_inputs(17, depth=depth, S=S)
     ref_mean, ref_var, ref_present = _jax_gp_heavy(a, S)
     before = gp_heavy.launches
-    gp_heavy.gp_heavy(**a, cmax=int(a["counts"].max()), **GP_STATICS)
+    gp_heavy.gp_heavy(**a, host_counts=a["counts"].numpy(), **GP_STATICS)
     assert gp_heavy.launches == before                # CPU tensors: plain version
     np.testing.assert_array_equal(a["present"].numpy(), ref_present)
     assert ref_present.sum() > 50 and int(a["failed"]) == 0
@@ -566,7 +566,7 @@ def test_gp_heavy_plain_matches_jax(depth, S):
 
 def test_gp_heavy_plain_counts_failed_models():
     a = gp_heavy_inputs(18)
-    gp_heavy.gp_heavy(**a, cmax=128, sf2=1.0, ell=1.0, noise=-0.5)
+    gp_heavy.gp_heavy(**a, host_counts=a["counts"].numpy(), sf2=1.0, ell=1.0, noise=-0.5)
     assert int(a["failed"]) == a["counts"].numel() - 1     # all but the 1-point model
     served = a["present"].numpy()
     nan_rows = np.isnan(a["acc_mean"].numpy()).all(-1)
@@ -609,9 +609,10 @@ def test_gp_light_plain_matches_jax(depth):
 
 
 def test_gp_wrappers_reject_devices_without_a_kernel():
-    a = {k: v.to("meta") for k, v in gp_heavy_inputs(20).items()}
+    cpu = gp_heavy_inputs(20)
+    a = {k: v.to("meta") for k, v in cpu.items()}
     with pytest.raises(ValueError, match="device"):
-        gp_heavy.gp_heavy(**a, cmax=128, **GP_STATICS)
+        gp_heavy.gp_heavy(**a, host_counts=cpu["counts"].numpy(), **GP_STATICS)
     am, av, pr_, *pool, node_idx, slots = (x.to("meta") for x in gp_light_inputs(20))
     with pytest.raises(ValueError, match="device"):
         gp_light.gp_light(am, av, pr_, *pool, node_idx, slots, 0, 4, G=7, **GP_BCM, n=4,

@@ -260,10 +260,10 @@ GP_STATE = dict(l=100.0, max_ivar=1000.0, min_known_ivar=50.0, free_thresh=0.3,
                 occupied_thresh=0.7)
 
 
-def gp_heavy_inputs(seed, depth=3, S=128, n_models=12, G=7, dev="cpu"):
+def gp_heavy_inputs(seed, depth=3, S=128, n_models=12, G=7, dev="cpu", counts=None):
     """One size tier of a GP heavy dispatch: ``n_models`` block models with
-    counts in (S/2, S] (one of them a single point), points round each
-    model's block, labels ±1, sorted by model; a test-block list of
+    counts in (S/2, S] (one of them a single point), or ``counts``; points
+    round each model's block, labels ±1, sorted by model; a test-block list of
     2·n_models blocks near the models, each model serving a distinct row
     at every slot (a few slots serve none: row == Tp).  Returns the
     wrapper's arguments as a dict, with fresh tables (mean 0, var 1,
@@ -273,8 +273,11 @@ def gp_heavy_inputs(seed, depth=3, S=128, n_models=12, G=7, dev="cpu"):
     n = 2 ** (depth - 1)
     nodes, _ = geo.all_level_nodes(res, depth)
     bs = res * n
-    counts = rng.integers(S // 2 + 1, S + 1, n_models)
-    counts[0] = 1
+    if counts is None:
+        counts = rng.integers(S // 2 + 1, S + 1, n_models)
+        counts[0] = 1
+    counts = np.asarray(counts)
+    n_models = len(counts)
     mc = rng.integers(-3, 4, (n_models, 3)) * bs
     pts = np.concatenate([mc[m] + rng.uniform(-bs / 2, bs / 2, (c, 3))
                           for m, c in enumerate(counts)]).astype(np.float32)
