@@ -52,9 +52,14 @@ BGKLV (``bgklvoctomap.yaml``, the demo, and ``bgklvoctomap_large_map.yaml``
 with ``original_size``; LV reads no ``device_ingest`` flag):
 
 10. holds K3 (tile row engine) against its plain version on the argument
-    tuple of a real 12-scan dispatch: A/B within 1e-5 + 1e-5·|plain| and
-    touched equal, except at voxels whose plain k̄ lies within 1e-5 of the
-    0.001 gate (counted and printed);
+    tuple of a real 12-scan dispatch and of one large-map scan's dispatch
+    (block_depth 6, ℓ 0.6): A/B within 1e-5 + 1e-5·|plain| and touched
+    equal, except at voxels whose plain k̄ lies within 1e-5 of the 0.001
+    gate (counted and printed); a second launch bit-equal to the first;
+    T, R, the warp work units, the member pairs, the culled (warp, entry)
+    pairs and the row-sum scratch printed, the kernel's own cull count equal
+    to that of the plain predicate ``lv_rows_cull``; its bound counts the
+    work left after the culling, the bound on every evaluation beside it;
 11. holds K8 (tile-major prune) against its plain version on the pool state
     of a real large-map prune, and on the same blocks made collapsible at
     every level (16³ and 32³ groups included, which the real scene does not
@@ -116,7 +121,11 @@ samples a beam), first on the host-ingest path, after the BGK phases:
     tuple of a real 16-scan dispatch: |Δ| ≤ 1e-5 + 1e-5·|plain| (the
     control, the plain version on TF32-rounded coordinates, must fail it),
     the (block, node, slot) k̄ within 1e-5 of the 0.001 gate counted and
-    none decided apart;
+    none decided apart; T, R, the warp work units and the culled (warp,
+    entry) pairs printed, the kernel's own cull count equal to that of the
+    plain predicate ``bgk_heavy_cull``, a second launch bit-equal; its bound
+    counts the work left after the culling, the bound on every evaluation
+    beside it;
 22. runs the main path as in 5 (``BGKLOctoMap(cfg)``), counts the host
     syncs, profiles the 60-scan run and compares card and CPU on 1 scan as
     in 7, A/B within 1e-5 + 1e-5·|CPU| (the control, the card's map with K1
@@ -159,7 +168,10 @@ The large maps, after raycast (the BGK-family ones at their YAML's own
     the 16³ level in each block's last CTA), then twice more from the same
     pool with its blocks made collapsible at every level (raster, Beta
     templates), bit for bit each time, the 16³ groups collapsed counted and
-    required; run_static on 12 scans and OnlineIntegrator on 12 on both
+    required; K1′'s segment branch on a captured 12-scan device-ingest
+    dispatch as in 23, timed beside its bound (on the work K1's warp
+    culling leaves, and on every evaluation); run_static on 12 scans and
+    OnlineIntegrator on 12 on both
     ingest paths with their launch counts; card vs CPU within 1e-5 +
     1e-5·|CPU| on the host path (1 scan) and device ingest (2 scans), each
     failing its TF32 control;
@@ -210,7 +222,8 @@ from la3dm_tpu_torch.io.pcd import save_pcd  # noqa: E402
 from la3dm_tpu_torch.kernels import (_build, bgk_aligned_heavy, bgk_heavy,  # noqa: E402
                                      bgk_light, gp_heavy, gp_light, ingest_beams,
                                      ingest_downsample, ingest_keys, ingest_members,
-                                     ingest_rays, lv_prune, lv_rows, raycast as k6)
+                                     ingest_rays, lv_prune, lv_rows, math as km,
+                                     raycast as k6)
 from la3dm_tpu_torch.models import gp as gp_model, posterior, raycast as rc  # noqa: E402
 from la3dm_tpu_torch.models.bgklv import BGKLVOctoMap  # noqa: E402
 from la3dm_tpu_torch.models.gp import GPOctoMap  # noqa: E402
@@ -413,6 +426,18 @@ def bound(flops: float, nbyte: float) -> tuple[float, str]:
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def warp_work(culled_per_warp: torch.Tensor, n_entries: int, n_points: int) -> tuple[int, int]:
+    """(evaluations, pairs) of a warp-culling kernel on this run's data:
+    warps of 32 of ``n_points`` points (the last one partly live), each
+    walking ``n_entries`` entries and skipping ``culled_per_warp`` [warps]
+    of them; the evaluations count the live lanes of every (warp, entry)
+    pair kept, the pairs every (warp, entry) pair, each of which takes the
+    cull test (``km.FLOP_CULL_TEST``)."""
+    w = culled_per_warp.numel()
+    lanes = (n_points - 32 * torch.arange(w)).clamp(max=32)
+    return int(((n_entries - culled_per_warp.cpu()) * lanes).sum()), n_entries * w
+
+
 # ----------------------------------------------------------------- phases
 
 def capture_dispatch(cfg, scans, device):
@@ -474,14 +499,49 @@ def check_k1(args, statics, reps: int = 5, gate: float | None = None) -> dict:
     ms = launch_ms([lambda _: bgk_heavy.bgk_heavy(*hargs, **kw)], reps)
     evals = int(rn.sum()) * all_nodes.shape[0]
     per_eval = bgk_heavy.FLOP_PER_EVAL_SEGMENT if seg else bgk_heavy.FLOP_PER_EVAL
-    b_ms, b_by = bound(per_eval * evals,
-                       nbytes(ent, lab, ids, gs, rb, rs, rn, ctr, all_nodes, acc_k))
+    nbyte = nbytes(ent, lab, ids, gs, rb, rs, rn, ctr, all_nodes, acc_k)
+    b_ms, b_by = bound(per_eval * evals, nbyte)
+    if seg:
+        # the bound on the work the culled kernel must do, and beside it the
+        # earlier yardstick: every evaluation of the plain algorithm
+        out.update(k1_culling(hargs, acc_k, kw))
+        b_all_ms = out["bound_ms_every_pair"] = b_ms
+        b_ms, b_by = bound(per_eval * out["needed_evaluations"]
+                           + km.FLOP_CULL_TEST * out["warp_entry_pairs"], nbyte)
     print(f"{name}: {ms:.3f} ms device time (event window {event_ms:.3f} ms; plain "
           f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by}; {evals} kernel "
-          f"evaluations)")
+          f"evaluations" + (f"; bound on every evaluation {b_all_ms:.4f} ms)" if seg else ")"))
     return {"acc": acc_k, "max_abs_err": max_err, "ms": ms, "event_ms": event_ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "evaluations": evals, **out}
+
+
+def k1_culling(hargs, acc, kw, row_chunk: int = 2048) -> dict:
+    """K1's segment kernel on one dispatch: its work units, and the (warp,
+    entry) pairs its warps skip — its own count, which must equal that of
+    the plain predicate ``bgk_heavy_cull`` — with the launch bit-equal to
+    ``acc``."""
+    ent, lab, ids, gs, rb, rs, rn, ctr, all_nodes = hargs
+    culled = torch.zeros(1, dtype=torch.int64, device=ent.device)
+    again = bgk_heavy.bgk_heavy(*hargs, **kw, culled=culled)
+    Vall, Tp, R = all_nodes.shape[0], ctr.shape[0], rb.shape[0]
+    wpb = (Vall + 31) // 32
+    per_warp = sum(bgk_heavy.bgk_heavy_cull(ent, ids, rb[c:c + row_chunk],
+                                            rs[c:c + row_chunk], rn[c:c + row_chunk],
+                                            ctr, all_nodes, ell=kw["ell"]).sum((0, 2))
+                   for c in range(0, R, row_chunk))
+    plain = int(per_warp.sum())
+    needed, pairs = warp_work(per_warp, int(rn.sum()), Vall)
+    frac = int(culled) / max(pairs, 1)
+    print(f"K1 (segments): T {Tp} blocks, R {R} rows, {Tp * wpb} work units (warps of 32 "
+          f"of {Vall} nodes), {int(culled)} of {pairs} (warp, entry) pairs culled "
+          f"({100 * frac:.2f} %; the plain predicate: {plain}), {needed} evaluations "
+          f"in the pairs kept")
+    require(int(culled) == plain, "K1's warps cull other pairs than bgk_heavy_cull")
+    require(bool(torch.equal(again, acc)), "K1 (segments): a repeat launch differs")
+    return {"T": Tp, "R": R, "work_units": Tp * wpb, "culled_pairs": int(culled),
+            "warp_entry_pairs": pairs, "culled_fraction": frac,
+            "needed_evaluations": needed}
 
 
 def check_k2(args, statics, acc, reps: int = 5, what: str = "16-scan demo dispatch") -> dict:
@@ -772,22 +832,55 @@ def check_k3(args, statics, reps: int = 5) -> dict:
     require(bool(torch.isfinite(k[0]).all() and torch.isfinite(k[1]).all()),
             "K3 gave non-finite values")
     require(bad == 0 and torch.equal(k[3], pool0[3]), "K3 disagrees with its plain version")
+    # the kernel's own count of culled (warp, entry) pairs, in a launch that
+    # must repeat the first bit for bit, against the plain predicate's
+    again, culled = pool(), torch.zeros(1, dtype=torch.int64, device=ent.device)
+    lv_rows.lv_rows(*again, *rest, **statics, culled=culled)
+    real = slots[rt.long()] < cap
+    cull = lv_rows.lv_rows_cull(vbt, ent, ids, rt, rs, rn, pos, ctr, ell=statics["ell"])
+    per_warp = cull[real].sum((0, 2))
+    plain_culled = int(per_warp.sum())
+    wpt = (Vt + 31) // 32
+    needed, pairs = warp_work(per_warp, int(rn[real].sum()), Vt)
+    T_real, units = int((slots < cap).sum()), int(real.sum()) * wpt
+    scratch = max(r1 - r0 for _, _, r0, r1, _ in lv_rows.lv_rows_plan(
+        rt, slots, pos, tpb=tpb, Vt=Vt)[1]) * Vt * 8
+    print(f"K3: T {len(slots)} (scan, tile) entries ({T_real} real), R {len(rt)} rows, "
+          f"{units} work units (warps of 32 voxels of a row), {int(members)} member pairs "
+          f"({100 * int(members) / max(int(rn.sum()) * Vt, 1):.2f} % of the (voxel, entry) "
+          f"pairs), {int(culled)} of {pairs} (warp, entry) pairs culled "
+          f"({100 * int(culled) / max(pairs, 1):.2f} %; the plain predicate: {plain_culled}), "
+          f"{needed} memberships in the pairs kept; row-sum scratch {scratch} bytes "
+          f"(cap {lv_rows.SCRATCH_BYTES})")
+    require(all(torch.equal(x, y) for x, y in zip(again, k)), "K3: a repeat launch differs")
+    require(int(culled) == plain_culled, "K3's warps cull other pairs than lv_rows_cull")
     event_ms = cuda_ms(lambda st: lv_rows.lv_rows(*st, *rest, **statics), reps, setup=pool)
     ms = launch_ms([lambda st: lv_rows.lv_rows(*st, *rest, **statics)], reps, setup=pool)
     plain_ms = cuda_ms(plain, 1, warmup=0, setup=pool)  # warmed up by the check
     evals = int(rn.sum()) * Vt
     n_rows = int(torch.unique(row).numel())
-    flops = lv_rows.FLOP_MEMBERSHIP * evals + lv_rows.FLOP_MEMBER * int(members)
+    flops_all = lv_rows.FLOP_MEMBERSHIP * evals + lv_rows.FLOP_MEMBER * int(members)
+    # the work the culled kernel must do: memberships in the (warp, entry)
+    # pairs kept, the members' sums, the cull test of every pair
+    flops = (lv_rows.FLOP_MEMBERSHIP * needed + lv_rows.FLOP_MEMBER * int(members)
+             + km.FLOP_CULL_TEST * pairs)
     # inputs read once; each pool row updated: A, B, touched, eff read and
     # A, B, touched written
-    b_ms, b_by = bound(flops, nbytes(*rest) + n_rows * Vt * (10 + 9))
+    nbyte = nbytes(*rest) + n_rows * Vt * (10 + 9)
+    b_ms, b_by = bound(flops, nbyte)
+    b_all_ms = bound(flops_all, nbyte)[0]
     print(f"K3: {ms:.3f} ms device time (event window {event_ms:.3f} ms; plain "
           f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by}; {evals} evaluations, "
-          f"{int(members)} members, {flops:.4g} operations)")
+          f"{int(members)} members, {flops:.4g} operations; bound on every evaluation "
+          f"{b_all_ms:.4f} ms, {flops_all:.4g} operations)")
     return {"max_abs_err": max_err, "ms": ms, "event_ms": event_ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "bound_ms_every_pair": b_all_ms, "needed_evaluations": needed,
+            "scratch_bytes": scratch,
             "evaluations": evals, "members": int(members),
-            "gate_boundary_voxels": n_near, "decided_apart": n_moved}
+            "gate_boundary_voxels": n_near, "decided_apart": n_moved, "T": len(slots),
+            "R": len(rt), "work_units": units, "culled_pairs": int(culled),
+            "warp_entry_pairs": pairs, "culled_fraction": int(culled) / max(pairs, 1)}
 
 
 #: (f0, f1) templates of :func:`collapsible_pool`, one state each: LV (A, B)
@@ -1609,10 +1702,48 @@ def check_k1p(calls, reps: int = 5, gate: float | None = None) -> dict:
     ms = launch_ms([lambda _: bgk_aligned_heavy.bgk_aligned_heavy(*a, **kw)], reps)
     per_eval = bgk_heavy.FLOP_PER_EVAL_SEGMENT if seg else bgk_heavy.FLOP_PER_EVAL
     b_ms, b_by = bound(per_eval * evals, nbytes(*a, acc))
+    if seg:
+        # as K1's segment branch: the bound on the work that K1's warp
+        # culling leaves, the earlier yardstick beside it
+        needed, pairs = k1p_warp_work(a, kw)
+        gates.update(bound_ms_every_pair=b_ms, needed_evaluations=needed,
+                     warp_entry_pairs=pairs)
+        print(f"{name}: under K1's warp culling {needed} evaluations in the pairs kept, "
+              f"{pairs} (warp, entry) pairs; bound on every evaluation {b_ms:.4f} ms")
+        b_ms, b_by = bound(per_eval * needed + km.FLOP_CULL_TEST * pairs, nbytes(*a, acc))
     print(f"{name}: {ms:.3f} ms device time (plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms "
           f"by {b_by}; {evals} kernel evaluations)")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "evaluations": evals, "outside_control": bad_ctl, **gates}
+
+
+def k1p_warp_work(a, kw) -> tuple[int, int]:
+    """``warp_work`` of K1′'s segment call under K1's warp culling: each
+    (test block, slot) pair's entries, cut into rows of ``bgk_heavy.ROW_W``,
+    against the slot's node table in ``bgk_heavy.node_order``, in warps of 32,
+    with the reach r_c·ℓ (``bgk_heavy.bgk_heavy_cull``)."""
+    ent_rel, _, ustart, ucount, tb_u, ext = a
+    G, W, U = kw["G"], bgk_heavy.ROW_W, ucount.shape[0]
+    Vall = ext.shape[0] // G
+    wpb, dev = (Vall + 31) // 32, ent_rel.device
+    flat = tb_u.reshape(-1)
+    pair = torch.nonzero(flat < U).reshape(-1)
+    u = flat[pair]
+    nrow = (ucount[u] + W - 1) // W
+    row_pair = torch.repeat_interleave(torch.arange(len(pair), device=dev), nrow)
+    k = torch.arange(len(row_pair), device=dev) - (torch.cumsum(nrow, 0) - nrow)[row_pair]
+    row_start = ustart[u][row_pair] + W * k
+    row_count = (ucount[u][row_pair] - W * k).clamp(max=W)
+    order = bgk_heavy.node_order(Vall, str(dev)).long()
+    nodes = torch.nn.functional.pad(ext.view(G, Vall, 3)[:, order], (0, 0, 0, wpb * 32 - Vall))
+    live = (torch.arange(wpb * 32, device=dev) < Vall).view(wpb, 32)
+    slot = (pair % G)[row_pair]
+    chunk = max(1, (1 << 22) // (wpb * 32))                 # rows of 4M node points
+    cull = km.warp_cull(lambda c0, c1: nodes[slot[c0:c1]].view(-1, wpb, 32, 3), live,
+                        bgk_heavy.cull_reach(kw["ell"]), ent_rel,
+                        torch.arange(ent_rel.shape[0], device=dev), row_start, row_count,
+                        row_w=W, chunk=chunk)
+    return warp_work(cull.sum((0, 2)), int(ucount[u].sum()), Vall)
 
 
 def check_k7d(calls, reps: int = 5) -> dict:
@@ -2117,7 +2248,8 @@ def main() -> int:
         print(f"bgkl host ingest: host syncs in a 16-scan dispatch "
               f"{path_l['host_syncs_per_dispatch']}")
         path_l["profile60"] = profile_main_path(
-            cfg_l, tmp, {"bgk_heavy": "bgk_heavy_kernel", "bgk_light": "bgk_light_kernel"},
+            cfg_l, tmp,
+            {"bgk_heavy": "bgk_heavy_seg_kernel", "bgk_light": "bgk_light_kernel"},
             path_l["static60"]["launches"])
         # one scan: the CPU's segment heavy pass takes about 6 s a scan
         dev_l = card_vs_cpu(cfg_l, tmp, n_scans=1, tol=(1e-5, 1e-5),
@@ -2154,14 +2286,18 @@ def main() -> int:
         m = capture_lv(cfg_lv, scans[:12])
         k3 = check_k3(*m._last_step_call)
         m = capture_lv(cfg_large, scans[:4])
+        stamp("BGKLV large map (block_depth 6): K3 on one scan's dispatch, K8")
+        k3_l = check_k3(*m._last_step_call)
         k8 = check_k8(*m._last_prune_call)
         del m
 
         stamp("BGKLV: main path, profile, card vs CPU")
         path_lv = main_path_lv(cfg_lv, cfg_large, tmp, scans)
         path_lv["profile60"] = profile_main_path(
-            cfg_lv, tmp, {"lv_rows": "lv_rows_kernel"},
-            {"lv_rows": path_lv["static60"]["launches"]["lv_rows"]})
+            cfg_lv, tmp,
+            {"lv_rows": "lv_rows_acc_kernel", "lv_rows_apply": "lv_rows_apply_kernel"},
+            {"lv_rows": path_lv["static60"]["launches"]["lv_rows"],
+             "lv_rows_apply": path_lv["static60"]["launches"]["lv_rows"]})
         # one scan (three before GP joined the script): the CPU's LV pass
         # takes about 10 s a scan
         dev_lv = card_vs_cpu(cfg_lv, tmp, n_scans=1)
@@ -2243,6 +2379,10 @@ def main() -> int:
             "K2", bgk_light.bgk_light, bgk_light.bgk_light_plain, (acc,), args[:4], args[5],
             args[13], args[15], args[16], kw, BETA_TEMPLATES)
         del args, acc
+        stamp("BGKL large map: K1' (segments) on a 12-scan device-ingest dispatch")
+        calls = record_ingest(cfg_ll_on, scans[:12])
+        k1p_ll = check_k1p(calls, reps=2, gate=statics["gate"])
+        del calls
         stamp("BGKL large map: main path on both ingest paths, card vs CPU")
         path_ll = large_bgk_family(cfg_ll, cfg_ll_on, tmp, scans, heavy=True)
         stamp("BGK large map (block_depth 3): main path on both ingest paths, card vs CPU")
@@ -2293,7 +2433,9 @@ def main() -> int:
          "source": "la3dm_tpu_torch/csrc/lv_rows.cu",
          "replaces": "la3dm_tpu/models/bgklv.py:127",
          "launches": path_lv["static60"]["launches"]["lv_rows"],
-         "work": "one 12-scan demo dispatch", **k3, "library_ms": None},
+         "work": "one 12-scan demo dispatch", **k3, "library_ms": None,
+         "large_map": {"work": "one BGKLV large-map scan's dispatch (block_depth 6)",
+                       "launches": path_lv["large12"]["launches"]["lv_rows"], **k3_l}},
         {"name": "lv_prune", "route": "cuda",
          "source": "la3dm_tpu_torch/csrc/lv_prune.cu",
          "replaces": "la3dm_tpu/models/bgklv.py:216",
@@ -2343,12 +2485,19 @@ def main() -> int:
          "source": "la3dm_tpu_torch/csrc/bgk_heavy.cu",
          "replaces": "la3dm_tpu/models/bgk.py:121",
          "launches": path_l["static60"]["launches"]["bgk_heavy"],
-         "work": "one 16-scan BGKL demo dispatch", **k1s, "library_ms": None},
+         "work": "one 16-scan BGKL demo dispatch", **k1s, "library_ms": None,
+         "large_map": {"work": "one 12-scan BGKL large-map dispatch (block_depth 5)",
+                       "launches": path_ll["host"]["static12"]["launches"]["bgk_heavy"],
+                       **k1_ll}},
         {"name": "bgk_aligned_heavy_segment", "route": "cuda",
          "source": "la3dm_tpu_torch/csrc/bgk_aligned_heavy.cu",
          "replaces": "la3dm_tpu/models/bgk.py:229",
          "launches": path_l_on["static60"]["launches"]["bgk_aligned_heavy"],
-         "work": "one 16-scan BGKL demo dispatch", **k1ps, "library_ms": None},
+         "work": "one 16-scan BGKL demo dispatch", **k1ps, "library_ms": None,
+         "large_map": {"work": "one 12-scan BGKL large-map device-ingest dispatch "
+                               "(block_depth 5)",
+                       "launches": path_ll["device"]["static12"]["launches"][
+                           "bgk_aligned_heavy"], **k1p_ll}},
         {"name": "ingest_rays", "route": "cuda",
          "source": "la3dm_tpu_torch/csrc/ingest_rays.cu",
          "replaces": "la3dm_tpu/geometry/device_ingest.py:497",
@@ -2368,7 +2517,8 @@ def main() -> int:
                "main_path_bgkl": path_l, "card_vs_cpu_max_dev_bgkl": dev_l,
                "main_path_bgkl_ingest": path_l_on, "card_vs_cpu_max_dev_bgkl_ingest": dev_l_on,
                "raycast": rays,
-               "bgkl_large_map": {**path_ll, "k1_segments": k1_ll, "accumulator": mem_ll},
+               "bgkl_large_map": {**path_ll, "k1_segments": k1_ll, "accumulator": mem_ll,
+                                  "k1p_segments": k1p_ll},
                "bgk_large_map": path_bl,
                "gp_depth5": {**path_gp5, "card_vs_cpu": dev_gp5, "tables": mem_gp5}}
     print(f"main path on {smi}: BGK {path_on['static60']['scans_per_s']:.2f} scans/s "

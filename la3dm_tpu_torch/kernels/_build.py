@@ -90,11 +90,15 @@ def build() -> str:
 def _bind(lib):
     vp, ci, cf, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
     lib.la3dm_bgk_heavy.restype = ci
-    lib.la3dm_bgk_heavy.argtypes = [vp] * 9 + [ci, ci, ci, ci, cf, cf, vp, vp]
+    lib.la3dm_bgk_heavy.argtypes = [vp] * 9 + [ci, ci, ci, cf, cf, vp, vp]
+    lib.la3dm_bgk_heavy_seg.restype = ci
+    lib.la3dm_bgk_heavy_seg.argtypes = [vp] * 11 + [ci] * 3 + [cf] * 3 + [vp, vp]
+    lib.la3dm_sparse_kernel_scan.restype = ci
+    lib.la3dm_sparse_kernel_scan.argtypes = [vp, vp, cl, cf, vp]
     lib.la3dm_bgk_light.restype = ci
     lib.la3dm_bgk_light.argtypes = [vp] * 7 + [ci] * 6 + [cf, ci, cf, cf, cf] + [vp] * 5
     lib.la3dm_lv_rows.restype = ci
-    lib.la3dm_lv_rows.argtypes = [vp] * 16 + [ci] * 4 + [cf] * 4 + [vp]
+    lib.la3dm_lv_rows.argtypes = [vp] * 19 + [cl] * 4 + [ci] * 3 + [cf] * 4 + [vp]
     lib.la3dm_lv_prune.restype = ci
     lib.la3dm_lv_prune.argtypes = [vp] * 9 + [ci] * 4 + [cf] * 4 + [vp]
     lib.la3dm_gp_heavy.restype = ci

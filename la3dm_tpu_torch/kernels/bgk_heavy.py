@@ -10,20 +10,26 @@ start, end), masked by the row count, times the one-hot slot RHS [W, 2G],
 accumulated into acc[Tp, Vall, 2G] at ``row_block``.
 
 On a CUDA tensor :func:`bgk_heavy` launches the hand-written kernel
-(``csrc/bgk_heavy.cu``: one CTA per test block, one thread per node, no
-atomics); on a CPU tensor it runs :func:`bgk_heavy_plain`.  What bounds the
-kernel is FP32 arithmetic on the CUDA cores (:data:`FLOP_PER_EVAL` per
-kernel evaluation, :data:`FLOP_PER_EVAL_SEGMENT` with segments); parity
-keeps it off the tensor cores (see the source note).
+(``csrc/bgk_heavy.cu``; points: one CTA per test block, one thread per
+node; segments: one warp per (test block, 32 nodes) work unit with exact
+warp-level culling; no atomics); on a CPU tensor it runs
+:func:`bgk_heavy_plain`.  :func:`bgk_heavy_cull` is the segment kernel's
+culling predicate in plain PyTorch.  What bounds the kernel is FP32
+arithmetic on the CUDA cores (:data:`FLOP_PER_EVAL` per kernel evaluation,
+:data:`FLOP_PER_EVAL_SEGMENT` with segments); parity keeps it off the tensor
+cores (see the source note).
 """
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 from la3dm_tpu_torch.kernels import _build, math as km, predict as kp
 
-#: fixed entry-row width; the kernel stages one row in shared memory
+#: fixed entry-row width; the kernel loads one row at a time
 ROW_W = 64
 #: kernel launches since the counter was last reset (one per dispatch)
 launches = 0
@@ -35,16 +41,58 @@ FLOP_PER_EVAL = 50
 #: projection 2, the midpoint and its square 14, three square roots and
 #: three comparisons 6) and the division by ℓ
 FLOP_PER_EVAL_SEGMENT = 85
+#: r_c: the sparse kernel (``csrc/sparse_kernel.cuh::sparse_kernel_r``,
+#: clamped at 0) is exactly 0 for every f32 r ≥ R_CULL — a scan of every
+#: f32 value in [1, 2) on the card and on the CPU (tests/test_torch_cull.py,
+#: tests/test_torch_cuda.py); above 2 the formula is negative.  At r = 1
+#: itself 2π·r rounds below 2π (TWO_PI = float32(2·3.1415926)), so the
+#: sine term is already negative; the analytic value is O((1 − r)⁵), and on
+#: the CPU the f32 formula rounds to ≤ 0 from r = 0.98376 on.  The segment
+#: kernel skips an entry whose segment lies farther than R_CULL·ℓ from all
+#: of a warp's nodes.
+R_CULL = 1.0
 
 _INT_ARGS = ("ids", "row_start", "row_count", "row_block")
 
 
+@functools.lru_cache(maxsize=None)
+def node_order(Vall: int, device: str = "cpu") -> torch.Tensor:
+    """[Vall] int32 on ``device``: the segment kernel's node order, so that
+    its warps, 32 consecutive nodes each, own compact boxes.  For the
+    all-level node table of ``geometry/blocks.py::all_level_nodes`` (level
+    L's (n >> L)³ nodes in raster order, L = 0, 1, ...), the nodes along a
+    Morton curve of their centres (on the half-leaf grid, quantised to
+    1024 steps across the block); for any other table, the table's own
+    order.  Any permutation gives the same sums."""
+    n, total = 1, 1
+    while total < Vall:
+        n *= 2
+        total = sum((n >> L) ** 3 for L in range(n.bit_length()))
+    if total != Vall:
+        return torch.arange(Vall, dtype=torch.int32, device=device)
+    codes = []
+    for L in range(n.bit_length()):
+        m = n >> L
+        i = np.arange(m ** 3)
+        code = np.zeros(m ** 3, np.int64)
+        for ax, x in enumerate((i % m, (i // m) % m, i // (m * m))):
+            c = ((2 * x + 1) << L) - 1                 # centre, in half-leaf units
+            q = np.minimum(c * 1024 // max(2 * n - 2, 1), 1023)
+            for bit in range(10):
+                code |= ((q >> bit) & 1) << (3 * bit + ax)
+        codes.append(code)
+    order = np.argsort(np.concatenate(codes), kind="stable").astype(np.int32)
+    return torch.from_numpy(order).to(device)
+
+
 def bgk_heavy(entries, labels, ids, gslot, row_block, row_start, row_count,
-              centers, all_nodes, *, G: int, sf2: float, ell: float):
+              centers, all_nodes, *, G: int, sf2: float, ell: float, culled=None):
     """acc [Tp, Vall, 2G] f32: per (test block, node) the slot-grouped
     (ȳ_g | k̄_g).  ``entries`` are points [N,3] or segments [N,6] (start,
     end).  ``row_block`` must be non-decreasing (rows of a block are
-    contiguous); a row with count 0 is padding."""
+    contiguous); a row with count 0 is padding.  ``culled`` (segments: an
+    int64 [1] tensor on the card, or None) counts the (warp, entry) pairs
+    the segment kernel's warps skip."""
     if entries.device.type == "cpu":
         return bgk_heavy_plain(entries, labels, ids, gslot, row_block, row_start,
                                row_count, centers, all_nodes, G=G, sf2=sf2, ell=ell)
@@ -57,7 +105,10 @@ def bgk_heavy(entries, labels, ids, gslot, row_block, row_start, row_count,
                 centers=centers, all_nodes=all_nodes)
     want = {"entries": torch.float32, "labels": torch.float32,
             "centers": torch.float32, "all_nodes": torch.float32,
-            "gslot": torch.int8, **{k: torch.int32 for k in _INT_ARGS}}
+            "gslot": torch.int8, "culled": torch.int64,
+            **{k: torch.int32 for k in _INT_ARGS}}
+    if culled is not None:
+        args["culled"] = culled
     for k, x in args.items():
         if x.device != entries.device or x.dtype != want[k] or not x.is_contiguous():
             raise ValueError(f"bgk_heavy: {k} must be a contiguous {want[k]} "
@@ -69,7 +120,8 @@ def bgk_heavy(entries, labels, ids, gslot, row_block, row_start, row_count,
     if (D not in (3, 6) or centers.shape[1:] != (3,)
             or all_nodes.shape[1:] != (3,) or labels.shape[0] != entries.shape[0]
             or gslot.shape[0] != ids.shape[0]
-            or row_start.shape[0] != R or row_count.shape[0] != R):
+            or row_start.shape[0] != R or row_count.shape[0] != R
+            or (culled is not None and (D != 6 or culled.shape != (1,)))):
         raise ValueError("bgk_heavy: inconsistent shapes")
     acc = torch.empty((Tp, Vall, 2 * G), dtype=torch.float32, device=entries.device)
     if Tp == 0:
@@ -77,14 +129,71 @@ def bgk_heavy(entries, labels, ids, gslot, row_block, row_start, row_count,
     block_rows = torch.searchsorted(
         row_block, torch.arange(Tp + 1, dtype=row_block.dtype, device=row_block.device))
     stream = torch.cuda.current_stream(entries.device).cuda_stream
-    code = _build.lib().la3dm_bgk_heavy(
-        entries.data_ptr(), labels.data_ptr(), ids.data_ptr(), gslot.data_ptr(),
-        row_start.data_ptr(), row_count.data_ptr(), block_rows.data_ptr(),
-        centers.data_ptr(), all_nodes.data_ptr(), Tp, Vall, G, D,
-        float(sf2), float(ell), acc.data_ptr(), stream)
+    ptrs = (entries.data_ptr(), labels.data_ptr(), ids.data_ptr(), gslot.data_ptr(),
+            row_start.data_ptr(), row_count.data_ptr(), block_rows.data_ptr(),
+            centers.data_ptr(), all_nodes.data_ptr())
+    if D == 3:
+        code = _build.lib().la3dm_bgk_heavy(*ptrs, Tp, Vall, G, float(sf2), float(ell),
+                                            acc.data_ptr(), stream)
+    else:
+        order = node_order(Vall, str(entries.device))
+        code = _build.lib().la3dm_bgk_heavy_seg(
+            *ptrs, order.data_ptr(),
+            culled.data_ptr() if culled is not None else None, Tp, Vall, G, float(sf2),
+            float(ell), cull_reach(ell), acc.data_ptr(), stream)
     _build.check(code, "bgk_heavy")
     launches += 1
     return acc
+
+
+def cull_reach(ell: float) -> float:
+    """The culling reach r_c·ℓ in f32."""
+    return float(torch.tensor(R_CULL * float(torch.tensor(ell, dtype=torch.float32)),
+                              dtype=torch.float32))
+
+
+def bgk_heavy_cull(entries, ids, row_block, row_start, row_count, centers, all_nodes,
+                   *, ell: float, chunk: int = 256):
+    """The segment kernel's culling predicate in plain PyTorch:
+    [R, ⌈Vall/32⌉, W] bool over (row, warp, entry), True where the warp's
+    nodes ``node_order(Vall)[32·w : 32·w + 32]`` in the row's block
+    skip the entry — its
+    segment misses their box padded by r_c·ℓ (``csrc/cull.cuh``), so every
+    node lies farther than r_c·ℓ from it and the kernel's value is exactly
+    0 — and False for padding entries."""
+    Vall = all_nodes.shape[0]
+    wpb = (Vall + 31) // 32
+    dev = entries.device
+    order = node_order(Vall, str(dev)).long()
+    nodes = torch.nn.functional.pad(all_nodes[order], (0, 0, 0, wpb * 32 - Vall))
+    live = (torch.arange(wpb * 32, device=dev) < Vall).view(wpb, 32)
+
+    def points(c0, c1):
+        blk = row_block[c0:c1].long()
+        return (nodes[None] + centers[blk][:, None, :]).view(-1, wpb, 32, 3)
+
+    return km.warp_cull(points, live, cull_reach(ell), entries, ids, row_start, row_count,
+                        row_w=ROW_W, chunk=chunk)
+
+
+def sparse_kernel_scan(r: torch.Tensor, sf2: float) -> torch.Tensor:
+    """The sparse kernel (clamped at 0) of every r [n] f32: on the card the
+    segment kernel's own ``sparse_kernel_r``, on the CPU the plain version
+    (``kernels/math.py::sparse_kernel``).  For the r_c scan."""
+    if r.device.type == "cpu":
+        return km.sparse_kernel(r, sf2)
+    if r.device.type != "cuda":
+        raise ValueError(f"sparse_kernel_scan: unsupported device {r.device}")
+    if r.dtype != torch.float32 or not r.is_contiguous() or r.dim() != 1:
+        raise ValueError("sparse_kernel_scan: r must be a contiguous 1-D f32 tensor")
+    out = torch.empty_like(r)
+    if r.numel() == 0:
+        return out
+    code = _build.lib().la3dm_sparse_kernel_scan(
+        r.data_ptr(), out.data_ptr(), r.numel(), float(sf2),
+        torch.cuda.current_stream(r.device).cuda_stream)
+    _build.check(code, "sparse_kernel_scan")
+    return out
 
 
 def bgk_heavy_plain(entries, labels, ids, gslot, row_block, row_start, row_count,

@@ -10,9 +10,13 @@ the tile's rows; then, once per (scan, tile), the gate k̄ > gate ∧ eff == 0
 and the add into the tile-major pool row ``slot·tpb + pos``.
 
 On a CUDA tensor :func:`lv_rows` launches the hand-written kernel
-(``csrc/lv_rows.cu``: one CTA per pool row, one thread per voxel, no
-atomics); on a CPU tensor it runs :func:`lv_rows_plain`.  What bounds the
-kernel is FP32 arithmetic on the CUDA cores (see ``FLOP_*`` below).
+(``csrc/lv_rows.cu``) on the plan of :func:`lv_rows_plan`: per chunk of the
+(scan, tile) list, the row sums over parallel (row, 32 voxels) warp units
+with exact warp-level culling, then the tile sums, the gate and the add in
+scan order; no atomics.  On a CPU tensor it runs :func:`lv_rows_plain`.
+:func:`lv_rows_cull` is the kernel's culling predicate in plain PyTorch.
+What bounds the kernel is FP32 arithmetic on the CUDA cores (see
+``FLOP_*`` below).
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ import torch
 
 from la3dm_tpu_torch.kernels import _build, math as km
 
-#: fixed entry-row width; the kernel stages one row in shared memory
+#: fixed entry-row width; a warp of the kernel loads a row two entries a lane
 ROW_W = 64
 #: operations per (voxel, entry) pair: the membership test, evaluated for
 #: every pair (per axis: slab test, flat test, two divisions, min/max and
@@ -30,13 +34,52 @@ FLOP_MEMBERSHIP = 61
 #: ... and, for a member pair, the point-to-segment distance (45), the LV
 #: kernel with sinf/cosf counted as one each (13) and the two sums (3)
 FLOP_MEMBER = 61
+#: bytes of the per-row (ȳ, k̄) scratch [Rc, Vt] f32 that one chunk of the
+#: tile list may take; longer dispatches run in chunks of consecutive tiles
+SCRATCH_BYTES = 1 << 28
 #: kernel launches since the counter was last reset (one per dispatch)
 launches = 0
 
 
+def lv_rows_plan(row_tile, tile_slot, tile_pos, *, tpb: int, Vt: int):
+    """K3's work plan, on the tiles' device.
+
+    Returns (tile_rows, chunks): tile_rows [T+1] int64, tile t's rows being
+    tile_rows[t] .. tile_rows[t+1] (``row_tile`` must be non-decreasing);
+    chunks a list of (t0, t1, r0, r1, apply_order), runs of consecutive
+    tiles t0 .. t1 and their rows r0 .. r1, each of at most
+    :data:`SCRATCH_BYTES` of row sums unless one tile alone has more.  The
+    sum phase runs ⌈Vt/32⌉ warps a row; apply_order (chunk-relative int64)
+    is the chunk's tiles by pool row ``slot·tpb + pos``, stable, so scan
+    order within a pool row: the gate phase adds each run of equal pool rows
+    in this order.  Chunks run one after the
+    other, so every pool row takes its (scan, tile) sums in tile-list order.
+    One chunk needs no host sync; more read tile_rows on the host.
+    """
+    T, R = tile_slot.shape[0], row_tile.shape[0]
+    dev = tile_slot.device
+    max_rows = max(1, SCRATCH_BYTES // (8 * Vt))
+    tile_rows = torch.searchsorted(
+        row_tile, torch.arange(T + 1, dtype=row_tile.dtype, device=dev))
+    key = tile_slot.long() * tpb + tile_pos.long()
+    if R <= max_rows:
+        bounds = [(0, T, 0, R)] if T else []
+    else:
+        tr = tile_rows.tolist()
+        bounds, t0 = [], 0
+        while t0 < T:
+            t1 = t0 + 1
+            while t1 < T and tr[t1 + 1] - tr[t0] <= max_rows:
+                t1 += 1
+            bounds.append((t0, t1, tr[t0], tr[t1]))
+            t0 = t1
+    return tile_rows, [(t0, t1, r0, r1, torch.argsort(key[t0:t1], stable=True))
+                       for t0, t1, r0, r1 in bounds]
+
+
 def lv_rows(A, Bv, touched, eff, vox_base_t, entries, labels, ids, row_tile,
             row_start, row_count, tile_slot, tile_pos, tile_ctr, *, sf2: float,
-            ell: float, free_res: float, gate: float) -> None:
+            ell: float, free_res: float, gate: float, culled=None) -> None:
     """One dispatch of (scan, tile) rows into the pool (A, Bv, touched
     updated in place).
 
@@ -47,7 +90,9 @@ def lv_rows(A, Bv, touched, eff, vox_base_t, entries, labels, ids, row_tile,
     ids[start:start+count] (count ≤ W, 0 ⇒ padding) of tile ``row_tile``;
     tile_slot / tile_pos [T] i32 (slot == cap ⇒ padding), tile_ctr [T, 3]
     block centres.  The kernel needs ``row_tile`` non-decreasing (a tile's
-    rows contiguous), as the map builds it.
+    rows contiguous), as the map builds it.  ``culled`` (an int64 [1] tensor
+    on the card, or None) counts the (warp, entry) pairs the kernel's warps
+    skip.
     """
     if entries.device.type == "cpu":
         lv_rows_plain(A, Bv, touched, eff, vox_base_t, entries, labels, ids,
@@ -65,6 +110,8 @@ def lv_rows(A, Bv, touched, eff, vox_base_t, entries, labels, ids, row_tile,
                 row_start=(row_start, torch.int32), row_count=(row_count, torch.int32),
                 tile_slot=(tile_slot, torch.int32), tile_pos=(tile_pos, torch.int32),
                 tile_ctr=(tile_ctr, torch.float32))
+    if culled is not None:
+        args["culled"] = (culled, torch.int64)
     for k, (x, dt) in args.items():
         if x.device != entries.device or x.dtype != dt or not x.is_contiguous():
             raise ValueError(f"lv_rows: {k} must be a contiguous {dt} tensor "
@@ -75,31 +122,51 @@ def lv_rows(A, Bv, touched, eff, vox_base_t, entries, labels, ids, row_tile,
             or A.shape[1] != tpb * Vt or Vt > 512 or vox_base_t.shape[2:] != (3,)
             or entries.shape[1:] != (6,) or labels.shape[0] != entries.shape[0]
             or row_start.shape[0] != R or row_count.shape[0] != R
-            or tile_pos.shape[0] != T or tile_ctr.shape != (T, 3)):
+            or tile_pos.shape[0] != T or tile_ctr.shape != (T, 3)
+            or (culled is not None and culled.shape != (1,))):
         raise ValueError("lv_rows: inconsistent shapes (pool [cap, tpb·Vt], "
                          "Vt ≤ 512, entries [E, 6])")
     if T == 0:
         return
     cap = A.shape[0]
-    dev = entries.device
-    # the tile list in pool-row order (scan order within a pool row) and
-    # its runs of equal pool rows: one CTA per run
-    key = tile_slot.long() * tpb + tile_pos
-    order = torch.argsort(key, stable=True)
-    counts = torch.unique_consecutive(key[order], return_counts=True)[1]
-    run_start = torch.nn.functional.pad(torch.cumsum(counts, 0), (1, 0))
-    tile_rows = torch.searchsorted(
-        row_tile, torch.arange(T + 1, dtype=row_tile.dtype, device=dev))
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    code = _build.lib().la3dm_lv_rows(
-        entries.data_ptr(), labels.data_ptr(), ids.data_ptr(), row_start.data_ptr(),
-        row_count.data_ptr(), tile_rows.data_ptr(), order.data_ptr(),
-        run_start.data_ptr(), tile_slot.data_ptr(), tile_pos.data_ptr(),
-        tile_ctr.data_ptr(), vox_base_t.data_ptr(), eff.data_ptr(), A.data_ptr(),
-        Bv.data_ptr(), touched.data_ptr(), counts.shape[0], cap, tpb, Vt,
-        float(sf2), float(ell), float(free_res), float(gate), stream)
-    _build.check(code, "lv_rows")
+    tile_rows, chunks = lv_rows_plan(row_tile, tile_slot, tile_pos, tpb=tpb, Vt=Vt)
+    rows = max(r1 - r0 for _, _, r0, r1, _ in chunks)
+    rows_y = torch.empty((max(rows, 1), Vt), dtype=torch.float32, device=entries.device)
+    rows_k = torch.empty_like(rows_y)
+    stream = torch.cuda.current_stream(entries.device).cuda_stream
+    lib = _build.lib()
+    for t0, t1, r0, r1, apply_order in chunks:
+        code = lib.la3dm_lv_rows(
+            entries.data_ptr(), labels.data_ptr(), ids.data_ptr(), row_start.data_ptr(),
+            row_count.data_ptr(), row_tile.data_ptr(), tile_rows.data_ptr(),
+            apply_order.data_ptr(), tile_slot.data_ptr(), tile_pos.data_ptr(),
+            tile_ctr.data_ptr(), vox_base_t.data_ptr(), eff.data_ptr(), A.data_ptr(),
+            Bv.data_ptr(), touched.data_ptr(), rows_y.data_ptr(), rows_k.data_ptr(),
+            culled.data_ptr() if culled is not None else None, t0, t1 - t0, r0, r1 - r0,
+            cap, tpb, Vt, float(sf2), float(ell), float(free_res), float(gate), stream)
+        _build.check(code, "lv_rows")
     launches += 1
+
+
+def lv_rows_cull(vox_base_t, entries, ids, row_tile, row_start, row_count, tile_pos,
+                 tile_ctr, *, ell: float, chunk: int = 1024):
+    """K3's culling predicate in plain PyTorch: [R, ⌈Vt/32⌉, W] bool over
+    (row, warp, entry), True where warp w (lane i: voxel 32·w + i of the
+    row's tile) skips the entry — its segment misses the warp's voxel box
+    padded by ℓ (``csrc/cull.cuh``) — and False for padding entries.  Every
+    proxy sample of a ray lies on its segment, so a culled entry is a member
+    of none of the warp's cubes."""
+    Vt = vox_base_t.shape[1]
+    wpt = (Vt + 31) // 32
+    live = (torch.arange(wpt * 32, device=entries.device) < Vt).view(wpt, 32)
+
+    def points(c0, c1):
+        rt = row_tile[c0:c1].long()
+        vox = tile_ctr[rt][:, None, :] + vox_base_t[tile_pos[rt].long()]   # [c,Vt,3]
+        return torch.nn.functional.pad(vox, (0, 0, 0, wpt * 32 - Vt)).view(-1, wpt, 32, 3)
+
+    return km.warp_cull(points, live, float(torch.tensor(ell, dtype=torch.float32)),
+                        entries, ids, row_start, row_count, row_w=ROW_W, chunk=chunk)
 
 
 def ray_membership(vox, seg, valid, free_res: float, ell: float):

@@ -136,3 +136,80 @@ def cov_sparse_segment(p: torch.Tensor, seg: torch.Tensor, sf2: float, ell: floa
     """
     r = div(point_to_segment_dist(p, seg), float(np.float32(ell)))
     return sparse_kernel_lv(r, sf2) if lv else sparse_kernel(r, sf2)
+
+
+# ---------------------------------------------------------- warp culling
+
+#: relative margin of the culling box (csrc/cull.cuh::kCullMargin)
+CULL_MARGIN = float(np.float32(1e-4))
+#: operations of the cull test of one (warp, entry) pair: u = b − a (3);
+#: per axis two differences, two divisions, min, max and the clip of
+#: t_in / t_out (8); the final comparison (1)
+FLOP_CULL_TEST = 28
+
+
+def pad_box(lo: torch.Tensor, hi: torch.Tensor, reach: float):
+    """The box [lo, hi] ([..., 3] f32) padded by ``reach`` and the margin
+    1e-4·(1 + |x|) per axis, as ``csrc/cull.cuh::pad_box``."""
+    pad = float(np.float32(reach)) + CULL_MARGIN * (1.0 + torch.maximum(lo.abs(), hi.abs()))
+    return lo - pad, hi + pad
+
+
+def warp_box(points: torch.Tensor, live: torch.Tensor, reach: float):
+    """Each warp's padded box, as ``csrc/cull.cuh::warp_box``: points
+    [..., 32, 3] of one warp's lanes, live [..., 32] bool; returns (plo, phi)
+    [..., 3] over the live lanes."""
+    inf = float("inf")
+    lo = torch.where(live[..., None], points, inf).amin(-2)
+    hi = torch.where(live[..., None], points, -inf).amax(-2)
+    return pad_box(lo, hi, reach)
+
+
+def segment_misses_box(a: torch.Tensor, u: torch.Tensor, plo: torch.Tensor,
+                       phi: torch.Tensor) -> torch.Tensor:
+    """[...] bool: does the segment a → a + u (t ∈ [0, 1]) miss the box
+    [plo, phi]?  Liang–Barsky clipping in f32, an axis with u == 0 testing a
+    alone, as ``csrc/cull.cuh::segment_misses_box``; every argument [..., 3],
+    broadcast."""
+    shape = torch.broadcast_shapes(a.shape, u.shape, plo.shape, phi.shape)[:-1]
+    t_in = torch.zeros(shape, dtype=a.dtype, device=a.device)
+    t_out = torch.ones(shape, dtype=a.dtype, device=a.device)
+    miss = torch.zeros(shape, dtype=torch.bool, device=a.device)
+    for ax in range(3):
+        a_, u_, lo, hi = a[..., ax], u[..., ax], plo[..., ax], phi[..., ax]
+        zero = u_ == 0.0
+        safe = torch.where(zero, 1.0, u_)
+        t0 = (lo - a_) / safe
+        t1 = (hi - a_) / safe
+        t_in = torch.where(zero, t_in, torch.maximum(t_in, torch.minimum(t0, t1)))
+        t_out = torch.where(zero, t_out, torch.minimum(t_out, torch.maximum(t0, t1)))
+        miss = miss | (zero & ~((a_ >= lo) & (a_ <= hi)))
+    return miss | (t_in > t_out)
+
+
+def warp_cull(warp_points, live: torch.Tensor, reach: float, entries: torch.Tensor,
+              ids: torch.Tensor, row_start: torch.Tensor, row_count: torch.Tensor, *,
+              row_w: int, chunk: int) -> torch.Tensor:
+    """A warp-culling kernel's predicate over entry rows: [R, warps, row_w]
+    bool over (row, warp, entry), True where the segment entries[ids[row_start
+    + j]] ([E, 6], start and end) misses the warp's box padded by ``reach``
+    (:func:`warp_box`, :func:`segment_misses_box`), False for padding
+    entries (j ≥ row_count).  ``warp_points(c0, c1)`` gives rows c0 .. c1's
+    points [c1 − c0, warps, 32, 3]; ``live`` [warps, 32] marks the real
+    lanes.  Rows go ``chunk`` at a time."""
+    R, F = row_start.shape[0], ids.shape[0]
+    out = torch.zeros((R, live.shape[0], row_w), dtype=torch.bool, device=entries.device)
+    if F == 0 or R == 0:
+        return out
+    wcol = torch.arange(row_w, device=entries.device)
+    for c0 in range(0, R, chunk):
+        c1 = min(R, c0 + chunk)
+        plo, phi = warp_box(warp_points(c0, c1), live, reach)             # [c,warps,3]
+        fidx = torch.clamp_max(row_start[c0:c1].long()[:, None] + wcol, F - 1)
+        valid = wcol < row_count[c0:c1].long()[:, None]                   # [c,W]
+        seg = entries[ids[fidx].long()]                                   # [c,W,6]
+        a, u = seg[..., 0:3], seg[..., 3:6] - seg[..., 0:3]
+        miss = segment_misses_box(a[:, None], u[:, None], plo[:, :, None],
+                                  phi[:, :, None])                        # [c,warps,W]
+        out[c0:c1] = miss & valid[:, None, :]
+    return out

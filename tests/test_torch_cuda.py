@@ -246,6 +246,108 @@ def test_lv_rows_kernel_matches_plain(cuda_dev, depth):
     assert (k[0] != a[0]).any()
 
 
+def _lv_rows_every_scan(dev):
+    """A 12-scan dispatch in which one pool row is reached by every scan,
+    with its padding tile (slot == cap) and one more in the middle."""
+    a = list(lv_rows_inputs(61, depth=5, n_scans=12, tiles_per_scan=5, dev=dev))
+    slots, pos = a[11], a[12]
+    slots[0:-1:5], pos[0:-1:5] = 2, 3        # the first tile of each scan
+    slots[7] = a[0].shape[0]                 # a padding tile among them
+    return a
+
+
+def _lv_culled(a):
+    """The (warp, entry) pairs of real tiles that lv_rows_cull skips."""
+    vbt, ent, _, ids, rt, rs, rn, slots, pos, ctr = a[4:]
+    cull = lv_rows.lv_rows_cull(vbt, ent, ids, rt, rs, rn, pos, ctr,
+                                ell=LV_ROWS_STATICS["ell"])
+    real = slots[rt.long()] < a[0].shape[0]
+    return int(cull[real].sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_rows", [None, 9])
+def test_lv_rows_kernel_pool_row_of_every_scan(cuda_dev, max_rows, monkeypatch):
+    """K3 on a pool row that all 12 scans reach, with padding tiles: the
+    plain version's limit, chunks of the tile list (a scratch cap of
+    ``max_rows`` rows) bit-equal to one chunk, two launches bit-equal, the
+    warps' own cull count that of lv_rows_cull."""
+    a = _lv_rows_every_scan(cuda_dev)
+    p = [x.clone() for x in a[:4]]
+    lv_rows.lv_rows_plain(*p, *a[4:], **LV_ROWS_STATICS)
+    one = [x.clone() for x in a[:4]]
+    lv_rows.lv_rows(*one, *a[4:], **LV_ROWS_STATICS)
+    if max_rows is not None:
+        monkeypatch.setattr(lv_rows, "SCRATCH_BYTES", max_rows * 8 * a[4].shape[1])
+    runs = []
+    for _ in range(2):
+        k = [x.clone() for x in a[:4]]
+        culled = torch.zeros(1, dtype=torch.int64, device=cuda_dev)
+        lv_rows.lv_rows(*k, *a[4:], **LV_ROWS_STATICS, culled=culled)
+        runs.append((k, int(culled)))
+    torch.cuda.synchronize()
+    k = runs[0][0]
+    for x, y in zip(k[:2], p[:2]):
+        assert ((x - y).abs() <= 1e-5 + 1e-5 * y.abs()).all()
+    assert torch.equal(k[2], p[2]) and torch.equal(k[3], a[3])
+    assert all(torch.equal(x, y) for x, y in zip(k, runs[1][0]))
+    assert all(torch.equal(x, y) for x, y in zip(k, one))
+    assert runs[0][1] == runs[1][1] == _lv_culled(a) > 0
+    assert (k[0][2].view(-1, 512)[3] != a[0][2].view(-1, 512)[3]).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [3, 5, 6])
+def test_lv_rows_kernel_repeats_and_counts_its_cull(cuda_dev, depth):
+    a = lv_rows_inputs(13, depth=depth, dev=cuda_dev)
+    outs = []
+    for _ in range(2):
+        k = [x.clone() for x in a[:4]]
+        culled = torch.zeros(1, dtype=torch.int64, device=cuda_dev)
+        lv_rows.lv_rows(*k, *a[4:], **LV_ROWS_STATICS, culled=culled)
+        outs.append((k, int(culled)))
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(outs[0][0], outs[1][0]))
+    assert outs[0][1] == outs[1][1] == _lv_culled(a)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [7, 27])
+@pytest.mark.parametrize("depth,res,ell", [(3, 0.1, 0.2), (5, 0.2, 0.6)])
+def test_bgk_heavy_segment_kernel_equals_plain_at_depth(cuda_dev, depth, res, ell, G):
+    """K1's segment branch at block_depth 3 (73 nodes) and 5 (4681): bit for
+    bit its plain version, twice; the warps' cull count that of
+    bgk_heavy_cull."""
+    a = heavy_inputs(37, G=G, n_blocks=6 if depth == 5 else 40, dev=cuda_dev,
+                     segments=True, depth=depth, res=res)
+    kw = dict(G=G, sf2=0.1, ell=ell)
+    ref = bgk_heavy.bgk_heavy_plain(**a, **kw)
+    accs, counts = [], []
+    for _ in range(2):
+        culled = torch.zeros(1, dtype=torch.int64, device=cuda_dev)
+        accs.append(bgk_heavy.bgk_heavy(**a, **kw, culled=culled))
+        counts.append(int(culled))
+    torch.cuda.synchronize()
+    assert torch.equal(accs[0], ref) and torch.equal(accs[1], ref)
+    cull = bgk_heavy.bgk_heavy_cull(a["entries"], a["ids"], a["row_block"], a["row_start"],
+                                    a["row_count"], a["centers"], a["all_nodes"], ell=ell)
+    assert counts[0] == counts[1] == int(cull.sum()) > 0
+    assert (ref[..., G:] > 0).sum() > 1000
+
+
+@pytest.mark.cuda
+def test_sparse_kernel_is_zero_from_r_c_on_the_card(cuda_dev):
+    """The r_c scan: the segment kernel's own sparse_kernel_r is exactly 0
+    at every f32 r in [R_CULL, 2)."""
+    r = torch.arange(0x3F800000, 0x40000000, dtype=torch.int32,
+                     device=cuda_dev).view(torch.float32)
+    assert float(r[0]) == bgk_heavy.R_CULL
+    for sf2 in (0.1, 1.0):
+        k = bgk_heavy.sparse_kernel_scan(r, sf2)
+        assert int(torch.count_nonzero(k)) == 0
+        assert (bgk_heavy.sparse_kernel_scan(r - 0.5, sf2) > 0).any()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [4, 16, 32])
 def test_lv_prune_kernel_matches_plain(cuda_dev, n):

@@ -36,18 +36,21 @@ def segments_near(rng, starts):
     return np.concatenate([starts, ends], axis=1).astype(np.float32)
 
 
-def heavy_inputs(seed, G=7, n_blocks=5, ell=0.2, dev="cpu", segments=False):
+def heavy_inputs(seed, G=7, n_blocks=5, ell=0.2, dev="cpu", segments=False, depth=3,
+                 res=0.1):
     """A small dispatch: entries round each test block (points, or segments
-    [N,6] from :func:`segments_near`), ragged rows of ≤ 64 merged entries
-    per block, row_block non-decreasing."""
+    [N,6] from :func:`segments_near`) within one block size of its centre,
+    ragged rows of ≤ 64 merged entries per block, row_block non-decreasing;
+    the all-level nodes of a block of ``depth`` at ``res``."""
     rng = np.random.default_rng(seed)
-    nodes, _ = geo.all_level_nodes(0.1, 3)
+    nodes, _ = geo.all_level_nodes(res, depth)
+    bs = res * 2 ** (depth - 1)
     centers = rng.uniform(-1, 1, (n_blocks, 3)).astype(np.float32)
     per_block = rng.integers(0, 150, n_blocks)
     ent, lab, ids, gs, rb, rs, rn = [], [], [], [], [], [], []
     for b, cnt in enumerate(per_block):
         base = sum(len(e) for e in ent)
-        e = (centers[b] + rng.uniform(-0.4, 0.4, (cnt, 3))).astype(np.float32)
+        e = (centers[b] + rng.uniform(-bs, bs, (cnt, 3))).astype(np.float32)
         ent.append(segments_near(rng, e) if segments else e)
         lab.append((rng.uniform(size=cnt) > 0.5).astype(np.float32))
         start = len(ids)
