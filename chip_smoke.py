@@ -39,8 +39,12 @@ then on the device-ingest path, the default of a CUDA map:
    in f64, must differ); K7b (compensated centroids, hits and frees) —
    within 2^-23·(|plain| + leaf) (the control, the uncompensated mean, must
    fail it); K7c (closed-box memberships) — keys equal; K1′ (the aligned
-   heavy pass) — |Δ| ≤ 1e-5 + 1e-5·|plain| (the control, the plain version
-   on TF32-rounded coordinates, must fail it);
+   heavy pass) — bit for bit, and so within |Δ| ≤ 1e-5 + 1e-5·|plain| (the
+   control, the plain version on TF32-rounded coordinates, must fail it);
+   its warp work units and culled (warp, entry) pairs printed, its own cull
+   count equal to that of the plain predicate ``bgk_aligned_heavy_cull``, a
+   repeat launch bit-equal; its bound on the work the culling leaves, the
+   bound on every evaluation beside it;
 9. runs the main path as in 5 with ``BGKOctoMap(cfg)`` on its default,
    asserting per dispatch two K7a, two K7b, one K7c and one K1′ launches,
    one K2 per scan, no K1 and no chunk on the host path; counts the host
@@ -137,7 +141,7 @@ then on device ingest, its default on the card:
     keys, the per-ray dedup) against its plain version on a real 16-scan
     dispatch — every output equal and the (ray, block) pair list identical
     (the control, the samples in f64, must move a membership) — and K1′'s
-    segment branch as in 21;
+    segment branch as in 8, with the gate count of 21;
 24. runs the main path as in 9 (per dispatch one K7a, one K7b, the two
     launches of K7d, one K7c, one K1′; K2 per scan), counts the host syncs,
     profiles, and compares card and CPU (both on) on 2 scans within
@@ -169,8 +173,8 @@ The large maps, after raycast (the BGK-family ones at their YAML's own
     pool with its blocks made collapsible at every level (raster, Beta
     templates), bit for bit each time, the 16³ groups collapsed counted and
     required; K1′'s segment branch on a captured 12-scan device-ingest
-    dispatch as in 23, timed beside its bound (on the work K1's warp
-    culling leaves, and on every evaluation); run_static on 12 scans and
+    dispatch as in 23 (bit for bit, its cull count, both bounds); run_static
+    on 12 scans and
     OnlineIntegrator on 12 on both
     ingest paths with their launch counts; card vs CPU within 1e-5 +
     1e-5·|CPU| on the host path (1 scan) and device ingest (2 scans), each
@@ -1674,9 +1678,12 @@ def check_k7(calls, what: str, reps: int = 5) -> dict:
 
 def check_k1p(calls, reps: int = 5, gate: float | None = None) -> dict:
     """K1′ against its plain version on one dispatch's recorded call (point
-    or segment entries): |Δ| ≤ 1e-5 + 1e-5·|plain| (K1's limit); control:
-    the plain version on TF32-rounded coordinates must fail it.  With
-    ``gate`` (BGKL), no k̄ may be decided apart at the gate."""
+    or segment entries): bit for bit, and so within K1's limit 1e-5 +
+    1e-5·|plain|, which the control (the plain version on TF32-rounded
+    coordinates) must fail.  With ``gate`` (BGKL), no k̄ may be decided apart
+    at the gate.  Its warp culling as ``k1p_culling``; ``bound_ms`` counts
+    the work the culling leaves, ``bound_ms_every_pair`` every evaluation of
+    the plain algorithm."""
     (a, kw, acc), = calls["bgk_aligned_heavy"]
     ent_rel, labels, ustart, ucount, tb_u, ext = a
     seg = ent_rel.shape[1] == 6
@@ -1688,62 +1695,61 @@ def check_k1p(calls, reps: int = 5, gate: float | None = None) -> dict:
     d, dc = (acc - ref).abs(), (ctl - ref).abs()
     bad, bad_ctl = int((d > lim).sum()), int((dc > lim).sum())
     err = float(d.max())
+    same = bool(torch.equal(acc, ref))
     G, U = kw["G"], ucount.shape[0]
     Vall = ext.shape[0] // G
     u = tb_u.reshape(-1)
     evals = int(ucount[u[u < U]].sum()) * Vall
-    print(f"{name}, {tuple(acc.shape)}: max |kernel - plain| = {err:.3e}, {bad} elements "
-          f"outside 1e-5 + 1e-5*|plain|; control, the plain version on TF32-rounded "
-          f"coordinates: {bad_ctl} outside (max |Δ| {float(dc.max()):.3e})")
+    print(f"{name}, {tuple(acc.shape)}: bit-equal to the plain version {same}, max |kernel "
+          f"- plain| = {err:.3e}, {bad} elements outside 1e-5 + 1e-5*|plain|; control, the "
+          f"plain version on TF32-rounded coordinates: {bad_ctl} outside (max |Δ| "
+          f"{float(dc.max()):.3e})")
     require(bool(torch.isfinite(acc).all()), f"{name} gave non-finite values")
     require(bad == 0, f"{name} disagrees with its plain version")
+    require(same, f"{name} is not bit-equal to its plain version")
     require(bad_ctl > 0, f"the {name} limit passes the TF32 control")
     gates = gate_apart(acc, ref, G, gate, name) if gate is not None else {}
     ms = launch_ms([lambda _: bgk_aligned_heavy.bgk_aligned_heavy(*a, **kw)], reps)
     per_eval = bgk_heavy.FLOP_PER_EVAL_SEGMENT if seg else bgk_heavy.FLOP_PER_EVAL
-    b_ms, b_by = bound(per_eval * evals, nbytes(*a, acc))
-    if seg:
-        # as K1's segment branch: the bound on the work that K1's warp
-        # culling leaves, the earlier yardstick beside it
-        needed, pairs = k1p_warp_work(a, kw)
-        gates.update(bound_ms_every_pair=b_ms, needed_evaluations=needed,
-                     warp_entry_pairs=pairs)
-        print(f"{name}: under K1's warp culling {needed} evaluations in the pairs kept, "
-              f"{pairs} (warp, entry) pairs; bound on every evaluation {b_ms:.4f} ms")
-        b_ms, b_by = bound(per_eval * needed + km.FLOP_CULL_TEST * pairs, nbytes(*a, acc))
+    per_test = km.FLOP_CULL_TEST if seg else km.FLOP_CULL_TEST_POINT
+    nbyte = nbytes(*a, acc)
+    b_all_ms, _ = bound(per_eval * evals, nbyte)
+    cull = k1p_culling(a, kw, acc, name)
+    b_ms, b_by = bound(per_eval * cull["needed_evaluations"]
+                       + per_test * cull["warp_entry_pairs"], nbyte)
     print(f"{name}: {ms:.3f} ms device time (plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms "
-          f"by {b_by}; {evals} kernel evaluations)")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "evaluations": evals, "outside_control": bad_ctl, **gates}
+          f"by {b_by}; {evals} kernel evaluations, bound on every evaluation "
+          f"{b_all_ms:.4f} ms)")
+    return {"max_abs_err": err, "bit_equal": same, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "bound_ms_every_pair": b_all_ms,
+            "evaluations": evals, "outside_control": bad_ctl, **cull, **gates}
 
 
-def k1p_warp_work(a, kw) -> tuple[int, int]:
-    """``warp_work`` of K1′'s segment call under K1's warp culling: each
-    (test block, slot) pair's entries, cut into rows of ``bgk_heavy.ROW_W``,
-    against the slot's node table in ``bgk_heavy.node_order``, in warps of 32,
-    with the reach r_c·ℓ (``bgk_heavy.bgk_heavy_cull``)."""
+def k1p_culling(a, kw, acc, name: str) -> dict:
+    """K1′ on one dispatch: its work units, and the (warp, entry) pairs its
+    warps skip — its own count, which must equal that of the plain predicate
+    ``bgk_aligned_heavy_cull`` — with a repeat launch bit-equal to ``acc``;
+    the evaluations in the pairs kept (``warp_work``)."""
     ent_rel, _, ustart, ucount, tb_u, ext = a
-    G, W, U = kw["G"], bgk_heavy.ROW_W, ucount.shape[0]
+    G, U, T = kw["G"], ucount.shape[0], tb_u.shape[0]
     Vall = ext.shape[0] // G
-    wpb, dev = (Vall + 31) // 32, ent_rel.device
-    flat = tb_u.reshape(-1)
-    pair = torch.nonzero(flat < U).reshape(-1)
-    u = flat[pair]
-    nrow = (ucount[u] + W - 1) // W
-    row_pair = torch.repeat_interleave(torch.arange(len(pair), device=dev), nrow)
-    k = torch.arange(len(row_pair), device=dev) - (torch.cumsum(nrow, 0) - nrow)[row_pair]
-    row_start = ustart[u][row_pair] + W * k
-    row_count = (ucount[u][row_pair] - W * k).clamp(max=W)
-    order = bgk_heavy.node_order(Vall, str(dev)).long()
-    nodes = torch.nn.functional.pad(ext.view(G, Vall, 3)[:, order], (0, 0, 0, wpb * 32 - Vall))
-    live = (torch.arange(wpb * 32, device=dev) < Vall).view(wpb, 32)
-    slot = (pair % G)[row_pair]
-    chunk = max(1, (1 << 22) // (wpb * 32))                 # rows of 4M node points
-    cull = km.warp_cull(lambda c0, c1: nodes[slot[c0:c1]].view(-1, wpb, 32, 3), live,
-                        bgk_heavy.cull_reach(kw["ell"]), ent_rel,
-                        torch.arange(ent_rel.shape[0], device=dev), row_start, row_count,
-                        row_w=W, chunk=chunk)
-    return warp_work(cull.sum((0, 2)), int(ucount[u].sum()), Vall)
+    culled = torch.zeros(1, dtype=torch.int64, device=ent_rel.device)
+    again = bgk_aligned_heavy.bgk_aligned_heavy(*a, **kw, culled=culled)
+    per_warp = bgk_aligned_heavy.bgk_aligned_heavy_cull(ent_rel, ustart, ucount, tb_u, ext,
+                                                        G=G, ell=kw["ell"], per_warp=True)
+    plain = int(per_warp.sum())
+    u = tb_u.reshape(-1)
+    needed, pairs = warp_work(per_warp, int(ucount[u[u < U]].sum()), Vall)
+    units = T * ((Vall + 31) // 32)
+    frac = int(culled) / max(pairs, 1)
+    print(f"{name}: T {T} blocks, {units} work units (warps of 32 of {Vall} nodes), "
+          f"{int(culled)} of {pairs} (warp, entry) pairs culled ({100 * frac:.2f} %; the "
+          f"plain predicate: {plain}), {needed} evaluations in the pairs kept")
+    require(int(culled) == plain, f"{name}: the warps cull other pairs than "
+                                  "bgk_aligned_heavy_cull")
+    require(bool(torch.equal(again, acc)), f"{name}: a repeat launch differs")
+    return {"T": T, "work_units": units, "culled_pairs": int(culled),
+            "warp_entry_pairs": pairs, "culled_fraction": frac, "needed_evaluations": needed}
 
 
 def check_k7d(calls, reps: int = 5) -> dict:

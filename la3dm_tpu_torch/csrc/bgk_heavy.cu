@@ -160,43 +160,9 @@ __global__ void bgk_heavy_kernel(const float* __restrict__ entries,   // [N,3]
   }
 }
 
-// One segment entry's terms, as segment_dist reads them, and its label.
-struct Seg {
-  float a[3], b[3], u[3];
-  float c2, len, lab;
-};
-
 __device__ __forceinline__ Seg load_seg(const float* __restrict__ entries,
                                         const float* __restrict__ labels, int id) {
-  const float* e = entries + (size_t)6 * id;
-  Seg s;
-#pragma unroll
-  for (int ax = 0; ax < 3; ++ax) {
-    s.a[ax] = e[ax];
-    s.b[ax] = e[3 + ax];
-  }
-  const SegTerms tm = segment_terms(e[0], e[1], e[2], e[3], e[4], e[5]);
-  s.u[0] = tm.ux;
-  s.u[1] = tm.uy;
-  s.u[2] = tm.uz;
-  s.c2 = tm.c2;
-  s.len = tm.len;
-  s.lab = labels[id];
-  return s;
-}
-
-__device__ __forceinline__ Seg shfl_seg(const Seg& x, int src) {
-  Seg s;
-#pragma unroll
-  for (int ax = 0; ax < 3; ++ax) {
-    s.a[ax] = __shfl_sync(kAll, x.a[ax], src);
-    s.b[ax] = __shfl_sync(kAll, x.b[ax], src);
-    s.u[ax] = __shfl_sync(kAll, x.u[ax], src);
-  }
-  s.c2 = __shfl_sync(kAll, x.c2, src);
-  s.len = __shfl_sync(kAll, x.len, src);
-  s.lab = __shfl_sync(kAll, x.lab, src);
-  return s;
+  return seg_load(entries + (size_t)6 * id, labels[id]);
 }
 
 // The entries of ``sel`` (lanes holding ``mine``), in lane order, into the
@@ -207,10 +173,8 @@ __device__ __forceinline__ void sum_slot(unsigned sel, const Seg& mine, float xv
   while (sel) {
     const int src = __ffs(sel) - 1;
     sel &= sel - 1;
-    const Seg s = shfl_seg(mine, src);
-    const float d = segment_dist(xv, yv, zv, s.a[0], s.a[1], s.a[2], s.b[0], s.b[1], s.b[2],
-                                 s.u[0], s.u[1], s.u[2], s.c2, s.len);
-    const float k = sparse_kernel_r(d / ell, sf2);
+    const Seg s = seg_shfl(mine, src);
+    const float k = sparse_kernel_r(seg_dist(xv, yv, zv, s) / ell, sf2);
     const float ky = k * s.lab;
     ry += ky;
     rk += k;

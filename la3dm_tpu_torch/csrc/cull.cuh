@@ -1,17 +1,19 @@
-// Exact warp-level culling, shared by K1's segment branch (bgk_heavy.cu)
-// and K3 (lv_rows.cu).  The plain PyTorch mirror of every function here is
-// in kernels/math.py (pad_box, segment_misses_box), which the CPU tests
-// hold against the memberships and kernel values they guard.
+// Exact warp-level culling, shared by K1's segment branch (bgk_heavy.cu),
+// K1' (bgk_aligned_heavy.cu, both branches) and K3 (lv_rows.cu).  The plain
+// PyTorch mirror of every function here is in kernels/math.py (pad_box,
+// segment_misses_box, warp_cull), which the CPU tests hold against the
+// memberships and kernel values they guard.
 //
-// A warp owns 32 output points (K3: voxel centres, K1: node centres) and
-// walks the same entries.  Everything an entry can contribute to a point
-// lies on the entry's segment a -> b:
+// A warp owns 32 output points (K3: voxel centres, K1 and K1': node
+// centres) and walks the same entries.  Everything an entry can contribute
+// to a point lies on the entry's segment a -> b (a point entry: a = b):
 // * K3: the proxy samples a + n*d (d in [0, |u|]) of the +-ell cube test;
-// * K1: the point-to-segment distance, whose kernel is exactly 0 from
-//   r = d / ell >= r_c on (bgk_heavy.cu, kernels/bgk_heavy.py::R_CULL).
+// * K1 and K1': the point-to-segment distance, whose kernel is exactly 0
+//   from r = d / ell >= r_c on (bgk_heavy.cu, kernels/bgk_heavy.py::R_CULL);
+//   K1''s point branch, see bgk_aligned_heavy.cu for its rounding.
 // So where the segment misses the box spanned by the warp's 32 points,
-// padded by ell (K3) or r_c*ell (K1), it contributes exactly nothing to any
-// of them and the warp skips it: the sums are those of the full loop.
+// padded by ell (K3) or r_c*ell (K1, K1'), it contributes exactly nothing
+// to any of them and the warp skips it: the sums are those of the full loop.
 //
 // Rounding never culls a contributor: the box is padded by a further
 // margin of 1e-4 * (1 + |x|) per axis, four orders of magnitude above the
@@ -48,6 +50,16 @@ __device__ __forceinline__ bool segment_misses_box(const float a[3], const float
     }
   }
   return miss || t_in > t_out;
+}
+
+// Does the point a lie outside the box [plo, phi]?  (segment_misses_box
+// with u = 0.)
+__device__ __forceinline__ bool point_misses_box(const float a[3], const float plo[3],
+                                                 const float phi[3]) {
+  bool miss = false;
+#pragma unroll
+  for (int ax = 0; ax < 3; ++ax) miss = miss || !(a[ax] >= plo[ax] && a[ax] <= phi[ax]);
+  return miss;
 }
 
 // The warp's box over its live lanes' points, padded by ``reach``: every

@@ -1,6 +1,7 @@
 // The point-to-segment distance of the segment families, shared by K1 and
 // K1' in segment mode (BGKL: bgk_heavy.cu, bgk_aligned_heavy.cu) and K3
-// (BGKLV: lv_rows.cu).  The callers differ only in the kernel they apply to
+// (BGKLV: lv_rows.cu), and the segment entry that K1's and K1''s warps pass
+// from lane to lane (Seg).  The callers differ only in the kernel they apply to
 // it: BGKL clamps the sparse kernel's output at 0 (sparse_kernel.cuh), LV
 // clamps r = d / ell at 1 first.
 //
@@ -61,4 +62,49 @@ __device__ __forceinline__ float segment_dist(float px, float py, float pz, floa
   float d = c1 <= 0.0f ? sqrtf(d0sq) : (c2 <= c1 ? sqrtf(d1sq) : sqrtf(dmsq));
   if (len < 1e-4f) d = sqrtf(d0sq);
   return d;
+}
+
+// One segment entry's terms, as segment_dist reads them, and its label.
+struct Seg {
+  float a[3], b[3], u[3];
+  float c2, len, lab;
+};
+
+// The segment e = (start, end) [6] with label ``lab``.
+__device__ __forceinline__ Seg seg_load(const float* __restrict__ e, float lab) {
+  Seg s;
+#pragma unroll
+  for (int ax = 0; ax < 3; ++ax) {
+    s.a[ax] = e[ax];
+    s.b[ax] = e[3 + ax];
+  }
+  const SegTerms tm = segment_terms(e[0], e[1], e[2], e[3], e[4], e[5]);
+  s.u[0] = tm.ux;
+  s.u[1] = tm.uy;
+  s.u[2] = tm.uz;
+  s.c2 = tm.c2;
+  s.len = tm.len;
+  s.lab = lab;
+  return s;
+}
+
+// Lane ``src``'s segment, to every lane of the (full) warp.
+__device__ __forceinline__ Seg seg_shfl(const Seg& x, int src) {
+  Seg s;
+#pragma unroll
+  for (int ax = 0; ax < 3; ++ax) {
+    s.a[ax] = __shfl_sync(0xffffffffu, x.a[ax], src);
+    s.b[ax] = __shfl_sync(0xffffffffu, x.b[ax], src);
+    s.u[ax] = __shfl_sync(0xffffffffu, x.u[ax], src);
+  }
+  s.c2 = __shfl_sync(0xffffffffu, x.c2, src);
+  s.len = __shfl_sync(0xffffffffu, x.len, src);
+  s.lab = __shfl_sync(0xffffffffu, x.lab, src);
+  return s;
+}
+
+// |p - s|
+__device__ __forceinline__ float seg_dist(float px, float py, float pz, const Seg& s) {
+  return segment_dist(px, py, pz, s.a[0], s.a[1], s.a[2], s.b[0], s.b[1], s.b[2], s.u[0],
+                      s.u[1], s.u[2], s.c2, s.len);
 }

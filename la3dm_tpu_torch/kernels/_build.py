@@ -118,7 +118,7 @@ def _bind(lib):
     lib.la3dm_raycast.restype = ci
     lib.la3dm_raycast.argtypes = [vp] * 6 + [cl] + [ci] * 6 + [cf] * 3 + [vp] * 4
     lib.la3dm_bgk_aligned_heavy.restype = ci
-    lib.la3dm_bgk_aligned_heavy.argtypes = [vp] * 6 + [cl, cl, ci, ci, ci, cf, cf, vp, vp]
+    lib.la3dm_bgk_aligned_heavy.argtypes = [vp] * 8 + [cl, cl, ci, ci, ci] + [cf] * 3 + [vp, vp]
     return lib
 
 

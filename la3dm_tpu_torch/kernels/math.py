@@ -146,6 +146,8 @@ CULL_MARGIN = float(np.float32(1e-4))
 #: per axis two differences, two divisions, min, max and the clip of
 #: t_in / t_out (8); the final comparison (1)
 FLOP_CULL_TEST = 28
+#: ... and of a point entry: two comparisons per axis
+FLOP_CULL_TEST_POINT = 6
 
 
 def pad_box(lo: torch.Tensor, hi: torch.Tensor, reach: float):
@@ -192,11 +194,12 @@ def warp_cull(warp_points, live: torch.Tensor, reach: float, entries: torch.Tens
               row_w: int, chunk: int) -> torch.Tensor:
     """A warp-culling kernel's predicate over entry rows: [R, warps, row_w]
     bool over (row, warp, entry), True where the segment entries[ids[row_start
-    + j]] ([E, 6], start and end) misses the warp's box padded by ``reach``
-    (:func:`warp_box`, :func:`segment_misses_box`), False for padding
-    entries (j ≥ row_count).  ``warp_points(c0, c1)`` gives rows c0 .. c1's
-    points [c1 − c0, warps, 32, 3]; ``live`` [warps, 32] marks the real
-    lanes.  Rows go ``chunk`` at a time."""
+    + j]] ([E, 6], start and end; or a point, [E, 3]: a segment with u = 0)
+    misses the warp's box padded by ``reach`` (:func:`warp_box`,
+    :func:`segment_misses_box`), False for padding entries (j ≥ row_count).
+    ``warp_points(c0, c1)`` gives rows c0 .. c1's points [c1 − c0, warps, 32,
+    3]; ``live`` [warps, 32] marks the real lanes.  Rows go ``chunk`` at a
+    time."""
     R, F = row_start.shape[0], ids.shape[0]
     out = torch.zeros((R, live.shape[0], row_w), dtype=torch.bool, device=entries.device)
     if F == 0 or R == 0:
@@ -207,8 +210,9 @@ def warp_cull(warp_points, live: torch.Tensor, reach: float, entries: torch.Tens
         plo, phi = warp_box(warp_points(c0, c1), live, reach)             # [c,warps,3]
         fidx = torch.clamp_max(row_start[c0:c1].long()[:, None] + wcol, F - 1)
         valid = wcol < row_count[c0:c1].long()[:, None]                   # [c,W]
-        seg = entries[ids[fidx].long()]                                   # [c,W,6]
-        a, u = seg[..., 0:3], seg[..., 3:6] - seg[..., 0:3]
+        seg = entries[ids[fidx].long()]                                   # [c,W,D]
+        a = seg[..., 0:3]
+        u = seg[..., 3:6] - a if seg.shape[-1] == 6 else torch.zeros_like(a)
         miss = segment_misses_box(a[:, None], u[:, None], plo[:, :, None],
                                   phi[:, :, None])                        # [c,warps,W]
         out[c0:c1] = miss & valid[:, None, :]

@@ -707,31 +707,94 @@ def test_ingest_members_kernel_matches_plain(cuda_dev):
     assert torch.equal(keys, ref)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("G", [7, 27])
-def test_aligned_heavy_kernel_matches_plain(cuda_dev, G):
-    a = aligned_heavy_inputs(43, G=G, dev=cuda_dev)
+#: K1′'s cases: block_depth → (res, ℓ, T, U, spread): the demo's 0.4 m
+#: blocks (73 nodes) and the large map's 3.2 m blocks (4681 nodes)
+K1P_CASES = {3: (0.1, 0.2, 60, 40, 0.3), 5: (0.2, 0.6, 12, 20, 2.4)}
+
+
+def _k1p_launch_and_check(a, G, sf2, ell):
+    """K1′ twice with its cull counter, against its plain version: bit for
+    bit, both launches; each count that of ``bgk_aligned_heavy_cull``.
+    Returns (plain acc, culled pairs)."""
     before = bgk_aligned_heavy.launches
-    acc = bgk_aligned_heavy.bgk_aligned_heavy(**a, G=G, sf2=1.0, ell=0.2)
-    assert bgk_aligned_heavy.launches == before + 1
-    ref = bgk_aligned_heavy.bgk_aligned_heavy_plain(**a, G=G, sf2=1.0, ell=0.2)
+    kw = dict(G=G, sf2=sf2, ell=ell)
+    accs, counts = [], []
+    for _ in range(2):
+        culled = torch.zeros(1, dtype=torch.int64, device=a["ent_rel"].device)
+        accs.append(bgk_aligned_heavy.bgk_aligned_heavy(**a, **kw, culled=culled))
+        counts.append(int(culled))
+    assert bgk_aligned_heavy.launches == before + 2
+    ref = bgk_aligned_heavy.bgk_aligned_heavy_plain(**a, **kw)
     torch.cuda.synchronize()
-    assert ((acc - ref).abs() <= 1e-5 + 1e-5 * ref.abs()).all()
-    assert (ref[..., G:] > 0).sum() > 1000
+    assert torch.equal(accs[0], ref) and torch.equal(accs[1], ref)
+    cull = bgk_aligned_heavy.bgk_aligned_heavy_cull(
+        a["ent_rel"], a["ustart"], a["ucount"], a["tb_u"], a["ext_nodes"], G=G, ell=ell,
+        per_warp=True)
+    assert counts[0] == counts[1] == int(cull.sum())
+    return ref, counts[0]
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("depth", [3, 5])
 @pytest.mark.parametrize("G", [7, 27])
-def test_aligned_heavy_segment_kernel_matches_plain(cuda_dev, G):
+def test_aligned_heavy_kernel_matches_plain(cuda_dev, G, depth):
+    """K1′'s point branch (BGK) at block_depth 3 (73 nodes) and 5 (4681):
+    bit for bit its plain version, twice; its cull count the predicate's."""
+    res, ell, T, U, spread = K1P_CASES[depth]
+    a = aligned_heavy_inputs(43, G=G, U=U, T=T, dev=cuda_dev, depth=depth, res=res,
+                             spread=spread)
+    ref, culled = _k1p_launch_and_check(a, G, 1.0, ell)
+    assert (ref[..., G:] > 0).sum() > 1000 and culled > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [3, 5])
+@pytest.mark.parametrize("G", [7, 27])
+def test_aligned_heavy_segment_kernel_matches_plain(cuda_dev, G, depth):
     """K1′'s segment branch (BGKL), on the same segment mix as K1's."""
-    a = aligned_heavy_inputs(47, G=G, dev=cuda_dev, segments=True)
-    before = bgk_aligned_heavy.launches
-    acc = bgk_aligned_heavy.bgk_aligned_heavy(**a, G=G, sf2=0.1, ell=0.2)
-    assert bgk_aligned_heavy.launches == before + 1
-    ref = bgk_aligned_heavy.bgk_aligned_heavy_plain(**a, G=G, sf2=0.1, ell=0.2)
-    torch.cuda.synchronize()
-    assert ((acc - ref).abs() <= 1e-5 + 1e-5 * ref.abs()).all()
-    assert (ref[..., G:] > 0).sum() > 1000
+    res, ell, T, U, spread = K1P_CASES[depth]
+    a = aligned_heavy_inputs(47, G=G, U=U, T=T, dev=cuda_dev, segments=True, depth=depth,
+                             res=res, spread=spread)
+    ref, culled = _k1p_launch_and_check(a, G, 0.1, ell)
+    assert (ref[..., G:] > 0).sum() > 1000 and culled > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("segments", [False, True])
+@pytest.mark.parametrize("case", ["no_block", "no_test_block", "run_lengths", "all_culled",
+                                  "degenerate"])
+def test_aligned_heavy_kernel_edge_cases(cuda_dev, case, segments):
+    """K1′ where its walk turns: every slot without an entry block (all
+    zeros), T = 0, runs of 1, 7, 8, 9, 31, 33 and 150 entries (the Wa-row
+    and 32-entry step boundaries), a run that culls entirely, degenerate
+    segments (start = end); bit for bit its plain version, twice."""
+    G, ell = 27, 0.2
+    sf2 = 0.1 if segments else 1.0
+    a = aligned_heavy_inputs(53, G=G, T=20, dev=cuda_dev, segments=segments,
+                             counts=[1, 7, 8, 9, 31, 33, 150, 0])
+    U = a["ucount"].shape[0]
+    if case == "no_block":
+        a["tb_u"].fill_(U)
+    elif case == "no_test_block":
+        a["tb_u"] = a["tb_u"][:0].contiguous()
+        acc = bgk_aligned_heavy.bgk_aligned_heavy(**a, G=G, sf2=sf2, ell=ell)
+        assert acc.shape == (0, 73, 2 * G)
+        return
+    elif case == "all_culled":
+        # block 6 (150 entries) lies 100 m away
+        s6 = int(a["ustart"][6])
+        a["ent_rel"][s6:s6 + 150] += 100.0
+        a["tb_u"][:, ::2] = 6
+    elif case == "degenerate" and segments:
+        a["ent_rel"][:, 3:] = a["ent_rel"][:, :3]
+    ref, culled = _k1p_launch_and_check(a, G, sf2, ell)
+    if case == "no_block":
+        assert int(torch.count_nonzero(ref)) == 0 and culled == 0
+    else:
+        assert (ref[..., G:] > 0).sum() > 100
+    if case == "all_culled":
+        n6 = int((a["tb_u"] == 6).sum())
+        assert culled >= n6 * 150 * 3         # every warp (3 a block) skips them all
 
 
 @pytest.mark.cuda

@@ -1,13 +1,17 @@
-"""The warp-level culling of K3 and of K1's segment branch, on the CPU.
+"""The warp-level culling of K3, of K1's segment branch and of K1′, on the
+CPU.
 
 The kernels skip a (warp, entry) pair only where the entry provably adds
 nothing to any of the warp's 32 outputs (``csrc/cull.cuh``).  Their
 predicates are plain PyTorch functions beside the plain versions
 (``kernels/lv_rows.py::lv_rows_cull``, ``kernels/bgk_heavy.py::
-bgk_heavy_cull``); here they are held, on seeded and on hypothesis-made
-entries (cube faces, flat axes, degenerate hits, segments grazing the box),
-to never cull a K3 member pair (``ray_membership``) or a K1 pair whose plain
-kernel value is non-zero.  K3's work plan is held to a direct numpy count.
+bgk_heavy_cull``, ``kernels/bgk_aligned_heavy.py::bgk_aligned_heavy_cull``);
+here they are held, on seeded and on hypothesis-made entries (cube faces,
+flat axes, degenerate hits, segments grazing the box, points on the padded
+box faces), to never cull a K3 member pair (``ray_membership``) or a K1 or
+K1′ pair whose plain kernel value is non-zero.  K1′'s sums taken as its
+kernel takes them, the culled pairs skipped, equal its plain version bit for
+bit.  K3's work plan is held to a direct numpy count.
 """
 
 import numpy as np
@@ -16,10 +20,10 @@ import torch
 from hypothesis import HealthCheck, given, settings, strategies as st
 
 from la3dm_tpu_torch.geometry import blocks as geo
-from la3dm_tpu_torch.kernels import bgk_heavy, lv_rows, math as km
+from la3dm_tpu_torch.kernels import bgk_aligned_heavy as kah, bgk_heavy, lv_rows, math as km
 
-from torch_cases import (LV_ROWS_STATICS, heavy_inputs, lv_rows_inputs,  # noqa: F401
-                         one_torch_thread)  # (one_torch_thread: autouse fixture)
+from torch_cases import (LV_ROWS_STATICS, aligned_heavy_inputs, heavy_inputs,  # noqa: F401
+                         lv_rows_inputs, one_torch_thread)  # (autouse fixture)
 
 F32 = np.float32
 W = lv_rows.ROW_W
@@ -254,6 +258,210 @@ def test_node_order_is_a_compact_permutation(depth):
     # a table of another size keeps its order
     assert torch.equal(bgk_heavy.node_order(Vall + 1), torch.arange(Vall + 1,
                                                                   dtype=torch.int32))
+
+
+# ------------------------------------------------------------------- K1′
+
+#: K1′'s test cases: (block_depth, res, ℓ, G, T, U, spread) — the demo's
+#: 0.4 m blocks and the large map's 3.2 m blocks (4681 nodes)
+K1P_CASES = {3: (0.1, 0.2, 60, 40, 0.3), 5: (0.2, 0.6, 3, 5, 2.4)}
+
+
+def _k1p_case(seed, depth, G, segments, **kw):
+    res, ell, T, U, spread = K1P_CASES[depth]
+    a = aligned_heavy_inputs(seed, G=G, U=U, T=T, segments=segments, depth=depth, res=res,
+                             spread=spread, **kw)
+    return a, ell
+
+
+def _k1p_args(a):
+    return tuple(a[k] for k in ("ent_rel", "labels", "ustart", "ucount", "tb_u", "ext_nodes"))
+
+
+def _k1p_cull(a, G, ell, **kw):
+    """``bgk_aligned_heavy_cull`` on the case ``a``."""
+    ent, _, us, uc, tb, ext = _k1p_args(a)
+    return kah.bgk_aligned_heavy_cull(ent, us, uc, tb, ext, G=G, ell=ell, **kw)
+
+
+def _k1p_terms(a, G, sf2, ell, sel):
+    """The steps ``sel`` of K1′'s walk (``aligned_steps``): the plain kernel
+    values [n, Vall, STEP] between the step's slot nodes, in
+    ``node_order``, and its entries; their labels and valid mask [n, STEP]."""
+    ent, lab, us, _, tb, ext = _k1p_args(a)
+    Vall = ext.shape[0] // G
+    pair, off, cnt = (x[sel] for x in kah.aligned_steps(a["ucount"], tb))
+    j = torch.arange(kah.STEP)
+    valid = j < cnt[:, None]
+    idx = torch.where(valid, (us[tb.reshape(-1)[pair]] + off)[:, None] + j, 0)
+    order = bgk_heavy.node_order(Vall).long()
+    nodes = ext.view(G, Vall, 3)[:, order][pair % G]                        # [n,Vall,3]
+    cov = km.cov_sparse_segment if ent.shape[1] == 6 else km.cov_sparse
+    K = torch.where(valid[:, None, :], cov(nodes, ent[idx], sf2, ell), 0.0)
+    return K, torch.where(valid, lab[idx], 0.0), valid
+
+
+def _k1p_cull_and_nonzero(a, G, ell, sf2=0.1, chunk=32):
+    """K1′'s cull [S, wpb, STEP] and, per (step, warp, entry), whether the
+    plain kernel is non-zero at any of the warp's nodes."""
+    cull = _k1p_cull(a, G, ell)
+    S, wpb = cull.shape[:2]
+    nonzero = torch.zeros_like(cull)
+    for s0 in range(0, S, chunk):
+        sel = torch.arange(s0, min(S, s0 + chunk))
+        K = _k1p_terms(a, G, sf2, ell, sel)[0]
+        K = torch.nn.functional.pad(K, (0, 0, 0, wpb * 32 - K.shape[1]))
+        nonzero[sel] = (K.view(len(sel), wpb, 32, kah.STEP) != 0).any(2)
+    return cull, nonzero
+
+
+@pytest.mark.parametrize("segments", [False, True])
+@pytest.mark.parametrize("depth,G", [(3, 7), (3, 27), (5, 7), (5, 27)])
+def test_k1p_cull_never_skips_a_nonzero_pair(depth, G, segments):
+    """K1′'s predicate on random runs (0..149 entries, degenerate, short and
+    axis-aligned segments among them) at block_depth 3 and 5."""
+    a, ell = _k1p_case(70 + depth + G, depth, G, segments)
+    cull, nonzero = _k1p_cull_and_nonzero(a, G, ell)
+    assert not (cull & nonzero).any()
+    _, _, cnt = kah.aligned_steps(a["ucount"], a["tb_u"])
+    n_pairs = int(cnt.sum()) * cull.shape[1]
+    # it does skip pairs: about half at depth 3 (ℓ is half a block there),
+    # most at depth 5
+    assert int(cull.sum()) > (0.2 if depth == 3 else 0.6) * n_pairs
+    assert int(nonzero.sum()) > 0
+    valid = torch.arange(kah.STEP) < cnt[:, None]
+    assert not (cull & ~valid[:, None, :]).any()
+    # the per-warp count, chunked, is the predicate's
+    per = _k1p_cull(a, G, ell, per_warp=True, chunk=5000)
+    assert torch.equal(per, cull.sum((0, 2)))
+
+
+def _k1p_skipping(a, G, sf2, ell):
+    """K1′'s sums as its kernel takes them: each (t, g) pair's steps in
+    order, the survivors of a step (the pairs ``bgk_aligned_heavy_cull``
+    keeps) in entry order into the Wa-row sum, flushed into the slot's total
+    when a survivor opens another row; the culled entries skipped.
+    Returns acc [T, Vall, 2G]."""
+    _, _, _, ucount, tb, ext = _k1p_args(a)
+    T, Vall = tb.shape[0], ext.shape[0] // G
+    cull = _k1p_cull(a, G, ell)
+    keep_w = torch.repeat_interleave(~cull, 32, dim=1)[:, :Vall]             # [S,Vall,STEP]
+    pair, off, _ = kah.aligned_steps(ucount, tb)
+    tot = torch.zeros((2, T * G, Vall))                                      # yb, kb
+    part = torch.zeros((2, T * G, Vall))                                     # ry, rk
+    row = torch.zeros((T * G, Vall), dtype=torch.int64)
+    k_of = off // kah.STEP
+    for k in range(int(k_of.max()) + 1 if len(k_of) else 0):
+        sel = torch.nonzero(k_of == k).reshape(-1)
+        p = pair[sel]                                     # distinct pairs
+        K, lab, valid = _k1p_terms(a, G, sf2, ell, sel)
+        keep = keep_w[sel] & valid[:, None, :]
+        y, r_, rw = tot[:, p], part[:, p], row[p]
+        for j in range(kah.STEP):
+            m = keep[:, :, j]
+            r = ((off[sel] + j) // kah.WA)[:, None]
+            flush = m & (r != rw)
+            y = torch.where(flush, y + r_, y)
+            r_ = torch.where(flush, 0.0, r_)
+            rw = torch.where(flush, r, rw)
+            kj = K[:, :, j]
+            r_ = torch.where(m, r_ + torch.stack([kj * lab[:, None, j], kj]), r_)
+        tot[:, p], part[:, p], row[p] = y, r_, rw
+    tot = tot + part
+    out = torch.zeros((2, T * G, Vall))
+    out[:, :, bgk_heavy.node_order(Vall).long()] = tot
+    return out.view(2, T, G, Vall).permute(1, 3, 0, 2).reshape(T, Vall, 2 * G)
+
+
+@pytest.mark.parametrize("segments", [False, True])
+@pytest.mark.parametrize("depth,G", [(3, 7), (3, 27), (5, 27)])
+def test_k1p_skipping_the_culled_pairs_is_bit_exact(depth, G, segments):
+    """K1′'s plain version, and its sums taken the kernel's way with the
+    culled pairs skipped (never added), are equal bit for bit: a skipped
+    entry adds exactly +0 in the Wa = 8 row order."""
+    a, ell = _k1p_case(80 + depth + G, depth, G, segments)
+    sf2 = 0.1 if segments else 1.0
+    ref = kah.bgk_aligned_heavy_plain(*_k1p_args(a), G=G, sf2=sf2, ell=ell)
+    got = _k1p_skipping(a, G, sf2, ell)
+    assert torch.equal(got, ref)
+    assert int((ref[..., G:] > 0).sum()) > 100
+
+
+@pytest.mark.parametrize("sf2", [0.1, 1.0])
+def test_sparse_kernel_of_sqrt_d2_is_zero_from_one_on(sf2):
+    """K1′'s point branch evaluates sqrt(d2): every f32 d2 in [1, 4) gives
+    r = sqrt(d2) ≥ 1 and a kernel of exactly 0 (d2 ≥ 4: r ≥ 2, where the
+    formula is negative)."""
+    d2 = torch.arange(0x3F800000, 0x40800000, dtype=torch.int32).view(torch.float32)
+    assert float(d2[0]) == 1.0 and float(d2[-1]) < 4.0
+    r = torch.sqrt(d2)
+    assert bool((r >= bgk_heavy.R_CULL).all())
+    assert int(torch.count_nonzero(km.sparse_kernel(r, sf2))) == 0
+
+
+@st.composite
+def _k1p_entries(draw):
+    """K1′ entries where its culling decides in the last ulps: points and
+    segment ends on a warp's padded box faces (a few ulps either side) and
+    entries at about r_c·ℓ from one of the warp's nodes, in one slot of one
+    test block."""
+    depth = draw(st.sampled_from([3, 5]))
+    G = draw(st.sampled_from([7, 27]))
+    res, ell = K1P_CASES[depth][:2]
+    segments = draw(st.booleans())
+    a = aligned_heavy_inputs(0, G=G, U=1, T=1, depth=depth, res=res, counts=[0])
+    ext = a["ext_nodes"]
+    Vall = ext.shape[0] // G
+    wpb = (Vall + 31) // 32
+    g = draw(st.integers(0, G - 1))
+    w = draw(st.integers(0, wpb - 1))
+    order = bgk_heavy.node_order(Vall).long()
+    lanes = order[32 * w:32 * w + 32]
+    pts = ext.view(G, Vall, 3)[g][lanes]
+    plo, phi = km.warp_box(pts[None], torch.ones((1, len(lanes)), dtype=torch.bool),
+                           bgk_heavy.cull_reach(ell))
+    plo, phi = plo[0].numpy(), phi[0].numpy()
+    n = draw(st.integers(1, 40))
+    ents = []
+    for _ in range(n):
+        if draw(st.booleans()):                          # on a padded face
+            p = np.array([draw(st.floats(float(plo[i]), float(phi[i]), width=32))
+                          for i in range(3)], F32)
+            ax = draw(st.integers(0, 2))
+            p[ax] = (plo if draw(st.booleans()) else phi)[ax]
+            for _ in range(draw(st.integers(0, 3))):
+                p[ax] = np.nextafter(p[ax], F32(draw(st.sampled_from([-np.inf, np.inf]))))
+        else:                                            # at the support of a node
+            v = pts[draw(st.integers(0, len(lanes) - 1))].numpy()
+            off = np.array([draw(st.floats(-1, 1, width=32)) for _ in range(3)], np.float64)
+            if not np.any(off):
+                off[0] = 1.0
+            off /= np.linalg.norm(off)
+            r = bgk_heavy.R_CULL * ell * (1 + draw(st.integers(-8, 8)) * 2.0 ** -23)
+            p = (v + off * r).astype(F32)
+        if segments:
+            d = np.array([draw(st.floats(-1, 1, width=32)) for _ in range(3)], F32)
+            length = F32(draw(st.sampled_from([0.0, 5e-5, 0.3, 2.0])))
+            q = (p + d * length).astype(F32)
+            ents.append(np.concatenate([q, p] if draw(st.booleans()) else [p, q]))
+        else:
+            ents.append(p)
+    ent = np.stack(ents).astype(F32)
+    tb = np.full((1, G), 1, np.int64)
+    tb[0, g] = 0
+    case = dict(ent_rel=torch.from_numpy(ent), labels=torch.ones(n),
+                ustart=torch.zeros(1, dtype=torch.int64),
+                ucount=torch.tensor([n], dtype=torch.int64), tb_u=torch.from_numpy(tb),
+                ext_nodes=ext)
+    return case, G, ell
+
+
+@settings(max_examples=60, deadline=None, suppress_health_check=[HealthCheck.too_slow])
+@given(_k1p_entries())
+def test_k1p_cull_never_skips_a_nonzero_pair_on_the_box_faces(case):
+    a, G, ell = case
+    cull, nonzero = _k1p_cull_and_nonzero(a, G, ell)
+    assert not (cull & nonzero).any()
 
 
 def _segment_hits_box_f64(a, b, lo, hi):

@@ -376,21 +376,27 @@ def ingest_scene(seed, n_scans=3, n=400, dev="cpu"):
     return tuple(torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in arrs)
 
 
-def aligned_heavy_inputs(seed, G=7, U=40, T=60, dev="cpu", segments=False):
+def aligned_heavy_inputs(seed, G=7, U=40, T=60, dev="cpu", segments=False, depth=3, res=0.1,
+                         spread=0.3, counts=None):
     """K1′'s arguments on random tables: U entry blocks of 0..150 entries
-    (relative coordinates within ±0.3 m — points, or segments [M,6] from
-    :func:`segments_near` —, labels 0/1) stored back to back,
-    T test blocks whose slots name an entry block or none (U), and the
-    shifted node tables of the depth-3 demo (0.4 m blocks).  Returns a dict
-    of the wrapper's arguments."""
+    (or of ``counts``; relative coordinates within ±``spread`` m — points,
+    or segments [M,6] from :func:`segments_near` —, labels 0/1) stored back
+    to back, T test blocks whose slots name an entry block or none (U), and
+    the shifted node tables of a block of ``depth`` at ``res`` (the default:
+    the depth-3 demo's 0.4 m blocks).  Returns a dict of the wrapper's
+    arguments."""
     rng = np.random.default_rng(seed)
-    nodes, _ = geo.all_level_nodes(0.1, 3)
+    nodes, _ = geo.all_level_nodes(res, depth)
+    bs = np.float32(res * 2 ** (depth - 1))
     offs = geo.FACE_NEIGHBOR_OFFSETS if G == 7 else geo.full_neighbor_offsets()
-    ext = (nodes[None] - offs[:, None, :].astype(np.float32) * np.float32(0.4)).reshape(-1, 3)
+    ext = (nodes[None] - offs[:, None, :].astype(np.float32) * bs).reshape(-1, 3)
     ucount = rng.integers(0, 150, U)
+    if counts is not None:
+        ucount = np.asarray(counts)
+        U = len(ucount)
     ustart = np.concatenate([[0], np.cumsum(ucount)[:-1]])
     M = int(ucount.sum()) + 3
-    ent_rel = rng.uniform(-0.3, 0.3, (M, 3)).astype(np.float32)
+    ent_rel = rng.uniform(-spread, spread, (M, 3)).astype(np.float32)
     if segments:
         ent_rel = segments_near(rng, ent_rel)
     labels = (rng.uniform(size=M) > 0.5).astype(np.float32)

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""K3 (the BGKLV tile row engine) and K1's segment branch (the BGKL heavy
-pass) of two checkouts on the same captured dispatches, in one call.
+"""K3 (the BGKLV tile row engine), K1's segment branch (the BGKL heavy pass)
+and K1′ (the device-ingest heavy pass, both branches) of two checkouts on
+the same captured dispatches, in one call.
 
 Run from the repository root on a machine with one CUDA card, with the
 other checkout unpacked into a directory that .gitignore lists:
@@ -8,17 +9,20 @@ other checkout unpacked into a directory that .gitignore lists:
     git archive <parent> | tar -x -C .archive/parent
     python3 tools/seg_kernels_ab.py .archive/parent
 
-This checkout captures four dispatches from chip_smoke.py's synthetic
+This checkout captures seven dispatches from chip_smoke.py's synthetic
 scans: K3 on a 12-scan BGKLV demo dispatch and on one BGKLV large-map scan
 (block_depth 6), K1 on a 16-scan BGKL demo dispatch and on a 12-scan BGKL
-large-map dispatch (block_depth 5).  Then each checkout, in the order
-other, this, this, other, runs in a process of its own (importing its own
-``la3dm_tpu_torch`` and building its own kernels): it times each kernel
-(chip_smoke.py's ``launch_ms``: device time of launches queued behind a
-spin), hashes its outputs (K3: A, B and touched; K1: the accumulator), and
-runs ``pipeline.run_static`` for BGKLV (60 demo scans, 12 large-map scans)
-and the BGKL large map (12 scans, host ingest).  The last lines compare:
-times of both, and whether each output is bit-equal across the checkouts.
+large-map dispatch (block_depth 5), K1′ on the device-ingest dispatches of
+16 BGK demo scans (points), 16 BGKL demo scans and 12 BGKL large-map scans
+(segments).  Then each checkout, in the order other, this, this, other,
+runs in a process of its own (importing its own ``la3dm_tpu_torch`` and
+building its own kernels): it times each kernel (chip_smoke.py's
+``launch_ms``: device time of launches queued behind a spin), hashes its
+outputs (K3: A, B and touched; K1 and K1′: the accumulator), and runs
+``pipeline.run_static`` for BGKLV (60 demo scans, 12 large-map scans), the
+BGKL large map (12 scans, host and device ingest) and the BGK demo (60
+scans, device ingest).  The last lines compare: times of both, and whether
+each output is bit-equal across the checkouts.
 """
 
 from __future__ import annotations
@@ -32,8 +36,10 @@ import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-DISPATCHES = ("k3_demo", "k3_large", "k1_demo", "k1_large")
-REPS = {"k3_demo": 5, "k3_large": 5, "k1_demo": 5, "k1_large": 3}
+DISPATCHES = ("k3_demo", "k3_large", "k1_demo", "k1_large", "k1p_bgk_demo", "k1p_demo",
+              "k1p_large")
+REPS = {"k3_demo": 5, "k3_large": 5, "k1_demo": 5, "k1_large": 3, "k1p_bgk_demo": 5,
+        "k1p_demo": 5, "k1p_large": 3}
 
 
 def _digest(*ts) -> str:
@@ -64,6 +70,12 @@ def capture(out_dir: str) -> None:
         (_, _, _, _, all_nodes, _, ent, lab, ids, gs, rb, rs, rn, _, ctr, _, _) = args
         kw = dict(G=statics["G"], sf2=statics["sf2"], ell=statics["ell"])
         caps[name] = ((ent, lab, ids, gs, rb, rs, rn, ctr, all_nodes), kw)
+    for name, cfg, n in (("k1p_bgk_demo", load_method_config("bgk", max_range=cs.MAX_RANGE),
+                          16),
+                         ("k1p_demo", load_method_config("bgkl", max_range=cs.MAX_RANGE), 16),
+                         ("k1p_large", load_method_config("bgkloctomap_large_map"), 12)):
+        (args, kw, _), = cs.record_ingest(cfg, scans[:n])["bgk_aligned_heavy"]
+        caps[name] = (args, kw)
     for name, (args, kw) in caps.items():
         torch.save(([a.cpu() for a in args], kw), os.path.join(out_dir, f"{name}.pt"))
 
@@ -76,7 +88,7 @@ def worker(tree: str, data_dir: str) -> dict:
 
     import chip_smoke as cs  # the checkout's own (its launch_ms)
     from la3dm_tpu_torch import pipeline
-    from la3dm_tpu_torch.kernels import _build, bgk_heavy, lv_rows
+    from la3dm_tpu_torch.kernels import _build, bgk_aligned_heavy, bgk_heavy, lv_rows
     from la3dm_tpu_torch.utils.config import DatasetConfig, load_method_config
 
     assert os.path.dirname(lv_rows.__file__).startswith(os.path.abspath(tree))
@@ -101,12 +113,14 @@ def worker(tree: str, data_dir: str) -> dict:
             lv_rows.lv_rows(*again, *rest, **kw)
             repeat = all(torch.equal(x, y) for x, y in zip(k, again))
         else:
-            acc = bgk_heavy.bgk_heavy(*args, **kw)
+            fn = bgk_aligned_heavy.bgk_aligned_heavy if name.startswith("k1p") \
+                else bgk_heavy.bgk_heavy
+            acc = fn(*args, **kw)
             torch.cuda.synchronize()
             digest = _digest(acc)
             del acc
-            ms = cs.launch_ms([lambda _: bgk_heavy.bgk_heavy(*args, **kw)], REPS[name])
-            repeat = _digest(bgk_heavy.bgk_heavy(*args, **kw)) == digest
+            ms = cs.launch_ms([lambda _: fn(*args, **kw)], REPS[name])
+            repeat = _digest(fn(*args, **kw)) == digest
         out[name] = {"ms": ms, "digest": digest, "repeat_equal": repeat}
         del args
         torch.cuda.empty_cache()
@@ -115,7 +129,10 @@ def worker(tree: str, data_dir: str) -> dict:
             ("bgklv_large12", load_method_config("bgklvoctomap_large_map",
                                                  max_range=cs.MAX_RANGE), 12, 2),
             ("bgkl_large12_host", load_method_config("bgkloctomap_large_map",
-                                                     device_ingest="off"), 12, 3))
+                                                     device_ingest="off"), 12, 3),
+            ("bgkl_large12_device", load_method_config("bgkloctomap_large_map"), 12, 3),
+            ("bgk_static60_device", load_method_config("bgk", max_range=cs.MAX_RANGE), 60,
+             3))
     for name, cfg, n, reps in runs:
         ds = DatasetConfig(name="synth", dir=data_dir, prefix="synth", scan_num=n,
                            max_range=cfg.max_range)
@@ -172,7 +189,7 @@ def main() -> int:
               f"{t1[name]['ms']:.3f}, {t2[name]['ms']:.3f} ms; outputs bit-equal across "
               f"checkouts {same}; repeat launches bit-equal "
               f"{all(r[name]['repeat_equal'] for r in results)}")
-    for name in ("bgklv_static60", "bgklv_large12", "bgkl_large12_host"):
+    for name in (k for k, v in o1.items() if isinstance(v, list)):  # the run_static runs
         print(f"{name} scans/s: other {o1[name]} / {o2[name]}; this {t1[name]} / "
               f"{t2[name]}")
     print(f"card: {smi}")
