@@ -16,8 +16,13 @@ library from ``native/host_preprocess.cpp``) on first use, then:
 BGK (``bgkoctomap.yaml``), first on the host-ingest path (``device_ingest:
 off``):
 
-3. holds K1 (heavy pass) against its plain PyTorch version on the argument
-   tuple of a real 16-scan dispatch: |Δ| ≤ 1e-5 + 1e-5·|plain|;
+3. holds K1 (heavy pass, points) against its plain PyTorch version on the
+   argument tuple of a real 16-scan dispatch: bit for bit (and so within
+   |Δ| ≤ 1e-5 + 1e-5·|plain|); T, R, the warp work units and the culled
+   (warp, entry) pairs printed, the kernel's own cull count equal to that
+   of the plain predicate ``bgk_heavy_cull``, a second launch bit-equal;
+   its bound counts the work left after the culling, the bound on every
+   evaluation beside it;
 4. holds K2 (light pass + prune) against its plain version on the same
    accumulator and pool state: A, B, touched and eff bit for bit;
 5. runs the main path — ``pipeline.run_static`` on 12 and on 60 scans and
@@ -154,12 +159,17 @@ Raycast, last:
     the 60 scan origins into the 60-scan BGK demo map (device ingest) at
     max_range 8 m, and over 100,000 rays into the 60-scan BGKL and BGKLV
     maps: snapshot and ray times apart, one K6 launch a call; K6 against its
-    plain version on the same call (hit and steps equal, dist bit-equal;
-    the control, the plain version in f64, must differ on a ray) and, on
-    the first rays, against its plain version on the CPU (bit-equal); the
-    host stepper ``raycast`` replays those rays, and each ray where it
-    parts from K6 must show a tie (its first voxel, an axis choice, a voxel
-    read at a face, or the range limit, within f32 rounding).
+    plain version on the same call (hit and steps equal, dist bit-equal, a
+    repeat launch too; the control, the plain version in f64, must differ
+    on a ray) and, on the first rays, against its plain version on the CPU
+    (bit-equal); K6's own count of the lookups that probe under its block
+    cache and of their probes equal to the plain version's block mode,
+    printed beside the probes of every lookup; its bound on the lookups
+    and probes the cache leaves, the bound with every lookup probing
+    beside it; the host stepper ``raycast`` replays those rays, and each
+    ray where it parts from K6 must show a tie (its first voxel, an axis
+    choice, a voxel read at a face, or the range limit, within f32
+    rounding).
 
 The large maps, after raycast (the BGK-family ones at their YAML's own
 ``max_range`` of 30 m; every hit of the room lies within about 17.5 m):
@@ -436,7 +446,7 @@ def warp_work(culled_per_warp: torch.Tensor, n_entries: int, n_points: int) -> t
     walking ``n_entries`` entries and skipping ``culled_per_warp`` [warps]
     of them; the evaluations count the live lanes of every (warp, entry)
     pair kept, the pairs every (warp, entry) pair, each of which takes the
-    cull test (``km.FLOP_CULL_TEST``)."""
+    cull test (``km.FLOP_CULL_TEST``, ``FLOP_CULL_TEST_POINT`` for points)."""
     w = culled_per_warp.numel()
     lanes = (n_points - 32 * torch.arange(w)).clamp(max=32)
     return int(((n_entries - culled_per_warp.cpu()) * lanes).sum()), n_entries * w
@@ -470,14 +480,17 @@ def gate_apart(acc_k, acc_p, G: int, gate: float, what: str) -> dict:
 
 def check_k1(args, statics, reps: int = 5, gate: float | None = None) -> dict:
     """K1 against its plain version on one dispatch's arguments: point
-    entries (BGK) or segments (BGKL).  With ``gate`` (BGKL's 0.001), the
-    limit must also fail the control (the plain version on TF32-rounded
-    coordinates), and no k̄ may be decided apart at the gate."""
+    entries (BGK; bit for bit) or segments (BGKL).  With ``gate`` (BGKL's
+    0.001), the limit must also fail the control (the plain version on
+    TF32-rounded coordinates), and no k̄ may be decided apart at the gate.
+    Both branches: the work units and culled pairs (:func:`k1_culling`), the
+    bound on the pairs the culling keeps and the bound on every
+    evaluation."""
     (_, _, _, _, all_nodes, _, ent, lab, ids, gs, rb, rs, rn, _, ctr, _, _) = args
     hargs = (ent, lab, ids, gs, rb, rs, rn, ctr, all_nodes)
     kw = dict(G=statics["G"], sf2=statics["sf2"], ell=statics["ell"])
     seg = ent.shape[1] == 6
-    name = "K1 (segments)" if seg else "K1"
+    name = "K1 (segments)" if seg else "K1 (points)"
     acc_k = bgk_heavy.bgk_heavy(*hargs, **kw)
     acc_p, plain_ms = _timed(lambda: bgk_heavy.bgk_heavy_plain(*hargs, **kw))
     torch.cuda.synchronize()
@@ -492,10 +505,12 @@ def check_k1(args, statics, reps: int = 5, gate: float | None = None) -> dict:
                                         tf32_round(ctr), tf32_round(all_nodes), **kw)
         out["outside_control"] = bad_ctl = int(((ctl - acc_p).abs() > lim).sum())
         msg = f"; control, the plain version on TF32-rounded coordinates: {bad_ctl} outside"
+    same = bool(torch.equal(acc_k, acc_p))
     print(f"{name}: acc {tuple(acc_k.shape)}, max |kernel - plain| = {max_err:.3e}, "
-          f"{bad} elements outside 1e-5 + 1e-5*|plain|{msg}")
+          f"{bad} elements outside 1e-5 + 1e-5*|plain|, bit-equal {same}{msg}")
     require(bool(torch.isfinite(acc_k).all()), f"{name} gave non-finite values")
     require(bad == 0, f"{name} disagrees with its plain version")
+    require(seg or same, f"{name} is not bit-equal to its plain version")
     if gate is not None:
         require(out["outside_control"] > 0, f"the {name} limit passes the TF32 control")
         out.update(gate_apart(acc_k, acc_p, statics["G"], gate, name))
@@ -504,27 +519,26 @@ def check_k1(args, statics, reps: int = 5, gate: float | None = None) -> dict:
     evals = int(rn.sum()) * all_nodes.shape[0]
     per_eval = bgk_heavy.FLOP_PER_EVAL_SEGMENT if seg else bgk_heavy.FLOP_PER_EVAL
     nbyte = nbytes(ent, lab, ids, gs, rb, rs, rn, ctr, all_nodes, acc_k)
-    b_ms, b_by = bound(per_eval * evals, nbyte)
-    if seg:
-        # the bound on the work the culled kernel must do, and beside it the
-        # earlier yardstick: every evaluation of the plain algorithm
-        out.update(k1_culling(hargs, acc_k, kw))
-        b_all_ms = out["bound_ms_every_pair"] = b_ms
-        b_ms, b_by = bound(per_eval * out["needed_evaluations"]
-                           + km.FLOP_CULL_TEST * out["warp_entry_pairs"], nbyte)
+    # the bound on the work the culled kernel must do, and beside it the
+    # earlier yardstick: every evaluation of the plain algorithm
+    b_all_ms, _ = bound(per_eval * evals, nbyte)
+    out.update(k1_culling(hargs, acc_k, kw, name))
+    out["bound_ms_every_pair"] = b_all_ms
+    per_test = km.FLOP_CULL_TEST if seg else km.FLOP_CULL_TEST_POINT
+    b_ms, b_by = bound(per_eval * out["needed_evaluations"]
+                       + per_test * out["warp_entry_pairs"], nbyte)
     print(f"{name}: {ms:.3f} ms device time (event window {event_ms:.3f} ms; plain "
           f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by}; {evals} kernel "
-          f"evaluations" + (f"; bound on every evaluation {b_all_ms:.4f} ms)" if seg else ")"))
-    return {"acc": acc_k, "max_abs_err": max_err, "ms": ms, "event_ms": event_ms,
-            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+          f"evaluations; bound on every evaluation {b_all_ms:.4f} ms)")
+    return {"acc": acc_k, "max_abs_err": max_err, "bit_equal": same, "ms": ms,
+            "event_ms": event_ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "evaluations": evals, **out}
 
 
-def k1_culling(hargs, acc, kw, row_chunk: int = 2048) -> dict:
-    """K1's segment kernel on one dispatch: its work units, and the (warp,
-    entry) pairs its warps skip — its own count, which must equal that of
-    the plain predicate ``bgk_heavy_cull`` — with the launch bit-equal to
-    ``acc``."""
+def k1_culling(hargs, acc, kw, name: str, row_chunk: int = 2048) -> dict:
+    """K1 on one dispatch: its work units, and the (warp, entry) pairs its
+    warps skip — its own count, which must equal that of the plain
+    predicate ``bgk_heavy_cull`` — with the launch bit-equal to ``acc``."""
     ent, lab, ids, gs, rb, rs, rn, ctr, all_nodes = hargs
     culled = torch.zeros(1, dtype=torch.int64, device=ent.device)
     again = bgk_heavy.bgk_heavy(*hargs, **kw, culled=culled)
@@ -537,12 +551,12 @@ def k1_culling(hargs, acc, kw, row_chunk: int = 2048) -> dict:
     plain = int(per_warp.sum())
     needed, pairs = warp_work(per_warp, int(rn.sum()), Vall)
     frac = int(culled) / max(pairs, 1)
-    print(f"K1 (segments): T {Tp} blocks, R {R} rows, {Tp * wpb} work units (warps of 32 "
+    print(f"{name}: T {Tp} blocks, R {R} rows, {Tp * wpb} work units (warps of 32 "
           f"of {Vall} nodes), {int(culled)} of {pairs} (warp, entry) pairs culled "
           f"({100 * frac:.2f} %; the plain predicate: {plain}), {needed} evaluations "
           f"in the pairs kept")
-    require(int(culled) == plain, "K1's warps cull other pairs than bgk_heavy_cull")
-    require(bool(torch.equal(again, acc)), "K1 (segments): a repeat launch differs")
+    require(int(culled) == plain, f"{name}: its warps cull other pairs than bgk_heavy_cull")
+    require(bool(torch.equal(again, acc)), f"{name}: a repeat launch differs")
     return {"T": Tp, "R": R, "work_units": Tp * wpb, "culled_pairs": int(culled),
             "warp_entry_pairs": pairs, "culled_fraction": frac,
             "needed_evaluations": needed}
@@ -1991,9 +2005,9 @@ def host_stepper_ties(m, snap, o, d, k6_out, host, max_range: float) -> dict:
             kind = "path"
         else:
             vox = p32[:m0 + 1]
-            st_k, _ = k6.state_plain(*tabs, torch.as_tensor(vox, dtype=torch.int32),
-                                     res=torch.tensor(r32), bs=torch.tensor(b32), n=n,
-                                     max_probes=snap.max_probes)
+            st_k = k6.lookup_plain(*tabs, torch.as_tensor(vox, dtype=torch.int32),
+                                   res=torch.tensor(r32), bs=torch.tensor(b32), n=n,
+                                   max_probes=snap.max_probes)[0]
             ctr_h = (vox * res).astype(np.float32)               # the host stepper's
             st_h = m.search(ctr_h)["state"]
             apart = np.nonzero((st_k.numpy() == posterior.OCCUPIED)
@@ -2049,10 +2063,13 @@ def check_k6(m, scans, n: int, what: str, host_subset: int, seed: int,
               max_steps=int(np.ceil(MAX_RANGE / snap.res) * 3 + 8),
               target=posterior.OCCUPIED, max_range=MAX_RANGE, max_probes=snap.max_probes)
     hk, dk, sk = k6.raycast(*args, **kw)
-    (hp, dp, sp, probes), plain_ms = _timed(
+    (hp, dp, sp, probes, probes_b, probed_b), plain_ms = _timed(
         lambda: k6.raycast_plain(*args, **kw, count_probes=True))
+    counts = torch.zeros(2, dtype=torch.int64, device="cuda")
+    again = k6.raycast(*args, **kw, counts=counts)
     hc, dc, sc = k6.raycast_plain(*args[:4], args[4].double(), args[5].double(), **kw)
     same = (torch.equal(hk, hp), torch.equal(sk, sp), torch.equal(dk, dp))
+    same_again = all(torch.equal(x, y) for x, y in zip(again, (hk, dk, sk)))
     same_main = (np.array_equal(res["hit"], hk.cpu().numpy())
                  and np.array_equal(res["steps"], sk.cpu().numpy())
                  and np.array_equal(res["distance"], dk.cpu().numpy()))
@@ -2061,6 +2078,8 @@ def check_k6(m, scans, n: int, what: str, host_subset: int, seed: int,
     err = float((dk[hk] - dp[hk]).abs().max()) if nh else 0.0
     finite = bool(torch.isfinite(dk[hk]).all() and (dk[hk] <= MAX_RANGE).all())
     steps_total, lookups, n_probes = int(sk.sum()), int(sk.sum()) + nh, int(probes.sum())
+    probed, n_probes_b = int(probed_b.sum()), int(probes_b.sum())
+    k_probed, k_probes = (int(x) for x in counts.tolist())
     cpu = k6.raycast_plain(*(x.cpu() for x in args[:4]),
                            *(x[:host_subset].cpu() for x in args[4:]), **kw)
     same_cpu = all(torch.equal(x, y[:host_subset].cpu()) for x, y in zip(cpu, (hk, dk, sk)))
@@ -2071,12 +2090,19 @@ def check_k6(m, scans, n: int, what: str, host_subset: int, seed: int,
           f"(hash of {snap.tab_hi.numel()} entries, {snap.max_probes} probes), rays "
           f"{ray_ms:.2f} ms ({n / ray_ms * 1e3:.4g} rays/s, copies included); {nh} hits, "
           f"{steps_total} steps ({steps_total / n:.1f} a ray), {lookups} lookups taking "
-          f"{n_probes} hash probes ({n_probes / max(lookups, 1):.2f} a lookup); K6 launches "
-          f"{launches}; hit, steps, dist equal to the plain version {same}, to "
-          f"raycast_device's {same_main}; control, the plain version in f64: {n_ctl} rays "
-          f"differ; the first {host_subset} rays equal on the CPU {same_cpu}; the host "
-          f"stepper agrees in hit and steps on {100 * agree:.2f}% of them")
-    require(all(same) and same_main, f"K6 disagrees with its plain version ({what})")
+          f"{n_probes} hash probes ({n_probes / max(lookups, 1):.2f} a lookup); with K6's "
+          f"block cache {k_probed} lookups probed ({k_probed / n:.2f} a ray), taking "
+          f"{k_probes} probes ({k_probes / max(lookups, 1):.2f} a lookup, "
+          f"{n_probes / max(k_probes, 1):.2f}x fewer; the plain block mode: {probed} and "
+          f"{n_probes_b}); K6 launches {launches}; hit, steps, dist equal to the plain "
+          f"version {same}, to raycast_device's {same_main}, a repeat launch {same_again}; "
+          f"control, the plain version in f64: {n_ctl} rays differ; the first {host_subset} "
+          f"rays equal on the CPU {same_cpu}; the host stepper agrees in hit and steps on "
+          f"{100 * agree:.2f}% of them")
+    require(all(same) and same_main and same_again,
+            f"K6 disagrees with its plain version ({what})")
+    require((k_probed, k_probes) == (probed, n_probes_b),
+            f"K6's probe counts differ from the plain block mode's ({what})")
     require(n_ctl > 0, f"the K6 limit passes the f64 control ({what})")
     require(finite and 0 < nh < n, f"raycast ({what}): no hits, all hits or bad distances")
     require(same_cpu, f"K6 on the card and its plain version on the CPU differ ({what})")
@@ -2087,15 +2113,27 @@ def check_k6(m, scans, n: int, what: str, host_subset: int, seed: int,
           f"{sum(ties.values())} of {host_subset} rays, each at a tie: {ties}")
     ms = launch_ms([lambda _: k6.raycast(*args, **kw)], reps)
     # bytes: the tables (state, hash) once, each ray's 24 bytes in and 9 out;
-    # operations: those of the lookups, steps and hash probes the rays took
-    b_ms, b_by = bound(k6.OPS_PER_LOOKUP * lookups + k6.OPS_PER_PROBE * n_probes,
-                       nbytes(*args[:4]) + n * (24 + 9))
+    # operations: those of the lookups and steps the rays took, a voxel's
+    # three axes at a ray's first lookup and the stepped axis alone at each
+    # later one, the key split and hash only at the lookups that probe under
+    # the block cache, and their probes; beside it the bound with every
+    # lookup computing all three axes, hashing and probing
+    nbyte = nbytes(*args[:4]) + n * (24 + 9)
+    axes = lookups + 2 * n
+    b_ms, b_by = bound(k6.OPS_PER_STEP * lookups + k6.OPS_PER_AXIS * axes
+                       + k6.OPS_PER_HASH * probed + k6.OPS_PER_PROBE * n_probes_b, nbyte)
+    b_all_ms, _ = bound(k6.OPS_PER_LOOKUP * lookups + k6.OPS_PER_PROBE * n_probes, nbyte)
     print(f"K6, {what}: {ms:.3f} ms device time (plain {plain_ms:.3f} ms, bound "
-          f"{b_ms:.4f} ms by {b_by}; {lookups} state lookups, {n_probes} probes)")
+          f"{b_ms:.4f} ms by {b_by}, with every lookup computing every axis and probing "
+          f"{b_all_ms:.4f} ms; {lookups} state lookups, {axes} axes computed, {probed} "
+          f"lookups probing {n_probes_b} probes)")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "launches": launches, "rays": n, "snapshot_ms": snap_ms,
-            "rays_ms": ray_ms, "rays_per_s": n / ray_ms * 1e3, "hits": nh,
-            "steps": steps_total, "lookups": lookups, "probes": n_probes,
+            "bound_by": b_by, "bound_ms_every_lookup": b_all_ms, "launches": launches,
+            "rays": n, "snapshot_ms": snap_ms, "rays_ms": ray_ms,
+            "rays_per_s": n / ray_ms * 1e3, "hits": nh, "steps": steps_total,
+            "lookups": lookups, "probes": n_probes, "probed_lookups": probed,
+            "probes_block_cache": n_probes_b,
+            "probes_block_cache_per_lookup": n_probes_b / max(lookups, 1),
             "control_rays_differ": n_ctl, "host_agreement": agree, "host_ties": ties}
 
 

@@ -90,9 +90,7 @@ def build() -> str:
 def _bind(lib):
     vp, ci, cf, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
     lib.la3dm_bgk_heavy.restype = ci
-    lib.la3dm_bgk_heavy.argtypes = [vp] * 9 + [ci, ci, ci, cf, cf, vp, vp]
-    lib.la3dm_bgk_heavy_seg.restype = ci
-    lib.la3dm_bgk_heavy_seg.argtypes = [vp] * 11 + [ci] * 3 + [cf] * 3 + [vp, vp]
+    lib.la3dm_bgk_heavy.argtypes = [vp] * 11 + [ci] * 4 + [cf] * 3 + [vp, vp]
     lib.la3dm_sparse_kernel_scan.restype = ci
     lib.la3dm_sparse_kernel_scan.argtypes = [vp, vp, cl, cf, vp]
     lib.la3dm_bgk_light.restype = ci
@@ -116,7 +114,7 @@ def _bind(lib):
     lib.la3dm_ingest_rays.restype = ci
     lib.la3dm_ingest_rays.argtypes = ([vp] * 4 + [cl, ci] + [cf] * 4 + [ci, ci] + [vp] * 9)
     lib.la3dm_raycast.restype = ci
-    lib.la3dm_raycast.argtypes = [vp] * 6 + [cl] + [ci] * 6 + [cf] * 3 + [vp] * 4
+    lib.la3dm_raycast.argtypes = [vp] * 6 + [cl] + [ci] * 6 + [cf] * 3 + [vp] * 6
     lib.la3dm_bgk_aligned_heavy.restype = ci
     lib.la3dm_bgk_aligned_heavy.argtypes = [vp] * 8 + [cl, cl, ci, ci, ci] + [cf] * 3 + [vp, vp]
     return lib

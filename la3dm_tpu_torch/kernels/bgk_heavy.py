@@ -10,14 +10,13 @@ start, end), masked by the row count, times the one-hot slot RHS [W, 2G],
 accumulated into acc[Tp, Vall, 2G] at ``row_block``.
 
 On a CUDA tensor :func:`bgk_heavy` launches the hand-written kernel
-(``csrc/bgk_heavy.cu``; points: one CTA per test block, one thread per
-node; segments: one warp per (test block, 32 nodes) work unit with exact
-warp-level culling; no atomics); on a CPU tensor it runs
-:func:`bgk_heavy_plain`.  :func:`bgk_heavy_cull` is the segment kernel's
-culling predicate in plain PyTorch.  What bounds the kernel is FP32
+(``csrc/bgk_heavy.cu``; points and segments alike: one warp per (test
+block, 32 nodes) work unit with exact warp-level culling; no atomics); on a
+CPU tensor it runs :func:`bgk_heavy_plain`.  :func:`bgk_heavy_cull` is the
+kernel's culling predicate in plain PyTorch.  What bounds the kernel is FP32
 arithmetic on the CUDA cores (:data:`FLOP_PER_EVAL` per kernel evaluation,
-:data:`FLOP_PER_EVAL_SEGMENT` with segments); parity keeps it off the tensor
-cores (see the source note).
+:data:`FLOP_PER_EVAL_SEGMENT` with segments) on the pairs the culling
+keeps; parity keeps it off the tensor cores (see the source note).
 """
 
 from __future__ import annotations
@@ -47,9 +46,9 @@ FLOP_PER_EVAL_SEGMENT = 85
 #: tests/test_torch_cuda.py); above 2 the formula is negative.  At r = 1
 #: itself 2π·r rounds below 2π (TWO_PI = float32(2·3.1415926)), so the
 #: sine term is already negative; the analytic value is O((1 − r)⁵), and on
-#: the CPU the f32 formula rounds to ≤ 0 from r = 0.98376 on.  The segment
-#: kernel skips an entry whose segment lies farther than R_CULL·ℓ from all
-#: of a warp's nodes.
+#: the CPU the f32 formula rounds to ≤ 0 from r = 0.98376 on.  The kernel
+#: skips an entry whose segment (a point entry: the point) lies farther than
+#: R_CULL·ℓ from all of a warp's nodes.
 R_CULL = 1.0
 
 _INT_ARGS = ("ids", "row_start", "row_count", "row_block")
@@ -90,9 +89,9 @@ def bgk_heavy(entries, labels, ids, gslot, row_block, row_start, row_count,
     """acc [Tp, Vall, 2G] f32: per (test block, node) the slot-grouped
     (ȳ_g | k̄_g).  ``entries`` are points [N,3] or segments [N,6] (start,
     end).  ``row_block`` must be non-decreasing (rows of a block are
-    contiguous); a row with count 0 is padding.  ``culled`` (segments: an
-    int64 [1] tensor on the card, or None) counts the (warp, entry) pairs
-    the segment kernel's warps skip."""
+    contiguous); a row with count 0 is padding.  ``culled`` (an int64 [1]
+    tensor on the card, or None) counts the (warp, entry) pairs the
+    kernel's warps skip (:func:`bgk_heavy_cull`)."""
     if entries.device.type == "cpu":
         return bgk_heavy_plain(entries, labels, ids, gslot, row_block, row_start,
                                row_count, centers, all_nodes, G=G, sf2=sf2, ell=ell)
@@ -121,26 +120,21 @@ def bgk_heavy(entries, labels, ids, gslot, row_block, row_start, row_count,
             or all_nodes.shape[1:] != (3,) or labels.shape[0] != entries.shape[0]
             or gslot.shape[0] != ids.shape[0]
             or row_start.shape[0] != R or row_count.shape[0] != R
-            or (culled is not None and (D != 6 or culled.shape != (1,)))):
+            or (culled is not None and culled.shape != (1,))):
         raise ValueError("bgk_heavy: inconsistent shapes")
     acc = torch.empty((Tp, Vall, 2 * G), dtype=torch.float32, device=entries.device)
     if Tp == 0:
         return acc
     block_rows = torch.searchsorted(
         row_block, torch.arange(Tp + 1, dtype=row_block.dtype, device=row_block.device))
-    stream = torch.cuda.current_stream(entries.device).cuda_stream
-    ptrs = (entries.data_ptr(), labels.data_ptr(), ids.data_ptr(), gslot.data_ptr(),
-            row_start.data_ptr(), row_count.data_ptr(), block_rows.data_ptr(),
-            centers.data_ptr(), all_nodes.data_ptr())
-    if D == 3:
-        code = _build.lib().la3dm_bgk_heavy(*ptrs, Tp, Vall, G, float(sf2), float(ell),
-                                            acc.data_ptr(), stream)
-    else:
-        order = node_order(Vall, str(entries.device))
-        code = _build.lib().la3dm_bgk_heavy_seg(
-            *ptrs, order.data_ptr(),
-            culled.data_ptr() if culled is not None else None, Tp, Vall, G, float(sf2),
-            float(ell), cull_reach(ell), acc.data_ptr(), stream)
+    order = node_order(Vall, str(entries.device))
+    code = _build.lib().la3dm_bgk_heavy(
+        entries.data_ptr(), labels.data_ptr(), ids.data_ptr(), gslot.data_ptr(),
+        row_start.data_ptr(), row_count.data_ptr(), block_rows.data_ptr(),
+        centers.data_ptr(), all_nodes.data_ptr(), order.data_ptr(),
+        culled.data_ptr() if culled is not None else None, Tp, Vall, G, D, float(sf2),
+        float(ell), cull_reach(ell), acc.data_ptr(),
+        torch.cuda.current_stream(entries.device).cuda_stream)
     _build.check(code, "bgk_heavy")
     launches += 1
     return acc
@@ -154,13 +148,24 @@ def cull_reach(ell: float) -> float:
 
 def bgk_heavy_cull(entries, ids, row_block, row_start, row_count, centers, all_nodes,
                    *, ell: float, chunk: int = 256):
-    """The segment kernel's culling predicate in plain PyTorch:
-    [R, ⌈Vall/32⌉, W] bool over (row, warp, entry), True where the warp's
-    nodes ``node_order(Vall)[32·w : 32·w + 32]`` in the row's block
-    skip the entry — its
-    segment misses their box padded by r_c·ℓ (``csrc/cull.cuh``), so every
-    node lies farther than r_c·ℓ from it and the kernel's value is exactly
-    0 — and False for padding entries."""
+    """The kernel's culling predicate in plain PyTorch: [R, ⌈Vall/32⌉, W]
+    bool over (row, warp, entry), True where the warp's nodes
+    ``node_order(Vall)[32·w : 32·w + 32]`` in the row's block skip the
+    entry, False for padding entries.  The warp's box is taken over the f32
+    values all_nodes[v] + centers[t] of its live nodes and padded by r_c·ℓ
+    and the margin m = 1e-4·(1 + |x|) (``csrc/cull.cuh``).
+
+    Segments: the segment misses the box, so every node lies farther than
+    r_c·ℓ from it and the kernel's value is exactly 0 (:data:`R_CULL`).
+    Points (in world coordinates): the point lies outside the box, on some
+    axis at least (ℓ + m)(1 − 2⁻²³) − 2⁻²⁴·B from every node x of the warp
+    (B = max |box| ≥ |x|).  The kernel evaluates ``sqrt(dist2(x/ℓ −
+    e/ℓ))``; the two divisions lose at most 2⁻²⁴·(2|x| + |x − e|)/ℓ, so the
+    scaled difference on that axis is ≥ 1 whenever m·(1 − 2⁻²²) ≥
+    2⁻²²·(ℓ + B), which m meets for every B (it grows with |x|) and every ℓ
+    below 200 m.  Rounding is monotone and 1 exact, so dx² ≥ 1, d2 ≥ 1,
+    r = √d2 ≥ 1 and the kernel is 0 (``tests/test_torch_cull.py`` holds
+    this on the CPU, with block centres up to 100 m out)."""
     Vall = all_nodes.shape[0]
     wpb = (Vall + 31) // 32
     dev = entries.device

@@ -13,11 +13,16 @@ its first hit or once past the range, with the same results.  The order of
 one iteration is kept: the state of the current voxel is checked, then the
 ray steps (so the voxel reached by the last step is never checked).
 
-On CUDA tensors :func:`raycast` launches ``csrc/raycast.cu`` (one thread per
-ray); on CPU tensors it runs :func:`raycast_plain`, a ``max_steps`` loop of
-vector operations as the JAX step is.  What bounds the kernel is the
-operations of the lookups, steps and probes the rays take (see the source
-note; :func:`raycast_plain` counts the probes).
+On CUDA tensors :func:`raycast` launches ``csrc/raycast.cu`` (per axis the
+block coordinate and local index recomputed only on the stepped axis; a
+block cache a ray, so the hash is probed only where the ray enters another
+block, and then by the whole warp at once; about one wave of warps whose
+lanes take the next ray from a global counter when four of them have
+stopped); on CPU tensors it runs :func:`raycast_plain`, a
+``max_steps`` loop of vector operations as the JAX step is.  What bounds
+the kernel is the operations of the lookups, steps and probes the rays
+take (see the source note; :func:`raycast_plain` counts the probes of
+every lookup and those under the kernel's block cache).
 """
 
 from __future__ import annotations
@@ -32,11 +37,18 @@ launches = 0
 #: the block hash's multiplicative constants (int32) and key-field bias,
 #: the JAX package's (``la3dm_tpu/models/raycast.py:92-97``)
 HC1, HC2, KB = -1640531527, -862048943, 524288
-#: operations per state lookup and step, probes apart (voxel centre, block
-#: coordinate, key split, hash, local index, the state's compare; the step:
-#: argmin, t, index, t_max, the range test), and per probe (its position,
-#: the hi, lo and empty compares): the counts the bound uses
-OPS_PER_LOOKUP, OPS_PER_PROBE = 55, 5
+#: the operations the bound counts.  Per axis of a voxel: its centre (a
+#: product), block coordinate (division, add, floor) and local index
+#: (product, difference, division, add, truncation, clip); per lookup and
+#: step, axes apart: the voxel's flat index (2 products, 2 adds), the
+#: state's compare, the argmin (2 compares), t, the index, t_max, the range
+#: test and the step count; the key split and hash of a block (3 biases, 6
+#: shifts, ands and ors, 2 products, the xor and the mask); a probe (its
+#: position, the hi, lo and empty compares)
+OPS_PER_AXIS, OPS_PER_STEP, OPS_PER_HASH, OPS_PER_PROBE = 10, 12, 13, 5
+#: a lookup's operations, probes apart, where every lookup computes all
+#: three axes and hashes its block (the JAX step's walk)
+OPS_PER_LOOKUP = 3 * OPS_PER_AXIS + OPS_PER_STEP + OPS_PER_HASH
 
 
 def _check(want: dict) -> torch.device:
@@ -48,12 +60,15 @@ def _check(want: dict) -> torch.device:
 
 
 def raycast(state_tab, tab_hi, tab_lo, tab_slot, origins, d, *, res: float, bs: float,
-            n: int, max_steps: int, target: int, max_range: float, max_probes: int):
+            n: int, max_steps: int, target: int, max_range: float, max_probes: int,
+            counts=None):
     """(hit [N] bool, dist [N] f32, steps [N] int32) of the rays ``origins``
     [N,3] f32 along unit directions ``d`` [N,3] f32 over the state table
     ``state_tab`` [cap+1, V] int8 (raster order; row cap is UNKNOWN) and the
     hash ``tab_hi`` / ``tab_lo`` / ``tab_slot`` [H] int32 (H a power of two,
-    hi == −1 empty, slot == cap absent)."""
+    hi == −1 empty, slot == cap absent).  ``counts`` (an int64 [2] tensor on
+    the card, or None) gets the kernel's lookups that probed and their
+    probes added (the block-cache counts of ``raycast_plain(count_probes=True)``)."""
     if origins.device.type == "cpu":
         return raycast_plain(state_tab, tab_hi, tab_lo, tab_slot, origins, d, res=res, bs=bs,
                              n=n, max_steps=max_steps, target=target, max_range=max_range,
@@ -61,25 +76,31 @@ def raycast(state_tab, tab_hi, tab_lo, tab_slot, origins, d, *, res: float, bs: 
     if origins.device.type != "cuda":
         raise ValueError(f"raycast: unsupported device {origins.device}")
     global launches
-    dev = _check({"origins": (origins, torch.float32), "d": (d, torch.float32),
-                  "state_tab": (state_tab, torch.int8), "tab_hi": (tab_hi, torch.int32),
-                  "tab_lo": (tab_lo, torch.int32), "tab_slot": (tab_slot, torch.int32)})
+    want = {"origins": (origins, torch.float32), "d": (d, torch.float32),
+            "state_tab": (state_tab, torch.int8), "tab_hi": (tab_hi, torch.int32),
+            "tab_lo": (tab_lo, torch.int32), "tab_slot": (tab_slot, torch.int32)}
+    if counts is not None:
+        want["counts"] = (counts, torch.int64)
+    dev = _check(want)
     N, H = origins.shape[0], tab_hi.shape[0]
     if (origins.shape[1:] != (3,) or d.shape != origins.shape or state_tab.dim() != 2
             or state_tab.shape[1] != n ** 3 or tab_lo.shape != (H,)
-            or tab_slot.shape != (H,) or H & (H - 1)):
+            or tab_slot.shape != (H,) or H & (H - 1)
+            or (counts is not None and counts.shape != (2,))):
         raise ValueError("raycast: inconsistent shapes")
     hit = torch.empty(N, dtype=torch.bool, device=dev)
     dist = torch.empty(N, dtype=torch.float32, device=dev)
     steps = torch.empty(N, dtype=torch.int32, device=dev)
     if N == 0:
         return hit, dist, steps
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    nxt = torch.zeros(1, dtype=torch.int64, device=dev)
     code = _build.lib().la3dm_raycast(
         state_tab.data_ptr(), tab_hi.data_ptr(), tab_lo.data_ptr(), tab_slot.data_ptr(),
         origins.data_ptr(), d.data_ptr(), N, state_tab.shape[0] - 1, H, n, int(max_steps),
-        int(target), int(max_probes), _f32(res), _f32(bs), _f32(max_range),
-        hit.data_ptr(), dist.data_ptr(), steps.data_ptr(), stream)
+        int(target), int(max_probes), _f32(res), _f32(bs), _f32(max_range), nxt.data_ptr(),
+        counts.data_ptr() if counts is not None else None,
+        hit.data_ptr(), dist.data_ptr(), steps.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(code, "raycast")
     launches += 1
     return hit, dist, steps
@@ -89,13 +110,15 @@ def _f32(x: float) -> float:
     return float(np.float32(x))
 
 
-def state_plain(state_tab, tab_hi, tab_lo, tab_slot, idx, *, res, bs, n: int,
-                max_probes: int):
-    """(state [M] int8, probes [M] int64) of the voxels ``idx`` [M,3] int32
-    (global base-resolution indices) as K6 reads them: the state, and the
-    hash probes the lookup takes (to a match or an empty entry, at most
-    ``max_probes``).  ``res`` and ``bs`` are 0-d tensors of the computing
-    dtype (f32, or f64 for a control)."""
+def lookup_plain(state_tab, tab_hi, tab_lo, tab_slot, idx, *, res, bs, n: int,
+                 max_probes: int):
+    """(state [M] int8, probes [M] int64, blk [M,3] int32, slot [M] int32)
+    of the voxels ``idx`` [M,3] int32 (global base-resolution indices) as K6
+    looks them up: the block coordinate floor(idx·res/bs + 1/2), its pool
+    slot (cap where absent) after the hash probes it takes (to a match or an
+    empty entry, at most ``max_probes``), and the voxel's state.  ``res``
+    and ``bs`` are 0-d tensors of the computing dtype (f32, or f64 for a
+    control)."""
     M, dev, ft = idx.shape[0], idx.device, res.dtype
     cap, H = state_tab.shape[0] - 1, tab_hi.shape[0]
     p = idx.to(ft) * res                                            # voxel centre
@@ -120,7 +143,7 @@ def state_plain(state_tab, tab_hi, tab_lo, tab_slot, idx, *, res, bs, n: int,
     v = torch.clamp(((p - ctr) / res + torch.full((), n, dtype=ft, device=dev) / 2.0)
                     .to(torch.int32), 0, n - 1)
     vi = v[:, 0] + v[:, 1] * n + v[:, 2] * n * n
-    return state_tab[torch.clamp_max(slot, cap).long(), vi.long()], probes
+    return state_tab[torch.clamp_max(slot, cap).long(), vi.long()], probes, blk, slot
 
 
 def raycast_plain(state_tab, tab_hi, tab_lo, tab_slot, origins, d, *, res: float, bs: float,
@@ -132,8 +155,11 @@ def raycast_plain(state_tab, tab_hi, tab_lo, tab_slot, origins, d, *, res: float
     found its slot) and then leaves: stopped rays change nothing.  Divisions
     by a constant divide by a tensor (``math.div``'s rule).  It computes in
     the rays' dtype: f32, or f64 (with the constants unrounded) for a
-    control.  With ``count_probes`` it also returns the hash probes each ray
-    took over its lookups ([N] int64), the count of K6's bound."""
+    control.  With ``count_probes=True`` it also returns, per ray ([N]
+    int64 each), the hash probes of all its lookups, and the probes and the
+    number of the lookups that probe under K6's block cache: a ray's first
+    lookup and each lookup whose block differs from the ray's previous
+    lookup's (the counts of K6's bound and of its ``counts``)."""
     N, dev = origins.shape[0], origins.device
     ft = origins.dtype
 
@@ -157,14 +183,24 @@ def raycast_plain(state_tab, tab_hi, tab_lo, tab_slot, origins, d, *, res: float
     dist = torch.full((N,), float("inf"), dtype=ft, device=dev)
     steps = torch.zeros(N, dtype=torch.int32, device=dev)
     probes = torch.zeros(N, dtype=torch.int64, device=dev)
+    probes_b = torch.zeros(N, dtype=torch.int64, device=dev)
+    probed_b = torch.zeros(N, dtype=torch.int64, device=dev)
+    cache = torch.zeros((N, 3), dtype=torch.int32, device=dev)     # the last lookup's block
+    cached = torch.zeros(N, dtype=torch.bool, device=dev)
     active = torch.ones(N, dtype=torch.bool, device=dev)
     mr = c(max_range)
     for it in range(max_steps):
         if it % 8 == 7 and not bool(active.any()):
             break
-        state, taken = state_plain(state_tab, tab_hi, tab_lo, tab_slot, idx, res=resf,
-                                   bs=bsf, n=n, max_probes=max_probes)
-        probes += torch.where(active, taken, 0)
+        state, taken, blk, _ = lookup_plain(state_tab, tab_hi, tab_lo, tab_slot, idx,
+                                            res=resf, bs=bsf, n=n, max_probes=max_probes)
+        if count_probes:
+            probes += torch.where(active, taken, 0)
+            new = active & (~cached | (blk != cache).any(1))
+            probes_b += torch.where(new, taken, 0)
+            probed_b += new
+            cache = torch.where(new[:, None], blk, cache)
+            cached = cached | new
         found = active & (state == target)
         hit = hit | found
         dist = torch.where(found, t, dist)
@@ -178,4 +214,6 @@ def raycast_plain(state_tab, tab_hi, tab_lo, tab_slot, origins, d, *, res: float
         t_max = torch.where(active[:, None], t_max + adv, t_max)
         steps = torch.where(active, steps + 1, steps)
         active = active & (t <= mr)
-    return (hit, dist, steps, probes) if count_probes else (hit, dist, steps)
+    if count_probes:
+        return hit, dist, steps, probes, probes_b, probed_b
+    return hit, dist, steps

@@ -23,7 +23,8 @@ from torch_cases import (BETA_TEMPLATES, GP_BCM, GP_STATE,  # tests/ on sys.path
                          GP_STATICS, GP_TEMPLATES, INGEST, LV_ROWS_STATICS, LV_STATE,
                          aligned_heavy_inputs, collapsible_raster_pool, gp_heavy_inputs,
                          gp_light_inputs, heavy_inputs, ingest_scene, light_inputs,
-                         lv_prune_inputs, lv_rows_inputs, ray_inputs, raycast_inputs)
+                         lv_prune_inputs, lv_rows_inputs, ray_inputs, raycast_chain_inputs,
+                         raycast_inputs)
 
 
 @pytest.fixture
@@ -333,6 +334,68 @@ def test_bgk_heavy_segment_kernel_equals_plain_at_depth(cuda_dev, depth, res, el
                                     a["row_count"], a["centers"], a["all_nodes"], ell=ell)
     assert counts[0] == counts[1] == int(cull.sum()) > 0
     assert (ref[..., G:] > 0).sum() > 1000
+
+
+def _k1_launch_and_check(a, kw):
+    """K1 twice with its cull counter, against its plain version: bit for
+    bit, both launches; each count that of ``bgk_heavy_cull``.  Returns
+    (plain acc, culled pairs)."""
+    before = bgk_heavy.launches
+    accs, counts = [], []
+    for _ in range(2):
+        culled = torch.zeros(1, dtype=torch.int64, device=a["entries"].device)
+        accs.append(bgk_heavy.bgk_heavy(**a, **kw, culled=culled))
+        counts.append(int(culled))
+    assert bgk_heavy.launches == before + 2
+    ref = bgk_heavy.bgk_heavy_plain(**a, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(accs[0], ref) and torch.equal(accs[1], ref)
+    cull = bgk_heavy.bgk_heavy_cull(a["entries"], a["ids"], a["row_block"], a["row_start"],
+                                    a["row_count"], a["centers"], a["all_nodes"],
+                                    ell=kw["ell"])
+    assert counts[0] == counts[1] == int(cull.sum())
+    return ref, counts[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [7, 27])
+@pytest.mark.parametrize("depth,res,ell", [(3, 0.1, 0.2), (5, 0.2, 0.6)])
+def test_bgk_heavy_point_kernel_equals_plain_at_depth(cuda_dev, depth, res, ell, G):
+    """K1's point branch (BGK) at block_depth 3 (73 nodes) and 5 (4681): bit
+    for bit its plain version, twice; the warps' cull count that of
+    bgk_heavy_cull."""
+    a = heavy_inputs(39, G=G, n_blocks=6 if depth == 5 else 40, dev=cuda_dev, depth=depth,
+                     res=res)
+    ref, culled = _k1_launch_and_check(a, dict(G=G, sf2=1.0, ell=ell))
+    assert (ref[..., G:] > 0).sum() > 1000 and culled > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["rows", "all_culled", "far_30", "far_100", "no_test_block"])
+def test_bgk_heavy_point_kernel_edge_cases(cuda_dev, case):
+    """K1's point branch where its walk turns: rows of 1, 31, 32, 33 and 64
+    entries and a 65-entry block (rows of 64 and 1), a block with no rows, a
+    block whose entries all cull (moved 100 m off), block centres 30 m and
+    100 m from the origin, and Tp = 0; bit for bit its plain version,
+    twice, with its cull count the predicate's."""
+    G, kw = 27, dict(G=27, sf2=1.0, ell=0.2)
+    counts = [1, 31, 32, 33, 64, 0, 65, 100]
+    offset = {"far_30": 30.0, "far_100": 100.0}.get(case, 0.0)
+    a = heavy_inputs(59, G=G, dev=cuda_dev, counts=counts, offset=offset)
+    if case == "no_test_block":
+        acc = bgk_heavy.bgk_heavy(**{**a, "centers": a["centers"][:0].contiguous()}, **kw)
+        assert acc.shape == (0, 73, 2 * G)
+        return
+    if case == "all_culled":
+        # block 7's 100 entries lie 100 m away
+        s7 = sum(counts[:7])
+        a["entries"][s7:s7 + 100] += 100.0
+    ref, culled = _k1_launch_and_check(a, kw)
+    assert (ref[..., G:] > 0).sum() > 100
+    assert int(torch.count_nonzero(ref[5])) == 0               # the block without rows
+    if case == "all_culled":
+        assert int(torch.count_nonzero(ref[7])) == 0
+        assert culled >= 100 * 3                  # every warp (3 a block) skips them all
 
 
 @pytest.mark.cuda
@@ -826,6 +889,48 @@ def test_raycast_kernel_matches_plain(cuda_dev):
     rh, rd, rs = raycast.raycast_plain(*args, **kw)
     torch.cuda.synchronize()
     assert torch.equal(hit, rh) and torch.equal(steps, rs) and torch.equal(dist, rd)
+    assert 0 < int(hit.sum()) < hit.numel()
+
+
+def _k6_check(args, kw):
+    """K6 against its plain version: hit, steps and dist equal, the kernel's
+    (lookups that probed, probes) those of the plain block mode, a repeat
+    launch equal.  Returns the plain (hit, dist, steps)."""
+    counts = torch.zeros(2, dtype=torch.int64, device=args[0].device)
+    out = raycast.raycast(*args, **kw, counts=counts)
+    again = raycast.raycast(*args, **kw)
+    hp, dp, sp, _, probes, probed = raycast.raycast_plain(*args, **kw, count_probes=True)
+    torch.cuda.synchronize()
+    for x in (out, again):
+        assert torch.equal(x[0], hp) and torch.equal(x[1], dp) and torch.equal(x[2], sp)
+    assert counts.tolist() == [int(probed.sum()), int(probes.sum())]
+    return hp, dp, sp
+
+
+@pytest.mark.cuda
+def test_raycast_kernel_edge_rays(cuda_dev):
+    """K6: rays from absent blocks and along each axis; on a column of
+    blocks that is one probe chain of max_probes entries, rays that hit at
+    step 0, rays that never hit and lookups that take max_probes probes
+    (found and not found); one ray."""
+    args, kw = raycast_inputs(47, dev=cuda_dev)
+    hit, _, steps = _k6_check(args, kw)
+    axis = (args[5].abs() < 1e-12).sum(1) == 2
+    assert 0 < int(hit.sum()) < hit.numel() and int(axis.sum()) > 100
+    args, kw = raycast_chain_inputs(dev=cuda_dev)
+    hit, _, steps = _k6_check(args, kw)
+    assert hit.tolist() == [True] * 6 + [False] * 3
+    assert steps[3:6].tolist() == [0, 0, 0] and (steps[6:] > 70).all()
+    one = tuple(x[:1].contiguous() if i >= 4 else x for i, x in enumerate(args))
+    assert _k6_check(one, kw)[0].tolist() == [True]
+
+
+@pytest.mark.cuda
+def test_raycast_kernel_more_rays_than_the_grid(cuda_dev):
+    """600,000 rays: more than one wave of the card's lanes holds, so lanes
+    refill many times; equal to the plain version, counts included."""
+    args, kw = raycast_inputs(48, n_rays=600_000, dev=cuda_dev)
+    hit, _, _ = _k6_check(args, kw)
     assert 0 < int(hit.sum()) < hit.numel()
 
 

@@ -1,4 +1,4 @@
-"""The warp-level culling of K3, of K1's segment branch and of K1′, on the
+"""The warp-level culling of K3, of K1 (both branches) and of K1′, on the
 CPU.
 
 The kernels skip a (warp, entry) pair only where the entry provably adds
@@ -8,10 +8,11 @@ predicates are plain PyTorch functions beside the plain versions
 bgk_heavy_cull``, ``kernels/bgk_aligned_heavy.py::bgk_aligned_heavy_cull``);
 here they are held, on seeded and on hypothesis-made entries (cube faces,
 flat axes, degenerate hits, segments grazing the box, points on the padded
-box faces), to never cull a K3 member pair (``ray_membership``) or a K1 or
-K1′ pair whose plain kernel value is non-zero.  K1′'s sums taken as its
-kernel takes them, the culled pairs skipped, equal its plain version bit for
-bit.  K3's work plan is held to a direct numpy count.
+box faces, K1's points round block centres up to 100 m out), to never cull
+a K3 member pair (``ray_membership``) or a K1 or K1′ pair whose plain kernel
+value is non-zero.  K1's and K1′'s point sums taken as their kernels take
+them, the culled pairs skipped, equal their plain versions bit for bit.
+K3's work plan is held to a direct numpy count.
 """
 
 import numpy as np
@@ -145,8 +146,9 @@ def test_k3_cull_never_skips_a_member_on_cube_faces(case):
 
 
 def _k1_cull_and_nonzero(a, ell, sf2=0.1):
-    """K1's segment cull [R, wpb, W] and, per (row, warp, entry), whether the
-    plain kernel is non-zero at any of the warp's nodes."""
+    """K1's cull [R, wpb, W] and, per (row, warp, entry), whether the
+    plain kernel is non-zero at any of the warp's nodes (segments or
+    points)."""
     ent, ids, rb, rs, rn, ctr, nodes = (a[k] for k in ("entries", "ids", "row_block",
                                                        "row_start", "row_count", "centers",
                                                        "all_nodes"))
@@ -154,7 +156,8 @@ def _k1_cull_and_nonzero(a, ell, sf2=0.1):
     order = bgk_heavy.node_order(nodes.shape[0]).long()
     eid, valid = _rows(ids, rs, rn)
     pts = nodes[order][None] + ctr[rb.long()][:, None, :]                    # [R,Vall,3]
-    K = km.cov_sparse_segment(pts, ent[eid], sf2, ell)                       # [R,Vall,W]
+    cov = km.cov_sparse_segment if ent.shape[1] == 6 else km.cov_sparse
+    K = cov(pts, ent[eid], sf2, ell)                                         # [R,Vall,W]
     K = torch.where(valid[:, None, :], K, 0.0)
     R, Vall = K.shape[:2]
     wpb = (Vall + 31) // 32
@@ -223,6 +226,136 @@ def test_k1_segment_cull_never_skips_a_nonzero_pair_at_the_support(case):
     a, ell = case
     cull, nonzero, _ = _k1_cull_and_nonzero(a, ell)
     assert not (cull & nonzero).any()
+
+
+#: K1 point cases: block_depth → (res, ℓ, test blocks)
+K1_POINT_CASES = {3: (0.1, 0.2, 8), 5: (0.2, 0.6, 3)}
+
+
+@pytest.mark.parametrize("offset", [0.0, 30.0, 100.0])
+@pytest.mark.parametrize("depth,G", [(3, 7), (3, 27), (5, 7), (5, 27)])
+def test_k1_point_cull_never_skips_a_nonzero_pair(depth, G, offset):
+    """K1's point branch culls in world coordinates: block centres near the
+    origin and 30 m and 100 m out (the large maps reach 30 m), at block_depth
+    3 and 5."""
+    res, ell, T = K1_POINT_CASES[depth]
+    a = heavy_inputs(61 + depth + G, G=G, n_blocks=T, depth=depth, res=res, offset=offset)
+    cull, nonzero, valid = _k1_cull_and_nonzero(a, ell, sf2=1.0)
+    assert not (cull & nonzero).any()
+    assert not (cull & ~valid[:, None, :]).any()
+    n_pairs = int(valid.sum()) * cull.shape[1]
+    # it does skip pairs (ℓ is half a block at depth 3), and leaves some
+    assert int(cull.sum()) > 0.2 * n_pairs and int(nonzero.sum()) > 0
+
+
+@st.composite
+def _k1_point_entries(draw):
+    """K1 point entries where its culling decides in the last ulps: on a
+    warp's padded box faces (a few ulps either side) and at about r_c·ℓ
+    from one of its nodes, round a block centre up to 100 m out."""
+    depth = draw(st.sampled_from([3, 5]))
+    res, ell = K1_POINT_CASES[depth][:2]
+    nodes, _ = geo.all_level_nodes(res, depth)
+    bs = res * 2 ** (depth - 1)
+    far = draw(st.sampled_from([0.0, 30.0, 100.0]))
+    ctr = (far + np.array([draw(st.integers(-20, 20)) for _ in range(3)]) * F32(bs)).astype(F32)
+    Vall = len(nodes)
+    wpb = (Vall + 31) // 32
+    w = draw(st.integers(0, wpb - 1))
+    lanes = bgk_heavy.node_order(Vall).long()[32 * w:32 * w + 32]
+    pts = torch.from_numpy(nodes)[lanes] + torch.from_numpy(ctr)             # f32, as K1
+    plo, phi = km.warp_box(pts[None], torch.ones((1, len(lanes)), dtype=torch.bool),
+                           bgk_heavy.cull_reach(ell))
+    plo, phi = plo[0].numpy(), phi[0].numpy()
+    n = draw(st.integers(1, 40))
+    ents = []
+    for _ in range(n):
+        if draw(st.booleans()):                          # on a padded face
+            p = np.array([draw(st.floats(float(plo[i]), float(phi[i]), width=32))
+                          for i in range(3)], F32)
+            ax = draw(st.integers(0, 2))
+            p[ax] = (plo if draw(st.booleans()) else phi)[ax]
+            for _ in range(draw(st.integers(0, 3))):
+                p[ax] = np.nextafter(p[ax], F32(draw(st.sampled_from([-np.inf, np.inf]))))
+        else:                                            # at the support of a node
+            v = pts[draw(st.integers(0, len(lanes) - 1))].numpy()
+            off = np.array([draw(st.floats(-1, 1, width=32)) for _ in range(3)], np.float64)
+            if not np.any(off):
+                off[0] = 1.0
+            off /= np.linalg.norm(off)
+            r = bgk_heavy.R_CULL * ell * (1 + draw(st.integers(-8, 8)) * 2.0 ** -23)
+            p = (v + off * r).astype(F32)
+        ents.append(p)
+    ent = np.stack(ents).astype(F32)
+    rs = np.arange(0, n, W, dtype=np.int32)
+    a = dict(entries=ent, ids=np.arange(n, dtype=np.int32), row_start=rs,
+             row_count=np.minimum(W, n - rs).astype(np.int32),
+             row_block=np.zeros(len(rs), np.int32), centers=ctr[None], all_nodes=nodes)
+    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in a.items()}, ell
+
+
+@settings(max_examples=60, deadline=None, suppress_health_check=[HealthCheck.too_slow])
+@given(_k1_point_entries())
+def test_k1_point_cull_never_skips_a_nonzero_pair_on_the_box_faces(case):
+    a, ell = case
+    cull, nonzero, _ = _k1_cull_and_nonzero(a, ell, sf2=1.0)
+    assert not (cull & nonzero).any()
+
+
+def _k1_skipping(a, G, sf2, ell):
+    """K1's sums as its kernel takes them: each row's surviving entries (the
+    pairs ``bgk_heavy_cull`` keeps) into their slot's row sum in row order,
+    each slot's row sum added to the block's only where the row has a
+    survivor in that slot, the rows of a block in order; the culled entries
+    never added.  Returns acc [T, Vall, 2G]."""
+    ent, lab, ids, gs, rb, rs, rn, ctr, nodes = (
+        a[k] for k in ("entries", "labels", "ids", "gslot", "row_block", "row_start",
+                       "row_count", "centers", "all_nodes"))
+    T, Vall = ctr.shape[0], nodes.shape[0]
+    order = bgk_heavy.node_order(Vall).long()
+    cull = bgk_heavy.bgk_heavy_cull(ent, ids, rb, rs, rn, ctr, nodes, ell=ell)
+    eid, valid = _rows(ids, rs, rn)
+    fidx = torch.clamp_max(rs.long()[:, None] + torch.arange(W), ids.shape[0] - 1)
+    slot = gs[fidx].long()                                                    # [R,W]
+    keep = torch.repeat_interleave(~cull, 32, dim=1)[:, :Vall] & valid[:, None, :]
+    pts = nodes[order][None] + ctr[rb.long()][:, None, :]                    # [R,Vall,3]
+    K = km.cov_sparse(pts, ent[eid], sf2, ell)                               # [R,Vall,W]
+    R = rs.shape[0]
+    rows = torch.arange(R)
+    ry = torch.zeros((R, Vall, G))
+    rk = torch.zeros((R, Vall, G))
+    seen = torch.zeros((R, Vall, G), dtype=torch.bool)
+    for j in range(W):
+        g, m, k = slot[:, j], keep[:, :, j], K[:, :, j]
+        ry[rows, :, g] = torch.where(m, ry[rows, :, g] + k * lab[eid[:, j]][:, None],
+                                     ry[rows, :, g])
+        rk[rows, :, g] = torch.where(m, rk[rows, :, g] + k, rk[rows, :, g])
+        seen[rows, :, g] |= m
+    acc = torch.zeros((T, Vall, 2 * G))
+    for r in range(R):                                   # rows in order, blocks apart
+        t = int(rb[r])
+        s2 = torch.cat([seen[r], seen[r]], -1)
+        acc[t] = torch.where(s2, acc[t] + torch.cat([ry[r], rk[r]], -1), acc[t])
+    out = torch.zeros_like(acc)
+    out[:, order] = acc
+    return out
+
+
+@pytest.mark.parametrize("offset", [0.0, 100.0])
+@pytest.mark.parametrize("depth,G", [(3, 7), (3, 27), (5, 27)])
+def test_k1_point_skipping_the_culled_pairs_is_bit_exact(depth, G, offset):
+    """K1's plain version, and its point sums taken the kernel's way with
+    the culled pairs skipped (never added), are equal bit for bit: a skipped
+    entry adds exactly +0 to its slot's row sum."""
+    res, ell, T = K1_POINT_CASES[depth]
+    a = heavy_inputs(90 + depth + G, G=G, n_blocks=T, depth=depth, res=res, offset=offset)
+    kw = dict(G=G, sf2=1.0, ell=ell)
+    ref = bgk_heavy.bgk_heavy_plain(*(a[k] for k in (
+        "entries", "labels", "ids", "gslot", "row_block", "row_start", "row_count",
+        "centers", "all_nodes")), **kw)
+    got = _k1_skipping(a, G, 1.0, ell)
+    assert torch.equal(got, ref)
+    assert int((ref[..., G:] > 0).sum()) > 100
 
 
 @pytest.mark.parametrize("sf2", [0.1, 1.0])

@@ -99,13 +99,13 @@ def test_kernel_library_binds_every_entry_point():
             return fn
 
     lib = _build._bind(Lib())
-    n_args = {"la3dm_bgk_heavy": 16, "la3dm_bgk_heavy_seg": 19,
-              "la3dm_sparse_kernel_scan": 5, "la3dm_bgk_light": 23, "la3dm_lv_rows": 31,
-              "la3dm_lv_prune": 18, "la3dm_gp_heavy": 35, "la3dm_gp_light": 27,
+    n_args = {"la3dm_bgk_heavy": 20, "la3dm_sparse_kernel_scan": 5, "la3dm_bgk_light": 23,
+              "la3dm_lv_rows": 31, "la3dm_lv_prune": 18, "la3dm_gp_heavy": 35,
+              "la3dm_gp_light": 27,
               "la3dm_ingest_points": 9, "la3dm_ingest_beams": 13,
               "la3dm_ingest_downsample": 10, "la3dm_ingest_members": 9,
               "la3dm_bgk_aligned_heavy": 18, "la3dm_ingest_rays": 21,
-              "la3dm_raycast": 20}
+              "la3dm_raycast": 22}
     for name, n in n_args.items():
         fn = getattr(lib, name)
         assert fn.restype is ctypes.c_int and len(fn.argtypes) == n, name

@@ -21,6 +21,7 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from la3dm_tpu.models import bgk as jbgk, bgklv as jbgklv, raycast as jrc
@@ -32,7 +33,8 @@ from la3dm_tpu_torch.utils.config import MapConfig
 
 from tests.test_bgk_vs_oracle import CFG, synthetic_scan
 from tests.test_families_vs_oracle import LV_CFG
-from torch_cases import one_torch_thread, raycast_inputs  # noqa: F401  (autouse fixture)
+from torch_cases import (one_torch_thread, raycast_chain_inputs,  # noqa: F401  (autouse
+                         raycast_inputs)                          # fixture)
 
 
 def _carry(jm, cls, tmp_path):
@@ -179,7 +181,7 @@ def test_raycast_plain_counts_the_probes_each_lookup_takes():
     ``max_probes`` — walked here in numpy over the ray's f32 path.  The
     count K6's bound uses."""
     args, kw = raycast_inputs(9, n_rays=200)
-    hit, dist, steps, probes = k6.raycast_plain(*args, **kw, count_probes=True)
+    hit, dist, steps, probes, _, _ = k6.raycast_plain(*args, **kw, count_probes=True)
     for x, y in zip((hit, dist, steps), k6.raycast_plain(*args, **kw)):
         assert torch.equal(x, y)
     _, hi, lo, _, o, d = (x.numpy() for x in args)
@@ -198,6 +200,98 @@ def test_raycast_plain_counts_the_probes_each_lookup_takes():
                     break
             count += j + 1
         assert int(probes[i]) == count, i
+
+
+def _paths(o, d, res, L):
+    """The voxels [N, L+1, 3] of N rays' first L steps, in f32 as K6 steps
+    (:func:`_path` for every ray at once)."""
+    r = np.float32(res)
+    idx = np.floor(o / r + np.float32(0.5)).astype(np.int32)
+    step = np.where(d > 0, 1, -1).astype(np.int32)
+    tiny = np.abs(d) < np.float32(1e-12)
+    safe = np.where(tiny, np.float32(1e-12), d).astype(np.float32)
+    bound = (idx + (step > 0)).astype(np.float32) * r - r / np.float32(2)
+    with np.errstate(divide="ignore"):
+        t_max = np.where(tiny, np.float32(np.inf), (bound - o) / safe).astype(np.float32)
+    t_delta = np.abs(r / safe).astype(np.float32)
+    rows = np.arange(len(o))
+    out = [idx.copy()]
+    for _ in range(L):
+        ax = np.argmin(t_max, axis=1)
+        idx[rows, ax] += step[rows, ax]
+        t_max[rows, ax] = t_max[rows, ax] + t_delta[rows, ax]
+        out.append(idx.copy())
+    return np.stack(out, 1)
+
+
+def _cache_walk(args, kw, invalidate=True):
+    """Every ray's lookups in order (its steps, and one more where it hit),
+    looked up directly (``lookup_plain``) and through K6's block cache: the
+    hash probed at the ray's first lookup and wherever the block differs
+    from the previous lookup's (``invalidate`` False: a broken cache that
+    keeps the first block's slot).  Returns (valid [N, L], the direct slot,
+    the cached slot, probes, the lookups that probe [N, L] each) and the
+    plain version's block-mode (probes, probed) per ray."""
+    state, hi, lo, sl, o, d = args
+    hit, _, steps, _, probes_b, probed_b = k6.raycast_plain(*args, **kw, count_probes=True)
+    for x, y in zip((hit, steps), k6.raycast_plain(*args, **kw)[::2]):
+        assert torch.equal(x, y)
+    n = (steps + hit).numpy()
+    L = int(n.max())
+    path = _paths(o.numpy(), d.numpy(), kw["res"], L - 1)                  # [N,L,3]
+    valid = np.arange(L)[None] < n[:, None]
+    _, probes, blk, slot = k6.lookup_plain(
+        state, hi, lo, sl, torch.from_numpy(path.reshape(-1, 3)),
+        res=torch.tensor(np.float32(kw["res"])), bs=torch.tensor(np.float32(kw["bs"])),
+        n=kw["n"], max_probes=kw["max_probes"])
+    N = len(n)
+    blk, slot, probes = blk.numpy().reshape(N, L, 3), slot.numpy().reshape(N, L), \
+        probes.numpy().reshape(N, L)
+    new = np.zeros((N, L), bool)
+    new[:, 0] = True
+    if invalidate:
+        new[:, 1:] = (blk[:, 1:] != blk[:, :-1]).any(-1)
+    last = np.maximum.accumulate(np.where(new, np.arange(L)[None], 0), axis=1)
+    cached = np.take_along_axis(slot, last, axis=1)
+    return (valid, slot, cached, probes, new), (probes_b.numpy(), probed_b.numpy())
+
+
+def _wall_snapshot_case(tmp_path):
+    m = _carry(_wall_map(), bgk.BGKOctoMap, tmp_path)
+    s = rc.raycast_snapshot(m)
+    o, d = _rays(3, 400)
+    d = (d / np.linalg.norm(d.astype(np.float64), axis=1, keepdims=True)).astype(np.float32)
+    args = (s.state_tab, s.tab_hi, s.tab_lo, s.tab_slot, torch.from_numpy(o),
+            torch.from_numpy(d))
+    kw = dict(res=s.res, bs=s.bs, n=s.n, max_steps=int(np.ceil(5.0 / s.res) * 3 + 8),
+              target=posterior.OCCUPIED, max_range=5.0, max_probes=s.max_probes)
+    return args, kw
+
+
+def _k6_case(case, tmp_path):
+    if case == "synthetic":
+        return raycast_inputs(12, n_rays=600)
+    if case == "chain":
+        return raycast_chain_inputs()
+    return _wall_snapshot_case(tmp_path)
+
+
+@pytest.mark.parametrize("case", ["synthetic", "chain", "wall_map"])
+def test_k6_block_cache_finds_each_lookups_slot(case, tmp_path):
+    """K6's block cache: along every ray, the slot found once per block (at
+    the ray's first lookup and at each block change) equals the direct
+    lookup's slot at every step; the plain block-mode count equals a direct
+    count of those lookups and their probes.  A control that never
+    refreshes the cache after the first block reads a wrong slot."""
+    args, kw = _k6_case(case, tmp_path)
+    (valid, slot, cached, probes, new), (probes_b, probed_b) = _cache_walk(args, kw)
+    assert (cached == slot)[valid].all()
+    np.testing.assert_array_equal(probed_b, (new & valid).sum(1))
+    np.testing.assert_array_equal(probes_b, np.where(new & valid, probes, 0).sum(1))
+    # the cache saves probes: most lookups stay in the block of the last one
+    assert (new & valid).sum() < 0.5 * valid.sum()
+    (valid, slot, cached, _, _), _ = _cache_walk(args, kw, invalidate=False)
+    assert (cached != slot)[valid].any()
 
 
 # ------------------------------------------------ tables

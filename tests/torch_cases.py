@@ -37,16 +37,20 @@ def segments_near(rng, starts):
 
 
 def heavy_inputs(seed, G=7, n_blocks=5, ell=0.2, dev="cpu", segments=False, depth=3,
-                 res=0.1):
+                 res=0.1, counts=None, offset=0.0):
     """A small dispatch: entries round each test block (points, or segments
     [N,6] from :func:`segments_near`) within one block size of its centre,
     ragged rows of ≤ 64 merged entries per block, row_block non-decreasing;
-    the all-level nodes of a block of ``depth`` at ``res``."""
+    the all-level nodes of a block of ``depth`` at ``res``.  ``counts``
+    gives each block's entries (else 0..149 at random), ``offset`` moves
+    every block centre (and its entries) that far along each axis."""
     rng = np.random.default_rng(seed)
     nodes, _ = geo.all_level_nodes(res, depth)
     bs = res * 2 ** (depth - 1)
-    centers = rng.uniform(-1, 1, (n_blocks, 3)).astype(np.float32)
-    per_block = rng.integers(0, 150, n_blocks)
+    if counts is not None:
+        n_blocks = len(counts)
+    centers = (rng.uniform(-1, 1, (n_blocks, 3)) + offset).astype(np.float32)
+    per_block = rng.integers(0, 150, n_blocks) if counts is None else counts
     ent, lab, ids, gs, rb, rs, rn = [], [], [], [], [], [], []
     for b, cnt in enumerate(per_block):
         base = sum(len(e) for e in ent)
@@ -454,6 +458,45 @@ def raycast_inputs(seed, n_rays=3000, depth=3, res=0.1, dev="cpu"):
     d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
     t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)  # noqa: E731
     args = (t(state), t(hi), t(lo), t(sl), t(origins), t(d))
+    kw = dict(res=res, bs=bs, n=n, max_steps=int(np.ceil(8.0 / res) * 3 + 8), target=1,
+              max_range=8.0, max_probes=max(4, 1 << int(np.ceil(np.log2(maxp)))))
+    return args, kw
+
+
+def raycast_chain_inputs(dev="cpu", res=0.1, depth=3, n_blocks=16):
+    """K6's arguments over a column of ``n_blocks`` blocks along +y from the
+    origin: the block hash leaves y out of the probe start below 2^20
+    entries, so the column is one probe chain of ``n_blocks`` = max_probes
+    entries (the last block's lookup takes max_probes probes; the absent
+    block after it, at the same start, takes max_probes probes and finds
+    nothing).  Every voxel FREE but those of the last block (OCCUPIED).
+    Rays: from below the column along +y (hit in the last block), from
+    inside the last block (hit at step 0), from past the column along +y
+    (never hit), each with a slight tilt and straight along the axis.
+    Returns (args, kw) for ``kernels.raycast.raycast``."""
+    from la3dm_tpu_torch.models import raycast as rc
+
+    n = 2 ** (depth - 1)
+    bs, V = res * n, n ** 3
+    coords = np.stack([np.zeros(n_blocks), np.arange(n_blocks), np.zeros(n_blocks)],
+                      1).astype(np.int64)
+    cap = n_blocks + 3
+    slots = np.random.default_rng(0).permutation(cap)[:n_blocks].astype(np.int32)
+    state = np.zeros((cap + 1, V), np.int8)
+    state[slots[-1]] = 1
+    state[cap] = 2
+    hi, lo, sl, H, maxp = rc._build_block_hash(coords, slots, cap)
+    assert maxp == n_blocks
+    ys = [-bs, (n_blocks - 1) * bs, (n_blocks + 1) * bs]
+    o, d = [], []
+    for y in ys:
+        for tilt in (0.0, 0.01, -0.02):
+            o.append([0.01, y + 0.013, -0.02])
+            d.append([tilt, 1.0, 0.5 * tilt])
+    d = np.array(d, np.float64)
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)  # noqa: E731
+    args = (t(state), t(hi), t(lo), t(sl), t(np.array(o, np.float32)), t(d))
     kw = dict(res=res, bs=bs, n=n, max_steps=int(np.ceil(8.0 / res) * 3 + 8), target=1,
               max_range=8.0, max_probes=max(4, 1 << int(np.ceil(np.log2(maxp)))))
     return args, kw

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""K3 (the BGKLV tile row engine), K1's segment branch (the BGKL heavy pass)
-and K1′ (the device-ingest heavy pass, both branches) of two checkouts on
-the same captured dispatches, in one call.
+"""K3 (the BGKLV tile row engine), K1 (the BGK and BGKL heavy pass, both
+branches), K1′ (the device-ingest heavy pass, both branches) and K6 (the
+raycast DDA) of two checkouts on the same captured inputs, in one call.
 
 Run from the repository root on a machine with one CUDA card, with the
 other checkout unpacked into a directory that .gitignore lists:
@@ -9,19 +9,23 @@ other checkout unpacked into a directory that .gitignore lists:
     git archive <parent> | tar -x -C .archive/parent
     python3 tools/seg_kernels_ab.py .archive/parent
 
-This checkout captures seven dispatches from chip_smoke.py's synthetic
-scans: K3 on a 12-scan BGKLV demo dispatch and on one BGKLV large-map scan
+This checkout captures eleven inputs from chip_smoke.py's synthetic scans:
+K3 on a 12-scan BGKLV demo dispatch and on one BGKLV large-map scan
 (block_depth 6), K1 on a 16-scan BGKL demo dispatch and on a 12-scan BGKL
-large-map dispatch (block_depth 5), K1′ on the device-ingest dispatches of
-16 BGK demo scans (points), 16 BGKL demo scans and 12 BGKL large-map scans
-(segments).  Then each checkout, in the order other, this, this, other,
-runs in a process of its own (importing its own ``la3dm_tpu_torch`` and
-building its own kernels): it times each kernel (chip_smoke.py's
-``launch_ms``: device time of launches queued behind a spin), hashes its
-outputs (K3: A, B and touched; K1 and K1′: the accumulator), and runs
+large-map dispatch (block_depth 5, segments) and on a 16-scan BGK demo
+host-ingest dispatch (points), K1′ on the device-ingest dispatches of 16
+BGK demo scans (points), 16 BGKL demo scans and 12 BGKL large-map scans
+(segments), and K6 on chip_smoke.py's three raycast queries (1,000,000 rays
+into the 60-scan BGK demo map, 100,000 into the BGKL and BGKLV maps).  Then
+each checkout, in the order other, this, this, other, runs in a process of
+its own (importing its own ``la3dm_tpu_torch`` and building its own
+kernels): it times each kernel (chip_smoke.py's ``launch_ms``: device time
+of launches queued behind a spin), hashes its outputs (K3: A, B and
+touched; K1 and K1′: the accumulator; K6: hit, dist and steps), and runs
 ``pipeline.run_static`` for BGKLV (60 demo scans, 12 large-map scans), the
 BGKL large map (12 scans, host and device ingest) and the BGK demo (60
-scans, device ingest).  The last lines compare: times of both, and whether
+scans, device and host ingest), then times ``raycast_device`` over the
+1,000,000 rays on its own 60-scan BGK demo map.  The last lines compare: times of both, and whether
 each output is bit-equal across the checkouts.
 """
 
@@ -36,10 +40,11 @@ import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-DISPATCHES = ("k3_demo", "k3_large", "k1_demo", "k1_large", "k1p_bgk_demo", "k1p_demo",
-              "k1p_large")
-REPS = {"k3_demo": 5, "k3_large": 5, "k1_demo": 5, "k1_large": 3, "k1p_bgk_demo": 5,
-        "k1p_demo": 5, "k1p_large": 3}
+DISPATCHES = ("k3_demo", "k3_large", "k1_demo", "k1_large", "k1_bgk_demo", "k1p_bgk_demo",
+              "k1p_demo", "k1p_large", "k6_bgk", "k6_bgkl", "k6_bgklv")
+REPS = {"k3_demo": 5, "k3_large": 5, "k1_demo": 5, "k1_large": 3, "k1_bgk_demo": 5,
+        "k1p_bgk_demo": 5, "k1p_demo": 5, "k1p_large": 3, "k6_bgk": 5, "k6_bgkl": 5,
+        "k6_bgklv": 5}
 
 
 def _digest(*ts) -> str:
@@ -50,12 +55,15 @@ def _digest(*ts) -> str:
 
 
 def capture(out_dir: str) -> None:
-    """Capture the four dispatches with this checkout and write the PCDs."""
+    """Capture the inputs with this checkout and write the PCDs."""
+    import numpy as np
     import torch
 
     sys.path.insert(0, ROOT)
     import chip_smoke as cs
-    from la3dm_tpu_torch.utils.config import load_method_config
+    from la3dm_tpu_torch import pipeline
+    from la3dm_tpu_torch.models import posterior, raycast as rc
+    from la3dm_tpu_torch.utils.config import DatasetConfig, load_method_config
 
     scans = cs.synthetic_scans(60)
     cs.write_pcds(scans, out_dir)
@@ -63,9 +71,11 @@ def capture(out_dir: str) -> None:
     cfg_lv_large = load_method_config("bgklvoctomap_large_map", max_range=cs.MAX_RANGE)
     cfg_l = load_method_config("bgkl", max_range=cs.MAX_RANGE, device_ingest="off")
     cfg_ll = load_method_config("bgkloctomap_large_map", device_ingest="off")
+    cfg_b = load_method_config("bgk", max_range=cs.MAX_RANGE, device_ingest="off")
     caps = {"k3_demo": cs.capture_lv(cfg_lv, scans[:12])._last_step_call,
             "k3_large": cs.capture_lv(cfg_lv_large, scans[:4])._last_step_call}
-    for name, cfg, n in (("k1_demo", cfg_l, 16), ("k1_large", cfg_ll, 12)):
+    for name, cfg, n in (("k1_demo", cfg_l, 16), ("k1_large", cfg_ll, 12),
+                         ("k1_bgk_demo", cfg_b, 16)):
         args, statics = cs.capture_dispatch(cfg, scans[:n], "cuda")
         (_, _, _, _, all_nodes, _, ent, lab, ids, gs, rb, rs, rn, _, ctr, _, _) = args
         kw = dict(G=statics["G"], sf2=statics["sf2"], ell=statics["ell"])
@@ -75,6 +85,26 @@ def capture(out_dir: str) -> None:
                          ("k1p_demo", load_method_config("bgkl", max_range=cs.MAX_RANGE), 16),
                          ("k1p_large", load_method_config("bgkloctomap_large_map"), 12)):
         (args, kw, _), = cs.record_ingest(cfg, scans[:n])["bgk_aligned_heavy"]
+        caps[name] = (args, kw)
+    # K6: chip_smoke.py's three queries (its maps, rays and arguments)
+    ds60 = DatasetConfig(name="synth", dir=out_dir, prefix="synth", scan_num=60,
+                         max_range=cs.MAX_RANGE)
+    for name, method, n, seed in (("k6_bgk", "bgk", cs.RAYS_MAIN, 1),
+                                  ("k6_bgkl", "bgkl", cs.RAYS_OTHER, 2),
+                                  ("k6_bgklv", "bgklv", cs.RAYS_OTHER, 3)):
+        snap = rc.raycast_snapshot(pipeline.run_static(
+            load_method_config(method, max_range=cs.MAX_RANGE), ds60).map)
+        o, d = cs.ray_set(scans, n, seed)
+        if name == "k6_bgk":
+            np.save(os.path.join(out_dir, "rays_o.npy"), o)
+            np.save(os.path.join(out_dir, "rays_d.npy"), d)
+        dn = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+        args = (snap.state_tab, snap.tab_hi, snap.tab_lo, snap.tab_slot,
+                torch.as_tensor(o), torch.as_tensor(dn))
+        kw = dict(res=snap.res, bs=snap.bs, n=snap.n,
+                  max_steps=int(np.ceil(cs.MAX_RANGE / snap.res) * 3 + 8),
+                  target=posterior.OCCUPIED, max_range=cs.MAX_RANGE,
+                  max_probes=snap.max_probes)
         caps[name] = (args, kw)
     for name, (args, kw) in caps.items():
         torch.save(([a.cpu() for a in args], kw), os.path.join(out_dir, f"{name}.pt"))
@@ -86,9 +116,12 @@ def worker(tree: str, data_dir: str) -> dict:
     sys.path.insert(0, os.path.abspath(tree))
     import torch
 
+    import numpy as np
+
     import chip_smoke as cs  # the checkout's own (its launch_ms)
     from la3dm_tpu_torch import pipeline
-    from la3dm_tpu_torch.kernels import _build, bgk_aligned_heavy, bgk_heavy, lv_rows
+    from la3dm_tpu_torch.kernels import _build, bgk_aligned_heavy, bgk_heavy, lv_rows, raycast
+    from la3dm_tpu_torch.models import raycast as rc
     from la3dm_tpu_torch.utils.config import DatasetConfig, load_method_config
 
     assert os.path.dirname(lv_rows.__file__).startswith(os.path.abspath(tree))
@@ -112,6 +145,10 @@ def worker(tree: str, data_dir: str) -> dict:
             again = pool()
             lv_rows.lv_rows(*again, *rest, **kw)
             repeat = all(torch.equal(x, y) for x, y in zip(k, again))
+        elif name.startswith("k6"):
+            digest = _digest(*raycast.raycast(*args, **kw))
+            ms = cs.launch_ms([lambda _: raycast.raycast(*args, **kw)], REPS[name])
+            repeat = _digest(*raycast.raycast(*args, **kw)) == digest
         else:
             fn = bgk_aligned_heavy.bgk_aligned_heavy if name.startswith("k1p") \
                 else bgk_heavy.bgk_heavy
@@ -132,12 +169,28 @@ def worker(tree: str, data_dir: str) -> dict:
                                                      device_ingest="off"), 12, 3),
             ("bgkl_large12_device", load_method_config("bgkloctomap_large_map"), 12, 3),
             ("bgk_static60_device", load_method_config("bgk", max_range=cs.MAX_RANGE), 60,
-             3))
+             3),
+            ("bgk_static60_host", load_method_config("bgk", max_range=cs.MAX_RANGE,
+                                                     device_ingest="off"), 60, 3))
     for name, cfg, n, reps in runs:
         ds = DatasetConfig(name="synth", dir=data_dir, prefix="synth", scan_num=n,
                            max_range=cfg.max_range)
         pipeline.run_static(cfg, ds)  # warm-up
         out[name] = [pipeline.run_static(cfg, ds).scans_per_second for _ in range(reps)]
+    # one raycast_device call over the 1,000,000 rays, host clock to its end
+    # (copies included), on this checkout's 60-scan BGK demo map
+    ds = DatasetConfig(name="synth", dir=data_dir, prefix="synth", scan_num=60,
+                       max_range=cs.MAX_RANGE)
+    m = pipeline.run_static(load_method_config("bgk", max_range=cs.MAX_RANGE), ds).map
+    snap = rc.raycast_snapshot(m)
+    o, d = (np.load(os.path.join(data_dir, f"rays_{k}.npy")) for k in "od")
+    out["raycast_device_ms"] = []
+    for _ in range(4):  # the first is a warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc.raycast_device(m, o, d, cs.MAX_RANGE, snapshot=snap)
+        out["raycast_device_ms"].append((time.perf_counter() - t0) * 1e3)
+    out["raycast_device_ms"] = out["raycast_device_ms"][1:]
     out["card"] = torch.cuda.get_device_name(0)
     return out
 
@@ -189,8 +242,9 @@ def main() -> int:
               f"{t1[name]['ms']:.3f}, {t2[name]['ms']:.3f} ms; outputs bit-equal across "
               f"checkouts {same}; repeat launches bit-equal "
               f"{all(r[name]['repeat_equal'] for r in results)}")
-    for name in (k for k, v in o1.items() if isinstance(v, list)):  # the run_static runs
-        print(f"{name} scans/s: other {o1[name]} / {o2[name]}; this {t1[name]} / "
+    for name in (k for k, v in o1.items() if isinstance(v, list)):  # run_static, raycast
+        unit = "ms" if name.endswith("_ms") else "scans/s"
+        print(f"{name} {unit}: other {o1[name]} / {o2[name]}; this {t1[name]} / "
               f"{t2[name]}")
     print(f"card: {smi}")
     return 0
