@@ -42,8 +42,14 @@ then on the device-ingest path, the default of a CUDA map:
    of the raw points; range filter and beam samples of the hit voxels) —
    keys and in-range flags equal, samples equal (the control, the samples
    in f64, must differ); K7b (compensated centroids, hits and frees) —
-   within 2^-23·(|plain| + leaf) (the control, the uncompensated mean, must
-   fail it); K7c (closed-box memberships) — keys equal; K1′ (the aligned
+   bit for bit, and so within 2^-23·(|plain| + leaf) (the control, the
+   uncompensated mean, must fail it); K7c (closed-box memberships) — keys
+   equal; K7s (the stable sort and run cut on compact codes) on each of the
+   dispatch's four sorts — sort index, runs and each row's run bit for bit
+   (the control, a tie swapped in the sort index, must fail), timed beside
+   torch.sort(stable=True) + unique_consecutive on the same keys; K7t (the
+   bucket tail: rows in block order, nb_row, tb_u) — bit for bit, timed
+   beside torch.unique + searchsorted + the gathers; K1′ (the aligned
    heavy pass) — bit for bit, and so within |Δ| ≤ 1e-5 + 1e-5·|plain| (the
    control, the plain version on TF32-rounded coordinates, must fail it);
    its warp work units and culled (warp, entry) pairs printed, its own cull
@@ -51,9 +57,11 @@ then on the device-ingest path, the default of a CUDA map:
    repeat launch bit-equal; its bound on the work the culling leaves, the
    bound on every evaluation beside it;
 9. runs the main path as in 5 with ``BGKOctoMap(cfg)`` on its default,
-   asserting per dispatch two K7a, two K7b, one K7c and one K1′ launches,
-   one K2 per scan, no K1 and no chunk on the host path; counts the host
-   syncs as in 5; profiles the 60-scan run as in 6; compares card and CPU
+   asserting per dispatch two K7a, two K7b, one K7c, four K7s, one K7t and
+   one K1′ launches, one K2 per scan, no K1 and no chunk on the host path;
+   counts the host syncs as in 5 (at most 5 a dispatch required); profiles
+   the 60-scan run as in 6, the device time outside the named kernels
+   ("other") broken down by op; compares card and CPU
    (both ``device_ingest: on``) on 3 scans within 1e-5 + 1e-5·|CPU|, eff and
    touched as in 7.
 
@@ -117,8 +125,8 @@ host-ingest path:
 
 then on the device-ingest path:
 
-19. holds K7a, K7b and K7c against their plain versions on a real 16-scan
-    GP dispatch (81 free samples a beam), as in 8;
+19. holds K7a, K7b, K7c, K7s and K7t against their plain versions on a
+    real 16-scan GP dispatch (81 free samples a beam), as in 8;
 20. runs the main path as in 9 (K4 = the map's size tiers, K5 per scan, no
     failed factorisation), counts the host syncs, profiles, and compares
     card and CPU (both on) as in 18.
@@ -145,10 +153,12 @@ then on device ingest, its default on the card:
 23. holds K7d (the ray pass: occ, ray segments, proxy samples, their block
     keys, the per-ray dedup) against its plain version on a real 16-scan
     dispatch — every output equal and the (ray, block) pair list identical
-    (the control, the samples in f64, must move a membership) — and K1′'s
-    segment branch as in 8, with the gate count of 21;
+    (the control, the samples in f64, must move a membership) —, K7b (the
+    hits), K7s (three sorts) and K7t as in 8, and K1′'s segment branch as
+    in 8, with the gate count of 21;
 24. runs the main path as in 9 (per dispatch one K7a, one K7b, the two
-    launches of K7d, one K7c, one K1′; K2 per scan), counts the host syncs,
+    launches of K7d, one K7c, three K7s, one K7t, one K1′; K2 per scan),
+    counts the host syncs,
     profiles, and compares card and CPU (both on) on 2 scans within
     1e-5 + 1e-5·|CPU| (the control, with K1′ on TF32-rounded coordinates,
     must fail it).
@@ -183,13 +193,15 @@ The large maps, after raycast (the BGK-family ones at their YAML's own
     pool with its blocks made collapsible at every level (raster, Beta
     templates), bit for bit each time, the 16³ groups collapsed counted and
     required; K1′'s segment branch on a captured 12-scan device-ingest
-    dispatch as in 23 (bit for bit, its cull count, both bounds); run_static
+    dispatch as in 23 (bit for bit, its cull count, both bounds) and K7b,
+    K7s and K7t on that dispatch as in 23; run_static
     on 12 scans and
     OnlineIntegrator on 12 on both
     ingest paths with their launch counts; card vs CPU within 1e-5 +
     1e-5·|CPU| on the host path (1 scan) and device ingest (2 scans), each
     failing its TF32 control;
-27. BGK large map (``bgkoctomap_large_map.yaml``, block_depth 3): the same
+27. BGK large map (``bgkoctomap_large_map.yaml``, block_depth 3): K7a, K7b,
+    K7c, K7s and K7t on a 12-scan device-ingest dispatch as in 8; the same
     main paths, card vs CPU within 5e-3 (host, 1 scan) and 1e-5 +
     1e-5·|CPU| (device ingest, 2 scans);
 28. GP at block_depth 5 (``gpoctomap_large_map`` with ``block_depth=5``,
@@ -219,6 +231,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -235,9 +248,9 @@ from la3dm_tpu_torch.geometry import blocks as geo, native  # noqa: E402
 from la3dm_tpu_torch.io.pcd import save_pcd  # noqa: E402
 from la3dm_tpu_torch.kernels import (_build, bgk_aligned_heavy, bgk_heavy,  # noqa: E402
                                      bgk_light, gp_heavy, gp_light, ingest_beams,
-                                     ingest_downsample, ingest_keys, ingest_members,
-                                     ingest_rays, lv_prune, lv_rows, math as km,
-                                     raycast as k6)
+                                     ingest_bucket, ingest_downsample, ingest_keys,
+                                     ingest_members, ingest_rays, ingest_sort, lv_prune,
+                                     lv_rows, math as km, raycast as k6)
 from la3dm_tpu_torch.models import gp as gp_model, posterior, raycast as rc  # noqa: E402
 from la3dm_tpu_torch.models.bgklv import BGKLVOctoMap  # noqa: E402
 from la3dm_tpu_torch.models.gp import GPOctoMap  # noqa: E402
@@ -617,6 +630,8 @@ def light_levels(eff, slots, max_level: int) -> list:
 
 
 def reset_counts() -> None:
+    ingest_sort.launches = ingest_sort.kernel_launches = 0
+    ingest_bucket.launches = 0
     ingest_rays.launches = 0
     k6.launches = 0
     ingest_beams.launches = 0
@@ -697,12 +712,16 @@ def profile_main_path(cfg, pcd_dir: str, kernels: dict, launches: dict) -> dict:
         return res, (time.perf_counter() - t0) * 1e3
 
     prof, (res, wall_ms) = profiled(run, {kernels[k]: n for k, n in launches.items()})
-    dev = {}
+    dev, other = {}, {}
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA:   # kernels and copies on the card
             name = next((k for k, v in kernels.items() if v in e.key),
                         "memcpy_h2d" if "HtoD" in e.key else "other")
             dev[name] = dev.get(name, 0.0) + e.self_device_time_total / 1e3
+            if name == "other":
+                ms, n = other.get(e.key, (0.0, 0))
+                other[e.key] = (ms + e.self_device_time_total / 1e3, n + e.count)
+    other = dict(sorted(other.items(), key=lambda kv: -kv[1][0]))
     busy = sum(dev.values())
     host_ms = res.map.stats["host_s"] * 1e3
     print(f"profile, {cfg.method} run_static 60 scans: wall {wall_ms:.1f} ms (profiled), "
@@ -710,9 +729,12 @@ def profile_main_path(cfg, pcd_dir: str, kernels: dict, launches: dict) -> dict:
           f"(idle {100 - 100 * busy / wall_ms:.2f}%), host main thread "
           f"{host_ms:.1f} ms; device ms by kind "
           + ", ".join(f"{k} {v:.3f}" for k, v in sorted(dev.items())))
+    print("profile, other by op (ms, launches): " + "; ".join(
+        f"{k[:90]} {ms:.3f} ({n})" for k, (ms, n) in list(other.items())[:12]))
     require(all(dev.get(k, 0) > 0 for k in kernels), "the profiler saw no kernel time")
     return {"wall_ms": wall_ms, "device_busy_ms": busy, "host_ms": host_ms,
-            "device_ms": dev}
+            "device_ms": dev,
+            "other_by_op": {k[:120]: {"ms": ms, "launches": n} for k, (ms, n) in other.items()}}
 
 
 def card_vs_cpu(cfg, pcd_dir: str, n_scans: int = 3, tol=(5e-3, 0.0),
@@ -1546,6 +1568,8 @@ INGEST_WRAPPERS = {
     "ingest_downsample": (ingest_downsample, "centroids"),
     "ingest_members": (ingest_members, "memberships"),
     "ingest_rays": (ingest_rays, "ray_pairs"),
+    "ingest_sort": (ingest_sort, "sort_runs"),
+    "ingest_bucket": (ingest_bucket, "bucket"),
     "bgk_aligned_heavy": (bgk_aligned_heavy, "bgk_aligned_heavy"),
 }
 #: f32 relative spacing: K7b's limit is one ulp of the plain centroid
@@ -1593,17 +1617,16 @@ def _timed(fn) -> tuple[object, float]:
 
 
 def check_k7(calls, what: str, reps: int = 5) -> dict:
-    """K7a, K7b and K7c against their plain versions on one dispatch's
-    recorded calls: integer tables (keys, in-range flags) equal; K7a's
-    sample coordinates equal (control: the samples in f64 must differ);
-    K7b's centroids within one ulp, |Δ| ≤ 2^-23·(|plain| + leaf) (control:
-    the uncompensated mean must fail it)."""
+    """K7a, K7b, K7c, K7s and K7t against their plain versions on one
+    dispatch's recorded calls: integer tables (keys, in-range flags) equal;
+    K7a's sample coordinates equal (control: the samples in f64 must
+    differ); K7b as :func:`check_k7b`, K7s as :func:`check_k7s`, K7t as
+    :func:`check_k7t`."""
     SENT = ingest_keys.SENT
     (pa, pkw, pout), = calls["ingest_points"]
     (ba, bkw, bout), = calls["ingest_beams"]
     (ma, mkw, mout), = calls["ingest_members"]
-    ds_calls = calls["ingest_downsample"]
-    require(len(ds_calls) == 2, "K7b did not run twice (hits, frees)")
+    require(len(calls["ingest_downsample"]) == 2, "K7b did not run twice (hits, frees)")
     out = {}
 
     # K7a
@@ -1636,42 +1659,7 @@ def check_k7(calls, what: str, reps: int = 5) -> dict:
     print(f"K7a, {what}: {ms:.4f} ms device time for its 2 launches (plain "
           f"{pplain_ms + bplain_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by})")
 
-    # K7b, the hit and the free downsample
-    err = worst = 0.0
-    bad = bad_ctl = 0
-    plain_ms = 0.0
-    nbyte = 0
-    pts_total = 0
-    for a, kw, cent in ds_calls:
-        ref, t_ms = _timed(lambda a=a, kw=kw: ingest_downsample.centroids_plain(*a, **kw))
-        plain_ms += t_ms
-        pts, perm, starts, counts, run_keys, _ = a
-        lim = F32_EPS * (ref.abs() + kw["leaf"])
-        d = (cent - ref).abs()
-        rid = torch.repeat_interleave(torch.arange(len(counts), device=pts.device), counts)
-        n_in = int(counts.sum())
-        naive = torch.zeros_like(ref).index_add_(0, rid, pts[perm[:n_in]]) \
-            / counts.to(torch.float32)[:, None]
-        dc = (naive - ref).abs()
-        err, worst = max(err, float(d.max())), max(worst, float((d / lim).max()))
-        bad += int((d > lim).sum())
-        bad_ctl += int((dc > lim).sum())
-        pts_total += n_in
-        nbyte += n_in * (12 + 8) + nbytes(starts, counts, run_keys, cent)
-    print(f"K7b, {what}: {[len(c[2]) for c in ds_calls]} voxels (hits, frees) from "
-          f"{pts_total} points; max |kernel - plain| = {err:.3e}, {bad} coordinates "
-          f"outside 2^-23*(|plain| + leaf) (largest ratio {worst:.3f}); control, the "
-          f"uncompensated mean: {bad_ctl} outside")
-    require(bad == 0, f"K7b disagrees with its plain version ({what})")
-    require(bad_ctl > 0, f"the K7b limit passes the uncompensated control ({what})")
-    ms = launch_ms([lambda _, a=a, kw=kw: ingest_downsample.centroids(*a, **kw)
-                    for a, kw, _ in ds_calls], reps)
-    b_ms, b_by = bound(6 * pts_total, nbyte)
-    out["ingest_downsample"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                                "bound_ms": b_ms, "bound_by": b_by,
-                                "outside_control": bad_ctl}
-    print(f"K7b, {what}: {ms:.4f} ms device time for its 2 launches (plain "
-          f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by})")
+    out["ingest_downsample"] = check_k7b(calls, what, reps)
 
     # K7c
     mref, m_plain = _timed(lambda: ingest_members.memberships_plain(*ma, **mkw))
@@ -1687,6 +1675,195 @@ def check_k7(calls, what: str, reps: int = 5) -> dict:
                              "bound_ms": b_ms, "bound_by": b_by}
     print(f"K7c, {what}: {ms:.4f} ms device time (plain {m_plain:.3f} ms, bound "
           f"{b_ms:.4f} ms by {b_by})")
+    out["ingest_sort"] = check_k7s(calls, what, reps)
+    out["ingest_bucket"] = check_k7t(calls, what, out["ingest_sort"], reps)
+    return out
+
+
+def check_k7b(calls, what: str, reps: int = 5) -> dict:
+    """K7b on one dispatch's recorded calls (the hit and the free downsample;
+    BGKL: the hits): bit-equal to its plain version (control: each run
+    summed in reverse order must differ), and so within one ulp, |Δ| ≤
+    2^-23·(|plain| + leaf) (control, where the free samples' runs are: the
+    uncompensated mean must fail that limit); its runs above the warp
+    threshold counted."""
+    ds_calls = calls["ingest_downsample"]
+    err = worst = 0.0
+    bad = bad_ctl = n_rev = 0
+    plain_ms = 0.0
+    nbyte = 0
+    pts_total = longest = warp_runs = 0
+    same = []
+    for a, kw, cent in ds_calls:
+        ref, t_ms = _timed(lambda a=a, kw=kw: ingest_downsample.centroids_plain(*a, **kw))
+        plain_ms += t_ms
+        pts, perm, starts, counts, run_keys, _ = a
+        same.append(bool(torch.equal(cent, ref)))
+        lim = F32_EPS * (ref.abs() + kw["leaf"])
+        d = (cent - ref).abs()
+        rid = torch.repeat_interleave(torch.arange(len(counts), device=pts.device), counts)
+        n_in = int(counts.sum())
+        naive = torch.zeros_like(ref).index_add_(0, rid, pts[perm[:n_in]]) \
+            / counts.to(torch.float32)[:, None]
+        dc = (naive - ref).abs()
+        st, n = starts[rid], counts[rid]
+        rev = perm[2 * st + n - 1 - torch.arange(n_in, device=pts.device)]
+        n_rev += int((ingest_downsample.centroids_plain(pts, rev, *a[2:], **kw) != ref).sum())
+        err, worst = max(err, float(d.max())), max(worst, float((d / lim).max()))
+        bad += int((d > lim).sum())
+        bad_ctl += int((dc > lim).sum())
+        pts_total += n_in
+        longest = max(longest, int(counts.max()))
+        warp_runs += int((counts > ingest_downsample.LONG_RUN).sum())
+        nbyte += n_in * (12 + 8) + nbytes(starts, counts, run_keys, cent)
+    print(f"K7b, {what}: {[len(c[2]) for c in ds_calls]} voxels from {pts_total} points, "
+          f"the longest run {longest} members, {warp_runs} runs above "
+          f"{ingest_downsample.LONG_RUN} taken by a warp; bit-equal to the plain version "
+          f"{same} (control, each run summed in reverse order: {n_rev} coordinates differ), "
+          f"max |kernel - plain| = {err:.3e}, {bad} coordinates outside 2^-23*(|plain| + "
+          f"leaf) (largest ratio {worst:.3f}); control, the uncompensated mean: {bad_ctl} "
+          f"outside")
+    require(bad == 0 and all(same), f"K7b disagrees with its plain version ({what})")
+    require(n_rev > 0, f"the K7b bit-equality passes the reverse-order control ({what})")
+    require(bad_ctl > 0 or len(ds_calls) == 1,
+            f"the K7b limit passes the uncompensated control ({what})")
+    ms = launch_ms([lambda _, a=a, kw=kw: ingest_downsample.centroids(*a, **kw)
+                    for a, kw, _ in ds_calls], reps)
+    b_ms, b_by = bound(6 * pts_total, nbyte)
+    # the other design: K7s carrying the points in sorted order as a payload
+    # of its last pass, K7b reading them contiguously — the same kernel on
+    # the points gathered in sorted order with the identity as sort index
+    # (the same sums, bit for bit), beside the gather that payload adds
+    sorted_calls = []
+    for a, kw, cent in ds_calls:
+        pts, perm = a[0], a[1]
+        seq = torch.arange(perm.shape[0], device=pts.device)
+        sorted_calls.append(((pts[perm], seq, *a[2:]), kw, cent, pts, perm))
+    require(all(torch.equal(ingest_downsample.centroids(*a, **kw), cent)
+                for a, kw, cent, _, _ in sorted_calls),
+            f"K7b on sorted points differs ({what})")
+    ms_sorted = launch_ms([lambda _, a=a, kw=kw: ingest_downsample.centroids(*a, **kw)
+                           for a, kw, _, _, _ in sorted_calls], reps)
+    gather_ms = launch_ms([lambda _, p=p, q=q: p.index_select(0, q)
+                           for _, _, _, p, q in sorted_calls], reps)
+    print(f"K7b, {what}: {ms:.4f} ms device time for its {len(ds_calls)} launch(es) (plain "
+          f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by}); on points in sorted order "
+          f"{ms_sorted:.4f} ms, beside {gather_ms:.4f} ms for the gather that payload adds")
+    return {"max_abs_err": err, "bit_equal": all(same), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "outside_control": bad_ctl,
+            "reverse_order_control_differs": n_rev,
+            "launches_timed": len(ds_calls), "longest_run": longest, "warp_runs": warp_runs,
+            "sorted_points_ms": ms_sorted, "payload_gather_ms": gather_ms}
+
+
+def _library_sort(keys):
+    """PyTorch's stable sort and run cut of ``keys``, the library's K7s."""
+    skey, perm = torch.sort(keys, stable=True)
+    return perm, torch.unique_consecutive(skey, return_counts=True)
+
+
+def check_k7s(calls, what: str, reps: int = 5) -> dict:
+    """K7s on every sort of one dispatch's recorded calls: the sort index,
+    the runs and the rows' runs bit-equal to the plain version on the same
+    card inputs; the control, the kernel's sort index with one tie swapped,
+    must fail that check.  Times per sort: ``ms`` the device time of its
+    launches queued behind a spin (``ingest_sort.launch``, no sync),
+    ``ms_call`` the whole call with its one sync, ``library_ms``
+    torch.sort(stable=True) + unique_consecutive on the same keys (its own
+    sync inside, as ``ms_call``), ``library_sort_ms`` torch.sort alone behind
+    a spin (as ``ms``).  Bound: the keys read once, the sort index, the runs
+    (and the rows' runs) written once."""
+    sorts = []
+    for (keys, window), kw, runs in calls["ingest_sort"]:
+        ref = ingest_sort.sort_runs_plain(keys, window, **kw)
+        same = {n: bool((x is None and y is None) or torch.equal(x, y))
+                for n, x, y in zip(runs._fields, runs, ref)}
+        require(all(same.values()), f"K7s disagrees with its plain version ({what}): {same}")
+        tie = torch.nonzero(ref.counts > 1)
+        ctl_fails = None
+        if len(tie):
+            a = int(ref.starts[int(tie[0])])
+            perm = runs.perm.clone()
+            perm[[a, a + 1]] = perm[[a + 1, a]]
+            ctl_fails = not torch.equal(perm, ref.perm)
+            require(ctl_fails, f"the K7s check passes a swapped tie ({what})")
+        N, V, R = keys.shape[0], runs.perm.shape[0], runs.ukey.shape[0]
+        rid = kw.get("want_rid", False)
+        ms = launch_ms([lambda _, k=keys, w=window, kw=kw: ingest_sort.launch(k, w, **kw)],
+                       reps)
+        ms_call = cuda_ms(lambda _: ingest_sort.sort_runs(keys, window, **kw), reps)
+        lib_ms = cuda_ms(lambda _: _library_sort(keys), reps)
+        lib_sort_ms = launch_ms([lambda _: torch.sort(keys, stable=True)], reps)
+        _, plain_ms = _timed(lambda: ingest_sort.sort_runs_plain(keys, window, **kw))
+        b_ms, b_by = bound(0, 8 * N + 8 * V + 24 * R + (4 * V if rid else 0))
+        bp_ms, _ = bound(0, ingest_sort.passes_bytes(N, V, R, window, rid))
+        rec = {"keys": N, "valid": V, "runs": R, "longest_run": int(ref.counts.max()) if R
+               else 0, "bits": window.bits, "passes": window.passes,
+               "key_bytes": window.key_bytes, "bit_equal": True,
+               "control_fails": ctl_fails, "ms": ms, "ms_call": ms_call, "library_ms": lib_ms,
+               "library_sort_ms": lib_sort_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+               "bound_by": b_by, "bound_ms_passes": bp_ms,
+               "beats_library": ms_call < lib_ms, "beats_torch_sort": ms < lib_sort_ms}
+        sorts.append(rec)
+        print(f"K7s, {what}: {N} keys, {V} valid, {R} runs (longest {rec['longest_run']}), "
+              f"{window.bits}-bit codes in {window.passes} passes of u{8 * window.key_bytes}; "
+              f"bit-equal to the plain version, control (a tie swapped) fails {ctl_fails}; "
+              f"{ms:.4f} ms device time ({ms_call:.4f} ms with its sync; torch.sort + "
+              f"unique_consecutive {lib_ms:.4f} ms with theirs, torch.sort alone {lib_sort_ms:.4f} "
+              f"ms; plain {plain_ms:.3f} ms), bound {b_ms:.4f} ms by {b_by} (the passes' bytes: "
+              f"{bp_ms:.4f} ms)")
+    keys_ = ("ms", "ms_call", "library_ms", "library_sort_ms", "plain_ms", "bound_ms",
+             "bound_ms_passes")
+    out = {k: sum(r[k] for r in sorts) for k in keys_}
+    print(f"K7s, {what}: {len(sorts)} sorts, {out['ms']:.4f} ms device time in all "
+          f"({out['ms_call']:.4f} with their syncs; the library {out['library_ms']:.4f}, "
+          f"torch.sort alone {out['library_sort_ms']:.4f}), bound {out['bound_ms']:.4f} ms; "
+          f"faster than the library on every sort {all(r['beats_library'] for r in sorts)}, "
+          f"than torch.sort alone {all(r['beats_torch_sort'] for r in sorts)}")
+    return {"max_abs_err": 0.0, **out, "bound_by": "bytes", "sorts": sorts,
+            "launches_timed": len(sorts)}
+
+
+def check_k7t(calls, what: str, k7s: dict, reps: int = 5) -> dict:
+    """K7t on one dispatch's recorded call: every output bit-equal to its
+    plain version (gathers, torch.searchsorted) on the same card inputs.
+    ``library_ms``: torch.unique of the candidate keys, both searchsorted
+    and the gathers (what the parent ran after its membership sort), to be
+    read beside K7t's time plus the candidate sort's (``ms_with_candidates``,
+    the last of ``k7s``'s sorts)."""
+    (a, kw, out), = calls["ingest_bucket"]
+    perm, rid, mrow, ent, lab, ukey, tkey, off, anchors = a
+    ref, plain_ms = _timed(lambda: ingest_bucket.bucket_plain(*a, **kw))
+    names = ("ent", "ent_rel", "lab", "nb_row", "tb_u")
+    same = {n: bool(torch.equal(x, y)) for n, x, y in zip(names, out, ref)}
+    require(all(same.values()), f"K7t disagrees with its plain version ({what}): {same}")
+    ms = launch_ms([lambda _: ingest_bucket.bucket(*a, **kw)], reps)
+
+    def library(_):
+        torch.unique((ukey[:, None] + off[None, :]).reshape(-1))
+        ingest_bucket.bucket_plain(*a, **kw)
+
+    lib_ms = cuda_ms(library, reps)
+    M, D, U, T, G = perm.shape[0], ent.shape[1], ukey.shape[0], tkey.shape[0], off.shape[0]
+    nbyte = M * (8 + 4 + 8 + 4 * D + 4) + 8 * (U + T + G) + M * (8 * D + 4) + 8 * G * (U + T)
+    ops = 3 * G * (U * math.ceil(math.log2(T + 1)) + T * math.ceil(math.log2(U + 1)))
+    b_ms, b_by = bound(ops, nbyte)
+    with_cand = ms + k7s["sorts"][-1]["ms"]
+    print(f"K7t, {what}: {M} rows (D {D}), U {U} entry blocks, T {T} test blocks, G {G}; "
+          f"equal to the plain version {same}; {ms:.4f} ms device time ({with_cand:.4f} with "
+          f"the candidate sort; torch.unique + searchsorted + gathers {lib_ms:.4f} ms), plain "
+          f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by}")
+    return {"max_abs_err": 0.0, "bit_equal": True, "ms": ms, "ms_with_candidates": with_cand,
+            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "rows": M, "U": U, "T": T}
+
+
+def check_k7_segments(calls, what: str, reps: int = 5) -> dict:
+    """BGKL's device-ingest dispatch: K7b (the hits), K7s (its three sorts)
+    and K7t, as in :func:`check_k7`."""
+    out = {"ingest_downsample": check_k7b(calls, what, reps),
+           "ingest_sort": check_k7s(calls, what, reps)}
+    out["ingest_bucket"] = check_k7t(calls, what, out["ingest_sort"], reps)
     return out
 
 
@@ -1815,7 +1992,8 @@ def check_k7d(calls, reps: int = 5) -> dict:
 
 
 def ingest_counts() -> dict:
-    return {"ingest_beams": ingest_beams.launches,
+    return {"ingest_sort": ingest_sort.launches, "ingest_bucket": ingest_bucket.launches,
+            "ingest_beams": ingest_beams.launches,
             "ingest_downsample": ingest_downsample.launches,
             "ingest_members": ingest_members.launches, "ingest_rays": ingest_rays.launches,
             "bgk_aligned_heavy": bgk_aligned_heavy.launches, "bgk_heavy": bgk_heavy.launches,
@@ -1843,11 +2021,28 @@ def host_syncs(cfg, scans) -> dict:
     torch.cuda.synchronize()
     sites = {}
     for w in seen:
-        if "synchroniz" in str(w.message):
+        # the sync debug mode's own first warning, that it is a prototype
+        # which "does not yet detect all synchronizing operations", is no sync
+        if "synchroniz" in str(w.message) and "prototype" not in str(w.message):
             parent, name = os.path.split(w.filename)
             site = f"{os.path.basename(parent)}/{name}:{w.lineno}"
             sites[site] = sites.get(site, 0) + 1
     return {"total": sum(sites.values()), "by_line": sites}
+
+
+#: host syncs of one device-ingest dispatch before K7s (PERF.md §5); a
+#: dispatch may not take more
+INGEST_SYNCS = 5
+
+
+def ingest_syncs(cfg, scans, name: str) -> dict:
+    """``host_syncs`` of a device-ingest dispatch, required ≤ INGEST_SYNCS."""
+    got = host_syncs(cfg, scans)
+    print(f"{name} device ingest: host syncs in a {len(scans)}-scan dispatch {got}")
+    require(got["total"] <= INGEST_SYNCS,
+            f"{name} device ingest: {got['total']} host syncs a dispatch, more than "
+            f"{INGEST_SYNCS}")
+    return got
 
 
 def main_path_ingest(cfg, pcd_dir: str, scans, runs=(12, 60)) -> dict:
@@ -1863,7 +2058,8 @@ def main_path_ingest(cfg, pcd_dir: str, scans, runs=(12, 60)) -> dict:
     def expect(m, dispatches, n_scans, what):
         got = ingest_counts()
         per = 1 if seg else 2
-        want = {"ingest_beams": per * dispatches, "ingest_downsample": per * dispatches,
+        want = {"ingest_sort": (3 if seg else 4) * dispatches, "ingest_bucket": dispatches,
+                "ingest_beams": per * dispatches, "ingest_downsample": per * dispatches,
                 "ingest_members": dispatches, "ingest_rays": 2 * dispatches if seg else 0,
                 "bgk_heavy": 0,
                 "bgk_aligned_heavy": 0 if gp else dispatches,
@@ -1896,7 +2092,8 @@ def main_path_ingest(cfg, pcd_dir: str, scans, runs=(12, 60)) -> dict:
                 "non-finite leaves")
         out[f"static{n_scans}"] = {"scans_per_s": res.scans_per_second,
                                    "seconds": res.total_seconds,
-                                   "host_s": m.stats["host_s"], "launches": got}
+                                   "host_s": m.stats["host_s"], "launches": got,
+                                   "ingest_sort_kernels": ingest_sort.kernel_launches}
 
     m = cls(cfg)
     online = pipeline.OnlineIntegrator(m)
@@ -2256,26 +2453,26 @@ def main() -> int:
         # keeps three
         dev = card_vs_cpu(cfg, tmp, n_scans=1)
 
-        stamp("BGK device ingest: K7a, K7b, K7c, K1'")
+        stamp("BGK device ingest: K7a, K7b, K7c, K7s, K7t, K1'")
         calls = record_ingest(cfg_on, scans[:16])
         k7 = check_k7(calls, "16-scan BGK demo dispatch")
         k1p = check_k1p(calls)
         del calls
         stamp("BGK device ingest: main path, host syncs, profile, card vs CPU")
         path_on = main_path_ingest(cfg_on, tmp, scans)
-        path_on["host_syncs_per_dispatch"] = host_syncs(cfg_on, scans[:16])
-        print(f"bgk device ingest: host syncs in a 16-scan dispatch "
-              f"{path_on['host_syncs_per_dispatch']}")
+        path_on["host_syncs_per_dispatch"] = ingest_syncs(cfg_on, scans[:16], "bgk")
         ingest_names = {"ingest_points": "ingest_points_kernel",
                         "ingest_beams": "ingest_beams_kernel",
                         "ingest_downsample": "ingest_downsample_kernel",
-                        "ingest_members": "ingest_members_kernel"}
+                        "ingest_members": "ingest_members_kernel",
+                        "ingest_sort": "ingest_sort_", "ingest_bucket": "ingest_bucket_kernel"}
         d60 = path_on["static60"]["launches"]["ingest_members"]
         path_on["profile60"] = profile_main_path(
             cfg_on, tmp, {**ingest_names, "bgk_aligned_heavy": "bgk_aligned_heavy_kernel",
                           "bgk_light": "bgk_light_kernel"},
             {"ingest_points": d60, "ingest_beams": d60, "ingest_downsample": 2 * d60,
-             "ingest_members": d60, "bgk_aligned_heavy": d60, "bgk_light": 60})
+             "ingest_members": d60, "ingest_sort": path_on["static60"]["ingest_sort_kernels"],
+             "ingest_bucket": d60, "bgk_aligned_heavy": d60, "bgk_light": 60})
         dev_on = card_vs_cpu(load_method_config("bgk", max_range=MAX_RANGE,
                                                 device_ingest="on"), tmp, tol=(1e-5, 1e-5))
 
@@ -2299,26 +2496,29 @@ def main() -> int:
         dev_l = card_vs_cpu(cfg_l, tmp, n_scans=1, tol=(1e-5, 1e-5),
                             control=(bgk_heavy, "bgk_heavy", tf32_k1))
 
-        stamp("BGKL device ingest: K7d, K1' (segments)")
+        stamp("BGKL device ingest: K7d, K7b, K7s, K7t, K1' (segments)")
         calls = record_ingest(cfg_l_on, scans[:16])
         k7d = check_k7d(calls)
+        k7_l = check_k7_segments(calls, "16-scan BGKL demo dispatch")
         k1ps = check_k1p(calls, gate=statics["gate"])
         del calls
         stamp("BGKL device ingest: main path, host syncs, profile, card vs CPU")
         path_l_on = main_path_ingest(cfg_l_on, tmp, scans)
-        path_l_on["host_syncs_per_dispatch"] = host_syncs(cfg_l_on, scans[:16])
-        print(f"bgkl device ingest: host syncs in a 16-scan dispatch "
-              f"{path_l_on['host_syncs_per_dispatch']}")
+        path_l_on["host_syncs_per_dispatch"] = ingest_syncs(cfg_l_on, scans[:16], "bgkl")
         d60 = path_l_on["static60"]["launches"]["ingest_members"]
         path_l_on["profile60"] = profile_main_path(
             cfg_l_on, tmp, {"ingest_points": "ingest_points_kernel",
                             "ingest_downsample": "ingest_downsample_kernel",
                             "ingest_rays": "ingest_rays_kernel",
                             "ingest_members": "ingest_members_kernel",
+                            "ingest_sort": "ingest_sort_",
+                            "ingest_bucket": "ingest_bucket_kernel",
                             "bgk_aligned_heavy": "bgk_aligned_heavy_kernel",
                             "bgk_light": "bgk_light_kernel"},
             {"ingest_points": d60, "ingest_downsample": d60, "ingest_rays": 2 * d60,
-             "ingest_members": d60, "bgk_aligned_heavy": d60, "bgk_light": 60})
+             "ingest_members": d60,
+             "ingest_sort": path_l_on["static60"]["ingest_sort_kernels"],
+             "ingest_bucket": d60, "bgk_aligned_heavy": d60, "bgk_light": 60})
         dev_l_on = card_vs_cpu(load_method_config("bgkl", max_range=MAX_RANGE,
                                                   device_ingest="on"), tmp, n_scans=2,
                                tol=(1e-5, 1e-5),
@@ -2376,13 +2576,11 @@ def main() -> int:
         stamp("GP host ingest: card vs CPU")
         dev_gp = card_vs_cpu_gp(cfg_gp, tmp)
 
-        stamp("GP device ingest: K7a, K7b, K7c")
+        stamp("GP device ingest: K7a, K7b, K7c, K7s, K7t")
         k7_gp = check_k7(record_ingest(cfg_gp_on, scans[:16]), "16-scan GP demo dispatch")
         stamp("GP device ingest: main path, host syncs, profile, card vs CPU")
         path_gp_on = main_path_ingest(cfg_gp_on, tmp, scans)
-        path_gp_on["host_syncs_per_dispatch"] = host_syncs(cfg_gp_on, scans[:16])
-        print(f"gp device ingest: host syncs in a 16-scan dispatch "
-              f"{path_gp_on['host_syncs_per_dispatch']}")
+        path_gp_on["host_syncs_per_dispatch"] = ingest_syncs(cfg_gp_on, scans[:16], "gp")
         d60 = path_gp_on["static60"]["launches"]["ingest_members"]
         path_gp_on["profile60"] = profile_main_path(
             cfg_gp_on, tmp, {**ingest_names, "gp_heavy": "gp_heavy_kernel",
@@ -2390,6 +2588,8 @@ def main() -> int:
                              "gp_light": "gp_light_kernel"},
             {"ingest_points": d60, "ingest_beams": d60, "ingest_downsample": 2 * d60,
              "ingest_members": d60,
+             "ingest_sort": path_gp_on["static60"]["ingest_sort_kernels"],
+             "ingest_bucket": d60,
              "gp_heavy": path_gp_on["static60"]["launches"]["gp_heavy"], "gp_light": 60})
         dev_gp_on = card_vs_cpu_gp(load_method_config("gp", max_range=MAX_RANGE,
                                                       device_ingest="on"), tmp)
@@ -2423,12 +2623,18 @@ def main() -> int:
             "K2", bgk_light.bgk_light, bgk_light.bgk_light_plain, (acc,), args[:4], args[5],
             args[13], args[15], args[16], kw, BETA_TEMPLATES)
         del args, acc
-        stamp("BGKL large map: K1' (segments) on a 12-scan device-ingest dispatch")
+        stamp("BGKL large map: K1' (segments), K7b, K7s, K7t on a 12-scan device-ingest "
+              "dispatch")
         calls = record_ingest(cfg_ll_on, scans[:12])
         k1p_ll = check_k1p(calls, reps=2, gate=statics["gate"])
+        k7_ll = check_k7_segments(calls, "12-scan BGKL large-map dispatch", reps=2)
         del calls
         stamp("BGKL large map: main path on both ingest paths, card vs CPU")
         path_ll = large_bgk_family(cfg_ll, cfg_ll_on, tmp, scans, heavy=True)
+        stamp("BGK large map (block_depth 3): K7a, K7b, K7c, K7s, K7t on a 12-scan "
+              "device-ingest dispatch")
+        k7_bl = check_k7(record_ingest(load_method_config("bgkoctomap_large_map"),
+                                       scans[:12]), "12-scan BGK large-map dispatch", reps=2)
         stamp("BGK large map (block_depth 3): main path on both ingest paths, card vs CPU")
         path_bl = large_bgk_family(
             load_method_config("bgkoctomap_large_map", device_ingest="off"),
@@ -2513,7 +2719,26 @@ def main() -> int:
          "replaces": "la3dm_tpu/geometry/device_ingest.py:192",
          "launches": launches_on["ingest_downsample"],
          "work": "the 2 launches (hits, frees) of one 16-scan BGK demo dispatch",
-         **k7["ingest_downsample"], "library_ms": None, "gp": k7_gp["ingest_downsample"]},
+         **k7["ingest_downsample"], "library_ms": None, "gp": k7_gp["ingest_downsample"],
+         "bgkl": k7_l["ingest_downsample"], "bgkl_large_map": k7_ll["ingest_downsample"],
+         "bgk_large_map": k7_bl["ingest_downsample"]},
+        {"name": "ingest_sort", "route": "cuda",
+         "source": "la3dm_tpu_torch/csrc/ingest_sort.cu",
+         "replaces": "la3dm_tpu/geometry/device_ingest.py:315",
+         "launches": launches_on["ingest_sort"],
+         "work": "the 4 sorts (hits, frees, memberships, test blocks) of one 16-scan BGK "
+                 "demo dispatch; library_ms: torch.sort(stable=True) + unique_consecutive "
+                 "on the same keys, both with their syncs (ms_call beside it)",
+         **k7["ingest_sort"], "gp": k7_gp["ingest_sort"], "bgkl": k7_l["ingest_sort"],
+         "bgkl_large_map": k7_ll["ingest_sort"], "bgk_large_map": k7_bl["ingest_sort"]},
+        {"name": "ingest_bucket", "route": "cuda",
+         "source": "la3dm_tpu_torch/csrc/ingest_bucket.cu",
+         "replaces": "la3dm_tpu/geometry/device_ingest.py:357",
+         "launches": launches_on["ingest_bucket"],
+         "work": "one 16-scan BGK demo dispatch; library_ms: torch.unique of the candidate "
+                 "keys + both searchsorted + the gathers (ms_with_candidates beside it)",
+         **k7["ingest_bucket"], "gp": k7_gp["ingest_bucket"], "bgkl": k7_l["ingest_bucket"],
+         "bgkl_large_map": k7_ll["ingest_bucket"], "bgk_large_map": k7_bl["ingest_bucket"]},
         {"name": "ingest_members", "route": "cuda",
          "source": "la3dm_tpu_torch/csrc/ingest_members.cu",
          "replaces": "la3dm_tpu/geometry/device_ingest.py:256",
@@ -2563,7 +2788,8 @@ def main() -> int:
                "raycast": rays,
                "bgkl_large_map": {**path_ll, "k1_segments": k1_ll, "accumulator": mem_ll,
                                   "k1p_segments": k1p_ll},
-               "bgk_large_map": path_bl,
+               "bgk_large_map": path_bl, "bgk_large_map_k7": k7_bl,
+               "bgkl_large_map_k7": k7_ll,
                "gp_depth5": {**path_gp5, "card_vs_cpu": dev_gp5, "tables": mem_gp5}}
     print(f"main path on {smi}: BGK {path_on['static60']['scans_per_s']:.2f} scans/s "
           f"(60 scans, device ingest; host ingest {path['static60']['scans_per_s']:.2f}), "

@@ -6,25 +6,26 @@ The port of ``la3dm_tpu/geometry/device_ingest.py``: the point family
 :func:`ingest_batch`:
 
   clouds ──► outlier mask + ds-voxel keys            (K7a, ``point_keys``)
-         ──► stable sort, runs, compensated centroids (K7b)  = hits
+         ──► stable sort, runs (K7s), compensated centroids (K7b)  = hits
          ──► range filter + Kf + 2 beam samples       (K7a, ``beam_samples``)
-         ──► stable sort, runs, compensated centroids (K7b)  = frees
+         ──► stable sort, runs (K7s), compensated centroids (K7b)  = frees
          ──► entries: hits (label 1) then frees (free label), z-major
          ──► ≤ 8 closed-box memberships an entry      (K7c)
-         ──► stable sort by block key → per-block runs, test blocks and
-             the slot maps ``nb_row`` / ``tb_u``      (torch.sort / unique /
-                                                       searchsorted)
+         ──► stable sort by block key → per-block runs (K7s); the test
+             blocks, unique(u + off_g) (K7s); the rows in block order and
+             the slot maps ``nb_row`` / ``tb_u``      (K7t)
 
 and the BGKL segment family (``bgkloctomap.cpp:285-344``),
 :func:`ingest_batch_bgkl`:
 
-  clouds ──► outlier mask + ds-voxel keys, downsample  (K7a, K7b)  = hits
+  clouds ──► outlier mask + ds-voxel keys, downsample  (K7a, K7s, K7b)  = hits
          ──► range filter, occ, free ray, Kf + 1 proxy samples, their
              closed-box block keys and each ray's distinct keys  (K7d)
          ──► hits' memberships                         (K7c, on occ)
          ──► entries [·,6]: hits as [occ, occ] (label 1), then rays
              (label 0) once per distinct block; the stable sort by block
              key leaves per block the hits first, then the rays by id
+             (K7s, K7t as above)
 
 What decides results is the JAX function's: f32 arithmetic throughout (its
 declared deviations from the host path, centroids and ranges in f32), the
@@ -32,19 +33,21 @@ z-major voxel order, hits before frees, the stable sort by block key, and
 ``ent_rel = ent − coord·bs`` in f32.  What answered TPU costs is not carried
 over: the static pads and their overflow ladder (every table here takes its
 exact size, so no chunk overflows or falls back for its size), one-hot
-equality matmuls (``searchsorted``), log-shift segmented scans (run
-boundaries of a stable sort), payload sorts (argsort and gather) and the
-Wa = 8 alignment pads (K1′ sums rows of 8 from each run's start without
-them).
+equality matmuls (binary searches), log-shift segmented scans (run
+boundaries of a stable sort), payload sorts (a sort index and gathers) and
+the Wa = 8 alignment pads (K1′ sums rows of 8 from each run's start without
+them).  The entry tables hold the valid memberships only: K1′ and GP's
+models read rows by ``ustart`` / ``ucount``, never past the last run.
 
 Keys are scan-local (``kernels/ingest_keys.py``), anchored at each scan's
-origin cell or block; a dispatch's K scans share one sort.  Configs whose
-reach the JAX package's 1024-cell windows cannot bound take the host path in
-both packages (:func:`beam_slots`).  Each data-dependent size is a host
-sync: four per dispatch here (the runs of the two downsamples, the
-memberships and the test blocks); BGKL has one downsample and the size of
-the ray-block pair list instead.  JAX keeps the first ``Rmax`` distinct
-blocks of a ray and regrows Rmax or takes the host path when a ray has more
+origin cell or block; a dispatch's K scans share one sort, whose window
+(``kernels/ingest_sort.py``) the statics bound.  Configs whose reach the JAX
+package's 1024-cell windows cannot bound take the host path in both packages
+(:func:`beam_slots`).  Each data-dependent size is a host sync, one a sort:
+four per dispatch here (the runs of the two downsamples, the memberships
+and the test blocks); BGKL has one downsample and the size of the ray-block
+pair list instead.  JAX keeps the first ``Rmax`` distinct blocks of a ray
+and regrows Rmax or takes the host path when a ray has more
 (``la3dm_tpu/models/ingest.py:150-175``), so what it integrates is never
 cut; the pair list here takes its exact size and cuts nothing either.
 """
@@ -54,8 +57,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from la3dm_tpu_torch.kernels import (ingest_beams, ingest_downsample, ingest_keys,
-                                     ingest_members, ingest_rays)
+from la3dm_tpu_torch.kernels import (ingest_beams, ingest_bucket, ingest_downsample,
+                                     ingest_members, ingest_rays, ingest_sort)
 
 #: cells (or blocks) per axis of the JAX package's scan-local windows
 _WIN = 1024
@@ -78,24 +81,21 @@ def anchors(origins: np.ndarray, size: float) -> np.ndarray:
     return np.floor(np.asarray(origins, np.float64) / size).astype(np.int32)
 
 
-def _runs(keys: torch.Tensor):
-    """Stable sort of ``keys`` and its runs of valid keys: (sorted keys,
-    sort index, run keys [R], starts [R], counts [R]).  A sentinel appended
-    to the keys makes the last run always the sentinel's, which is
-    dropped."""
-    sent = torch.full((1,), ingest_keys.SENT, dtype=torch.int64, device=keys.device)
-    skey, perm = torch.sort(torch.cat([keys, sent]), stable=True)
-    ukey, counts = torch.unique_consecutive(skey, return_counts=True)
-    ukey, counts = ukey[:-1], counts[:-1]
-    return skey, perm, ukey, torch.cumsum(counts, 0) - counts, counts
-
-
-def _downsample(pts, keys, cell_anchor, leaf: float):
+def _downsample(pts, keys, cell_anchor, leaf: float, window=None):
     """Voxel keys → (voxel keys [R], centroids [R,3]), z-major within each
-    scan (``_downsample`` of the JAX package)."""
-    _, perm, ukey, starts, counts = _runs(keys)
-    return ukey, ingest_downsample.centroids(pts, perm, starts, counts, ukey, cell_anchor,
-                                             leaf=leaf)
+    scan (``_downsample`` of the JAX package); ``window`` bounds the valid
+    keys (by default the widest that device ingest accepts)."""
+    if window is None:
+        window = ingest_sort.widest_window(cell_anchor.shape[0])
+    runs = ingest_sort.sort_runs(keys, window)
+    return runs.ukey, ingest_downsample.centroids(pts, runs.perm, runs.starts, runs.counts,
+                                                  runs.ukey, cell_anchor, leaf=leaf)
+
+
+def _windows(mr: float, ds: float, block_size: float, scans: int):
+    """(cell window, block window) of a dispatch's keys."""
+    return (ingest_sort.cell_window(mr, ds, scans),
+            ingest_sort.block_window(mr, ds, block_size, scans))
 
 
 def ingest_batch(pts, scan, origins, cell_anchor, block_anchor, off_keys, *, ds: float,
@@ -105,9 +105,9 @@ def ingest_batch(pts, scan, origins, cell_anchor, block_anchor, off_keys, *, ds:
     [K,3] f32, the anchors of :func:`anchors` at ``ds`` and at
     ``block_size``) → the block tables, or None without entries:
 
-    ent / ent_rel / lab [M]: entries sorted by (scan, block key), stable
-      (per block: hits, then frees), absolute and relative to their block's
-      centre; rows past the valid memberships are padding.
+    ent / ent_rel / lab [M]: the M memberships sorted by (scan, block key),
+      stable (per block: hits, then frees), absolute and relative to their
+      block's centre.
     ukey / ustart / ucount [U]: each entry block's key and run.
     tkey [T]: the test blocks (every block with an entry block among its
       neighbours ``off_keys``), sorted.
@@ -119,10 +119,11 @@ def ingest_batch(pts, scan, origins, cell_anchor, block_anchor, off_keys, *, ds:
     lim = float(np.float32((mr + np.sqrt(3.0) * ds) ** 2))
     fr32, mr32 = float(np.float32(fr)), float(np.float32(mr))
     keys = ingest_beams.point_keys(pts, scan, origins, cell_anchor, inv_leaf=inv, lim=lim)
-    hkey, hits = _downsample(pts, keys, cell_anchor, float(np.float32(ds)))
+    cwin, bwin = _windows(mr, ds, block_size, origins.shape[0])
+    hkey, hits = _downsample(pts, keys, cell_anchor, float(np.float32(ds)), cwin)
     fpts, fkeys, inr = ingest_beams.beam_samples(hits, hkey, origins, cell_anchor, kf=kf,
                                                  mr=mr32, fr=fr32, inv_leaf=inv)
-    fkey, frees = _downsample(fpts, fkeys, cell_anchor, float(np.float32(ds)))
+    fkey, frees = _downsample(fpts, fkeys, cell_anchor, float(np.float32(ds)), cwin)
     dev = pts.device
     ent = torch.cat([hits, frees])
     lab = torch.cat([torch.ones(len(hits), dtype=torch.float32, device=dev),
@@ -131,8 +132,7 @@ def ingest_batch(pts, scan, origins, cell_anchor, block_anchor, off_keys, *, ds:
     escan = (torch.cat([hkey, fkey]) >> 48).to(torch.int32)
     evalid = torch.cat([inr, torch.ones(len(frees), dtype=torch.bool, device=dev)])
     mkey = ingest_members.memberships(ent, escan, evalid, block_anchor, block_size=block_size)
-    mrow = torch.arange(mkey.shape[0], device=dev) // 8
-    return _bucket(mkey, mrow, ent, lab, block_anchor, off_keys, block_size)
+    return _bucket(mkey, None, ent, lab, block_anchor, off_keys, block_size, bwin)
 
 
 def ingest_batch_bgkl(pts, scan, origins, cell_anchor, block_anchor, off_keys, *, ds: float,
@@ -147,7 +147,8 @@ def ingest_batch_bgkl(pts, scan, origins, cell_anchor, block_anchor, off_keys, *
     lim = float(np.float32((mr + np.sqrt(3.0) * ds) ** 2))
     fr32, mr32 = float(np.float32(fr)), float(np.float32(mr))
     keys = ingest_beams.point_keys(pts, scan, origins, cell_anchor, inv_leaf=inv, lim=lim)
-    hkey, hits = _downsample(pts, keys, cell_anchor, float(np.float32(ds)))
+    cwin, bwin = _windows(mr, ds, block_size, origins.shape[0])
+    hkey, hits = _downsample(pts, keys, cell_anchor, float(np.float32(ds)), cwin)
     occ, seg, inr, pray, pkey, _ = ingest_rays.ray_pairs(
         hits, hkey, origins, block_anchor, kf=kf, mr=mr32, fr=fr32, block_size=block_size)
     dev, R = pts.device, hits.shape[0]
@@ -161,32 +162,25 @@ def ingest_batch_bgkl(pts, scan, origins, cell_anchor, block_anchor, off_keys, *
     # ukeys_r…])
     mkey = torch.cat([hmkey, pkey])
     mrow = torch.cat([torch.arange(R * 8, device=dev) // 8, R + pray])
-    return _bucket(mkey, mrow, ent, lab, block_anchor, off_keys, block_size)
+    return _bucket(mkey, mrow, ent, lab, block_anchor, off_keys, block_size, bwin)
 
 
-def _bucket(mkey, mrow, ent, lab, block_anchor, off_keys, block_size: float) -> dict | None:
-    """Membership keys [E'] and the entry row of each (``mrow``) → the block
-    tables of :func:`ingest_batch`."""
-    skey, perm, ukey, ustart, ucount = _runs(mkey)
-    U = ukey.shape[0]
-    if U == 0:
+def _bucket(mkey, mrow, ent, lab, block_anchor, off_keys, block_size: float,
+            window) -> dict | None:
+    """Membership keys [E'] in ``window`` and the entry row of each
+    (``mrow``; None: membership p is entry p // 8) → the block tables of
+    :func:`ingest_batch`.  The test blocks
+    are the runs of the candidate keys u + off_g, whose window is one block
+    wider (the neighbour offsets reach one block an axis)."""
+    runs = ingest_sort.sort_runs(mkey, window, want_rid=True)
+    ukey = runs.ukey
+    if ukey.shape[0] == 0:
         return None
-    # the sentinel appended by _runs sorts last and maps to a padding row
-    eidx = torch.cat([mrow, mrow.new_zeros(1)])[perm]
-    ent_s, lab_s = ent[eidx], lab[eidx]
-    # centre of each membership's block, (coord in f32)·bs as the JAX
-    # function computes it; sentinel rows (past the runs) are padding
-    valid = skey != ingest_keys.SENT
-    ctr = ingest_keys.unpack(torch.where(valid, skey, 0), block_anchor).to(torch.float32) \
-        * float(np.float32(block_size))
-    ent_rel = torch.where(valid[:, None], ent_s - ctr.repeat(1, ent.shape[1] // 3), 0.0)
-    off = torch.as_tensor(off_keys, dtype=torch.int64, device=ent.device)
-    tkey = torch.unique((ukey[:, None] + off[None, :]).reshape(-1))
-    nb_row = torch.searchsorted(tkey, ukey[:, None] - off[None, :])
-    want = tkey[:, None] + off[None, :]
-    pos = torch.searchsorted(ukey, want)
-    found = ukey[torch.clamp_max(pos, U - 1)] == want
-    tb_u = torch.where(found, pos, U)
+    tkey = ingest_sort.sort_runs((ukey[:, None] + off_keys[None, :]).reshape(-1),
+                                 window.wider(1)).ukey
+    ent_s, ent_rel, lab_s, nb_row, tb_u = ingest_bucket.bucket(
+        runs.perm, runs.rid, mrow, ent, lab, ukey, tkey, off_keys, block_anchor,
+        block_size=block_size)
     return {"ent": ent_s, "ent_rel": ent_rel, "lab": lab_s, "ukey": ukey,
-            "ustart": ustart, "ucount": ucount, "tkey": tkey, "nb_row": nb_row,
+            "ustart": runs.starts, "ucount": runs.counts, "tkey": tkey, "nb_row": nb_row,
             "tb_u": tb_u}

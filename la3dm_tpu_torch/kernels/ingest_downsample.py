@@ -3,14 +3,15 @@ plain version and launch counter.
 
 Replaces the reduction of ``la3dm_tpu/geometry/device_ingest.py::
 _downsample`` (lines 192-246).  The caller stable-sorts the voxel keys and
-cuts the runs; :func:`centroids` gives each run's compensated centroid
+cuts the runs (K7s); :func:`centroids` gives each run's compensated centroid
 ``corner + Σ(p − corner) / count``, the corner decoded from the run's key
 (``cell · leaf``), the sum taken in sorted order.  It serves the hit and the
 free-sample downsample alike.
 
-On CUDA tensors it launches ``csrc/ingest_downsample.cu`` (one thread per
-run); on CPU tensors it runs :func:`centroids_plain`.  What bounds the
-kernel is bytes.
+On CUDA tensors it launches ``csrc/ingest_downsample.cu`` (one lane a run
+of at most :data:`LONG_RUN` members, the whole warp a longer one, the sums
+in the same order); on CPU tensors it runs :func:`centroids_plain`.  What
+bounds the kernel is bytes.
 """
 
 from __future__ import annotations
@@ -22,6 +23,8 @@ from la3dm_tpu_torch.kernels import _build, ingest_keys
 #: kernel launches since the counter was last reset (two per dispatch: the
 #: hits, then the free samples)
 launches = 0
+#: runs of more members are summed by a whole warp (``kLong`` in the source)
+LONG_RUN = 64
 
 
 def centroids(pts, perm, starts, counts, run_keys, anchors, *, leaf: float):

@@ -15,8 +15,9 @@ import numpy as np
 
 from la3dm_tpu_torch.geometry import device_ingest
 from la3dm_tpu_torch.kernels import (bgk_aligned_heavy, bgk_heavy, bgk_light, gp_heavy,
-                                     gp_light, ingest_beams, ingest_downsample,
-                                     ingest_members, ingest_rays, lv_prune, lv_rows, raycast)
+                                     gp_light, ingest_beams, ingest_bucket, ingest_downsample,
+                                     ingest_keys, ingest_members, ingest_rays, ingest_sort,
+                                     lv_prune, lv_rows, raycast)
 from la3dm_tpu_torch.models import posterior as po
 
 from torch_cases import (BETA_TEMPLATES, GP_BCM, GP_STATE,  # tests/ on sys.path
@@ -735,7 +736,7 @@ def test_ingest_beams_kernels_match_plain(cuda_dev):
     ref = ingest_beams.beam_samples_plain(hits, hkey, origins, ca, **kw)
     torch.cuda.synchronize()
     assert ingest_beams.launches == before + 2
-    keep = ref[1] != device_ingest.ingest_keys.SENT
+    keep = ref[1] != ingest_keys.SENT
     assert torch.equal(out[1], ref[1]) and torch.equal(out[2], ref[2])
     assert torch.equal(out[0][keep], ref[0][keep]) and int(keep.sum()) > 1000
 
@@ -747,7 +748,8 @@ def test_ingest_downsample_kernel_matches_plain(cuda_dev):
     p = _ingest_params()
     keys = ingest_beams.point_keys_plain(pts, scan, origins, ca, inv_leaf=p["inv_leaf"],
                                          lim=p["lim"])
-    _, perm, ukey, starts, counts = device_ingest._runs(keys)
+    perm, ukey, starts, counts, _ = ingest_sort.sort_runs_plain(
+        keys, ingest_sort.widest_window(len(origins)))
     before = ingest_downsample.launches
     cent = ingest_downsample.centroids(pts, perm, starts, counts, ukey, ca, leaf=p["leaf"])
     ref = ingest_downsample.centroids_plain(pts, perm, starts, counts, ukey, ca,
@@ -768,6 +770,150 @@ def test_ingest_members_kernel_matches_plain(cuda_dev):
     torch.cuda.synchronize()
     assert ingest_members.launches == before + 1
     assert torch.equal(keys, ref)
+
+
+def _sort_case(case: str):
+    """(keys [N] int64 on the CPU, window) of a K7s card case: keys drawn from
+    a pool of distinct keys (ties), a share of sentinels."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+    mr, ds, bs = INGEST["mr"], INGEST["ds"], INGEST["block_size"]
+    cases = {  # window, keys, distinct keys, sentinel share
+        "demo_cells": (ingest_sort.cell_window(mr, ds, 16), 400_000, 60_000, 0.4),
+        "demo_blocks": (ingest_sort.block_window(mr, ds, bs, 16), 300_000, 5_000, 0.8),
+        "wide_u64": (ingest_sort.widest_window(16), 200_000, 150_000, 0.1),
+        "one_scan": (ingest_sort.cell_window(mr, ds, 1), 50_000, 20_000, 0.2),
+        "all_sentinel": (ingest_sort.cell_window(mr, ds, 4), 10_000, 1, 1.0),
+        "one_key": (ingest_sort.cell_window(mr, ds, 4), 1, 1, 0.0),
+        "long_run": (ingest_sort.cell_window(mr, ds, 16), 30_000, 3_000, 0.3),
+    }
+    w, n, distinct, p_sent = cases[case]
+    anchors = rng.integers(-3000, 3000, (w.scans, 3)).astype(np.int32)
+    s = rng.integers(0, w.scans, distinct)
+    ijk = anchors[s] + rng.integers(-w.radius, w.radius + 1, (distinct, 3))
+    pool = ingest_keys.pack(torch.from_numpy(s), torch.from_numpy(ijk),
+                            torch.from_numpy(anchors)).numpy()
+    keys = pool[rng.integers(0, distinct, n)]
+    keys[rng.random(n) < p_sent] = ingest_keys.SENT
+    if case == "long_run":  # a run of 5,000 members or more among the rest
+        keys = np.concatenate([keys, np.full(5000, pool[0])])[rng.permutation(n + 5000)]
+    return torch.from_numpy(keys), w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["demo_cells", "demo_blocks", "wide_u64", "one_scan",
+                                  "all_sentinel", "one_key", "long_run"])
+def test_ingest_sort_kernel_equals_plain(cuda_dev, case):
+    """K7s: the sort index, the runs and each row's run bit for bit equal to
+    the plain version (torch.sort(stable=True) + unique_consecutive); the
+    control, the kernel's sort index with one tie swapped, must fail."""
+    keys, w = _sort_case(case)
+    before = ingest_sort.launches
+    runs = ingest_sort.sort_runs(keys.to(cuda_dev), w, want_rid=True)
+    torch.cuda.synchronize()
+    assert ingest_sort.launches == before + 1
+    ref = ingest_sort.sort_runs_plain(keys, w, want_rid=True)
+    for name, x, y in zip(runs._fields, runs, ref):
+        assert x.dtype == y.dtype and torch.equal(x.cpu(), y), name
+    if case == "long_run":
+        assert int(ref.counts.max()) >= 5000
+    if int((ref.counts > 1).sum()):
+        r = int(torch.nonzero(ref.counts > 1)[0])
+        perm = runs.perm.cpu().clone()
+        a = int(ref.starts[r])
+        perm[[a, a + 1]] = perm[[a + 1, a]]
+        assert not torch.equal(perm, ref.perm)
+
+
+@pytest.mark.cuda
+def test_ingest_sort_kernel_raises_outside_its_window(cuda_dev):
+    """A valid key one cell past its window raises at the sort's one sync."""
+    keys, w = _sort_case("one_scan")
+    bad = keys.clone()
+    bad[123] = ingest_keys.pack(torch.tensor([0]), torch.tensor([[w.radius + 1, 0, 0]]),
+                                torch.zeros((1, 3), dtype=torch.int32))[0]
+    with pytest.raises(ValueError, match="outside their window"):
+        ingest_sort.sort_runs(bad.to(cuda_dev), w)
+    ingest_sort.sort_runs(keys.to(cuda_dev), w)  # the card is fine after it
+
+
+@pytest.mark.cuda
+def test_ingest_downsample_kernel_long_runs_bit_for_bit(cuda_dev):
+    """K7b on runs of every length round its warp threshold and a 5,000-member
+    run: the same sums in the same order as its plain version, bit for bit;
+    the control, one tie of the long run swapped in the sort index, must
+    move its centroid."""
+    rng = np.random.default_rng(61)
+    keys, w = _sort_case("long_run")
+    runs = ingest_sort.sort_runs_plain(keys, w)
+    anchors = torch.zeros((w.scans, 3), dtype=torch.int32)
+    pts = torch.from_numpy(rng.uniform(-8, 8, (len(keys), 3)).astype(np.float32))
+    # runs of 1..300 members from the key pool's first keys
+    lens = np.arange(1, 301)
+    extra_keys = torch.repeat_interleave(runs.ukey[:300], torch.from_numpy(lens))
+    keys2 = torch.cat([keys, extra_keys])
+    pts2 = torch.cat([pts, torch.from_numpy(rng.uniform(-8, 8, (len(extra_keys), 3))
+                                            .astype(np.float32))])
+    runs2 = ingest_sort.sort_runs_plain(keys2, w)
+    args = (pts2, runs2.perm, runs2.starts, runs2.counts, runs2.ukey, anchors)
+    before = ingest_downsample.launches
+    cent = ingest_downsample.centroids(*(a.to(cuda_dev) for a in args), leaf=0.1)
+    torch.cuda.synchronize()
+    assert ingest_downsample.launches == before + 1
+    ref = ingest_downsample.centroids_plain(*args, leaf=0.1)
+    assert torch.equal(cent.cpu(), ref)
+    assert int(runs2.counts.max()) >= 5000 and len(set(runs2.counts.tolist())) > 200
+    r = int(torch.argmax(runs2.counts))
+    perm = runs2.perm.clone()
+    a = int(runs2.starts[r])
+    perm[[a, a + 2500]] = perm[[a + 2500, a]]
+    moved = ingest_downsample.centroids(pts2.to(cuda_dev), perm.to(cuda_dev),
+                                        *(x.to(cuda_dev) for x in args[2:]), leaf=0.1)
+    assert not torch.equal(moved.cpu()[r], ref[r])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("segments", [False, True])
+def test_ingest_dispatch_sorts_and_tail_equal_plain(cuda_dev, segments, monkeypatch):
+    """One dispatch on the card: every K7s sort (4 a dispatch, BGKL 3), the
+    K7t launch and both K7b launches (BGKL: one) equal their plain versions on
+    the same card inputs bit for bit."""
+    pts, scan, origins, ca, ba = ingest_scene(62)
+    mr, ds, fr, bs = INGEST["mr"], INGEST["ds"], INGEST["fr"], INGEST["block_size"]
+    off = torch.from_numpy(ingest_keys.pack_offsets(np.array(
+        [[0, 0, 0], [1, 0, 0], [-1, 0, 0], [0, 1, 0], [0, -1, 0], [0, 0, 1], [0, 0, -1]])))
+    kf = device_ingest.beam_slots(ds, fr, mr, bs)
+    fn = device_ingest.ingest_batch_bgkl if segments else device_ingest.ingest_batch
+    kw = dict(ds=ds, fr=fr, mr=mr, kf=kf, block_size=bs, **({} if segments else
+                                                             {"free_label": 0.0}))
+    calls = {}
+    for mod, name in ((ingest_sort, "sort_runs"), (ingest_bucket, "bucket"),
+                      (ingest_downsample, "centroids")):
+        def rec(*a, _orig=getattr(mod, name), _name=name, **k):
+            out = _orig(*a, **k)
+            calls.setdefault(_name, []).append((a, k, out))
+            return out
+        monkeypatch.setattr(mod, name, rec)
+        calls[name] = []
+    before = ingest_sort.launches, ingest_bucket.launches
+    tabs = fn(*(a.to(cuda_dev) for a in (pts, scan, origins, ca, ba, off)), **kw)
+    torch.cuda.synchronize()
+    n_sorts = 3 if segments else 4
+    assert (ingest_sort.launches - before[0], ingest_bucket.launches - before[1]) == \
+        (n_sorts, 1)
+    assert [len(calls[k]) for k in ("sort_runs", "bucket", "centroids")] == \
+        [n_sorts, 1, 1 if segments else 2]
+    for a, k, out in calls["sort_runs"]:
+        ref = ingest_sort.sort_runs_plain(*a, **k)
+        for name, x, y in zip(out._fields, out, ref):
+            assert (x is None and y is None) or torch.equal(x, y), name
+    for name, plain in (("bucket", ingest_bucket.bucket_plain),
+                        ("centroids", ingest_downsample.centroids_plain)):
+        for a, k, out in calls[name]:
+            ref = plain(*a, **k)
+            for x, y in zip(out if name == "bucket" else (out,),
+                            ref if name == "bucket" else (ref,)):
+                assert torch.equal(x, y), name
+    assert int(tabs["ucount"].sum()) == tabs["ent"].shape[0] > 1000
 
 
 #: K1′'s cases: block_depth → (res, ℓ, T, U, spread): the demo's 0.4 m

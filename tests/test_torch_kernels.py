@@ -19,8 +19,9 @@ from la3dm_tpu.models import (bgk as jbgk, bgklv as jlv, gp as jgp, posterior as
 from la3dm_tpu_torch.geometry import blocks as geo, device_ingest
 from la3dm_tpu_torch.kernels import (bgk_aligned_heavy, bgk_heavy, bgk_light, gp as kgp,
                                      gp_heavy, gp_light, ingest_beams, ingest_downsample,
-                                     ingest_keys, ingest_members, ingest_rays, lv_prune,
-                                     lv_rows, math as km, predict as kp, raycast as k6)
+                                     ingest_keys, ingest_members, ingest_rays, ingest_sort,
+                                     lv_prune, lv_rows, math as km, predict as kp,
+                                     raycast as k6)
 from la3dm_tpu_torch.models import posterior as po, pruning as pr
 
 from torch_cases import (GP_BCM, GP_STATE, GP_STATICS, INGEST, LV_ROWS_STATICS,  # noqa: F401
@@ -692,7 +693,8 @@ def test_centroids_plain_sums_in_sorted_order():
     """Each run is summed member by member in sorted order, compensated."""
     pts, scan, origins, cell_anchor, _ = ingest_scene(34, n_scans=2, n=100)
     keys = ingest_beams.point_keys(pts, scan, origins, cell_anchor, inv_leaf=10.0, lim=100.0)
-    skey, perm, ukey, starts, counts = device_ingest._runs(keys)
+    perm, ukey, starts, counts, _ = ingest_sort.sort_runs(
+        keys, ingest_sort.widest_window(len(origins)))
     cent = ingest_downsample.centroids(pts, perm, starts, counts, ukey, cell_anchor, leaf=0.1)
     corner = ingest_keys.unpack(ukey, cell_anchor).to(torch.float32) * 0.1
     for r in range(len(ukey)):

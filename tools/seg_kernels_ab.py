@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """K3 (the BGKLV tile row engine), K1 (the BGK and BGKL heavy pass, both
-branches), K1′ (the device-ingest heavy pass, both branches) and K6 (the
-raycast DDA) of two checkouts on the same captured inputs, in one call.
+branches), K1′ (the device-ingest heavy pass, both branches), K6 (the
+raycast DDA) and K7 (device ingest: K7s, K7t, K7b) of two checkouts on the
+same captured inputs, in one call.
 
 Run from the repository root on a machine with one CUDA card, with the
 other checkout unpacked into a directory that .gitignore lists:
@@ -15,18 +16,28 @@ K3 on a 12-scan BGKLV demo dispatch and on one BGKLV large-map scan
 large-map dispatch (block_depth 5, segments) and on a 16-scan BGK demo
 host-ingest dispatch (points), K1′ on the device-ingest dispatches of 16
 BGK demo scans (points), 16 BGKL demo scans and 12 BGKL large-map scans
-(segments), and K6 on chip_smoke.py's three raycast queries (1,000,000 rays
-into the 60-scan BGK demo map, 100,000 into the BGKL and BGKLV maps).  Then
+(segments), K6 on chip_smoke.py's three raycast queries (1,000,000 rays
+into the 60-scan BGK demo map, 100,000 into the BGKL and BGKLV maps), and
+the arguments of one device-ingest dispatch (``ingest_batch`` or
+``ingest_batch_bgkl``) of the BGK, GP and BGKL demos (16 scans) and the
+BGKL and BGK large maps (12 scans).  Then
 each checkout, in the order other, this, this, other, runs in a process of
 its own (importing its own ``la3dm_tpu_torch`` and building its own
 kernels): it times each kernel (chip_smoke.py's ``launch_ms``: device time
 of launches queued behind a spin), hashes its outputs (K3: A, B and
-touched; K1 and K1′: the accumulator; K6: hit, dist and steps), and runs
-``pipeline.run_static`` for BGKLV (60 demo scans, 12 large-map scans), the
-BGKL large map (12 scans, host and device ingest) and the BGK demo (60
-scans, device and host ingest), then times ``raycast_device`` over the
-1,000,000 rays on its own 60-scan BGK demo map.  The last lines compare: times of both, and whether
-each output is bit-equal across the checkouts.
+touched; K1 and K1′: the accumulator; K6: hit, dist and steps; K7: every
+table of the dispatch, the entry columns on their valid rows, which a
+checkout may pad), and runs ``pipeline.run_static`` for BGKLV (60 demo
+scans, 12 large-map scans), the BGKL large map (12 scans, host and device
+ingest), the BGK demo (60 scans, device and host ingest) and the GP demo
+(60 scans, device ingest), hashing the device-ingest maps, times
+``OnlineIntegrator`` on 12 scans of the BGK, GP and BGKL demos (device
+ingest), then times ``raycast_device`` over the 1,000,000 rays on its own
+60-scan BGK demo map.  K7's times: the whole dispatch's call (CUDA events,
+its host syncs inside), and each K7b, K7s and K7t launch of it as
+chip_smoke.py's ``launch_ms`` times them (a checkout without K7s or K7t
+reports none).  The last lines compare: times of both, and whether each
+output is bit-equal across the checkouts.
 """
 
 from __future__ import annotations
@@ -41,10 +52,15 @@ import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DISPATCHES = ("k3_demo", "k3_large", "k1_demo", "k1_large", "k1_bgk_demo", "k1p_bgk_demo",
-              "k1p_demo", "k1p_large", "k6_bgk", "k6_bgkl", "k6_bgklv")
+              "k1p_demo", "k1p_large", "k6_bgk", "k6_bgkl", "k6_bgklv", "k7_bgk_demo",
+              "k7_gp_demo", "k7_bgkl_demo", "k7_bgkl_large", "k7_bgk_large")
 REPS = {"k3_demo": 5, "k3_large": 5, "k1_demo": 5, "k1_large": 3, "k1_bgk_demo": 5,
         "k1p_bgk_demo": 5, "k1p_demo": 5, "k1p_large": 3, "k6_bgk": 5, "k6_bgkl": 5,
-        "k6_bgklv": 5}
+        "k6_bgklv": 5, "k7_bgk_demo": 5, "k7_gp_demo": 5, "k7_bgkl_demo": 5,
+        "k7_bgkl_large": 3, "k7_bgk_large": 3}
+#: the K7 tables hashed; the entry columns on their valid rows
+K7_ROWS = ("ent", "ent_rel", "lab")
+K7_TABLES = ("ukey", "ustart", "ucount", "tkey", "nb_row", "tb_u")
 
 
 def _digest(*ts) -> str:
@@ -52,6 +68,26 @@ def _digest(*ts) -> str:
     for t in ts:
         h.update(t.contiguous().cpu().numpy().tobytes())
     return h.hexdigest()[:16]
+
+
+def capture_ingest(cfg, scans):
+    """The arguments of the device-ingest call of one dispatch of ``scans``
+    on a CUDA map of ``cfg``: (args, kwargs with the function's name)."""
+    from la3dm_tpu_torch import pipeline
+    from la3dm_tpu_torch.geometry import device_ingest as di
+
+    rec = []
+    fns = {n: getattr(di, n) for n in ("ingest_batch", "ingest_batch_bgkl")}
+    for n, f in fns.items():
+        setattr(di, n, lambda *a, _f=f, _n=n, **k: (rec.append((_n, a, k)), _f(*a, **k))[1])
+    try:
+        m = pipeline.MAP_CLASSES[cfg.method](cfg, device="cuda")
+        m.insert_pointclouds([c for c, _ in scans], [o for _, o in scans])
+    finally:
+        for n, f in fns.items():
+            setattr(di, n, f)
+    (name, args, kw), = rec
+    return args, {**kw, "fn": name}
 
 
 def capture(out_dir: str) -> None:
@@ -106,8 +142,85 @@ def capture(out_dir: str) -> None:
                   target=posterior.OCCUPIED, max_range=cs.MAX_RANGE,
                   max_probes=snap.max_probes)
         caps[name] = (args, kw)
+    for name, method, n in (("k7_bgk_demo", "bgk", 16), ("k7_gp_demo", "gp", 16),
+                            ("k7_bgkl_demo", "bgkl", 16)):
+        caps[name] = capture_ingest(load_method_config(method, max_range=cs.MAX_RANGE),
+                                    scans[:n])
+    for name, method in (("k7_bgkl_large", "bgkloctomap_large_map"),
+                         ("k7_bgk_large", "bgkoctomap_large_map")):
+        caps[name] = capture_ingest(load_method_config(method), scans[:12])
     for name, (args, kw) in caps.items():
         torch.save(([a.cpu() for a in args], kw), os.path.join(out_dir, f"{name}.pt"))
+
+
+def _pool_digest(m) -> str:
+    p = m.pool
+    return _digest(*(p.fields[k] for k in sorted(p.fields)), p.touched, p.eff_level)
+
+
+def k7_run(args, kw, reps: int, cs) -> dict:
+    """One device-ingest dispatch of this checkout: its tables' digest, the
+    whole call's device time (CUDA events, its host syncs inside,
+    ``cs.cuda_ms``), and each K7b, K7s and K7t launch of it timed by
+    ``cs.launch_ms`` (``cs``: the checkout's chip_smoke)."""
+    import torch
+
+    from la3dm_tpu_torch.geometry import device_ingest
+    from la3dm_tpu_torch.kernels import ingest_downsample
+    try:
+        from la3dm_tpu_torch.kernels import ingest_bucket, ingest_sort
+    except ImportError:  # a checkout before K7s and K7t
+        ingest_bucket = ingest_sort = None
+    kw = dict(kw)
+    fn = getattr(device_ingest, kw.pop("fn"))
+    wrapped = [(ingest_downsample, "centroids", "k7b")]
+    if ingest_sort is not None:
+        wrapped += [(ingest_sort, "sort_runs", "k7s"), (ingest_bucket, "bucket", "k7t")]
+    calls = {tag: [] for _, _, tag in wrapped}
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in wrapped]
+    for (mod, name, tag), (_, _, orig) in zip(wrapped, saved):
+        setattr(mod, name, lambda *a, _o=orig, _t=tag, **k: (calls[_t].append((a, k)),
+                                                            _o(*a, **k))[1])
+    try:
+        tabs = fn(*args, **kw)
+    finally:
+        for mod, name, orig in saved:
+            setattr(mod, name, orig)
+    torch.cuda.synchronize()
+    M = int(tabs["ucount"].sum())
+    out = {"digest": _digest(*(tabs[k][:M] for k in K7_ROWS),
+                             *(tabs[k] for k in K7_TABLES)),
+           "rows": M, "blocks": int(tabs["ukey"].shape[0])}
+    again = fn(*args, **kw)
+    out["repeat_equal"] = _digest(*(again[k][:M] for k in K7_ROWS),
+                                  *(again[k] for k in K7_TABLES)) == out["digest"]
+    out["ms"] = cs.cuda_ms(lambda _: fn(*args, **kw), reps)
+    launch = {"k7b": ingest_downsample.centroids}
+    if ingest_sort is not None:
+        launch.update(k7s=ingest_sort.launch, k7t=ingest_bucket.bucket)
+    for tag, f in launch.items():
+        out[f"{tag}_ms"] = cs.launch_ms([lambda _, a=a, k=k, f=f: f(*a, **k)
+                                         for a, k in calls[tag]], reps)
+        out[f"{tag}_launches"] = len(calls[tag])
+    return out
+
+
+def online_median(cfg, scans) -> float:
+    """OnlineIntegrator over ``scans`` on a CUDA map: the median ms from an
+    offer to its synchronised end."""
+    import numpy as np
+
+    from la3dm_tpu_torch import pipeline
+
+    m = pipeline.MAP_CLASSES[cfg.method](cfg)
+    online = pipeline.OnlineIntegrator(m)
+    lat = []
+    for cloud, origin in scans:
+        t0 = time.perf_counter()
+        online.offer(cloud, origin)
+        m.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(lat))
 
 
 def worker(tree: str, data_dir: str) -> dict:
@@ -145,6 +258,11 @@ def worker(tree: str, data_dir: str) -> dict:
             again = pool()
             lv_rows.lv_rows(*again, *rest, **kw)
             repeat = all(torch.equal(x, y) for x, y in zip(k, again))
+        elif name.startswith("k7"):
+            out[name] = k7_run(args, kw, REPS[name], cs)
+            del args
+            torch.cuda.empty_cache()
+            continue
         elif name.startswith("k6"):
             digest = _digest(*raycast.raycast(*args, **kw))
             ms = cs.launch_ms([lambda _: raycast.raycast(*args, **kw)], REPS[name])
@@ -171,12 +289,22 @@ def worker(tree: str, data_dir: str) -> dict:
             ("bgk_static60_device", load_method_config("bgk", max_range=cs.MAX_RANGE), 60,
              3),
             ("bgk_static60_host", load_method_config("bgk", max_range=cs.MAX_RANGE,
-                                                     device_ingest="off"), 60, 3))
+                                                     device_ingest="off"), 60, 3),
+            ("gp_static60_device", load_method_config("gp", max_range=cs.MAX_RANGE), 60, 3))
     for name, cfg, n, reps in runs:
         ds = DatasetConfig(name="synth", dir=data_dir, prefix="synth", scan_num=n,
                            max_range=cfg.max_range)
         pipeline.run_static(cfg, ds)  # warm-up
-        out[name] = [pipeline.run_static(cfg, ds).scans_per_second for _ in range(reps)]
+        res = [pipeline.run_static(cfg, ds) for _ in range(reps)]
+        out[name] = [r.scans_per_second for r in res]
+        if name.endswith("_device"):
+            out[f"{name}_map"] = _pool_digest(res[-1].map)
+    scans = cs.synthetic_scans(12)
+    for method in ("bgk", "gp", "bgkl"):
+        cfg = load_method_config(method, max_range=cs.MAX_RANGE)
+        online_median(cfg, scans[:2])  # warm-up
+        out[f"{method}_online12_device_median_ms"] = [online_median(cfg, scans)
+                                                      for _ in range(2)]
     # one raycast_device call over the 1,000,000 rays, host clock to its end
     # (copies included), on this checkout's 60-scan BGK demo map
     ds = DatasetConfig(name="synth", dir=data_dir, prefix="synth", scan_num=60,
@@ -238,10 +366,23 @@ def main() -> int:
     o1, t1, t2, o2 = results
     for name in DISPATCHES:
         same = len({r[name]["digest"] for r in results}) == 1
+        if name.startswith("k7"):
+            parts = "; ".join(
+                f"{tag} other {o1[name].get(tag + '_ms')}, {o2[name].get(tag + '_ms')} / this "
+                f"{t1[name].get(tag + '_ms')}, {t2[name].get(tag + '_ms')} ms "
+                f"({t1[name].get(tag + '_launches')} launches)" for tag in ("k7b", "k7s", "k7t"))
+            print(f"{name}: {t1[name]['rows']} rows, {t1[name]['blocks']} blocks; the dispatch's "
+                  f"call: other {o1[name]['ms']:.3f}, {o2[name]['ms']:.3f} ms; this "
+                  f"{t1[name]['ms']:.3f}, {t2[name]['ms']:.3f} ms; {parts}; tables bit-equal "
+                  f"across checkouts (valid rows) {same}; repeat calls bit-equal "
+                  f"{all(r[name]['repeat_equal'] for r in results)}")
+            continue
         print(f"{name}: other {o1[name]['ms']:.3f}, {o2[name]['ms']:.3f} ms; this "
               f"{t1[name]['ms']:.3f}, {t2[name]['ms']:.3f} ms; outputs bit-equal across "
               f"checkouts {same}; repeat launches bit-equal "
               f"{all(r[name]['repeat_equal'] for r in results)}")
+    for name in (k for k in o1 if k.endswith("_map")):
+        print(f"{name}: bit-equal across checkouts {len({r[name] for r in results}) == 1}")
     for name in (k for k, v in o1.items() if isinstance(v, list)):  # run_static, raycast
         unit = "ms" if name.endswith("_ms") else "scans/s"
         print(f"{name} {unit}: other {o1[name]} / {o2[name]}; this {t1[name]} / "
