@@ -47,7 +47,9 @@ then on the device-ingest path, the default of a CUDA map:
    equal; K7s (the stable sort and run cut on compact codes) on each of the
    dispatch's four sorts — sort index, runs and each row's run bit for bit
    (the control, a tie swapped in the sort index, must fail), timed beside
-   torch.sort(stable=True) + unique_consecutive on the same keys; K7t (the
+   torch.sort(stable=True) + unique_consecutive on the same keys, and its
+   fixed cost a sort on 64 keys through each of its paths (one CTA, and
+   multi-CTA) beside the library's; K7t (the
    bucket tail: rows in block order, nb_row, tb_u) — bit for bit, timed
    beside torch.unique + searchsorted + the gathers; K1′ (the aligned
    heavy pass) — bit for bit, and so within |Δ| ≤ 1e-5 + 1e-5·|plain| (the
@@ -151,9 +153,11 @@ samples a beam), first on the host-ingest path, after the BGK phases:
 then on device ingest, its default on the card:
 
 23. holds K7d (the ray pass: occ, ray segments, proxy samples, their block
-    keys, the per-ray dedup) against its plain version on a real 16-scan
-    dispatch — every output equal and the (ray, block) pair list identical
-    (the control, the samples in f64, must move a membership) —, K7b (the
+    keys, the per-ray dedup by contiguity along the ray) against its plain
+    version on a real 16-scan dispatch — every output equal and the (ray,
+    block) pair list identical (the control, the samples in f64, must move
+    a membership; without the dedup the list must be longer), timed by
+    torch.profiler and with its wait —, K7b (the
     hits), K7s (three sorts) and K7t as in 8, and K1′'s segment branch as
     in 8, with the gate count of 21;
 24. runs the main path as in 9 (per dispatch one K7a, one K7b, the two
@@ -193,8 +197,10 @@ The large maps, after raycast (the BGK-family ones at their YAML's own
     pool with its blocks made collapsible at every level (raster, Beta
     templates), bit for bit each time, the 16³ groups collapsed counted and
     required; K1′'s segment branch on a captured 12-scan device-ingest
-    dispatch as in 23 (bit for bit, its cull count, both bounds) and K7b,
-    K7s and K7t on that dispatch as in 23; run_static
+    dispatch as in 23 (bit for bit, its cull count, both bounds) and K7d,
+    K7b, K7s and K7t on that dispatch as in 23 (K7d's f64 and index-order
+    controls printed only: at 3.2 m blocks they move no pair; the list
+    without the dedup must still be longer); run_static
     on 12 scans and
     OnlineIntegrator on 12 on both
     ingest paths with their launch counts; card vs CPU within 1e-5 +
@@ -371,6 +377,18 @@ def profiled(fn, launches: dict):
         print(f"profiler session {attempt + 1} held launches {seen}, not {launches}; "
               "retried", flush=True)
     raise RuntimeError(f"the profiler did not record the launches {launches}")
+
+
+def device_ms(fn, reps: int, kernel: str, per_call: int) -> float:
+    """Device time (ms) of one call of ``fn``: every kernel, copy and memset
+    of ``reps`` calls under torch.profiler (a session holding ``per_call``
+    launches a call of kernels named ``kernel``), over ``reps``; the host's
+    gaps and waits are left out."""
+    from torch.autograd import DeviceType
+
+    prof, _ = profiled(lambda: [fn() for _ in range(reps)], {kernel: per_call * reps})
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3 / reps
 
 
 _CYCLES_PER_MS = None
@@ -1676,6 +1694,8 @@ def check_k7(calls, what: str, reps: int = 5) -> dict:
     print(f"K7c, {what}: {ms:.4f} ms device time (plain {m_plain:.3f} ms, bound "
           f"{b_ms:.4f} ms by {b_by})")
     out["ingest_sort"] = check_k7s(calls, what, reps)
+    (keys, window), _, _ = calls["ingest_sort"][0]
+    out["ingest_sort"]["fixed_cost"] = k7s_fixed_cost(keys, window, reps)
     out["ingest_bucket"] = check_k7t(calls, what, out["ingest_sort"], reps)
     return out
 
@@ -1799,6 +1819,8 @@ def check_k7s(calls, what: str, reps: int = 5) -> dict:
         bp_ms, _ = bound(0, ingest_sort.passes_bytes(N, V, R, window, rid))
         rec = {"keys": N, "valid": V, "runs": R, "longest_run": int(ref.counts.max()) if R
                else 0, "bits": window.bits, "passes": window.passes,
+               "path": "one CTA" if ingest_sort.small_sort(N) else "multi-CTA",
+               "kernels": ingest_sort.kernels_per_sort(window, N),
                "key_bytes": window.key_bytes, "bit_equal": True,
                "control_fails": ctl_fails, "ms": ms, "ms_call": ms_call, "library_ms": lib_ms,
                "library_sort_ms": lib_sort_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
@@ -1806,7 +1828,8 @@ def check_k7s(calls, what: str, reps: int = 5) -> dict:
                "beats_library": ms_call < lib_ms, "beats_torch_sort": ms < lib_sort_ms}
         sorts.append(rec)
         print(f"K7s, {what}: {N} keys, {V} valid, {R} runs (longest {rec['longest_run']}), "
-              f"{window.bits}-bit codes in {window.passes} passes of u{8 * window.key_bytes}; "
+              f"{window.bits}-bit codes in {window.passes} passes of u{8 * window.key_bytes}, "
+              f"the {rec['path']} path ({rec['kernels']} kernels); "
               f"bit-equal to the plain version, control (a tie swapped) fails {ctl_fails}; "
               f"{ms:.4f} ms device time ({ms_call:.4f} ms with its sync; torch.sort + "
               f"unique_consecutive {lib_ms:.4f} ms with theirs, torch.sort alone {lib_sort_ms:.4f} "
@@ -1822,6 +1845,32 @@ def check_k7s(calls, what: str, reps: int = 5) -> dict:
           f"than torch.sort alone {all(r['beats_torch_sort'] for r in sorts)}")
     return {"max_abs_err": 0.0, **out, "bound_by": "bytes", "sorts": sorts,
             "launches_timed": len(sorts)}
+
+
+def k7s_fixed_cost(keys, window, reps: int = 5) -> dict:
+    """K7s's fixed cost a sort, on the first 64 of ``keys``: the device time
+    of the one-CTA path and of the multi-CTA path (the threshold moved to 0)
+    behind a spin, and the one-CTA call with its sync; beside
+    torch.sort(stable=True) + unique_consecutive with their syncs and
+    torch.sort alone behind a spin."""
+    k = keys[:64].contiguous()
+    small = launch_ms([lambda _: ingest_sort.launch(k, window)], reps)
+    call = cuda_ms(lambda _: ingest_sort.sort_runs(k, window), reps)
+    saved = ingest_sort.SMALL_SORT_KEYS
+    ingest_sort.SMALL_SORT_KEYS = 0
+    try:
+        large = launch_ms([lambda _: ingest_sort.launch(k, window)], reps)
+        large_call = cuda_ms(lambda _: ingest_sort.sort_runs(k, window), reps)
+    finally:
+        ingest_sort.SMALL_SORT_KEYS = saved
+    lib = cuda_ms(lambda _: _library_sort(k), reps)
+    lib_sort = launch_ms([lambda _: torch.sort(k, stable=True)], reps)
+    print(f"K7s fixed cost a sort (64 keys): one-CTA path {small:.4f} ms device time "
+          f"({call:.4f} with its sync), multi-CTA path {large:.4f} ({large_call:.4f} with its "
+          f"sync); torch.sort + unique_consecutive {lib:.4f} ms with their syncs, torch.sort "
+          f"alone {lib_sort:.4f} ms")
+    return {"one_cta_ms": small, "one_cta_ms_call": call, "multi_cta_ms": large,
+            "multi_cta_ms_call": large_call, "library_ms": lib, "library_sort_ms": lib_sort}
 
 
 def check_k7t(calls, what: str, k7s: dict, reps: int = 5) -> dict:
@@ -1943,12 +1992,22 @@ def k1p_culling(a, kw, acc, name: str) -> dict:
             "warp_entry_pairs": pairs, "culled_fraction": frac, "needed_evaluations": needed}
 
 
-def check_k7d(calls, reps: int = 5) -> dict:
+def check_k7d(calls, what: str, reps: int = 5, data_controls: bool = True) -> dict:
     """K7d against its plain version on one dispatch's recorded call: occ,
     the ray segments, inr and the samples equal, the (ray, block key) pair
-    list identical (the main path's call, without samples, too).  Control:
+    list identical (the main path's call, without samples, too).  Controls:
+    the kernel's list with two keys of a ray swapped must fail the check,
+    and the plain list without the dedup (every membership of every kept
+    sample) must be longer, so the rays hold blocks that two samples share;
+    where ``data_controls``, also the dedup rule walked in index order with
+    the origin first (``first_in_ray_plain``) must give another list, and
     the plain version on the samples in f64 must move at least one
-    membership, so the limit (equality) is not met by chance."""
+    membership, so the equality of the samples is not met by chance.  On
+    the large map's 3.2 m blocks (rows of at most 2 pairs) neither of those
+    two moves a pair, so there they are printed only.  ``ms``: the device
+    time of one call (every kernel, copy and memset of ``reps`` calls under
+    torch.profiler, over ``reps``; the host's wait between its launches left
+    out); ``ms_call``: the whole call with its one wait, by CUDA events."""
     (a, kw, main), = calls["ingest_rays"]
     hits, hkey, origins, anchors = a
     ks = ingest_rays.ray_pairs(*a, **kw, want_samples=True)
@@ -1960,22 +2019,37 @@ def check_k7d(calls, reps: int = 5) -> dict:
     pairs = torch.cat([torch.stack([ref[3], ref[4]], 1), torch.stack([ctl[3], ctl[4]], 1)])
     _, cnt = torch.unique(pairs, dim=0, return_counts=True)
     n_ctl = int((cnt == 1).sum())
+    *_, keys, kept = ingest_rays.ray_keys_plain(*a, **kw)
+    bad_ray, bad_key = ingest_rays.first_in_ray_plain(keys, kept, torch.arange(kw["kf"] + 1))
+    order_differs = not (torch.equal(bad_ray, ref[3]) and torch.equal(bad_key, ref[4]))
+    n_undeduped = int(((keys != ingest_keys.SENT) & kept[:, :, None]).sum())
+    row = torch.bincount(ref[3], minlength=hits.shape[0])
+    first = int((torch.cumsum(row, 0) - row)[int(torch.nonzero(row >= 2)[0])])
+    swapped = ks[4].clone()
+    swapped[[first, first + 1]] = swapped[[first + 1, first]]
+    swap_fails = not torch.equal(swapped, ref[4])
     err = max(float((x - y).abs().max()) for x, y in ((ks[0], ref[0]), (ks[1], ref[1]),
                                                        (ks[5], ref[5])))
-    R, S, P = hits.shape[0], kw["kf"] + 1, ingest_rays.row_width(kw["kf"])
+    R, S, L = hits.shape[0], kw["kf"] + 1, ingest_rays.lanes_per_ray(kw["kf"])
     n_pairs = ref[3].numel()
-    print(f"K7d: {R} rays x {S} samples (rows of {P} keys), {n_pairs} (ray, block) pairs "
-          f"({n_pairs / max(R, 1):.2f} a ray); equal to the plain version {same}, the main "
-          f"path's call {same_main}; control, the samples in f64: {n_ctl} pairs differ")
-    require(all(same.values()) and same_main, "K7d disagrees with its plain version")
-    require(n_ctl > 0, "the K7d limit passes the f64 control")
-    # K7d's wrapper waits for the list's size, so launch_ms times it without
-    # a spin: the window also holds the prefix sum between the two launches
-    ms = launch_ms([lambda _: ingest_rays.ray_pairs(*a, **kw)], reps)
-    # what these rays need, not the padded sort K7d runs: each proxy sample
-    # in range ≈ 60 operations (its position, its memberships), and the
-    # dedup of a ray's m memberships a comparison sort's m·⌈log2 m⌉
-    # comparisons, 3 operations each
+    longest = int(torch.bincount(ref[3]).max()) if n_pairs else 0
+    print(f"K7d, {what}: {R} rays x {S} samples ({L} lanes a ray), {n_pairs} (ray, block) "
+          f"pairs ({n_pairs / max(R, 1):.2f} a ray, the longest row {longest}); equal to the "
+          f"plain version {same}, the main path's call {same_main}; controls: without the "
+          f"dedup {n_undeduped} pairs, the samples in f64 move {n_ctl} pairs, the dedup in "
+          f"index order gives {bad_ray.numel()} pairs (differs {order_differs}), two keys of "
+          f"a ray swapped fail {swap_fails}")
+    require(all(same.values()) and same_main, f"K7d disagrees with its plain version ({what})")
+    require(swap_fails, f"the K7d check passes two swapped keys ({what})")
+    require(n_undeduped > n_pairs, f"no two samples of a ray share a block ({what})")
+    require(order_differs or not data_controls,
+            f"the K7d check passes the index-order dedup ({what})")
+    require(n_ctl > 0 or not data_controls, f"the K7d limit passes the f64 control ({what})")
+    ms = device_ms(lambda: ingest_rays.ray_pairs(*a, **kw), reps, "ingest_rays", 2)
+    ms_call = cuda_ms(lambda _: ingest_rays.ray_pairs(*a, **kw), reps)
+    # what these rays need: each proxy sample in range ≈ 60 operations (its
+    # position, its memberships), and the dedup of a ray's m memberships a
+    # comparison sort's m·⌈log2 m⌉ comparisons, 3 operations each
     n_smp, n_mem = ingest_rays.ray_work(hits, hkey, origins, kf=kw["kf"], mr=kw["mr"],
                                         fr=kw["fr"], block_size=kw["block_size"])
     mem = n_mem.double()
@@ -1983,12 +2057,15 @@ def check_k7d(calls, reps: int = 5) -> dict:
         torch.clamp_min(mem, 1)))).sum())
     b_ms, b_by = bound(ops, nbytes(hits, hkey, origins, anchors) + R * (12 + 24 + 1)
                        + 16 * n_pairs)
-    print(f"K7d: {ms:.4f} ms device time for its 2 launches and the prefix sum between "
-          f"them (plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by}; "
+    print(f"K7d, {what}: {ms:.4f} ms device time a call, by torch.profiler ({ms_call:.4f} ms "
+          f"with its wait for the sizes; plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by}; "
           f"{int(n_smp.sum())} samples in range, {int(n_mem.sum())} memberships)")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "rays": R, "pairs": n_pairs, "samples": int(n_smp.sum()),
-            "memberships": int(n_mem.sum()), "control_pairs_differ": n_ctl}
+    return {"max_abs_err": err, "ms": ms, "ms_call": ms_call, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "rays": R, "pairs": n_pairs,
+            "longest_row": longest, "samples": int(n_smp.sum()),
+            "memberships": int(n_mem.sum()), "control_pairs_differ": n_ctl,
+            "index_order_control_pairs": bad_ray.numel(), "swap_control_fails": swap_fails,
+            "undeduped_control_pairs": n_undeduped}
 
 
 def ingest_counts() -> dict:
@@ -2498,7 +2575,7 @@ def main() -> int:
 
         stamp("BGKL device ingest: K7d, K7b, K7s, K7t, K1' (segments)")
         calls = record_ingest(cfg_l_on, scans[:16])
-        k7d = check_k7d(calls)
+        k7d = check_k7d(calls, "16-scan BGKL demo dispatch")
         k7_l = check_k7_segments(calls, "16-scan BGKL demo dispatch")
         k1ps = check_k1p(calls, gate=statics["gate"])
         del calls
@@ -2509,7 +2586,7 @@ def main() -> int:
         path_l_on["profile60"] = profile_main_path(
             cfg_l_on, tmp, {"ingest_points": "ingest_points_kernel",
                             "ingest_downsample": "ingest_downsample_kernel",
-                            "ingest_rays": "ingest_rays_kernel",
+                            "ingest_rays": "ingest_rays_",
                             "ingest_members": "ingest_members_kernel",
                             "ingest_sort": "ingest_sort_",
                             "ingest_bucket": "ingest_bucket_kernel",
@@ -2623,10 +2700,12 @@ def main() -> int:
             "K2", bgk_light.bgk_light, bgk_light.bgk_light_plain, (acc,), args[:4], args[5],
             args[13], args[15], args[16], kw, BETA_TEMPLATES)
         del args, acc
-        stamp("BGKL large map: K1' (segments), K7b, K7s, K7t on a 12-scan device-ingest "
-              "dispatch")
+        stamp("BGKL large map: K1' (segments), K7d, K7b, K7s, K7t on a 12-scan "
+              "device-ingest dispatch")
         calls = record_ingest(cfg_ll_on, scans[:12])
         k1p_ll = check_k1p(calls, reps=2, gate=statics["gate"])
+        k7d_ll = check_k7d(calls, "12-scan BGKL large-map dispatch", reps=2,
+                           data_controls=False)
         k7_ll = check_k7_segments(calls, "12-scan BGKL large-map dispatch", reps=2)
         del calls
         stamp("BGKL large map: main path on both ingest paths, card vs CPU")
@@ -2771,8 +2850,13 @@ def main() -> int:
          "source": "la3dm_tpu_torch/csrc/ingest_rays.cu",
          "replaces": "la3dm_tpu/geometry/device_ingest.py:497",
          "launches": path_l_on["static60"]["launches"]["ingest_rays"],
-         "work": "the 2 launches (count, write) of one 16-scan BGKL demo dispatch",
-         **k7d, "library_ms": None},
+         "work": "the 2 launches (count, write) of one 16-scan BGKL demo dispatch: ms the "
+                 "device time of the call by torch.profiler, ms_call the call with its wait "
+                 "for the list's size by CUDA events",
+         **k7d, "library_ms": None,
+         "large_map": {"work": "one 12-scan BGKL large-map device-ingest dispatch",
+                       "launches": path_ll["device"]["static12"]["launches"]["ingest_rays"],
+                       **k7d_ll}},
         {"name": "raycast", "route": "cuda", "source": "la3dm_tpu_torch/csrc/raycast.cu",
          "replaces": "la3dm_tpu/models/raycast.py:145", **rays["bgk"],
          "work": "1,000,000 rays over the 60-scan BGK demo map", "library_ms": None,

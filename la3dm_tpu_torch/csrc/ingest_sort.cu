@@ -21,30 +21,39 @@
 // bits and u64 above.  A valid key outside its window sets status[2]; the
 // wrapper reads it at the sync that fetches the sizes and raises.
 //
-// The sort is LSD radix over the code's bits only: ceil(bits / 8) passes of
-// equal digits (27 bits: 4 passes of 7), on tiles of 2048 keys:
-//   hist     (the first pass only) each tile's count of each digit;
-//   scan     one CTA per digit: the exclusive scan of its row over the
-//            tiles, and the row's total;
-//   scatter  ranks the tile's keys stably (each warp takes a contiguous
-//            quarter-kilo of the tile, 32 keys a round in input order;
-//            __match_any_sync groups a round's lanes by digit, and per-warp
-//            digit counters in shared memory carry the rank across rounds;
-//            the warps' counters are then prefixed in warp order), stages
-//            the tile sorted by digit in shared memory, and writes each
-//            digit's keys to its global offset in coalesced runs; each key
-//            also counts in the next pass's histogram at its destination
-//            tile (one global atomic a group of equal lanes), which the
-//            scan zeroed, so a later pass needs no histogram launch.
-// The first pass reads the int64 keys and drops the invalid ones (the
-// compaction is the first pass itself: an invalid key counts in no digit);
-// the sizes of later passes come from status[0] on the device, so nothing
-// waits on the host.  The last pass writes the sort index as int64.
-// The run cut is one launch after the last pass: heads per tile, their
-// prefix over the tiles by a decoupled look-back, then per run its first
-// row, key and length, and per row its run.
+// The sort is LSD radix over the code's bits only, ceil(bits / 8) passes of
+// equal digits (27 bits: 4 passes of 7), in the manner of Onesweep (Adinets
+// and Merrill, 2022).  Two paths, chosen on the host from N:
+// * Small (N at most 4096 keys: 512 threads, 8 keys a thread): one CTA
+//   sorts them in shared memory, pass after pass (a warp's rounds without
+//   keys skipped), cuts the runs and writes the status words itself.  One
+//   launch, no memset.
+// * Large: a memset of the control words, then
+//     hist     one launch: every pass's digit totals at once (global, from
+//              the int64 keys), the valid keys and the out-of-window flag;
+//     a pass   one launch each: persistent CTAs take tiles of 2048 keys in
+//              order from an atomic counter (the tile also picks the slice
+//              of input, so stability and forward progress both hold), rank
+//              the tile's keys stably by digit (warp ballots over the
+//              digit's bits, per-warp digit counters in warp order), publish
+//              each digit's count, and take the digit's offset over the
+//              tiles before by a decoupled look-back; then the tile leaves
+//              sorted by digit in coalesced runs;
+//     run cut  one launch: warp-striped rows (a round reads and writes 32
+//              consecutive rows), heads by ballots, their prefix over the
+//              tiles by a decoupled look-back, then per run its first row,
+//              key and length, and per row its run.
+//   passes + 2 launches a sort.  The first pass reads the int64 keys and
+//   drops the invalid ones (an invalid key counts in no digit); later
+//   passes and the run cut read their size (status[0]) on the device, so
+//   nothing waits on the host.  The last pass writes the sort index as
+//   int64.
 // What bounds it: bytes (the keys read once, perm and the runs written
 // once); the passes move about 3 (first pass: 5) words a valid key more.
+// What holds it back on an H100 is latency: a launch leaves about 2.4 us of
+// the card idle, a tile takes about 5 us from its loads to its ranks, and
+// the tiles of one wave start together, so the look-back's inclusive
+// prefix reaches tile t only after about t / 16 round trips.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -55,14 +64,23 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kItems = 8;
+constexpr int kItems = 8;                 // keys a thread, multi-CTA passes
 constexpr int kTile = kThreads * kItems;  // keys a tile
+constexpr int kSmallThreads = 512;         // the one-CTA path: 512 threads x 8 keys
+constexpr int kSmallItems = 8;
+constexpr int kSmallTile = kSmallThreads * kSmallItems;  // its most keys
 constexpr int kMaxBins = 256;             // 8-bit digits at most
+constexpr int kMaxPasses = 8;
 constexpr unsigned kAll = 0xffffffffu;
 
-// status words (int32): valid keys, runs, the out-of-window flag, the run
-// cut's tile counter
-constexpr int kValid = 0, kRuns = 1, kFlag = 2, kTileCounter = 3;
+// the control words (int32, at the workspace's head): valid keys, runs, the
+// out-of-window flag; then each pass's tile counter and the run cut's
+constexpr int kValid = 0, kRuns = 1, kFlag = 2, kPassCounter = 4,
+              kCutCounter = kPassCounter + kMaxPasses;
+constexpr size_t kStatusBytes = 256;
+
+// a look-back word: 2 bits of flag, 30 of count
+constexpr unsigned kAggregate = 1u << 30, kInclusive = 2u << 30, kCount = (1u << 30) - 1u;
 
 struct Window {
   int lo;  // the field value of coordinate anchor - radius
@@ -83,8 +101,10 @@ __device__ __forceinline__ bool key_code(int64_t key, const Window& w, uint64_t*
   return true;
 }
 
-__device__ __forceinline__ int64_t code_key(uint64_t c, const Window& w) {
-  const uint64_t W = (uint64_t)w.W;
+// the key of a code (in the code's own width: a u32 code divides in 32 bits)
+template <typename KeyT>
+__device__ __forceinline__ int64_t code_key(KeyT c, const Window& w) {
+  const KeyT W = (KeyT)w.W;
   const int64_t x = (int64_t)(c % W);
   c /= W;
   const int64_t y = (int64_t)(c % W);
@@ -104,9 +124,10 @@ struct Max {
 };
 
 // exclusive scan under ``op`` (identity ``id``) of one value a thread over
-// the CTA (every thread calls it); *total gets the whole CTA's
-template <typename T, typename Op>
+// the CTA of NT threads (every thread calls it); *total gets the whole CTA's
+template <int NT, typename T, typename Op>
 __device__ __forceinline__ T block_exclusive_scan(T v, T id, Op op, T* total) {
+  constexpr int kWarps = NT / 32;
   __shared__ T ws[kWarps];
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
   T x = v;
@@ -135,165 +156,385 @@ __device__ __forceinline__ T block_exclusive_scan(T v, T id, Op op, T* total) {
   return op(pre, ex);
 }
 
+template <int NT = kThreads>
 __device__ __forceinline__ int block_exclusive_sum(int v, int* total) {
-  return block_exclusive_scan(v, 0, Sum(), total);
+  return block_exclusive_scan<NT>(v, 0, Sum(), total);
 }
 
-// ---------------------------------------------------------------- passes
+// ---------------------------------------------------------------- tile rank
 
-// the first pass's histogram, from the int64 keys: valid keys inside the
-// window count in their digit, a valid key outside sets the flag
-__global__ void ingest_sort_hist_kernel(const int64_t* __restrict__ keys, long long n,
-                                        int* __restrict__ status, Window w, int nbins,
-                                        int n_tiles, int* __restrict__ hist) {  // [nbins, n_tiles]
-  __shared__ int cnt[kMaxBins];
-  for (int t = threadIdx.x; t < nbins; t += kThreads) cnt[t] = 0;
-  __syncthreads();
-  const long long base = (long long)blockIdx.x * kTile;
-  int bad = 0;
-  for (int k = 0; k < kItems; ++k) {
-    const long long i = base + (long long)k * kThreads + threadIdx.x;
-    if (i >= n) break;
-    const int64_t key = keys[i];
-    uint64_t c = 0;
-    const bool ok = key != kSentinel && key_code(key, w, &c);
-    bad |= key != kSentinel && !ok;
-    if (ok) atomicAdd(&cnt[(int)(c & (uint64_t)(nbins - 1))], 1);
-  }
-  if (__syncthreads_or(bad) && threadIdx.x == 0) atomicOr(&status[kFlag], 1);
-  for (int t = threadIdx.x; t < nbins; t += kThreads)
-    hist[(size_t)t * n_tiles + blockIdx.x] = cnt[t];
-}
+// Shared state of one tile's ranking by NW warps.
+template <int NW>
+struct RankSmem {
+  int wcnt[NW][kMaxBins];  // per warp and digit: its count, then its offset
+  int dstart[kMaxBins];        // the tile's first sorted row of each digit
+  int dcount[kMaxBins];        // the tile's keys of each digit
+};
 
-// one CTA a row: the exclusive scan of rows[row, :n] in place, the row's
-// total to row_tot[row], and added to *total where given; the CTAs also zero
-// the ``zero_rows`` rows of n of ``zero`` (the next pass's histogram)
-__global__ void ingest_sort_scan_kernel(int* __restrict__ rows, int n,
-                                        int* __restrict__ row_tot, int* __restrict__ total,
-                                        int* __restrict__ zero, int zero_rows) {
-  if (zero) {
-    for (size_t j = (size_t)blockIdx.x * kThreads + threadIdx.x; j < (size_t)zero_rows * n;
-         j += (size_t)gridDim.x * kThreads)
-      zero[j] = 0;
-  }
-  int* row = rows + (size_t)blockIdx.x * n;
-  int carry = 0;
-  for (int c0 = 0; c0 < n; c0 += kThreads) {
-    const int i = c0 + threadIdx.x;
-    const int v = i < n ? row[i] : 0;
-    int sum;
-    const int ex = block_exclusive_sum(v, &sum);
-    if (i < n) row[i] = carry + ex;
-    carry += sum;
-  }
-  if (threadIdx.x == 0) {
-    if (row_tot) row_tot[blockIdx.x] = carry;
-    if (total) atomicAdd(total, carry);
-  }
-}
-
-template <typename KeyT, bool kFirst, bool kLast>
-__global__ void __launch_bounds__(kThreads)
-ingest_sort_scatter_kernel(const int64_t* __restrict__ keys,      // kFirst
-                           const KeyT* __restrict__ codes_in,     // later passes
-                           const uint32_t* __restrict__ idx_in,   // later passes
-                           long long n_keys, const int* __restrict__ status, Window w,
-                           int shift, int nbins, int n_tiles,
-                           const int* __restrict__ hist,      // scanned rows [nbins, n_tiles]
-                           const int* __restrict__ row_tot,   // [nbins]
-                           KeyT* __restrict__ codes_out, uint32_t* __restrict__ idx_out,
-                           int64_t* __restrict__ perm,        // kLast
-                           int next_shift, int next_bins,
-                           int* __restrict__ next_hist) {     // !kLast: [next_bins, n_tiles]
-  __shared__ int warp_cnt[kWarps][kMaxBins];
-  __shared__ int digit_off[kMaxBins];   // the tile's first staged row of each digit
-  __shared__ long long glob_off[kMaxBins];
-  __shared__ KeyT s_code[kTile];
-  __shared__ uint32_t s_idx[kTile];
+// Stable ranks of one tile by digit.  Thread (warp wid, lane) holds the
+// tile's rows wid * 32 * N + 32 k + lane, k = 0..N-1 (input order);
+// digit[k] in [0, 2^dbits) or -1 (no key), and no key from round ``rounds``
+// on (the same in every lane of a warp).  On return rank[k] is the row's
+// place in the tile sorted by digit, keys of one digit in input order;
+// sm.dstart / sm.dcount hold each digit's first row and count.
+template <int NT, int N>
+__device__ __forceinline__ void tile_rank(const int (&digit)[N], int (&rank)[N], int dbits,
+                                          int rounds, RankSmem<NT / 32>& sm) {
+  constexpr int kWarps = NT / 32;
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  const int nbins = 1 << dbits;
   const unsigned lt = (1u << lane) - 1u;
-  for (int t = threadIdx.x; t < kWarps * kMaxBins; t += kThreads) (&warp_cnt[0][0])[t] = 0;
+  for (int t = threadIdx.x; t < kWarps << dbits; t += NT) sm.wcnt[t >> dbits][t & (nbins - 1)] = 0;
   __syncthreads();
-
-  const long long n = kFirst ? n_keys : (long long)status[kValid];
-  const long long wbase = (long long)blockIdx.x * kTile + (long long)wid * 32 * kItems;
-  KeyT code[kItems];
-  uint32_t idx[kItems];
-  int digit[kItems], rank[kItems];
-  // rank the warp's keys in input order: round k holds keys wbase + 32 k + lane
 #pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    const long long i = wbase + 32LL * k + lane;
-    uint64_t c = 0;
-    bool ok = false;
-    uint32_t ix = 0;
-    if (i < n) {
-      if (kFirst) {
-        const int64_t key = keys[i];
-        ok = key != kSentinel && key_code(key, w, &c);
-        ix = (uint32_t)i;
-      } else {
-        c = (uint64_t)codes_in[i];
-        ix = idx_in[i];
-        ok = true;
-      }
+  for (int k = 0; k < N; ++k) {
+    if (k >= rounds) break;
+    const int d = digit[k];
+    // the lanes holding the same digit: a ballot a bit
+    unsigned peers = __ballot_sync(kAll, d >= 0);
+    for (int b = 0; b < dbits; ++b) {
+      const bool set = (d >> b) & 1;
+      const unsigned bits = __ballot_sync(kAll, set);
+      peers &= set ? bits : ~bits;
     }
-    const int d = ok ? (int)((c >> shift) & (uint64_t)(nbins - 1)) : -1;
-    const unsigned peers = __match_any_sync(kAll, d);
-    const int before = ok ? warp_cnt[wid][d] : 0;
+    const int before = d >= 0 ? sm.wcnt[wid][d] : 0;
     __syncwarp();
-    if (ok && (peers & lt) == 0) warp_cnt[wid][d] = before + __popc(peers);
+    if (d >= 0 && (peers & lt) == 0) sm.wcnt[wid][d] = before + __popc(peers);
     __syncwarp();
-    code[k] = (KeyT)c;
-    idx[k] = ix;
-    digit[k] = d;
     rank[k] = before + __popc(peers & lt);
   }
   __syncthreads();
-
-  // per digit: the warps' counts → their exclusive prefix in warp order; the
-  // tile's digits → their first staged row; each digit's global offset
-  int in_tile = 0, tot = 0;
+  // per digit: the warps' counts → their offsets in warp order; the digits'
+  // first rows
+  int in_tile = 0;
   if (threadIdx.x < nbins) {
     for (int v = 0; v < kWarps; ++v) {
-      const int c = warp_cnt[v][threadIdx.x];
-      warp_cnt[v][threadIdx.x] = in_tile;
+      const int c = sm.wcnt[v][threadIdx.x];
+      sm.wcnt[v][threadIdx.x] = in_tile;
       in_tile += c;
     }
-    tot = row_tot[threadIdx.x];
   }
-  int n_tile, n_all;
-  const int first = block_exclusive_sum(in_tile, &n_tile);
-  const int dbase = block_exclusive_sum(tot, &n_all);
+  int n_tile;
+  const int first = block_exclusive_sum<NT>(in_tile, &n_tile);
   if (threadIdx.x < nbins) {
-    digit_off[threadIdx.x] = first;
-    glob_off[threadIdx.x] =
-        (long long)dbase + hist[(size_t)threadIdx.x * n_tiles + blockIdx.x];
+    sm.dstart[threadIdx.x] = first;
+    sm.dcount[threadIdx.x] = in_tile;
   }
   __syncthreads();
 #pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    if (digit[k] >= 0) {
-      const int p = digit_off[digit[k]] + warp_cnt[wid][digit[k]] + rank[k];
-      s_code[p] = code[k];
-      s_idx[p] = idx[k];
+  for (int k = 0; k < N; ++k)
+    if (digit[k] >= 0) rank[k] += sm.dstart[digit[k]] + sm.wcnt[wid][digit[k]];
+}
+
+// the rounds of a warp's rows (wid * 32 * N + 32 k + lane) below ``n_rows``
+template <int N>
+__device__ __forceinline__ int rounds_below(int n_rows) {
+  const int r = (n_rows - (int)(threadIdx.x >> 5) * 32 * N + 31) / 32;
+  return r < 0 ? 0 : (r > N ? N : r);
+}
+
+// The exclusive prefix of tile ``tile``'s count of one digit over the tiles
+// before it: look[t * stride] is tile t's word.  The words of kWindow tiles
+// are read at once, then walked back to the first inclusive one; at a word
+// not yet published the walk reads a whole window again from that tile.
+// The tiles of one wave start together, so tile k may have to add k
+// aggregates, and a window takes kWindow of them a round trip.
+constexpr int kWindow = 16;
+
+__device__ __forceinline__ unsigned look_back(const unsigned* look, size_t stride, int tile) {
+  unsigned before = 0;
+  for (int t = tile - 1;;) {
+    unsigned w[kWindow];
+#pragma unroll
+    for (int j = 0; j < kWindow; ++j)
+      w[j] = t - j >= 0 ? *(const volatile unsigned*)(look + (size_t)(t - j) * stride)
+                        : 2u << 30;  // inclusive, 0
+    int next = t - kWindow;
+#pragma unroll
+    for (int j = kWindow - 1; j >= 0; --j)  // the first word not yet published
+      if ((w[j] & ~kCount) == 0u) next = t - j;
+#pragma unroll
+    for (int j = 0; j < kWindow; ++j) {
+      if (t - j > next) {
+        before += w[j] & kCount;
+        if (w[j] & kInclusive) return before;
+      }
+    }
+    t = next;
+  }
+}
+
+__device__ __forceinline__ int digit_of(uint64_t c, int shift, int dbits) {
+  return (int)((c >> shift) & ((1ull << dbits) - 1ull));
+}
+
+// ---------------------------------------------------------------- run cut
+
+// The run cut of a CTA's sorted rows, warp-striped: warp w takes rows
+// base + 256 w + 32 k + lane, k = 0..7, so each round reads and writes 32
+// consecutive rows.  A row is a head where its code differs from the row
+// before.  scan() finds the heads (a ballot a round); with the heads and
+// the last head of the rows before the warp, write() writes per run its
+// first row (starts) and its key decoded (ukey), at its last row its length
+// (counts), and per row its run (rid).
+template <typename KeyT>
+struct RowCut {
+  static constexpr int kRounds = 8;
+  KeyT c[kRounds];
+  unsigned head[kRounds];  // each round's heads
+  long long row0;          // the warp's first row
+  int heads;               // the warp's heads
+  long long last1;         // its last head's row + 1 (0: none)
+
+  __device__ __forceinline__ void scan(const KeyT* codes, long long base, long long n) {
+    const int lane = threadIdx.x & 31;
+    row0 = base + 32LL * kRounds * (threadIdx.x >> 5);
+    heads = 0;
+    last1 = 0;
+#pragma unroll
+    for (int k = 0; k < kRounds; ++k) {
+      const long long i = row0 + 32 * k + lane;
+      const bool live = i < n;
+      c[k] = live ? codes[i] : (KeyT)0;
+      head[k] = __ballot_sync(kAll, live && (i == 0 || codes[i - 1] != c[k]));
+      heads += __popc(head[k]);
+      if (head[k]) last1 = row0 + 32 * k + (31 - __clz(head[k])) + 1;
     }
   }
+
+  // ``before``: the heads before the warp's rows; ``before1``: the last of
+  // them's row + 1
+  __device__ __forceinline__ void write(const KeyT* codes, long long n, long long before,
+                                        long long before1, const Window& w, int64_t* ukey,
+                                        int64_t* starts, int64_t* counts, int32_t* rid) {
+    const int lane = threadIdx.x & 31;
+    const unsigned upto = lane == 31 ? kAll : (2u << lane) - 1u;
+#pragma unroll
+    for (int k = 0; k < kRounds; ++k) {
+      const long long i = row0 + 32 * k + lane;
+      if (i < n) {
+        const unsigned m = head[k] & upto;
+        const long long r = before + __popc(m) - 1;
+        if ((head[k] >> lane) & 1u) {
+          starts[r] = i;
+          ukey[r] = code_key(c[k], w);
+        }
+        if (rid) rid[i] = (int32_t)r;
+        const long long start = m ? row0 + 32 * k + (31 - __clz(m)) : before1 - 1;
+        if (i == n - 1 || codes[i + 1] != c[k]) counts[r] = i + 1 - start;
+      }
+      before += __popc(head[k]);
+      if (head[k]) before1 = row0 + 32 * k + (31 - __clz(head[k])) + 1;
+    }
+  }
+};
+
+// ---------------------------------------------------------------- small path
+
+// One CTA: the whole sort and run cut of n <= kSmallTile keys in shared memory.
+template <typename KeyT>
+__global__ void __launch_bounds__(kSmallThreads)
+ingest_sort_small_kernel(const int64_t* __restrict__ keys, int n, Window w, int passes,
+                         int dbits, int64_t* __restrict__ out, int32_t* __restrict__ rid,
+                         int* __restrict__ status) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  KeyT* s_code = reinterpret_cast<KeyT*>(smem);
+  uint32_t* s_idx = reinterpret_cast<uint32_t*>(smem + kSmallTile * sizeof(KeyT));
+  __shared__ RankSmem<kSmallThreads / 32> sm;
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  const int wbase = wid * 32 * kSmallItems;
+  KeyT code[kSmallItems];
+  uint32_t idx[kSmallItems];
+  int digit[kSmallItems], rank[kSmallItems];
+  int bad = 0, valid = 0;
+#pragma unroll
+  for (int k = 0; k < kSmallItems; ++k) {
+    const int i = wbase + 32 * k + lane;
+    uint64_t c = 0;
+    bool ok = false;
+    if (i < n) {
+      const int64_t key = keys[i];
+      ok = key != kSentinel && key_code(key, w, &c);
+      bad |= key != kSentinel && !ok;
+    }
+    code[k] = (KeyT)c;
+    idx[k] = (uint32_t)i;
+    digit[k] = ok ? digit_of(c, 0, dbits) : -1;
+    valid += ok;
+  }
+  int V;
+  block_exclusive_sum<kSmallThreads>(valid, &V);
+  bad = __syncthreads_or(bad);
+  for (int p = 0; p < passes; ++p) {
+    tile_rank<kSmallThreads>(digit, rank, dbits, rounds_below<kSmallItems>(p == 0 ? n : V), sm);
+    __syncthreads();  // every row of the previous pass read
+#pragma unroll
+    for (int k = 0; k < kSmallItems; ++k) {
+      if (digit[k] >= 0) {
+        s_code[rank[k]] = code[k];
+        s_idx[rank[k]] = idx[k];
+      }
+    }
+    __syncthreads();
+    if (p + 1 == passes) break;
+#pragma unroll
+    for (int k = 0; k < kSmallItems; ++k) {
+      const int i = wbase + 32 * k + lane;
+      const bool ok = i < V;
+      code[k] = ok ? s_code[i] : (KeyT)0;
+      idx[k] = ok ? s_idx[i] : 0u;
+      digit[k] = ok ? digit_of((uint64_t)code[k], (p + 1) * dbits, dbits) : -1;
+    }
+  }
+  // the run cut over the sorted rows
+  int64_t* perm = out;
+  RowCut<KeyT> cut;
+  cut.scan(s_code, 0, V);
+  int R;
+  long long last1_all;
+  const int ex = __shfl_sync(kAll, block_exclusive_sum<kSmallThreads>(lane ? 0 : cut.heads, &R),
+                             0);
+  const long long ex1 = __shfl_sync(
+      kAll, block_exclusive_scan<kSmallThreads>(lane ? 0LL : cut.last1, 0LL, Max(), &last1_all),
+      0);
+  cut.write(s_code, V, ex, ex1, w, out + n, out + 2 * (size_t)n, out + 3 * (size_t)n, rid);
+  for (int i = threadIdx.x; i < V; i += kSmallThreads) perm[i] = (int64_t)s_idx[i];
+  if (threadIdx.x == 0) {
+    status[kValid] = V;
+    status[kRuns] = R;
+    status[kFlag] = bad;
+  }
+}
+
+// ---------------------------------------------------------------- large path
+
+// every pass's digit totals at once, the valid keys and the flag
+__global__ void __launch_bounds__(kThreads)
+ingest_sort_hist_kernel(const int64_t* __restrict__ keys, long long n, Window w, int passes,
+                        int dbits, int* __restrict__ status, unsigned* __restrict__ ghist) {
+  __shared__ unsigned cnt[kMaxPasses * kMaxBins];
+  const int nbins = 1 << dbits;
+  for (int t = threadIdx.x; t < passes * nbins; t += kThreads) cnt[t] = 0;
   __syncthreads();
-  // staged row p of digit d goes to glob_off[d] + (p - digit_off[d]): each
-  // digit's keys leave the tile as one contiguous run.  Before the last
-  // pass, each key also counts in the next pass's histogram, at its
-  // destination tile and next digit (one atomic a group of equal lanes)
-  const int rounds = (n_tile + kThreads - 1) / kThreads;
-  for (int q = 0; q < rounds; ++q) {
-    const int p = q * kThreads + threadIdx.x;
-    const bool live = p < n_tile;
-    KeyT c = 0;
-    long long dst = 0;
-    if (live) {
-      c = s_code[p];
-      const int d = (int)(((uint64_t)c >> shift) & (uint64_t)(nbins - 1));
-      dst = glob_off[d] + (p - digit_off[d]);
+  int bad = 0, valid = 0;
+  constexpr int kUnroll = 4;  // loads in flight a thread
+  const long long stride = (long long)gridDim.x * kThreads;
+  for (long long i0 = (long long)blockIdx.x * kThreads + threadIdx.x; i0 < n;
+       i0 += kUnroll * stride) {
+    int64_t key[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long i = i0 + u * stride;
+      key[u] = i < n ? keys[i] : kSentinel;
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      uint64_t c = 0;
+      const bool ok = key[u] != kSentinel && key_code(key[u], w, &c);
+      bad |= key[u] != kSentinel && !ok;
+      if (ok) {
+        ++valid;
+        for (int p = 0; p < passes; ++p)
+          atomicAdd(&cnt[p * nbins + digit_of(c, p * dbits, dbits)], 1u);
+      }
+    }
+  }
+  int V;
+  block_exclusive_sum(valid, &V);
+  if (__syncthreads_or(bad) && threadIdx.x == 0) atomicOr(&status[kFlag], 1);
+  if (threadIdx.x == 0 && V) atomicAdd(&status[kValid], V);
+  for (int t = threadIdx.x; t < passes * nbins; t += kThreads)
+    if (cnt[t]) atomicAdd(&ghist[(t / nbins) * kMaxBins + t % nbins], cnt[t]);
+}
+
+// One radix pass over tiles taken in order from the pass's counter.
+template <typename KeyT, bool kFirst, bool kLast>
+__global__ void __launch_bounds__(kThreads, 4)
+ingest_sort_pass_kernel(const int64_t* __restrict__ keys,      // kFirst
+                        const KeyT* __restrict__ codes_in,     // later passes
+                        const uint32_t* __restrict__ idx_in,   // later passes
+                        long long n_keys, int* __restrict__ status, Window w, int pass,
+                        int dbits, const unsigned* __restrict__ ghist,  // this pass's [kMaxBins]
+                        unsigned* __restrict__ look,           // this pass's [tiles, 2^dbits]
+                        KeyT* __restrict__ codes_out, uint32_t* __restrict__ idx_out,
+                        int64_t* __restrict__ perm) {          // kLast
+  extern __shared__ __align__(16) unsigned char smem[];
+  KeyT* s_code = reinterpret_cast<KeyT*>(smem);
+  uint32_t* s_idx = reinterpret_cast<uint32_t*>(smem + kTile * sizeof(KeyT));
+  __shared__ RankSmem<kWarps> sm;
+  __shared__ long long s_base[kMaxBins];  // each digit's first output row in this tile
+  __shared__ int s_tile;
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  const int nbins = 1 << dbits, shift = pass * dbits;
+  // each digit's first row over the whole pass
+  int total;
+  const int gstart = block_exclusive_sum(threadIdx.x < nbins ? (int)ghist[threadIdx.x] : 0,
+                                         &total);
+  const long long n = kFirst ? n_keys : (long long)status[kValid];
+  const long long n_tiles = (n + kTile - 1) / kTile;
+  for (;;) {
+    if (threadIdx.x == 0) s_tile = atomicAdd(&status[kPassCounter + pass], 1);
+    __syncthreads();
+    const int tile = s_tile;
+    if (tile >= n_tiles) break;
+    const long long wbase = (long long)tile * kTile + wid * 32 * kItems;
+    KeyT code[kItems];
+    uint32_t idx[kItems];
+    int digit[kItems], rank[kItems];
+    // the tile's loads first, all in flight, then the codes and digits
+    int64_t key[kItems];
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      const long long i = wbase + 32 * k + lane;
+      if (kFirst) {
+        key[k] = i < n ? keys[i] : kSentinel;
+      } else {
+        code[k] = i < n ? codes_in[i] : (KeyT)0;
+        idx[k] = i < n ? idx_in[i] : 0u;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      const long long i = wbase + 32 * k + lane;
+      uint64_t c = kFirst ? 0 : (uint64_t)code[k];
+      bool ok = i < n;
+      if (kFirst) {
+        ok = key[k] != kSentinel && key_code(key[k], w, &c);
+        code[k] = (KeyT)c;
+        idx[k] = (uint32_t)i;
+      }
+      digit[k] = ok ? digit_of(c, shift, dbits) : -1;
+    }
+    tile_rank<kThreads>(digit, rank, dbits,
+                        rounds_below<kItems>((int)(n - (long long)tile * kTile < kTile
+                                         ? n - (long long)tile * kTile : kTile)), sm);
+    // publish each digit's count in the tile, stage the tile sorted by digit,
+    // then take each digit's offset over the tiles before by a look-back
+    volatile unsigned* word = look + (size_t)tile * nbins + threadIdx.x;
+    const unsigned mine = threadIdx.x < nbins ? (unsigned)sm.dcount[threadIdx.x] : 0u;
+    if (threadIdx.x < nbins) *word = (tile == 0 ? kInclusive : kAggregate) | mine;
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      if (digit[k] >= 0) {
+        s_code[rank[k]] = code[k];
+        s_idx[rank[k]] = idx[k];
+      }
+    }
+    if (threadIdx.x < nbins) {
+      unsigned before = 0;
+      if (tile > 0) {
+        before = look_back(look + threadIdx.x, nbins, tile);
+        *word = kInclusive | (before + mine);
+      }
+      s_base[threadIdx.x] = (long long)gstart + before - sm.dstart[threadIdx.x];
+    }
+    __syncthreads();
+    // staged row p of digit d goes to s_base[d] + p: each digit's keys leave
+    // the tile as one contiguous run
+    const int n_tile = sm.dstart[nbins - 1] + sm.dcount[nbins - 1];
+    for (int p = threadIdx.x; p < n_tile; p += kThreads) {
+      const KeyT c = s_code[p];
+      const long long dst = s_base[digit_of((uint64_t)c, shift, dbits)] + p;
       codes_out[dst] = c;
       if (kLast) {
         perm[dst] = (int64_t)s_idx[p];
@@ -301,22 +542,18 @@ ingest_sort_scatter_kernel(const int64_t* __restrict__ keys,      // kFirst
         idx_out[dst] = s_idx[p];
       }
     }
-    if (!kLast) {
-      const long long slot =
-          live ? (long long)(((uint64_t)c >> next_shift) & (uint64_t)(next_bins - 1)) * n_tiles
-                     + dst / kTile
-               : -1;
-      const unsigned peers = __match_any_sync(kAll, slot);
-      if (live && (peers & lt) == 0) atomicAdd(&next_hist[slot], __popc(peers));
-    }
+    __syncthreads();  // the next tile reuses the shared memory
   }
 }
 
-// ---------------------------------------------------------------- run cut
-
-// A tile's word in the run cut's look-back: its flag (aggregate or
-// inclusive prefix), its heads, and its last head's row + 1 (0: none).
-constexpr unsigned long long kAggregate = 1ull << 62, kInclusive = 2ull << 62;
+// The run cut, over the sorted codes in tiles of 2048 rows (RowCut).  Each
+// tile counts its heads and its last head, takes the heads and the last head
+// of all tiles before it by a decoupled look-back (tiles numbered in the
+// order their CTAs start, so each waits only on tiles already running; a
+// tile past the valid rows has nothing to add and leaves), then writes its
+// runs.  status[1] gets the number of runs.
+constexpr int kCutTile = kThreads * RowCut<uint32_t>::kRounds;
+constexpr unsigned long long kCutAggregate = 1ull << 62, kCutInclusive = 2ull << 62;
 constexpr unsigned long long kField = (1ull << 31) - 1;
 
 __device__ __forceinline__ unsigned long long tile_word(unsigned long long flag, long long heads,
@@ -324,92 +561,108 @@ __device__ __forceinline__ unsigned long long tile_word(unsigned long long flag,
   return flag | ((unsigned long long)heads << 31) | (unsigned long long)last1;
 }
 
-// The run cut in one launch, over the sorted codes in tiles of 2048 rows
-// (thread t: 8 consecutive rows).  A row is a head where its code differs
-// from the row before; each tile counts its heads and its last head, takes
-// the heads and the last head of all tiles before it by a decoupled
-// look-back (tiles numbered in the order their CTAs start, so each waits
-// only on tiles already running), and then writes per run its first row
-// (starts), its key decoded (ukey) and, at its last row, its length
-// (counts); per row its run (rid).  status[1] gets the number of runs.
 template <typename KeyT>
 __global__ void __launch_bounds__(kThreads)
 ingest_sort_runs_kernel(const KeyT* __restrict__ codes, int* __restrict__ status, Window w,
-                        unsigned long long* __restrict__ states,  // [n_tiles], zeroed
+                        unsigned long long* __restrict__ states,  // [tiles], zeroed
                         int64_t* __restrict__ ukey, int64_t* __restrict__ starts,
                         int64_t* __restrict__ counts, int32_t* __restrict__ rid) {  // or null
   __shared__ int s_tile;
   __shared__ long long s_heads, s_last1;
-  if (threadIdx.x == 0) s_tile = atomicAdd(&status[kTileCounter], 1);
+  if (threadIdx.x == 0) s_tile = atomicAdd(&status[kCutCounter], 1);
   __syncthreads();
   const int tile = s_tile;
   const long long n = status[kValid];
-  const long long i0 = (long long)tile * kTile + (long long)threadIdx.x * kItems;
-  bool h[kItems];
-  int c = 0;
-  long long last1 = 0;  // the thread's last head row + 1
-#pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    const long long i = i0 + k;
-    h[k] = i < n && (i == 0 || codes[i] != codes[i - 1]);
-    if (h[k]) {
-      ++c;
-      last1 = i + 1;
-    }
-  }
+  if ((long long)tile * kCutTile >= n) return;
+  const int lane = threadIdx.x & 31;
+  RowCut<KeyT> cut;
+  cut.scan(codes, (long long)tile * kCutTile, n);
   int tile_heads;
   long long tile_last1;
-  const int ex = block_exclusive_sum(c, &tile_heads);
-  const long long ex_last1 = block_exclusive_scan(last1, 0LL, Max(), &tile_last1);
-  if (threadIdx.x == 0) {
+  const int ex = __shfl_sync(kAll, block_exclusive_sum(lane ? 0 : cut.heads, &tile_heads), 0);
+  const long long ex1 = __shfl_sync(
+      kAll, block_exclusive_scan<kThreads>(lane ? 0LL : cut.last1, 0LL, Max(), &tile_last1), 0);
+  if (threadIdx.x < 32) {
+    // warp 0 looks back over the tiles before, 32 words at once, to the
+    // first inclusive one
     long long heads = 0, prev1 = 0;  // of the tiles before this one
     if (tile > 0) {
-      atomicExch(&states[tile], tile_word(kAggregate, tile_heads, tile_last1));
-      for (int j = tile - 1; j >= 0; --j) {
-        unsigned long long st;
-        do {
-          st = *(volatile unsigned long long*)&states[j];
-        } while ((st >> 62) == 0);
-        heads += (long long)((st >> 31) & kField);
-        const long long l1 = (long long)(st & kField);
-        if (l1 > prev1) prev1 = l1;
-        if ((st >> 62) == 2) break;
+      if (lane == 0) atomicExch(&states[tile], tile_word(kCutAggregate, tile_heads, tile_last1));
+      for (int t = tile - 1;; t -= 32) {
+        const int j = t - lane;
+        unsigned long long st = 2ull << 62;  // before tile 0: inclusive, nothing
+        if (j >= 0) {
+          do {
+            st = *(volatile unsigned long long*)&states[j];
+          } while ((st >> 62) == 0);
+        }
+        const unsigned incl = __ballot_sync(kAll, (st >> 62) == 2);
+        const int stop = incl ? __ffs(incl) - 1 : 31;
+        long long h = lane <= stop ? (long long)((st >> 31) & kField) : 0;
+        long long l1 = lane <= stop ? (long long)(st & kField) : 0;
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) {
+          h += __shfl_xor_sync(kAll, h, o);
+          l1 = max(l1, __shfl_xor_sync(kAll, l1, o));
+        }
+        heads += h;
+        prev1 = max(prev1, l1);
+        if (incl) break;
       }
     }
-    atomicExch(&states[tile], tile_word(kInclusive, heads + tile_heads,
-                                        tile_last1 ? tile_last1 : prev1));
-    atomicMax(&status[kRuns], (int)(heads + tile_heads));
-    s_heads = heads;
-    s_last1 = prev1;
+    if (lane == 0) {
+      atomicExch(&states[tile], tile_word(kCutInclusive, heads + tile_heads,
+                                          tile_last1 ? tile_last1 : prev1));
+      atomicMax(&status[kRuns], (int)(heads + tile_heads));
+      s_heads = heads;
+      s_last1 = prev1;
+    }
   }
   __syncthreads();
-  long long r = s_heads + ex - 1;                  // the run of row i0 - 1
-  long long head1 = ex_last1 ? ex_last1 : s_last1;  // its first row + 1
-#pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    const long long i = i0 + k;
-    if (i >= n) break;
-    if (h[k]) {
-      ++r;
-      head1 = i + 1;
-      starts[r] = i;
-      ukey[r] = code_key((uint64_t)codes[i], w);
-    }
-    if (rid) rid[i] = (int32_t)r;
-    if (i == n - 1 || codes[i + 1] != codes[i]) counts[r] = i + 2 - head1;
-  }
+  cut.write(codes, n, s_heads + ex, max(s_last1, ex1), w, ukey, starts, counts, rid);
 }
+
+// ---------------------------------------------------------------- host side
 
 size_t align_up(size_t x) { return (x + 255) & ~(size_t)255; }
 
-struct Layout {
-  size_t codes_a, codes_b, idx_a, idx_b, hist, row_tot, states, bytes;
+struct Plan {
+  int passes, dbits;
 };
 
-Layout layout(long long N, int key_bytes) {
-  const size_t n_tiles = (size_t)((N + kTile - 1) / kTile);
+Plan plan(int bits) {
+  Plan p;
+  p.passes = (bits + 7) / 8;
+  p.dbits = (bits + p.passes - 1) / p.passes;
+  return p;
+}
+
+// The workspace: the control words (zeroed by one memset: the status words
+// and counters, every pass's digit totals and look-back words, the run
+// cut's tile words), then the codes and indices, two buffers each.
+struct Layout {
+  size_t ghist, look, states, control, codes_a, codes_b, idx_a, idx_b, bytes;
+  size_t look_per_pass;
+};
+
+Layout layout(long long N, int bits, int key_bytes, bool small) {
   Layout l{};
-  size_t off = 0;
+  if (small) {
+    l.control = l.bytes = kStatusBytes;
+    return l;
+  }
+  const Plan p = plan(bits);
+  const size_t tiles = (size_t)((N + kTile - 1) / kTile);
+  const size_t cut_tiles = (size_t)((N + kCutTile - 1) / kCutTile);
+  size_t off = kStatusBytes;
+  l.ghist = off;
+  off += align_up((size_t)p.passes * kMaxBins * 4);
+  l.look = off;
+  l.look_per_pass = tiles * ((size_t)1 << p.dbits) * 4;
+  off += align_up((size_t)p.passes * l.look_per_pass);
+  l.states = off;
+  off += align_up(cut_tiles * 8);
+  l.control = off;
   l.codes_a = off;
   off += align_up((size_t)N * key_bytes);
   l.codes_b = off;
@@ -418,104 +671,136 @@ Layout layout(long long N, int key_bytes) {
   off += align_up((size_t)N * 4);
   l.idx_b = off;
   off += align_up((size_t)N * 4);
-  l.hist = off;  // two histograms, alternating between passes
-  off += align_up(2 * kMaxBins * n_tiles * 4);
-  l.row_tot = off;
-  off += align_up(kMaxBins * 4);
-  l.states = off;
-  off += align_up(n_tiles * 8);
   l.bytes = off;
   return l;
 }
 
+template <typename Kernel>
+int resident_ctas(Kernel k, size_t smem) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k, kThreads, smem);
+  return (per_sm < 1 ? 1 : per_sm) * (sms < 1 ? 1 : sms);
+}
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel k, size_t smem) {
+  return cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+template <typename KeyT, bool kFirst, bool kLast>
+cudaError_t launch_pass(const int64_t* keys, const KeyT* ci, const uint32_t* ii, long long N,
+                        int* status, Window w, int pass, int dbits, const unsigned* ghist,
+                        unsigned* look, KeyT* co, uint32_t* io, int64_t* perm,
+                        cudaStream_t st) {
+  auto kernel = ingest_sort_pass_kernel<KeyT, kFirst, kLast>;
+  const size_t smem = (size_t)kTile * (sizeof(KeyT) + 4);
+  static int resident = 0;  // per instance: one card a process
+  if (resident == 0) {
+    const cudaError_t e = allow_smem(kernel, smem);
+    if (e != cudaSuccess) return e;
+    resident = resident_ctas(kernel, smem);
+  }
+  const long long tiles = (N + kTile - 1) / kTile;
+  const int grid = (int)(tiles < resident ? tiles : resident);
+  kernel<<<grid, kThreads, smem, st>>>(keys, ci, ii, N, status, w, pass, dbits, ghist, look,
+                                        co, io, perm);
+  return cudaGetLastError();
+}
+
 template <typename KeyT>
-int run_sort(const int64_t* keys, long long N, Window w, int bits, char* work,
-             int64_t* out, int32_t* rid, int* status, cudaStream_t st) {
-  const Layout l = layout(N, (int)sizeof(KeyT));
-  const int n_tiles = (int)((N + kTile - 1) / kTile);
+int run_sort(const int64_t* keys, long long N, Window w, int bits, bool small, char* work,
+             int64_t* out, int32_t* rid, cudaStream_t st) {
+  const Plan p = plan(bits);
+  int* status = reinterpret_cast<int*>(work);
+  if (small) {
+    const size_t smem = (size_t)kSmallTile * (sizeof(KeyT) + 4);
+    auto kernel = ingest_sort_small_kernel<KeyT>;
+    static bool ready = false;
+    if (!ready) {
+      const cudaError_t e = allow_smem(kernel, smem);
+      if (e != cudaSuccess) return (int)e;
+      ready = true;
+    }
+    kernel<<<1, kSmallThreads, smem, st>>>(keys, (int)N, w, p.passes, p.dbits, out, rid,
+                                           status);
+    return (int)cudaGetLastError();
+  }
+  const Layout l = layout(N, bits, (int)sizeof(KeyT), false);
+  unsigned* ghist = reinterpret_cast<unsigned*>(work + l.ghist);
+  unsigned* look = reinterpret_cast<unsigned*>(work + l.look);
+  unsigned long long* states = reinterpret_cast<unsigned long long*>(work + l.states);
   KeyT* codes[2] = {reinterpret_cast<KeyT*>(work + l.codes_a),
                     reinterpret_cast<KeyT*>(work + l.codes_b)};
   uint32_t* idx[2] = {reinterpret_cast<uint32_t*>(work + l.idx_a),
                       reinterpret_cast<uint32_t*>(work + l.idx_b)};
-  int* hist = reinterpret_cast<int*>(work + l.hist);
-  int* row_tot = reinterpret_cast<int*>(work + l.row_tot);
-  unsigned long long* states = reinterpret_cast<unsigned long long*>(work + l.states);
-  int64_t* perm = out;
-  int64_t* ukey = out + N;
-  int64_t* starts = out + 2 * N;
-  int64_t* counts = out + 3 * N;
-  cudaMemsetAsync(status, 0, 4 * sizeof(int), st);
-  const int passes = (bits + 7) / 8;
-  const int dbits = (bits + passes - 1) / passes;
-  auto bins_of = [&](int p) {
-    const int shift = p * dbits;
-    return 1 << (bits - shift < dbits ? bits - shift : dbits);
-  };
-  // the first pass's histogram from the keys; each later pass's from the
-  // scatter before it (the two histograms alternate)
-  int* hists[2] = {hist, hist + (size_t)kMaxBins * n_tiles};
-  ingest_sort_hist_kernel<<<n_tiles, kThreads, 0, st>>>(keys, N, status, w, bins_of(0),
-                                                        n_tiles, hists[0]);
+  cudaError_t e = cudaMemsetAsync(work, 0, l.control, st);
+  if (e != cudaSuccess) return (int)e;
+  static int hist_grid = 0;
+  if (hist_grid == 0) hist_grid = resident_ctas(ingest_sort_hist_kernel, 0);
+  const long long hist_ctas = (N + 4 * kThreads - 1) / (4 * kThreads);  // 4 keys a thread
+  ingest_sort_hist_kernel<<<(int)(hist_ctas < hist_grid ? hist_ctas : hist_grid), kThreads, 0,
+                            st>>>(
+      keys, N, w, p.passes, p.dbits, status, ghist);
   int cur = 0;  // the buffers the pass reads (after the first)
-  for (int p = 0; p < passes; ++p) {
-    const int shift = p * dbits;
-    const int nbins = bins_of(p);
-    const bool first = p == 0, last = p == passes - 1;
-    int* h = hists[p & 1];
-    int* nh = last ? nullptr : hists[(p + 1) & 1];
-    const int next_bins = last ? 1 : bins_of(p + 1);
-    // the scan zeroes the next pass's histogram, or before the run cut its
-    // look-back words (two ints a tile)
-    ingest_sort_scan_kernel<<<nbins, kThreads, 0, st>>>(
-        h, n_tiles, row_tot, first ? status + kValid : nullptr,
-        last ? reinterpret_cast<int*>(states) : nh, last ? 2 : next_bins);
+  for (int q = 0; q < p.passes; ++q) {
+    const bool first = q == 0, last = q == p.passes - 1;
+    const unsigned* gh = ghist + (size_t)q * kMaxBins;
+    unsigned* lk = look + (size_t)q * (l.look_per_pass / 4);
     KeyT* co = codes[1 - cur];
     uint32_t* io = idx[1 - cur];
-#define LA3DM_SCATTER(F, L)                                                              \
-  ingest_sort_scatter_kernel<KeyT, F, L><<<n_tiles, kThreads, 0, st>>>(                 \
-      keys, codes[cur], idx[cur], N, status, w, shift, nbins, n_tiles, h, row_tot, co,    \
-      io, perm, shift + dbits, next_bins, nh)
     if (first && last) {
-      LA3DM_SCATTER(true, true);
+      e = launch_pass<KeyT, true, true>(keys, codes[cur], idx[cur], N, status, w, q, p.dbits, gh,
+                                        lk, co, io, out, st);
     } else if (first) {
-      LA3DM_SCATTER(true, false);
+      e = launch_pass<KeyT, true, false>(keys, codes[cur], idx[cur], N, status, w, q, p.dbits,
+                                         gh, lk, co, io, out, st);
     } else if (last) {
-      LA3DM_SCATTER(false, true);
+      e = launch_pass<KeyT, false, true>(keys, codes[cur], idx[cur], N, status, w, q, p.dbits,
+                                         gh, lk, co, io, out, st);
     } else {
-      LA3DM_SCATTER(false, false);
+      e = launch_pass<KeyT, false, false>(keys, codes[cur], idx[cur], N, status, w, q, p.dbits,
+                                          gh, lk, co, io, out, st);
     }
-#undef LA3DM_SCATTER
+    if (e != cudaSuccess) return (int)e;
     cur = 1 - cur;
   }
-  ingest_sort_runs_kernel<KeyT><<<n_tiles, kThreads, 0, st>>>(codes[cur], status, w, states,
-                                                              ukey, starts, counts, rid);
+  const long long cut_tiles = (N + kCutTile - 1) / kCutTile;
+  ingest_sort_runs_kernel<KeyT><<<(unsigned)cut_tiles, kThreads, 0, st>>>(
+      codes[cur], status, w, states, out + N, out + 2 * N, out + 3 * N, rid);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Workspace bytes K7s needs for N keys of ``key_bytes``-byte codes.
-extern "C" long long la3dm_ingest_sort_workspace(long long N, int key_bytes) {
-  return (long long)layout(N, key_bytes).bytes;
+// Workspace bytes K7s needs for N keys of ``bits``-bit codes in
+// ``key_bytes``-byte words, on the small path (``small`` != 0) or the large
+// one; its first 16 bytes are the status words.
+extern "C" long long la3dm_ingest_sort_workspace(long long N, int bits, int key_bytes,
+                                                 int small) {
+  return (long long)layout(N, bits, key_bytes, small != 0).bytes;
 }
 
-// Queue K7s on ``stream`` over the N int64 keys (1 <= N < 2^31): ``lo``,
+// Queue K7s on ``stream`` over the N int64 keys (1 <= N < 2^30): ``lo``,
 // ``W``, ``K`` the window, ``bits`` the code's bit length, ``key_bytes`` 4 or
-// 8.  ``out`` [4, N] int64 receives perm, ukey, starts, counts (their valid
-// prefixes: status[0] rows of perm, status[1] runs); ``rid`` [N] int32 (or
-// null) the run of each sorted row; ``status`` [4] int32 the valid keys, the
-// runs and the out-of-window flag.  Returns cudaGetLastError().
+// 8, ``small`` != 0 the one-CTA path (N <= 4096).  ``out`` [4, N] int64
+// receives perm, ukey, starts, counts (their valid prefixes: status[0] rows
+// of perm, status[1] runs); ``rid`` [N] int32 (or null) the run of each
+// sorted row; the workspace's first words (int32) the valid keys, the runs
+// and the out-of-window flag.  Returns cudaGetLastError().
 extern "C" int la3dm_ingest_sort(const int64_t* keys, long long N, int lo, int W, int K,
-                                 int bits, int key_bytes, void* work, long long work_bytes,
-                                 int64_t* out, int32_t* rid, int32_t* status, void* stream) {
-  if (N <= 0 || N >= (1LL << 31) || bits < 1 || bits > 64 || W < 1 || K < 1 ||
+                                 int bits, int key_bytes, int small, void* work,
+                                 long long work_bytes, int64_t* out, int32_t* rid,
+                                 void* stream) {
+  if (N <= 0 || N >= (1LL << 30) || bits < 1 || bits > 64 || W < 1 || K < 1 ||
       (key_bytes != 4 && key_bytes != 8) || (key_bytes == 4 && bits > 32) ||
-      work_bytes < (long long)layout(N, key_bytes).bytes)
+      (small && N > kSmallTile) ||
+      work_bytes < (long long)layout(N, bits, key_bytes, small != 0).bytes)
     return (int)cudaErrorInvalidValue;
   const Window w{lo, W, K};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   char* ws = static_cast<char*>(work);
-  int* sts = reinterpret_cast<int*>(status);
-  return key_bytes == 4 ? run_sort<uint32_t>(keys, N, w, bits, ws, out, rid, sts, st)
-                        : run_sort<uint64_t>(keys, N, w, bits, ws, out, rid, sts, st);
+  return key_bytes == 4 ? run_sort<uint32_t>(keys, N, w, bits, small != 0, ws, out, rid, st)
+                        : run_sort<uint64_t>(keys, N, w, bits, small != 0, ws, out, rid, st);
 }

@@ -110,15 +110,20 @@ def _bind(lib):
     lib.la3dm_ingest_downsample.restype = ci
     lib.la3dm_ingest_downsample.argtypes = [vp] * 6 + [cl, cf, vp, vp]
     lib.la3dm_ingest_sort_workspace.restype = cl
-    lib.la3dm_ingest_sort_workspace.argtypes = [cl, ci]
+    lib.la3dm_ingest_sort_workspace.argtypes = [cl, ci, ci, ci]
     lib.la3dm_ingest_sort.restype = ci
-    lib.la3dm_ingest_sort.argtypes = [vp, cl] + [ci] * 5 + [vp, cl] + [vp] * 4
+    lib.la3dm_ingest_sort.argtypes = [vp, cl] + [ci] * 6 + [vp, cl] + [vp] * 3
     lib.la3dm_ingest_bucket.restype = ci
     lib.la3dm_ingest_bucket.argtypes = [vp] * 9 + [cl] * 3 + [ci, ci, cf] + [vp] * 6
     lib.la3dm_ingest_members.restype = ci
     lib.la3dm_ingest_members.argtypes = [vp] * 4 + [cl, cf, cf, vp, vp]
-    lib.la3dm_ingest_rays.restype = ci
-    lib.la3dm_ingest_rays.argtypes = ([vp] * 4 + [cl, ci] + [cf] * 4 + [ci, ci] + [vp] * 9)
+    lib.la3dm_ingest_rays_workspace.restype = cl
+    lib.la3dm_ingest_rays_workspace.argtypes = [cl, ci]
+    lib.la3dm_ingest_rays_count.restype = ci
+    lib.la3dm_ingest_rays_count.argtypes = [vp] * 4 + [cl, ci] + [cf] * 4 + [vp, cl] + [vp] * 6
+    lib.la3dm_ingest_rays_write.restype = ci
+    lib.la3dm_ingest_rays_write.argtypes = ([vp] * 4 + [cl, ci] + [cf] * 4 + [vp, cl, ci, cl]
+                                            + [vp] * 3)
     lib.la3dm_raycast.restype = ci
     lib.la3dm_raycast.argtypes = [vp] * 6 + [cl] + [ci] * 6 + [cf] * 3 + [vp] * 6
     lib.la3dm_bgk_aligned_heavy.restype = ci

@@ -21,9 +21,11 @@ and :func:`unpack_plain` are its plain versions.  A valid key outside its
 window raises (ValueError), on the card through a flag read at the one sync
 of :func:`sort_runs`.
 
-On CUDA tensors :func:`sort_runs` launches ``csrc/ingest_sort.cu`` (LSD radix
-over the code's bits, then the run cut) and waits once for the sizes; on CPU
-tensors it runs :func:`sort_runs_plain`.  What bounds the kernel is bytes.
+On CUDA tensors :func:`sort_runs` launches ``csrc/ingest_sort.cu`` and
+waits once for the sizes; on CPU tensors it runs :func:`sort_runs_plain`.
+Up to :data:`SMALL_SORT_KEYS` keys one CTA sorts and cuts the runs in one
+launch; above, a histogram of every pass, one Onesweep pass a digit and the
+run cut (:func:`kernels_per_sort`).  What bounds the kernel is bytes.
 """
 
 from __future__ import annotations
@@ -42,6 +44,10 @@ from la3dm_tpu_torch.kernels import _build, ingest_keys
 launches = 0
 #: CUDA kernels those sorts queued
 kernel_launches = 0
+
+#: the most keys the one-CTA path takes (at most the kernel's tile, 4096); a
+#: sort of more keys takes the multi-CTA path
+SMALL_SORT_KEYS = 4096
 
 #: the widest cell window device ingest accepts: ``device_ingest.beam_slots``
 #: keeps 2·mr/ds + 8 ≤ 1024, so mr/ds ≤ 508, and :func:`cell_window` adds
@@ -108,10 +114,15 @@ def widest_window(scans: int) -> Window:
     return Window(MAX_CELL_RADIUS, scans)
 
 
-def kernels_per_sort(window: Window) -> int:
-    """CUDA kernels one sort queues: the first pass's histogram, a scan and a
-    scatter a pass, and the run cut."""
-    return 2 * window.passes + 2
+def small_sort(n_keys: int) -> bool:
+    """Whether a sort of ``n_keys`` keys takes the one-CTA path."""
+    return n_keys <= SMALL_SORT_KEYS
+
+
+def kernels_per_sort(window: Window, n_keys: int) -> int:
+    """CUDA kernels one sort of ``n_keys`` keys queues: one on the one-CTA
+    path; else every pass's histogram, a pass each, and the run cut."""
+    return 1 if small_sort(n_keys) else window.passes + 2
 
 
 class Runs(NamedTuple):
@@ -170,30 +181,31 @@ def launch(keys: torch.Tensor, window: Window, *, want_rid: bool = False):
     if keys.dtype != torch.int64 or keys.dim() != 1 or not keys.is_contiguous():
         raise ValueError("ingest_sort: keys must be a contiguous 1-D int64 tensor")
     N = keys.shape[0]
-    if not 1 <= N < 2 ** 31:
-        raise ValueError(f"ingest_sort: {N} keys (1 to 2^31 - 1 taken)")
+    if not 1 <= N < 2 ** 30:
+        raise ValueError(f"ingest_sort: {N} keys (1 to 2^30 - 1 taken)")
     if window.scans < 1 or window.radius < 0 \
             or window.lo < 0 or window.lo + window.width > 0x10000:
         raise ValueError(f"ingest_sort: bad window {window}")
     dev = keys.device
     lib = _build.lib()
-    # one allocation: out [4,N] int64, rid [N] int32, status, the workspace
+    small = small_sort(N)
+    # one allocation: out [4,N] int64, rid [N] int32, the workspace (its
+    # first words the status)
     n_out, n_rid = _align(32 * N), _align(4 * N) if want_rid else 0
-    n_work = lib.la3dm_ingest_sort_workspace(N, window.key_bytes)
-    buf = torch.empty(n_out + n_rid + 256 + n_work, dtype=torch.uint8, device=dev)
+    n_work = lib.la3dm_ingest_sort_workspace(N, window.bits, window.key_bytes, int(small))
+    buf = torch.empty(n_out + n_rid + n_work, dtype=torch.uint8, device=dev)
     out = buf[:32 * N].view(torch.int64).view(4, N)
     rid = buf[n_out:n_out + 4 * N].view(torch.int32) if want_rid else None
-    status = buf[n_out + n_rid:n_out + n_rid + 16].view(torch.int32)
-    work = buf[n_out + n_rid + 256:]
+    work = buf[n_out + n_rid:]
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = lib.la3dm_ingest_sort(
         keys.data_ptr(), N, window.lo, window.width, window.scans, window.bits,
-        window.key_bytes, work.data_ptr(), n_work, out.data_ptr(),
-        rid.data_ptr() if want_rid else None, status.data_ptr(), stream)
+        window.key_bytes, int(small), work.data_ptr(), n_work, out.data_ptr(),
+        rid.data_ptr() if want_rid else None, stream)
     _build.check(code, "ingest_sort")
     launches += 1
-    kernel_launches += kernels_per_sort(window)
-    return out, rid, status
+    kernel_launches += kernels_per_sort(window, N)
+    return out, rid, work[:16].view(torch.int32)
 
 
 def sort_runs(keys: torch.Tensor, window: Window, *, want_rid: bool = False) -> Runs:
@@ -259,16 +271,19 @@ def sort_runs_plain(keys: torch.Tensor, window: Window, *, want_rid: bool = Fals
 
 def passes_bytes(n_keys: int, n_valid: int, n_runs: int, window: Window,
                  want_rid: bool) -> int:
-    """Bytes K7s's launches move (each pass's reads and writes, the run cut's;
-    the histograms left out): the first pass reads the int64 keys twice (its
-    histogram, its scatter) and writes code and index; a later pass reads
-    and writes code and index; the last writes an int64 index; the run cut
-    reads the codes twice and writes the runs."""
+    """Bytes K7s's launches move (each pass's reads and writes, the run
+    cut's).  The one-CTA path reads the int64 keys once and writes perm and
+    the runs.  Otherwise the histogram and the first pass read the int64
+    keys (twice) and the first pass writes code and index; a later pass
+    reads and writes code and index; the last writes an int64 index; the run
+    cut reads the codes twice and writes the runs."""
+    runs = n_runs * 24 + (4 * n_valid if want_rid else 0)
+    if small_sort(n_keys):
+        return 8 * n_keys + 8 * n_valid + runs
     kb = window.key_bytes
     total = 2 * 8 * n_keys + n_valid * (kb + 4)
     for p in range(1, window.passes):
         total += n_valid * ((kb + 4) + (kb + (8 if p == window.passes - 1 else 4)))
     if window.passes == 1:
         total += n_valid * 4    # the int64 index, not a u32
-    total += 2 * n_valid * kb + n_runs * 24 + (4 * n_valid if want_rid else 0)
-    return total
+    return total + 2 * n_valid * kb + runs

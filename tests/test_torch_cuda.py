@@ -22,7 +22,8 @@ from la3dm_tpu_torch.models import posterior as po
 
 from torch_cases import (BETA_TEMPLATES, GP_BCM, GP_STATE,  # tests/ on sys.path
                          GP_STATICS, GP_TEMPLATES, INGEST, LV_ROWS_STATICS, LV_STATE,
-                         aligned_heavy_inputs, collapsible_raster_pool, gp_heavy_inputs,
+                         RAY_CONFIGS, aligned_heavy_inputs, collapsible_raster_pool, edge_rays,
+                         gp_heavy_inputs,
                          gp_light_inputs, heavy_inputs, ingest_scene, light_inputs,
                          lv_prune_inputs, lv_rows_inputs, ray_inputs, raycast_chain_inputs,
                          raycast_inputs)
@@ -785,6 +786,8 @@ def _sort_case(case: str):
         "all_sentinel": (ingest_sort.cell_window(mr, ds, 4), 10_000, 1, 1.0),
         "one_key": (ingest_sort.cell_window(mr, ds, 4), 1, 1, 0.0),
         "long_run": (ingest_sort.cell_window(mr, ds, 16), 30_000, 3_000, 0.3),
+        # more tiles than a wave of CTAs, in every pass: CTAs of several tiles
+        "many_tiles": (ingest_sort.cell_window(mr, ds, 16), 3_000_000, 500_000, 0.3),
     }
     w, n, distinct, p_sent = cases[case]
     anchors = rng.integers(-3000, 3000, (w.scans, 3)).astype(np.int32)
@@ -801,7 +804,7 @@ def _sort_case(case: str):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["demo_cells", "demo_blocks", "wide_u64", "one_scan",
-                                  "all_sentinel", "one_key", "long_run"])
+                                  "all_sentinel", "one_key", "long_run", "many_tiles"])
 def test_ingest_sort_kernel_equals_plain(cuda_dev, case):
     """K7s: the sort index, the runs and each row's run bit for bit equal to
     the plain version (torch.sort(stable=True) + unique_consecutive); the
@@ -834,6 +837,74 @@ def test_ingest_sort_kernel_raises_outside_its_window(cuda_dev):
     with pytest.raises(ValueError, match="outside their window"):
         ingest_sort.sort_runs(bad.to(cuda_dev), w)
     ingest_sort.sort_runs(keys.to(cuda_dev), w)  # the card is fine after it
+
+
+def _sort_equals_plain(keys, w, dev, small: bool):
+    """K7s on ``keys`` through the path ``small`` names: one sort, its
+    kernels (one on the one-CTA path, passes + 2 above), every output bit
+    for bit equal to the plain version's; the control, one tie swapped in
+    the sort index, must fail."""
+    assert ingest_sort.small_sort(keys.shape[0]) == small
+    before = ingest_sort.launches, ingest_sort.kernel_launches
+    runs = ingest_sort.sort_runs(keys.to(dev), w, want_rid=True)
+    torch.cuda.synchronize()
+    assert ingest_sort.launches == before[0] + 1
+    assert ingest_sort.kernel_launches == before[1] + (1 if small else w.passes + 2)
+    ref = ingest_sort.sort_runs_plain(keys, w, want_rid=True)
+    for name, x, y in zip(runs._fields, runs, ref):
+        assert x.dtype == y.dtype and torch.equal(x.cpu(), y), name
+    if int((ref.counts > 1).sum()):
+        r = int(torch.nonzero(ref.counts > 1)[0])
+        perm = runs.perm.cpu().clone()
+        a = int(ref.starts[r])
+        perm[[a, a + 1]] = perm[[a + 1, a]]
+        assert not torch.equal(perm, ref.perm)
+    return ref
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["small", "large"])
+@pytest.mark.parametrize("case", ["demo_cells", "demo_blocks", "wide_u64", "one_scan",
+                                  "all_sentinel", "one_key", "long_run", "many_tiles"])
+def test_ingest_sort_kernel_paths_equal_plain(cuda_dev, case, path, monkeypatch):
+    """K7s's two paths on the seven key sets of _sort_case: the one-CTA path on each
+    set's first SMALL_SORT_KEYS keys (a u64 window among them), the
+    multi-CTA path on the whole set with the threshold at 0 (so one key
+    takes it too)."""
+    keys, w = _sort_case(case)
+    if path == "small":
+        keys = keys[:ingest_sort.SMALL_SORT_KEYS].contiguous()
+    else:
+        monkeypatch.setattr(ingest_sort, "SMALL_SORT_KEYS", 0)
+    _sort_equals_plain(keys, w, cuda_dev, path == "small")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("threshold", [4096, 1000])
+@pytest.mark.parametrize("delta", [-1, 0, 1])
+def test_ingest_sort_kernel_at_the_threshold(cuda_dev, threshold, delta, monkeypatch):
+    """N at the small-sort threshold ± 1 (the kernel's tile, and a lower
+    threshold set by monkeypatch): the path follows N, both bit-equal."""
+    monkeypatch.setattr(ingest_sort, "SMALL_SORT_KEYS", threshold)
+    keys, w = _sort_case("demo_cells")
+    keys = keys[:threshold + delta].contiguous()
+    _sort_equals_plain(keys, w, cuda_dev, delta <= 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("threshold", [4096, 0])
+def test_ingest_sort_kernel_raises_on_both_paths(cuda_dev, threshold, monkeypatch):
+    """A valid key one cell past its window raises at the sort's one sync,
+    on the one-CTA path and the multi-CTA path."""
+    monkeypatch.setattr(ingest_sort, "SMALL_SORT_KEYS", threshold)
+    keys, w = _sort_case("one_scan")
+    keys = keys[:3000].contiguous()
+    bad = keys.clone()
+    bad[123] = ingest_keys.pack(torch.tensor([0]), torch.tensor([[0, w.radius + 1, 0]]),
+                                torch.zeros((1, 3), dtype=torch.int32))[0]
+    with pytest.raises(ValueError, match="outside their window"):
+        ingest_sort.sort_runs(bad.to(cuda_dev), w)
+    _sort_equals_plain(keys, w, cuda_dev, threshold > 0)
 
 
 @pytest.mark.cuda
@@ -1022,6 +1093,26 @@ def test_ingest_rays_kernel_matches_plain(cuda_dev):
     assert out[3].numel() > 5 * args[0].shape[0]
     main = ingest_rays.ray_pairs(*args, **kw)         # the main path's call
     assert main[5] is None and torch.equal(main[4], ref[4])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", sorted(RAY_CONFIGS))
+def test_ingest_rays_kernel_edge_rays(cuda_dev, config):
+    """K7d on rays made to break its dedup by contiguity (samples on block
+    faces and edges, rays along each axis, origins on faces, lengths within
+    an ulp of k·fr and of the range, rays out of range) and 20,000 random
+    ones, at the BGKL demo's 28 samples a ray, the large map's 6 (four rays a
+    warp) and 82 (chunks of 32): every output bit-equal to the plain
+    version, two launches."""
+    args, kw = edge_rays(config, n_random=20_000, dev=cuda_dev)
+    before = ingest_rays.launches
+    out = ingest_rays.ray_pairs(*args, **kw, want_samples=True)
+    torch.cuda.synchronize()
+    assert ingest_rays.launches == before + 2
+    ref = ingest_rays.ray_pairs_plain(*args, **kw, want_samples=True)
+    for x, y in zip(out, ref):
+        assert x.shape == y.shape and torch.equal(x, y)
+    assert (~ref[2]).sum() > 0 and ref[3].numel() > 3 * args[0].shape[0]
 
 
 @pytest.mark.cuda

@@ -82,12 +82,33 @@ def test_window_bits_and_passes():
     assert _windows("bgk_large", 16)["cell"].key_bytes == 4
     wide = ingest_sort.widest_window(16)
     assert wide.key_bytes == 8 and wide.bits == 35 and wide.passes == 5
-    assert ingest_sort.kernels_per_sort(demo["cell"]) == 10
+    # one launch up to SMALL_SORT_KEYS keys; above, the histogram, a pass each
+    # and the run cut
+    assert ingest_sort.kernels_per_sort(demo["cell"], 56_000) == 6
+    assert ingest_sort.kernels_per_sort(demo["block"], 3_556) == 1
     # the widest cell window covers every config beam_slots lets through
     for mr, ds in ((508 * 0.1, 0.1), (508 * 0.5, 0.5)):
         assert device_ingest.beam_slots(ds, ds, mr, 1.0) is not None
         assert ingest_sort.cell_window(mr, ds, 1).radius <= ingest_sort.MAX_CELL_RADIUS
     assert device_ingest.beam_slots(0.1, 0.1, 508.1 * 0.1, 1.0) is None
+
+
+@pytest.mark.parametrize("threshold", [4096, 100, 0])
+def test_sort_path_follows_the_threshold(threshold, monkeypatch):
+    """The host picks K7s's path from N: the one-CTA path (one launch, its
+    bytes the keys read once and the outputs) up to SMALL_SORT_KEYS keys,
+    which the card tests move to reach both paths at N ± 1."""
+    monkeypatch.setattr(ingest_sort, "SMALL_SORT_KEYS", threshold)
+    w = _windows("demo", 16)["cell"]
+    for n, small in ((threshold - 1, True), (threshold, True), (threshold + 1, False)):
+        if n < 1:
+            continue
+        assert ingest_sort.small_sort(n) == small
+        assert ingest_sort.kernels_per_sort(w, n) == (1 if small else w.passes + 2)
+        # N keys, all valid, N runs, the rows' runs: 44 bytes a key on the
+        # one-CTA path; above, keys read twice (16), four passes of u32 codes
+        # and indices (8 + 16 + 16 + 20), the run cut (8 + 24 + 4)
+        assert ingest_sort.passes_bytes(n, n, n, w, True) == (44 if small else 112) * n
 
 
 @pytest.mark.parametrize("kind", ["cell", "block", "candidate"])

@@ -429,6 +429,84 @@ def ray_inputs(seed, dev="cpu"):
     return (hits, hkey, origins, ba), kw
 
 
+#: (max_range, free_resolution, block size): the BGKL demo (S = 28), the
+#: BGKL large map (S = 6) and the demo's blocks at fr 0.1 (S = 82)
+RAY_CONFIGS = {"demo": (8.0, 0.3, 0.4), "large_map": (30.0, 6.5, 3.2), "fine": (8.0, 0.1, 0.4)}
+F32 = np.float32
+
+
+def ray_slots(mr: float, fr: float) -> int:
+    """Kf, the backward samples a beam (``device_ingest.beam_slots``)."""
+    return int(np.floor(mr / fr)) + 1
+
+
+def face(c: int, bs: float) -> np.float32:
+    """The f32 coordinate of the upper face of block c, as the closed-box
+    test computes it: ctr + half."""
+    return F32(F32(c) * F32(bs)) + F32(bs / 2.0)
+
+
+def ray_args(origins, scan, dirs, lengths, bs, dev="cpu"):
+    """K7d's arguments for rays from ``origins[scan]`` along ``dirs`` of
+    ``lengths`` (f32 hits = origin + dir·length)."""
+    from la3dm_tpu_torch.geometry import device_ingest
+
+    origins = np.asarray(origins, F32)
+    hits = (origins[scan] + np.asarray(dirs, F32) * np.asarray(lengths, F32)[:, None]).astype(F32)
+    keys = np.asarray(scan, np.int64) << 48
+    anchors = device_ingest.anchors(origins, bs)
+    return tuple(torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+                 for x in (hits, keys, origins, anchors))
+
+
+def edge_rays(config: str, seed: int = 0, n_random: int = 300, dev="cpu"):
+    """(args, kw) of rays that stress the rule: from origins whose other two
+    coordinates sit on block faces (each ray along an axis then runs on a
+    block edge, and its length is exact), along ±x, ±y, ±z with lengths k·fr
+    and one ulp either side, the range and one ulp either side, longer than
+    the range and zero; diagonals in the face planes; random rays from an
+    origin on three faces and from a generic one."""
+    mr, fr, bs = RAY_CONFIGS[config]
+    kf = ray_slots(mr, fr)
+    rng = np.random.default_rng(seed)
+    f = [face(c, bs) for c in (-2, 1, 3)]
+    origins = [[F32(0), f[0], f[1]], [f[2], F32(0), f[0]], [f[1], f[2], F32(0)],
+               [f[0], f[1], f[2]], [F32(0.137), F32(-0.291), F32(0.053)]]
+    lens = []
+    for k in sorted({1, 2, kf // 2, kf - 1, kf}):
+        if k >= 1:
+            x = F32(F32(k) * F32(fr))
+            lens += [x, np.nextafter(x, F32(0)), np.nextafter(x, F32(np.inf))]
+    m = F32(mr)
+    lens += [m, np.nextafter(m, F32(0)), np.nextafter(m, F32(np.inf)), F32(mr + 1.0), F32(0),
+             F32(bs * 3), F32(mr * 0.77)]
+    scan, dirs, lengths = [], [], []
+    for axis in range(3):
+        for sign in (1.0, -1.0):
+            d = np.zeros(3, F32)
+            d[axis] = sign
+            for x in lens:
+                scan.append(axis)
+                dirs.append(d)
+                lengths.append(x)
+    for a, b in ((0, 1), (1, 2), (0, 2)):     # diagonals in a face plane
+        for sa, sb in ((1, 1), (1, -1), (-1, -1)):
+            d = np.zeros(3, F32)
+            d[a], d[b] = sa * F32(np.sqrt(0.5)), sb * F32(np.sqrt(0.5))
+            for x in lens:
+                scan.append(3)
+                dirs.append(d)
+                lengths.append(x)
+    d = rng.normal(size=(n_random, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    scan += list(rng.integers(3, 5, n_random))
+    dirs += list(d.astype(F32))
+    lengths += list(rng.uniform(0, 1.1 * mr, n_random).astype(F32))
+    args = ray_args(origins, np.asarray(scan), np.stack(dirs), np.asarray(lengths, F32), bs,
+                    dev)
+    return args, dict(kf=kf, mr=float(F32(mr)), fr=float(F32(fr)), block_size=bs)
+
+
 def raycast_inputs(seed, n_rays=3000, depth=3, res=0.1, dev="cpu"):
     """K6's arguments over a synthetic map: a 7 × 7 × 3 slab of blocks (a
     tenth of them absent) round the origin, each voxel FREE, OCCUPIED (4 %)

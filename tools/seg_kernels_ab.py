@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """K3 (the BGKLV tile row engine), K1 (the BGK and BGKL heavy pass, both
 branches), K1′ (the device-ingest heavy pass, both branches), K6 (the
-raycast DDA) and K7 (device ingest: K7s, K7t, K7b) of two checkouts on the
-same captured inputs, in one call.
+raycast DDA) and K7 (device ingest: K7s, K7t, K7b, BGKL's K7d) of two
+checkouts on the same captured inputs, in one call.
 
 Run from the repository root on a machine with one CUDA card, with the
 other checkout unpacked into a directory that .gitignore lists:
@@ -36,8 +36,12 @@ ingest), then times ``raycast_device`` over the 1,000,000 rays on its own
 60-scan BGK demo map.  K7's times: the whole dispatch's call (CUDA events,
 its host syncs inside), and each K7b, K7s and K7t launch of it as
 chip_smoke.py's ``launch_ms`` times them (a checkout without K7s or K7t
-reports none).  The last lines compare: times of both, and whether each
-output is bit-equal across the checkouts.
+reports none); on the BGKL dispatches K7d's call, its outputs hashed, its
+device time from torch.profiler (every kernel, copy and memset of the
+call, the host's wait between its launches left out, the same measure for
+both checkouts) and the call with its wait by CUDA events.  The last lines
+compare: times of both, and whether each output is bit-equal across the
+checkouts.
 """
 
 from __future__ import annotations
@@ -158,22 +162,36 @@ def _pool_digest(m) -> str:
     return _digest(*(p.fields[k] for k in sorted(p.fields)), p.touched, p.eff_level)
 
 
+def device_ms(cs, fn, reps: int, kernel: str, per_call: int) -> float:
+    """Device time (ms) of one call of ``fn``: every kernel, copy and memset
+    of ``reps`` calls under torch.profiler (``cs.profiled``, a session
+    holding ``per_call`` launches a call of kernels named ``kernel``), over
+    ``reps``; the host's gaps and waits are left out."""
+    from torch.autograd import DeviceType
+
+    prof, _ = cs.profiled(lambda: [fn() for _ in range(reps)], {kernel: per_call * reps})
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3 / reps
+
+
 def k7_run(args, kw, reps: int, cs) -> dict:
     """One device-ingest dispatch of this checkout: its tables' digest, the
     whole call's device time (CUDA events, its host syncs inside,
     ``cs.cuda_ms``), and each K7b, K7s and K7t launch of it timed by
-    ``cs.launch_ms`` (``cs``: the checkout's chip_smoke)."""
+    ``cs.launch_ms`` (``cs``: the checkout's chip_smoke); BGKL's K7d call
+    hashed (occ, seg, inr, the pair list) and timed by :func:`device_ms` and
+    by ``cs.cuda_ms`` (its wait inside)."""
     import torch
 
     from la3dm_tpu_torch.geometry import device_ingest
-    from la3dm_tpu_torch.kernels import ingest_downsample
+    from la3dm_tpu_torch.kernels import ingest_downsample, ingest_rays
     try:
         from la3dm_tpu_torch.kernels import ingest_bucket, ingest_sort
     except ImportError:  # a checkout before K7s and K7t
         ingest_bucket = ingest_sort = None
     kw = dict(kw)
     fn = getattr(device_ingest, kw.pop("fn"))
-    wrapped = [(ingest_downsample, "centroids", "k7b")]
+    wrapped = [(ingest_downsample, "centroids", "k7b"), (ingest_rays, "ray_pairs", "k7d")]
     if ingest_sort is not None:
         wrapped += [(ingest_sort, "sort_runs", "k7s"), (ingest_bucket, "bucket", "k7t")]
     calls = {tag: [] for _, _, tag in wrapped}
@@ -202,6 +220,14 @@ def k7_run(args, kw, reps: int, cs) -> dict:
         out[f"{tag}_ms"] = cs.launch_ms([lambda _, a=a, k=k, f=f: f(*a, **k)
                                          for a, k in calls[tag]], reps)
         out[f"{tag}_launches"] = len(calls[tag])
+    if calls["k7d"]:
+        (a, k), = calls["k7d"]
+        rays = ingest_rays.ray_pairs(*a, **k)
+        out["k7d_digest"] = _digest(*rays[:5])
+        out["k7d_pairs"] = int(rays[3].numel())
+        out["k7d_device_ms"] = device_ms(cs, lambda: ingest_rays.ray_pairs(*a, **k), reps,
+                                         "ingest_rays", 2)
+        out["k7d_call_ms"] = cs.cuda_ms(lambda _: ingest_rays.ray_pairs(*a, **k), reps)
     return out
 
 
@@ -371,6 +397,14 @@ def main() -> int:
                 f"{tag} other {o1[name].get(tag + '_ms')}, {o2[name].get(tag + '_ms')} / this "
                 f"{t1[name].get(tag + '_ms')}, {t2[name].get(tag + '_ms')} ms "
                 f"({t1[name].get(tag + '_launches')} launches)" for tag in ("k7b", "k7s", "k7t"))
+            if "k7d_digest" in t1[name]:
+                print(f"{name} K7d: {t1[name]['k7d_pairs']} pairs; device time other "
+                      f"{o1[name]['k7d_device_ms']:.4f}, {o2[name]['k7d_device_ms']:.4f} / this "
+                      f"{t1[name]['k7d_device_ms']:.4f}, {t2[name]['k7d_device_ms']:.4f} ms; the "
+                      f"call with its wait other {o1[name]['k7d_call_ms']:.4f}, "
+                      f"{o2[name]['k7d_call_ms']:.4f} / this {t1[name]['k7d_call_ms']:.4f}, "
+                      f"{t2[name]['k7d_call_ms']:.4f} ms; outputs bit-equal across checkouts "
+                      f"{len({r[name]['k7d_digest'] for r in results}) == 1}")
             print(f"{name}: {t1[name]['rows']} rows, {t1[name]['blocks']} blocks; the dispatch's "
                   f"call: other {o1[name]['ms']:.3f}, {o2[name]['ms']:.3f} ms; this "
                   f"{t1[name]['ms']:.3f}, {t2[name]['ms']:.3f} ms; {parts}; tables bit-equal "
