@@ -80,9 +80,11 @@ with ``original_size``; LV reads no ``device_ingest`` flag):
     to that of the plain predicate ``lv_rows_cull``; its bound counts the
     work left after the culling, the bound on every evaluation beside it;
 11. holds K8 (tile-major prune) against its plain version on the pool state
-    of a real large-map prune, and on the same blocks made collapsible at
+    of a real large-map prune, on the same blocks made collapsible at
     every level (16³ and 32³ groups included, which the real scene does not
-    collapse): A, B, touched and eff equal;
+    collapse) and on them made near-collapsible (each group one change
+    away from collapsing, ``kernels/group_prune.py::near_collapsible_rows``):
+    A, B, touched and eff equal, every level reached on the last two;
 12. runs the main path — ``run_static`` on 12 and 60 demo scans,
     ``OnlineIntegrator`` on 12 scans, ``run_static`` on 12 large-map scans
     (one K3 and one K8 per scan) — asserting every launch count;
@@ -111,6 +113,9 @@ host-ingest path:
     pool: m_ivar/ivar, eff and touched bit for bit, except in blocks holding a
     voxel whose plain pre-prune p lies within 1e-5 of a threshold or whose
     ivar lies within 1e-5·min_known_ivar of the chop (counted and printed);
+    then on both dispatches' blocks made collapsible and near-collapsible,
+    over the scans in order: bit for bit, every level reached; both
+    dispatches timed;
 17. runs the main path — ``run_static`` on 12 and 60 demo scans,
     ``OnlineIntegrator`` on 12 scans, ``run_static`` on 12 large-map scans —
     asserting K4 = the (dispatch, size tier) pairs the map built (an
@@ -217,8 +222,9 @@ The large maps, after raycast (the BGK-family ones at their YAML's own
     that tier is held to the plain version in f64: the kernel's largest
     |Δ|/(1+|f64|) at most twice the f32 plain version's, the control's
     above that; K5 scan by scan as in 16 (bit for
-    bit away from the thresholds) and on collapsible blocks as K2 in 26 (GP
-    templates); run_static on 12 scans; card vs CPU on 1 scan as in 18,
+    bit away from the thresholds) and on collapsible and near-collapsible
+    blocks as in 16 (groups collapsed across tiles required);
+    run_static on 12 scans; card vs CPU on 1 scan as in 18,
     the m_ivar/ivar limit held against the map with f64 factors (the CPU's
     f32 factors part from it by more than the limit at these models; its
     deviation and the card-vs-CPU ratio are printed).
@@ -253,7 +259,7 @@ from la3dm_tpu_torch import pipeline  # noqa: E402
 from la3dm_tpu_torch.geometry import blocks as geo, native  # noqa: E402
 from la3dm_tpu_torch.io.pcd import save_pcd  # noqa: E402
 from la3dm_tpu_torch.kernels import (_build, bgk_aligned_heavy, bgk_heavy,  # noqa: E402
-                                     bgk_light, gp_heavy, gp_light, ingest_beams,
+                                     bgk_light, gp_heavy, gp_light, group_prune, ingest_beams,
                                      ingest_bucket, ingest_downsample, ingest_keys,
                                      ingest_members, ingest_rays, ingest_sort, lv_prune,
                                      lv_rows, math as km, raycast as k6)
@@ -954,20 +960,18 @@ def collapsible_pool(pool0, slots, n: int, seed: int = 0, templates=LV_TEMPLATES
                      raster: bool = False):
     """A copy of the pool whose blocks ``slots`` collapse at every level,
     the levels across tiles included: block i holds one (f0, f1) template
-    per cube of edge (n, 16, 8, 4)[i % 4] (one state per cube), ±5 % noise
+    per cube of edge min((n, 16, 8, 4)[i % 4], n) (one state per cube), ±5 % noise
     so that collapse copies show, every voxel touched at eff 0; edge-4
     blocks also get 3 % stray voxels, so that their tiles are not uniform.
     The pool is BGKLV's tile-major one, or with ``raster`` K2's and K5's
     raster one."""
     rng = np.random.default_rng(seed)
     tmpl = np.array(templates, np.float32)
-    sl = slots.long()
-    sl = sl[sl < pool0[0].shape[0]].cpu().numpy()
-    sl = sl[np.sort(np.unique(sl, return_index=True)[1])]   # each block once, in order
+    sl = pool_blocks(pool0, slots)
     S = len(sl)
     vox = np.empty((S, n ** 3), np.int64)
     for i in range(S):
-        edge = (n, 16, 8, 4)[i % 4]
+        edge = min((n, 16, 8, 4)[i % 4], n)
         g = n // edge
         k = len(tmpl)
         t = rng.integers(0, k, (g, g, g)).repeat(edge, 0).repeat(edge, 1).repeat(edge, 2)
@@ -976,23 +980,63 @@ def collapsible_pool(pool0, slots, n: int, seed: int = 0, templates=LV_TEMPLATES
             stray = rng.uniform(size=n ** 3) < 0.03
             vox[i] = np.where(stray, rng.integers(0, k, n ** 3), vox[i])
     AB = tmpl[vox] * rng.uniform(0.95, 1.05, (S, n ** 3, 2)).astype(np.float32)
+    return fill_blocks(pool0, sl, (AB[..., 0], AB[..., 1], True, 0), n, raster)
+
+
+def pool_blocks(pool0, slots) -> np.ndarray:
+    """The pool rows of ``slots``, padding dropped, each once, in order."""
+    sl = slots.long()
+    sl = sl[sl < pool0[0].shape[0]].cpu().numpy()
+    return sl[np.sort(np.unique(sl, return_index=True)[1])]
+
+
+def fill_blocks(pool0, sl, raster_rows, n: int, raster: bool):
+    """A copy of the pool with rows ``sl`` set to ``raster_rows`` (f0, f1,
+    touched, eff: [len(sl), n³] arrays in raster order, or scalars), on
+    BGKLV's tile-major columns, or with ``raster`` on K2's and K5's raster
+    ones."""
     # stored column → raster voxel
     perm = np.arange(n ** 3) if raster else geo.tile_vox_map(n).reshape(-1)
     dev = pool0[0].device
     pool = [x.clone() for x in pool0]
     rows = torch.as_tensor(sl, device=dev)
-    pool[0][rows] = torch.as_tensor(AB[..., 0][:, perm], device=dev)
-    pool[1][rows] = torch.as_tensor(AB[..., 1][:, perm], device=dev)
-    pool[2][rows] = True
-    pool[3][rows] = 0
+    for x, r in zip(pool, raster_rows):
+        x[rows] = torch.as_tensor(r[:, perm], device=dev) if isinstance(r, np.ndarray) else r
     return pool
+
+
+#: LV near-collapsible templates, state → (A, B, touched), far from every
+#: threshold of the BGKLV large map; an UNKNOWN voxel is untouched.  Not the
+#: CPU tests' templates (``tests/torch_cases.py::LV_NEAR_VALUES``): the large
+#: map's var_thresh of 0.001 makes their OCCUPIED and FREE voxels UNCERTAIN
+LV_NEAR_VALUES = {posterior.OCCUPIED: (100.0, 0.001, True),
+                  posterior.FREE: (0.001, 100.0, True),
+                  posterior.UNCERTAIN: (1.0, 1.0, True),
+                  posterior.UNKNOWN: (100.0, 0.001, False)}
+#: GP near-collapsible templates (the GP configs share their thresholds)
+GP_NEAR_VALUES = group_prune.GP_NEAR_VALUES
+
+
+def near_collapsible_pool(pool0, slots, n: int, values, raster: bool = False, seed: int = 0):
+    """A copy of the pool whose blocks ``slots`` are each one change away
+    from collapsing at one level, the levels cycling over the blocks and
+    every kind of change over each level's groups
+    (``kernels/group_prune.py::near_collapsible_rows``; the collapsible states
+    are those of ``values`` but UNKNOWN), with the templates ``values``.
+    The pool is BGKLV's tile-major one, or with ``raster`` K5's raster one."""
+    sl = pool_blocks(pool0, slots)
+    states = tuple(k for k in values if k != posterior.UNKNOWN)
+    st, eff = group_prune.near_collapsible_rows(n, len(sl), states, seed=seed)
+    f0, f1, touched = group_prune.near_pool_values(st, values, seed=seed + 1)
+    return fill_blocks(pool0, sl, (f0, f1, touched, eff), n, raster)
 
 
 def check_k8(args, statics, reps: int = 10) -> dict:
     """K8 against its plain version on the pool state of one real prune,
     and on the same blocks made collapsible at every level (the real scene
     collapses no 16³ or 32³ group, and those levels run in the kernel's
-    second, cross-tile half)."""
+    second, cross-tile half) and near-collapsible (each group one change
+    away from collapsing), every level reached on both."""
     pool0, slots = args[:4], args[4]
     n, max_level = statics["n"], statics["max_level"]
     sl = slots.long()
@@ -1009,12 +1053,16 @@ def check_k8(args, statics, reps: int = 10) -> dict:
               f"touched, eff equal to the plain version: {same}; voxels by eff level "
               f"{levels}")
         require(all(same), f"K8 disagrees with its plain version ({what})")
-        return levels
+        return levels, k
 
-    levels = compare(pool0, "the real pool")
-    levels_all = compare(collapsible_pool(pool0, slots, n), "collapsible blocks")
-    require(max_level >= 5 and levels_all[4] > 0 and levels_all[5] > 0,
-            "the collapsible blocks did not reach the cross-tile levels 4 and 5")
+    levels, out = compare(pool0, "the real pool")
+    levels_all, _ = compare(collapsible_pool(pool0, slots, n), "collapsible blocks")
+    levels_near, _ = compare(near_collapsible_pool(pool0, slots, n, LV_NEAR_VALUES),
+                             "near-collapsible blocks")
+    require(max_level >= 5 and all(lv[L] > 0 for lv in (levels_all, levels_near)
+                                   for L in range(1, max_level + 1)),
+            "the collapsible or near-collapsible blocks did not reach every level, the "
+            "cross-tile levels 4 and 5 included")
 
     def pool():
         return [x.clone() for x in pool0]
@@ -1026,13 +1074,30 @@ def check_k8(args, statics, reps: int = 10) -> dict:
     plain_ms = cuda_ms(lambda st: lv_prune.lv_prune_plain(*st, slots, **statics), 2,
                        setup=pool)
     V = pool0[0].shape[1]
-    # each voxel's A, B (f32), touched and eff (1 byte) read and written once
-    b_ms, b_by = bound(0, len(slots) * V * 2 * (4 + 4 + 1 + 1) + nbytes(slots))
+    # what the prune must move: every voxel's touched byte; A, B (f32) and eff
+    # of each touched voxel (an untouched one is UNKNOWN: no group holding
+    # it collapses, and it is never copied); A, B, touched, eff of each
+    # voxel that collapsed, written once
+    Vt = min(8, n) ** 3
+    live = torch.unique(sl[sl < pool0[0].shape[0]])
+    tiles_touched = int(pool0[2][live].view(len(live), -1, Vt).any(dim=2).sum())
+    voxels_touched = int(pool0[2][live].sum())
+    written = int((out[3][live] != pool0[3][live]).sum())
+    need = len(live) * V + voxels_touched * 9 + written * 10 + nbytes(slots)
+    b_ms, b_by = bound(0, need)
+    # every voxel's A, B, touched and eff read and written once
+    b_all_ms, _ = bound(0, len(slots) * V * 2 * (4 + 4 + 1 + 1) + nbytes(slots))
     print(f"K8: {ms:.4f} ms device time on the real pool (event window "
-          f"{event_ms:.3f} ms; plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by})")
+          f"{event_ms:.3f} ms; plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by} on "
+          f"{need} bytes: {voxels_touched} touched voxels in {tiles_touched} of "
+          f"{len(live) * V // Vt} tiles, {written} voxels collapsed; every byte read and "
+          f"written "
+          f"{b_all_ms:.4f} ms)")
     return {"max_abs_err": 0.0, "ms": ms, "event_ms": event_ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "levels": levels,
-            "levels_collapsible": levels_all}
+            "bound_ms": b_ms, "bound_by": b_by, "bound_ms_every_byte": b_all_ms,
+            "tiles_touched": tiles_touched, "voxels_touched": voxels_touched,
+            "voxels_collapsed": written, "levels": levels,
+            "levels_collapsible": levels_all, "levels_near_collapsible": levels_near}
 
 
 def main_path_lv(cfg, cfg_large, pcd_dir: str, scans) -> dict:
@@ -1352,16 +1417,24 @@ def check_k5(args, statics, tables, what: str, timed: bool = True,
                     for s, c in zip(ss, sc)], reps, setup=pool)
     plain_ms = cuda_ms(lambda st: run(gp_light.gp_light_plain, st), 2, setup=pool)
     G, blocks = statics["G"], int(sum(sc))
-    # per block: each voxel's G (mean, var) at its node, the G present
-    # flags, the pool row (m_ivar, ivar f32; touched, eff 1 byte) read and
-    # written, its slot
+    # per block: each voxel's (mean, var) at its node of each present slot
+    # (the kernel loads no absent slot's), the G present flags, the pool row
+    # (m_ivar, ivar f32; touched, eff 1 byte) read and written, its slot
+    rows = torch.cat([torch.arange(s, s + c) for s, c in zip(ss, sc)]).to(slots.device)
+    live = slots[rows] < pool0[0].shape[0]
+    present = int(pr.view(-1, G)[rows[live]].sum())
+    need = (V * present * 8 + int(live.sum()) * (G + 2 * V * (4 + 4 + 1 + 1))
+            + blocks * 4 + nbytes(node_idx))
+    b_ms, b_by = bound(0, need)
     per_block = V * G * 8 + G + 2 * V * (4 + 4 + 1 + 1) + 4
-    b_ms, b_by = bound(0, blocks * per_block + nbytes(node_idx))
+    b_all_ms, _ = bound(0, blocks * per_block + nbytes(node_idx))
     print(f"K5, {what}: {ms:.4f} ms device time over {count} launches "
           f"({1e3 * ms / count:.2f} us each; event window {event_ms:.3f} ms); plain "
-          f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by}")
+          f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by} ({present} present slots of "
+          f"{int(live.sum()) * G}; every slot's: {b_all_ms:.4f} ms)")
     return {**checked, "ms": ms, "event_ms": event_ms, "ms_per_launch": ms / count,
-            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "bound_ms_every_slot": b_all_ms, "present_slots": present}
 
 
 def gp_static(c, pcd_dir: str, n_scans: int, overflow: bool | None = None) -> dict:
@@ -2427,15 +2500,18 @@ def table_bytes(what: str, rows: int, row_bytes: int, scans: int) -> dict:
             "bytes_16_scans": per16}
 
 
-def check_light_collapsible(name: str, fn, plain, lead, pool0, node_idx, slots, ss, sc,
-                            kw, templates) -> dict:
+def check_light_collapsible(name: str, fn, plain, lead, start, node_idx, slots, ss, sc,
+                            kw, what: str = "collapsible blocks",
+                            every_level: bool = False) -> dict:
     """A light pass (K2 or K5, ``fn``) against its plain version over the
-    dispatch's scans in order, from the dispatch's pool with its blocks made
-    collapsible at every level (raster; the real scene collapses no 16³
-    group): twice, each run bit for bit equal to the plain one; prints the
-    groups collapsed at each level across tiles (edge > 8)."""
+    dispatch's scans in order, from ``start``: the dispatch's pool with its
+    blocks made collapsible at every level (:func:`collapsible_pool`, raster;
+    the real scene collapses no 16³ group) or near-collapsible
+    (:func:`near_collapsible_pool`): twice, each run bit for bit equal to the
+    plain one; prints the groups collapsed at each level across tiles (edge >
+    8), which must be some, and with ``every_level`` requires every level
+    reached."""
     n, max_level = kw["n"], kw["max_level"]
-    start = collapsible_pool(pool0, slots, n, templates=templates, raster=True)
 
     def run(f):
         st = [x.clone() for x in start]
@@ -2449,12 +2525,32 @@ def check_light_collapsible(name: str, fn, plain, lead, pool0, node_idx, slots, 
     same = [all(torch.equal(x, y) for x, y in zip(k, ref)) for k in runs]
     levels = light_levels(ref[3], slots, max_level)
     across = {L: levels[L] // 8 ** L for L in range(4, max_level + 1)}
-    print(f"{name}, collapsible blocks: {len(ss)} scans, pool rows equal to the plain "
+    print(f"{name}, {what}: {len(ss)} scans, pool rows equal to the plain "
           f"version's in both runs {same}; voxels by eff level {levels}; groups "
           f"collapsed across tiles by level {across}")
-    require(all(same), f"{name} disagrees with its plain version on collapsible blocks")
-    require(sum(across.values()) > 0, f"{name}: no group collapsed across tiles")
+    require(all(same), f"{name} disagrees with its plain version ({what})")
+    require(max_level <= 3 or sum(across.values()) > 0,
+            f"{name}: no group collapsed across tiles ({what})")
+    require(not every_level or all(levels[L] > 0 for L in range(1, max_level + 1)),
+            f"{name}: a prune level was not reached ({what})")
     return {"levels": levels, "cross_tile_groups": across, "runs_equal": same}
+
+
+def check_k5_pools(args, statics, tables, what: str) -> dict:
+    """K5 on one dispatch's tables from its blocks made collapsible and
+    near-collapsible (:func:`check_light_collapsible`), every prune level
+    reached on each."""
+    kw = {k: statics[k] for k in ("G", "sf2", "min_known_ivar", "max_ivar", "n",
+                                  "max_level", "state_fn", "do_prune")}
+    pool0, n, slots = args[:4], statics["n"], args[9]
+    starts = {"collapsible": collapsible_pool(pool0, slots, n, templates=GP_TEMPLATES,
+                                              raster=True),
+              "near": near_collapsible_pool(pool0, slots, n, GP_NEAR_VALUES, raster=True)}
+    return {k: check_light_collapsible(
+        "K5", gp_light.gp_light, gp_light.gp_light_plain,
+        (tables["acc_mean"], tables["acc_var"], tables["present"]), start, args[5], slots,
+        args[11], args[12], kw, what=f"{k} blocks, {what}", every_level=True)
+        for k, start in starts.items()}
 
 
 def large_bgk_family(cfg_off, cfg_on, pcd_dir: str, scans, heavy: bool) -> dict:
@@ -2630,12 +2726,16 @@ def main() -> int:
         stamp("GP host ingest: K4 (base and overflow tiers), K5")
         args, statics = capture_gp(cfg_gp, scans[:16])
         k4 = check_k4(args, statics, "16-scan demo dispatch")
-        k5 = check_k5(args, statics, k4.pop("tables"), "16-scan demo dispatch")
+        tables = k4.pop("tables")
+        k5 = check_k5(args, statics, tables, "16-scan demo dispatch")
+        k5.update(check_k5_pools(args, statics, tables, "16-scan demo dispatch"))
         args, statics = capture_gp(cfg_gp_large, scans[:12])
         require(len(args[8]) == 2, "the large-map dispatch has no overflow tier")
         k4_l = check_k4(args, statics, "12-scan large-map dispatch", reps=1)
-        k5_l = check_k5(args, statics, k4_l.pop("tables"), "12-scan large-map dispatch",
-                        timed=False)
+        tables = k4_l.pop("tables")
+        k5_l = check_k5(args, statics, tables, "12-scan large-map dispatch")
+        k5_l.update(check_k5_pools(args, statics, tables, "12-scan large-map dispatch"))
+        del tables
         args, statics = capture_gp(cfg_gp_large, training=dense_block())
         k4_d = check_k4(args, statics, "a forced 300-point block", reps=1)
         k4_d.pop("tables")
@@ -2697,8 +2797,9 @@ def main() -> int:
         kw = {k: statics[k] for k in ("G", "gate", "n", "max_level", "state_fn",
                                       "do_prune")}
         k2_ll["collapsible"] = check_light_collapsible(
-            "K2", bgk_light.bgk_light, bgk_light.bgk_light_plain, (acc,), args[:4], args[5],
-            args[13], args[15], args[16], kw, BETA_TEMPLATES)
+            "K2", bgk_light.bgk_light, bgk_light.bgk_light_plain, (acc,),
+            collapsible_pool(args[:4], args[13], statics["n"], templates=BETA_TEMPLATES,
+                             raster=True), args[5], args[13], args[15], args[16], kw)
         del args, acc
         stamp("BGKL large map: K1' (segments), K7d, K7b, K7s, K7t on a 12-scan "
               "device-ingest dispatch")
@@ -2730,12 +2831,7 @@ def main() -> int:
                               tables["acc_mean"].shape[0] // G5,
                               G5 * tables["acc_mean"].shape[1] * 8, 12)
         k5_5 = check_k5(args, statics, tables, "12-scan GP depth-5 dispatch")
-        kw5 = {k: statics[k] for k in ("G", "sf2", "min_known_ivar", "max_ivar", "n",
-                                       "max_level", "state_fn", "do_prune")}
-        k5_5["collapsible"] = check_light_collapsible(
-            "K5", gp_light.gp_light, gp_light.gp_light_plain,
-            (tables["acc_mean"], tables["acc_var"], tables["present"]), args[:4], args[5],
-            args[9], args[11], args[12], kw5, GP_TEMPLATES)
+        k5_5.update(check_k5_pools(args, statics, tables, "12-scan GP depth-5 dispatch"))
         del args, tables
         path_gp5 = {"static12": gp_static(cfg_gp5, tmp, 12)}
         # one scan: the CPU factors models of up to about 2100 points, whose

@@ -13,7 +13,7 @@
 //   dB += kbar_g - ybar_g, touched |= 1 (the plain version sums the same
 //   way, so the two agree bit for bit on identical inputs);
 // * A += dA, B += dB, touched |= any;
-// * the bottom-up prune (csrc/raster_prune.cuh, shared with K5) with the
+// * the bottom-up prune (csrc/raster_prune.cuh) with the
 //   Beta state.  States use the f32 rules of
 //   la3dm_tpu/models/posterior.py:29-51, built without FMA contraction.
 // Blocks of n <= 8 (V <= 512) take one CTA each and prune in shared memory;

@@ -1,5 +1,6 @@
-// The bottom-up raster prune of the light-pass kernels K2
-// (csrc/bgk_light.cu) and K5 (csrc/gp_light.cu), for blocks of any n <= 64.
+// The bottom-up raster prune of K2, the BGK light pass (csrc/bgk_light.cu),
+// for blocks of any n <= 64.  It serves K2 only: K5 and K8 vote each
+// level over a Morton order (csrc/group_prune.cuh).
 //
 // The port of la3dm_tpu/models/pruning.py::prune_blocks on the raster pool
 // (v = x + y*n + z*n*n, x fastest).  Levels L = 1..max_level: a

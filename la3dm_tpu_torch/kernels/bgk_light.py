@@ -42,8 +42,8 @@ def check_block_edge(name: str, n: int, V: int) -> None:
 
 
 def tile_scratch(device, n: int, count: int) -> tuple:
-    """Scratch of a tiled launch over ``count`` blocks of edge ``n`` (shared
-    with K5): tile summaries (eff, state) int8 [.,2], (f0, f1) f32 [.,2],
+    """Scratch of a tiled launch over ``count`` blocks of edge ``n``: tile
+    summaries (eff, state) int8 [.,2], (f0, f1) f32 [.,2],
     touched u8 [.], and the per-block counters int32 [count], zeroed on the
     launch's stream; none for n ≤ TILE_EDGE.  The caller holds the tensors
     until the launch is queued."""

@@ -1,7 +1,7 @@
 """K5 — the GP light pass (BCM fusion) with the prune: wrapper, plain
 version and launch counter.
 
-Replaces ``la3dm_tpu/models/gp.py::_gp_light`` (lines 119-186, with
+Replaces ``la3dm_tpu/models/gp.py::_gp_light`` (lines 128-187, with
 ``kernels/gp.py::bcm_update_sequential``, ``models/pruning.py::prune_blocks``
 and ``posterior.GPStateFn``) for one scan: each voxel reads the G slots'
 (mean, var) at its eff-level node, applies the sequential BCM with the
@@ -10,22 +10,27 @@ the scan's blocks are pruned bottom-up.  The pool tensors are updated in
 place.
 
 On a CUDA tensor :func:`gp_light` launches the hand-written kernel
-(``csrc/gp_light.cu``, one thread per voxel in K2's shapes: one CTA per
-block up to 8³ voxels, one CTA per 8³ tile above, with K2's cross-tile
-prune and scratch); on a CPU tensor it runs :func:`gp_light_plain`.
-The kernel is bound by memory: it moves each selected prediction and pool
-byte once.
+(``csrc/gp_light.cu``: up to 8³ voxels a block, a thread a voxel and one
+block a CTA, or eight blocks of 2³ a CTA; above, one CTA per 8³ tile, two
+voxels a thread at G = 7, with the scratch of ``group_prune.tile_scratch``; the
+present slots' (mean, var) loads issued before the BCM fold; the prune of
+``csrc/group_prune.cuh``, votes over a Morton order); on a CPU tensor it
+runs :func:`gp_light_plain`.  The kernel is bound by memory: it moves each
+selected prediction and pool byte once.
 """
 
 from __future__ import annotations
 
 import torch
 
-from la3dm_tpu_torch.kernels import _build, bgk_light, gp as kgp
+from la3dm_tpu_torch.kernels import _build, bgk_light, gp as kgp, group_prune
 from la3dm_tpu_torch.models import pruning
 
 #: kernel launches since the counter was last reset (one per scan)
 launches = 0
+#: slots a block the kernel takes (G: the face neighbours, or all 27 with
+#: ``predict``)
+SLOT_COUNTS = (7, 27)
 
 
 def gp_light(acc_mean, acc_var, present, m_ivar, ivar, touched, eff, node_idx_tab,
@@ -55,6 +60,8 @@ def gp_light(acc_mean, acc_var, present, m_ivar, ivar, touched, eff, node_idx_ta
                              f"on {acc_mean.device}")
     if not m_ivar.shape == ivar.shape == touched.shape == eff.shape:
         raise ValueError("gp_light: pool tensors differ in shape")
+    if G not in SLOT_COUNTS:
+        raise ValueError(f"gp_light: G must be one of {SLOT_COUNTS}, got {G}")
     bgk_light.check_block_edge("gp_light", n, m_ivar.shape[1])
     Tp = slots.shape[0]
     if (acc_mean.shape != acc_var.shape or acc_mean.shape[0] != Tp * G
@@ -65,15 +72,17 @@ def gp_light(acc_mean, acc_var, present, m_ivar, ivar, touched, eff, node_idx_ta
     if count <= 0:
         return
     stream = torch.cuda.current_stream(acc_mean.device).cuda_stream
-    scratch = bgk_light.tile_scratch(acc_mean.device, n, count)
+    scratch = [0, 0, 0, 0]
+    if n > bgk_light.TILE_EDGE:
+        scratch = [x.data_ptr() for x in group_prune.tile_scratch(
+            acc_mean.device, stream, count * (n // bgk_light.TILE_EDGE) ** 3, count)]
     code = _build.lib().la3dm_gp_light(
         acc_mean.data_ptr(), acc_var.data_ptr(), present.data_ptr(), slots.data_ptr(),
         node_idx_tab.data_ptr(), m_ivar.data_ptr(), ivar.data_ptr(),
         touched.data_ptr(), eff.data_ptr(), int(start), int(count), m_ivar.shape[0],
         n, acc_mean.shape[1], G, max_level if do_prune else 0, float(sf2),
         float(min_known_ivar), float(max_ivar), float(state_fn.l),
-        float(state_fn.free_thresh), float(state_fn.occupied_thresh),
-        *bgk_light.scratch_ptrs(scratch), stream)
+        float(state_fn.free_thresh), float(state_fn.occupied_thresh), *scratch, stream)
     _build.check(code, "gp_light")
     launches += 1
 

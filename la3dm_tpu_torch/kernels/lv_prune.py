@@ -1,17 +1,20 @@
 """K8 — the BGKLV tile-major prune: wrapper, plain version and launch counter.
 
 Replaces ``la3dm_tpu/models/bgklv.py::_prune_step_tilemajor`` (lines
-211-239: ``models/pruning.py::prune_blocks`` with ``posterior.LVStateFn``
+216-239: ``models/pruning.py::prune_blocks`` with ``posterior.LVStateFn``
 between the stored → raster and raster → stored column permutations).  The
 bottom-up sibling collapse of the given blocks, on the tile-major pool
 (stored column pos·Vt + vt, ``geometry/blocks.py::tile_vox_map``), in
 place.
 
 On a CUDA tensor :func:`lv_prune` launches the hand-written kernel
-(``csrc/lv_prune.cu``: one CTA per (block, tile) for the levels inside a
-tile, the last CTA of each block for the levels across tiles); on a CPU
-tensor it runs :func:`lv_prune_plain`.  The kernel is bound by memory: it
-reads and writes each pool byte of the blocks once.
+(``csrc/lv_prune.cu``: one CTA per (block, tile), four voxels a thread,
+for the levels inside a tile, the last CTA of each block for the levels
+across tiles, each level a vote over a Morton order,
+``csrc/group_prune.cuh``); on a CPU tensor it runs :func:`lv_prune_plain`.
+The kernel is bound by memory: it reads each voxel's touched byte and the
+rest of the tiles that hold a touched voxel, and writes the voxels that
+collapse.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ import numpy as np
 import torch
 
 from la3dm_tpu_torch.geometry import blocks as geo
-from la3dm_tpu_torch.kernels import _build
+from la3dm_tpu_torch.kernels import _build, group_prune
 from la3dm_tpu_torch.models import pruning
 
 #: kernel launches since the counter was last reset (one per pruned scan)
@@ -49,21 +52,22 @@ def lv_prune(A, Bv, touched, eff, slots, *, n: int, max_level: int, state_fn) ->
             or A.dim() != 2 or A.shape[1] != n ** 3 or n > 64:
         raise ValueError(f"lv_prune: pool must be [cap, n³] with n a power of "
                          f"two ≤ 64 (n={n})")
+    if A.data_ptr() % 16 or Bv.data_ptr() % 16 or touched.data_ptr() % 4 \
+            or eff.data_ptr() % 4:
+        raise ValueError("lv_prune: A and Bv must be 16-byte aligned, touched and eff "
+                         "4-byte aligned (the kernel loads four voxels at once)")
     S = slots.shape[0]
     if S == 0 or max_level <= 0:
         return
     te = min(8, n)
-    tiles = S * (n // te) ** 3
-    dev = A.device
-    sum_es = torch.empty((tiles, 2), dtype=torch.int8, device=dev)
-    sum_ab = torch.empty((tiles, 2), dtype=torch.float32, device=dev)
-    sum_t = torch.empty((tiles,), dtype=torch.uint8, device=dev)
-    counters = torch.zeros((S,), dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = torch.cuda.current_stream(A.device).cuda_stream
+    scratch = [0, 0, 0, 0]
+    if max_level > te.bit_length() - 1:   # levels across tiles
+        scratch = [x.data_ptr() for x in group_prune.tile_scratch(
+            A.device, stream, S * (n // te) ** 3, S)]
     code = _build.lib().la3dm_lv_prune(
         A.data_ptr(), Bv.data_ptr(), touched.data_ptr(), eff.data_ptr(),
-        slots.data_ptr(), sum_es.data_ptr(), sum_ab.data_ptr(), sum_t.data_ptr(),
-        counters.data_ptr(), S, A.shape[0], n, max_level, float(state_fn.min_W),
+        slots.data_ptr(), *scratch, S, A.shape[0], n, max_level, float(state_fn.min_W),
         float(state_fn.var_thresh), float(state_fn.free_thresh),
         float(state_fn.occupied_thresh), stream)
     _build.check(code, "lv_prune")

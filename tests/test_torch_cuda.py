@@ -15,9 +15,9 @@ import numpy as np
 
 from la3dm_tpu_torch.geometry import device_ingest
 from la3dm_tpu_torch.kernels import (bgk_aligned_heavy, bgk_heavy, bgk_light, gp_heavy,
-                                     gp_light, ingest_beams, ingest_bucket, ingest_downsample,
-                                     ingest_keys, ingest_members, ingest_rays, ingest_sort,
-                                     lv_prune, lv_rows, raycast)
+                                     gp_light, group_prune, ingest_beams, ingest_bucket,
+                                     ingest_downsample, ingest_keys, ingest_members,
+                                     ingest_rays, ingest_sort, lv_prune, lv_rows, raycast)
 from la3dm_tpu_torch.models import posterior as po
 
 from torch_cases import (BETA_TEMPLATES, GP_BCM, GP_STATE,  # tests/ on sys.path
@@ -25,7 +25,8 @@ from torch_cases import (BETA_TEMPLATES, GP_BCM, GP_STATE,  # tests/ on sys.path
                          RAY_CONFIGS, aligned_heavy_inputs, collapsible_raster_pool, edge_rays,
                          gp_heavy_inputs,
                          gp_light_inputs, heavy_inputs, ingest_scene, light_inputs,
-                         lv_prune_inputs, lv_rows_inputs, ray_inputs, raycast_chain_inputs,
+                         lv_prune_inputs, lv_rows_inputs, near_gp_light_inputs,
+                         near_lv_prune_inputs, ray_inputs, raycast_chain_inputs,
                          raycast_inputs)
 
 
@@ -171,6 +172,89 @@ def test_gp_light_tiled_kernel_equals_plain(cuda_dev, start):
     for x, y in zip(k, p):
         assert torch.equal(x, y)
     assert int((k[3][slots[:-1].long()] == 4).sum()) >= 4096
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", gp_light.SLOT_COUNTS)
+@pytest.mark.parametrize("depth", [2, 3, 4, 5])
+def test_gp_light_kernel_equals_plain_on_near_collapsible_pools(cuda_dev, depth, G):
+    """K5 at 2³ (eight blocks a CTA), 4³, 8³ and 16³, with the 7 face
+    neighbours' slots and the 27 of ``predict``, on blocks whose groups are
+    each one change away from collapsing
+    (kernels/group_prune.py::near_collapsible_rows): bit for bit with its
+    plain version, every level reached, across tiles at 16³."""
+    am, av, pr, *pool, node_idx, slots = near_gp_light_inputs(23, depth=depth, G=G,
+                                                              dev=cuda_dev)
+    kw = dict(G=G, **GP_BCM, n=2 ** (depth - 1), max_level=depth - 1,
+              state_fn=po.GPStateFn(**GP_STATE), do_prune=True)
+    before = gp_light.launches
+
+    def kernel(*a):
+        gp_light.gp_light(*a[:7], node_idx, slots, *a[7:], **kw)
+
+    def plain(*a):
+        gp_light.gp_light_plain(*a[:7], node_idx, slots, *a[7:], **kw)
+
+    k, p = _light_runs(kernel, plain, (am, av, pr), pool, [(0, 12), (12, 12)])
+    assert gp_light.launches == before + 2
+    for x, y in zip(k, p):
+        assert torch.equal(x, y)
+    sl = slots[:-1].long()
+    assert all((k[3][sl] == L).any() for L in range(1, depth))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4, 8, 16, 32, 64])
+def test_lv_prune_kernel_equals_plain_on_near_collapsible_pools(cuda_dev, n):
+    """K8 at 2³ to 64³ on near-collapsible blocks (OCCUPIED,
+    FREE and UNCERTAIN groups): bit for bit with its plain version, every
+    level reached, the levels across tiles included."""
+    levels = n.bit_length() - 1
+    B = 6 * levels                     # every kind at every level
+    pool = near_lv_prune_inputs(29, n=n, B=B, cap=B + 8, dev=cuda_dev)
+    kw = dict(n=n, max_level=levels, state_fn=po.LVStateFn(**LV_STATE))
+    k = [x.clone() for x in pool[:4]]
+    p = [x.clone() for x in pool[:4]]
+    before = lv_prune.launches
+    lv_prune.lv_prune(*k, pool[4], **kw)
+    assert lv_prune.launches == before + 1
+    lv_prune.lv_prune_plain(*p, pool[4], **kw)
+    torch.cuda.synchronize()
+    for x, y in zip(k, p):
+        assert torch.equal(x, y)
+    sl = pool[4][:-1].long()
+    assert all((k[3][sl] == L).any() for L in range(1, levels + 1))
+
+
+@pytest.mark.cuda
+def test_prune_kernels_leave_their_counters_zero(cuda_dev):
+    """K5 at 16³ and K8 at 32³ keep their tile scratch per device and
+    stream: each block's last CTA sets its counter back to zero, so the next
+    launch finds them zero; launches from the same start give the same
+    bits, and the counters are zero after them."""
+    pool = near_lv_prune_inputs(37, n=32, B=30, cap=38, dev=cuda_dev)
+    kw = dict(n=32, max_level=5, state_fn=po.LVStateFn(**LV_STATE))
+    runs = []
+    for _ in range(3):
+        k = [x.clone() for x in pool[:4]]
+        lv_prune.lv_prune(*k, pool[4], **kw)
+        runs.append(k)
+    am, av, pr, *gpool, node_idx, slots = near_gp_light_inputs(38, depth=5, dev=cuda_dev)
+    gkw = dict(G=7, **GP_BCM, n=16, max_level=4, state_fn=po.GPStateFn(**GP_STATE),
+               do_prune=True)
+    gruns = []
+    for _ in range(3):
+        k = [x.clone() for x in gpool]
+        for s, c in ((0, 12), (12, 12)):
+            gp_light.gp_light(am, av, pr, *k, node_idx, slots, s, c, **gkw)
+        gruns.append(k)
+    torch.cuda.synchronize()
+    for a, b in ((runs[0], runs[1]), (runs[0], runs[2]), (gruns[0], gruns[1]),
+                 (gruns[0], gruns[2])):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+    key = (str(pool[0].device), torch.cuda.current_stream(cuda_dev).cuda_stream)
+    assert int(torch.count_nonzero(group_prune._SCRATCH[key][3])) == 0
+    assert (runs[0][3][pool[4][:-1].long()] == 5).any()
 
 
 @pytest.mark.cuda

@@ -6,6 +6,9 @@ import pytest
 import torch
 
 from la3dm_tpu_torch.geometry import blocks as geo
+from la3dm_tpu_torch.kernels.group_prune import (GP_NEAR_VALUES, near_collapsible_rows,
+                                                 near_pool_values)
+from la3dm_tpu_torch.models import posterior as po
 
 
 @pytest.fixture(autouse=True)
@@ -178,6 +181,33 @@ def lv_prune_inputs(seed, n=16, B=20, cap=28, dev="cpu"):
     return t(A), t(Bv), t(T), t(E), t(slots)
 
 
+#: LV templates of the near-collapsible pools under :data:`LV_STATE`:
+#: state → (A, B, touched); UNKNOWN voxels are untouched
+LV_NEAR_VALUES = {po.OCCUPIED: (5.0, 0.5, True), po.FREE: (0.5, 5.0, True),
+                  po.UNCERTAIN: (1.0, 1.0, True), po.UNKNOWN: (5.0, 0.5, False)}
+
+
+def near_lv_prune_inputs(seed, n=16, B=20, cap=28, dev="cpu"):
+    """:func:`lv_prune_inputs` with near-collapsible blocks
+    (:func:`near_collapsible_rows`, OCCUPIED, FREE and UNCERTAIN groups):
+    returns (A, B, touched, eff, slots), tile-major, a padding slot last."""
+    rng = np.random.default_rng(seed)
+    st, eff = near_collapsible_rows(n, B, (po.FREE, po.OCCUPIED, po.UNCERTAIN),
+                                    seed=seed)
+    A0, B0, T0 = near_pool_values(st, LV_NEAR_VALUES, seed=seed + 1)
+    perm = geo.tile_vox_map(n).reshape(-1)          # raster → stored columns
+    V = n ** 3
+    A = np.full((cap, V), 0.001, np.float32)
+    Bv = np.full((cap, V), 0.001, np.float32)
+    T = np.zeros((cap, V), bool)
+    E = np.zeros((cap, V), np.int8)
+    slots = rng.permutation(cap)[:B].astype(np.int32)
+    A[slots], Bv[slots], T[slots], E[slots] = (x[:, perm] for x in (A0, B0, T0, eff))
+    slots = np.concatenate([slots, [cap]]).astype(np.int32)
+    t = lambda x: torch.from_numpy(x).to(dev)  # noqa: E731
+    return t(A), t(Bv), t(T), t(E), t(slots)
+
+
 def lv_rows_inputs(seed, depth=5, n_scans=3, tiles_per_scan=5, cap=6, res=0.1,
                    ell=0.2, dev="cpu"):
     """One multi-scan row-engine dispatch in the map's argument order:
@@ -340,6 +370,37 @@ def gp_light_inputs(seed, depth=3, T=12, cap=32, G=7, dev="cpu"):
     ivar = np.full((cap, V), 1.0 / 1000.0, np.float32)
     touched = np.zeros((cap, V), bool)
     eff = np.zeros((cap, V), np.int8)
+    arrs = (mean.reshape(T * G, Vall), var.reshape(T * G, Vall), present.reshape(-1),
+            m_ivar, ivar, touched, eff, node_idx, slots)
+    return tuple(torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in arrs)
+
+
+def near_gp_light_inputs(seed, depth=3, T=24, cap=32, G=7, dev="cpu"):
+    """:func:`gp_light_inputs` with near-collapsible blocks
+    (:func:`near_collapsible_rows`, OCCUPIED and FREE groups) and tables
+    that move no state: means in [-1, 1] and variances in [1, 2] (some 0,
+    the padded-row guard) from random slots, one block from none, so that
+    each voxel's m_ivar moves by at most G and its ivar falls by at most
+    G/2.  Returns the same tuple."""
+    rng = np.random.default_rng(seed)
+    _, node_idx = geo.all_level_nodes(0.1, depth)
+    V, Vall = node_idx.shape[1], int(node_idx.max()) + 1
+    n = 2 ** (depth - 1)
+    mean = rng.uniform(-1.0, 1.0, (T, G, Vall)).astype(np.float32)
+    var = rng.uniform(1.0, 2.0, (T, G, Vall)).astype(np.float32)
+    var[rng.uniform(size=var.shape) < 0.02] = 0.0
+    present = rng.uniform(size=(T, G)) < 0.6
+    present[T // 2] = False
+    st, eff0 = near_collapsible_rows(n, T - 1, (po.FREE, po.OCCUPIED), seed=seed)
+    mi0, iv0, t0 = near_pool_values(st, GP_NEAR_VALUES, seed=seed + 1)
+    slots = rng.permutation(cap)[:T].astype(np.int32)
+    slots[-1] = cap
+    m_ivar = np.zeros((cap, V), np.float32)
+    ivar = np.full((cap, V), 1.0 / 1000.0, np.float32)
+    touched = np.zeros((cap, V), bool)
+    eff = np.zeros((cap, V), np.int8)
+    sl = slots[:-1]
+    m_ivar[sl], ivar[sl], touched[sl], eff[sl] = mi0, iv0, t0, eff0
     arrs = (mean.reshape(T * G, Vall), var.reshape(T * G, Vall), present.reshape(-1),
             m_ivar, ivar, touched, eff, node_idx, slots)
     return tuple(torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in arrs)
