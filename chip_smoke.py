@@ -24,7 +24,11 @@ off``):
    its bound counts the work left after the culling, the bound on every
    evaluation beside it;
 4. holds K2 (light pass + prune) against its plain version on the same
-   accumulator and pool state: A, B, touched and eff bit for bit;
+   accumulator and pool state: A, B, touched and eff bit for bit, timed
+   with and without the prune, its bound on the distinct accumulator rows
+   the voxels' eff levels need (every voxel's own row beside it); then
+   from the same blocks made collapsible and near-collapsible (every level
+   reached, bit for bit); the same with ``predict`` (G = 27);
 5. runs the main path — ``pipeline.run_static`` on 12 and on 60 scans and
    ``OnlineIntegrator`` on 12 scans one by one — with ``BGKOctoMap(cfg)``
    on the card, asserting each kernel's launch count, and counts the host
@@ -43,8 +47,10 @@ then on the device-ingest path, the default of a CUDA map:
    keys and in-range flags equal, samples equal (the control, the samples
    in f64, must differ); K7b (compensated centroids, hits and frees) —
    bit for bit, and so within 2^-23·(|plain| + leaf) (the control, the
-   uncompensated mean, must fail it); K7c (closed-box memberships) — keys
-   equal; K7s (the stable sort and run cut on compact codes) on each of the
+   uncompensated mean, must fail it); K7c (closed-box memberships, the
+   compact layout) — keys, entry rows and count equal, the keys the dense
+   layout's valid ones, its bound on the bytes the data needs and the dense
+   layout's beside it, and its time with the membership sort's; K7s (the stable sort and run cut on compact codes) on each of the
    dispatch's four sorts — sort index, runs and each row's run bit for bit
    (the control, a tie swapped in the sort index, must fail), timed beside
    torch.sort(stable=True) + unique_consecutive on the same keys, and its
@@ -163,8 +169,9 @@ then on device ingest, its default on the card:
     block) pair list identical (the control, the samples in f64, must move
     a membership; without the dedup the list must be longer), timed by
     torch.profiler and with its wait —, K7b (the
-    hits), K7s (three sorts) and K7t as in 8, and K1′'s segment branch as
-    in 8, with the gate count of 21;
+    hits), K7c (the hits' dense layout, 8 slots a hit, and their rows),
+    K7s (three sorts) and K7t as in 8, and K1′'s segment branch as in 8,
+    with the gate count of 21;
 24. runs the main path as in 9 (per dispatch one K7a, one K7b, the two
     launches of K7d, one K7c, three K7s, one K7t, one K1′; K2 per scan),
     counts the host syncs,
@@ -200,10 +207,10 @@ The large maps, after raycast (the BGK-family ones at their YAML's own
     over the dispatch's scans in order, bit for bit (one CTA per 8³ tile,
     the 16³ level in each block's last CTA), then twice more from the same
     pool with its blocks made collapsible at every level (raster, Beta
-    templates), bit for bit each time, the 16³ groups collapsed counted and
-    required; K1′'s segment branch on a captured 12-scan device-ingest
+    templates) and near-collapsible, bit for bit each time, every level
+    reached, the 16³ groups collapsed counted and required; K1′'s segment branch on a captured 12-scan device-ingest
     dispatch as in 23 (bit for bit, its cull count, both bounds) and K7d,
-    K7b, K7s and K7t on that dispatch as in 23 (K7d's f64 and index-order
+    K7b, K7c, K7s and K7t on that dispatch as in 23 (K7d's f64 and index-order
     controls printed only: at 3.2 m blocks they move no pair; the list
     without the dedup must still be longer); run_static
     on 12 scans and
@@ -602,7 +609,10 @@ def k1_culling(hargs, acc, kw, name: str, row_chunk: int = 2048) -> dict:
 def check_k2(args, statics, acc, reps: int = 5, what: str = "16-scan demo dispatch") -> dict:
     """K2 against its plain version on the same accumulator and pool state,
     over every scan of the dispatch in order: A, B, touched and eff equal
-    bit for bit."""
+    bit for bit.  Bound: the bytes the data needs — each block's distinct
+    eff-level node rows of the accumulator (voxels whose eff level shares a
+    node read one row), the pool rows read and written — and beside it
+    every voxel's own row (``bound_ms_every_voxel``)."""
     (A, B, T, E, _, node_idx, _, _, _, _, _, _, _, slots, _, ss, sc) = args
     kw = {k: statics[k] for k in ("G", "gate", "n", "max_level", "state_fn",
                                   "do_prune")}
@@ -610,13 +620,21 @@ def check_k2(args, statics, acc, reps: int = 5, what: str = "16-scan demo dispat
     def pool():
         return A.clone(), B.clone(), T.clone(), E.clone()
 
-    def run(fn, st):
+    def run(fn, st, rows=None):
         for s, c in zip(ss, sc):
+            if rows is not None:  # the scan's distinct (block, node) rows
+                sl = slots[s:s + c].long()
+                sl = sl[sl < A.shape[0]]
+                nodes = node_idx.long()[st[3][sl].long(),
+                                        torch.arange(A.shape[1], device=A.device)]
+                nodes = torch.sort(nodes, dim=1).values
+                rows.append(int(sl.numel() + (nodes[:, 1:] != nodes[:, :-1]).sum()))
             fn(acc, *st, node_idx, slots, s, c, **kw)
         return st
 
     k = run(bgk_light.bgk_light, pool())
-    p = run(bgk_light.bgk_light_plain, pool())
+    distinct = []
+    p = run(bgk_light.bgk_light_plain, pool(), distinct)
     torch.cuda.synchronize()
     max_err = max(float((k[0] - p[0]).abs().max()), float((k[1] - p[1]).abs().max()))
     same = [bool(torch.equal(x, y)) for x, y in zip(k, p)]
@@ -627,23 +645,49 @@ def check_k2(args, statics, acc, reps: int = 5, what: str = "16-scan demo dispat
     require(all(same), f"K2 disagrees with its plain version ({what})")
     event_ms = cuda_ms(lambda st: run(bgk_light.bgk_light, st), reps, setup=pool)
     count = len(ss)
-    ms = launch_ms([lambda st, s=s, c=c: bgk_light.bgk_light(acc, *st, node_idx, slots, s,
-                                                             c, **kw)
-                    for s, c in zip(ss, sc)], reps, setup=pool)
+
+    def launches(prune: bool) -> list:
+        return [lambda st, s=s, c=c: bgk_light.bgk_light(acc, *st, node_idx, slots, s, c,
+                                                         **{**kw, "do_prune": prune})
+                for s, c in zip(ss, sc)]
+
+    ms = launch_ms(launches(kw["do_prune"]), reps, setup=pool)
+    ms_fold = launch_ms(launches(False), reps, setup=pool)
     plain_ms = cuda_ms(lambda st: run(bgk_light.bgk_light_plain, st), 2, setup=pool)
     G = statics["G"]
     blocks = int(sum(sc))
     # per block: each voxel's 2G accumulator values read, the pool row
     # (A, B f32; touched, eff 1 byte) read and written, its slot read
     per_block = V * 2 * G * 4 + 2 * V * (4 + 4 + 1 + 1) + 4
-    b_ms, b_by = bound(0, blocks * per_block + nbytes(node_idx))
+    b_all_ms, _ = bound(0, blocks * per_block + nbytes(node_idx))
+    n_rows = sum(distinct)
+    b_ms, b_by = bound(0, n_rows * 2 * G * 4 + blocks * (2 * V * (4 + 4 + 1 + 1) + 4)
+                       + nbytes(node_idx))
     print(f"K2, {what}: {ms:.4f} ms device time over {count} launches "
-          f"({1e3 * ms / count:.2f} us each; the event window, which holds the "
-          f"host's launch gaps, {event_ms:.3f} ms); plain {plain_ms:.3f} ms, "
-          f"bound {b_ms:.4f} ms by {b_by}; {blocks} blocks")
-    return {"max_abs_err": max_err, "ms": ms, "event_ms": event_ms,
-            "ms_per_launch": ms / count, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "voxels_per_block": V, "blocks": blocks}
+          f"({1e3 * ms / count:.2f} us each; without the prune {ms_fold:.4f} ms; the event "
+          f"window, which holds the host's launch gaps, {event_ms:.3f} ms); plain "
+          f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by} ({n_rows} distinct accumulator "
+          f"rows of {blocks * V} voxels; every voxel's own row: {b_all_ms:.4f} ms); {blocks} "
+          f"blocks, G {G}")
+    return {"max_abs_err": max_err, "ms": ms, "ms_without_prune": ms_fold,
+            "event_ms": event_ms, "ms_per_launch": ms / count, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "bound_ms_every_voxel": b_all_ms,
+            "accumulator_rows": n_rows, "voxels_per_block": V, "blocks": blocks, "G": G}
+
+
+def check_k2_pools(args, statics, acc, what: str) -> dict:
+    """K2 on one dispatch's accumulator from its blocks made collapsible and
+    near-collapsible (:func:`check_light_collapsible`), every prune level
+    reached on each."""
+    kw = {k: statics[k] for k in ("G", "gate", "n", "max_level", "state_fn", "do_prune")}
+    pool0, n, slots = args[:4], statics["n"], args[13]
+    starts = {"collapsible": collapsible_pool(pool0, slots, n, templates=BETA_TEMPLATES,
+                                              raster=True),
+              "near": near_collapsible_pool(pool0, slots, n, BGK_NEAR_VALUES, raster=True)}
+    return {k: check_light_collapsible(
+        "K2", bgk_light.bgk_light, bgk_light.bgk_light_plain, (acc,), start, args[5], slots,
+        args[15], args[16], kw, what=f"{k} blocks, {what}", every_level=True)
+        for k, start in starts.items()}
 
 
 def light_levels(eff, slots, max_level: int) -> list:
@@ -1015,6 +1059,8 @@ LV_NEAR_VALUES = {posterior.OCCUPIED: (100.0, 0.001, True),
                   posterior.UNKNOWN: (100.0, 0.001, False)}
 #: GP near-collapsible templates (the GP configs share their thresholds)
 GP_NEAR_VALUES = group_prune.GP_NEAR_VALUES
+#: Beta near-collapsible templates (the BGK and BGKL configs share theirs)
+BGK_NEAR_VALUES = group_prune.BGK_NEAR_VALUES
 
 
 def near_collapsible_pool(pool0, slots, n: int, values, raster: bool = False, seed: int = 0):
@@ -1752,25 +1798,63 @@ def check_k7(calls, what: str, reps: int = 5) -> dict:
 
     out["ingest_downsample"] = check_k7b(calls, what, reps)
 
-    # K7c
-    mref, m_plain = _timed(lambda: ingest_members.memberships_plain(*ma, **mkw))
-    E = ma[0].shape[0]
-    same = torch.equal(mout, mref)
-    n_mem = int((mref != SENT).sum())
-    print(f"K7c, {what}: {E} entries, {n_mem} memberships; keys equal to the plain "
-          f"version {same}")
-    require(same, f"K7c disagrees with its plain version ({what})")
-    ms = launch_ms([lambda _: ingest_members.memberships(*ma, **mkw)], reps)
-    b_ms, b_by = bound(40 * E, nbytes(*ma) + nbytes(mout))
-    out["ingest_members"] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": m_plain,
-                             "bound_ms": b_ms, "bound_by": b_by}
-    print(f"K7c, {what}: {ms:.4f} ms device time (plain {m_plain:.3f} ms, bound "
-          f"{b_ms:.4f} ms by {b_by})")
+    out["ingest_members"] = check_k7c(calls, what, reps)
     out["ingest_sort"] = check_k7s(calls, what, reps)
     (keys, window), _, _ = calls["ingest_sort"][0]
     out["ingest_sort"]["fixed_cost"] = k7s_fixed_cost(keys, window, reps)
     out["ingest_bucket"] = check_k7t(calls, what, out["ingest_sort"], reps)
+    # the membership sort (the third of the point family's four) beside K7c
+    mem = out["ingest_sort"]["sorts"][2]
+    out["ingest_members"].update(membership_sort_ms=mem["ms"],
+                                 with_membership_sort_ms=out["ingest_members"]["ms"]
+                                 + mem["ms"])
+    print(f"K7c + the membership sort, {what}: {out['ingest_members']['ms']:.4f} + "
+          f"{mem['ms']:.4f} = {out['ingest_members']['with_membership_sort_ms']:.4f} ms "
+          f"device time")
     return out
+
+
+def check_k7c(calls, what: str, reps: int = 5) -> dict:
+    """K7c on one dispatch's recorded call against its plain version: the
+    compact layout's keys and rows on the first M rows and M itself (the
+    point family), or the dense layout's keys and rows (BGKL's hits).
+    Bounds: the bytes the data needs (the entries read, the M keys and rows
+    written) and, beside it, the dense layout's (8 keys an entry written)."""
+    (ma, mkw, (keys, rows, count)), = calls["ingest_members"]
+    dense = mkw.get("dense", False)
+    E = ma[0].shape[0]
+    bs = mkw["block_size"]
+    dref = ingest_members.memberships_plain(*ma, block_size=bs)
+    if dense:
+        _, m_plain = _timed(lambda: ingest_members.memberships_plain(*ma, block_size=bs))
+        same = {"keys": torch.equal(keys, dref),
+                "rows": torch.equal(rows, torch.arange(8 * E, dtype=torch.int32,
+                                                       device=rows.device) // 8)}
+        M = int((dref != ingest_keys.SENT).sum())
+    else:
+        ref, m_plain = _timed(lambda: ingest_members.compact_memberships_plain(
+            *ma, block_size=bs))
+        M = int(count.item())
+        same = {"count": M == ref[0].shape[0],
+                "keys": torch.equal(keys[:M], ref[0]),
+                "rows": torch.equal(rows[:M], ref[1]),
+                "keys_are_the_dense_ones": torch.equal(
+                    keys[:M], dref[dref != ingest_keys.SENT])}
+    print(f"K7c, {what}: {E} entries, {M} memberships of {8 * E} slots "
+          f"({'dense' if dense else 'compact'} layout); equal to the plain version {same}")
+    require(all(same.values()), f"K7c disagrees with its plain version ({what}): {same}")
+    ms = launch_ms([lambda _: ingest_members.memberships(*ma, **mkw)], reps)
+    ent_bytes = nbytes(*ma)
+    b_dense, b_by = bound(40 * E, ent_bytes + 8 * 8 * E)
+    b_need, b_by = bound(40 * E, ent_bytes + (8 * 8 * E + 4 * 8 * E if dense
+                                              else 12 * M + 4))
+    print(f"K7c, {what}: {ms:.4f} ms device time (plain {m_plain:.3f} ms), bound "
+          f"{b_need:.4f} ms by {b_by} (the bytes the data needs: "
+          f"{ent_bytes} of entries, {'8E' if dense else 'M'} keys and rows); the dense "
+          f"layout's keys: {b_dense:.4f} ms")
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": m_plain, "bound_ms": b_need,
+            "bound_by": b_by, "bound_ms_dense_layout": b_dense, "entries": E,
+            "memberships": M, "layout": "dense" if dense else "compact"}
 
 
 def check_k7b(calls, what: str, reps: int = 5) -> dict:
@@ -1869,6 +1953,7 @@ def check_k7s(calls, what: str, reps: int = 5) -> dict:
     sorts = []
     for (keys, window), kw, runs in calls["ingest_sort"]:
         ref = ingest_sort.sort_runs_plain(keys, window, **kw)
+        count = kw.get("count")
         same = {n: bool((x is None and y is None) or torch.equal(x, y))
                 for n, x, y in zip(runs._fields, runs, ref)}
         require(all(same.values()), f"K7s disagrees with its plain version ({what}): {same}")
@@ -1880,27 +1965,32 @@ def check_k7s(calls, what: str, reps: int = 5) -> dict:
             perm[[a, a + 1]] = perm[[a + 1, a]]
             ctl_fails = not torch.equal(perm, ref.perm)
             require(ctl_fails, f"the K7s check passes a swapped tie ({what})")
-        N, V, R = keys.shape[0], runs.perm.shape[0], runs.ukey.shape[0]
+        # the keys the sort reads: with K7c's count on the card, its first M
+        N = keys.shape[0] if count is None else min(int(count.item()), keys.shape[0])
+        V, R = runs.perm.shape[0], runs.ukey.shape[0]
         rid = kw.get("want_rid", False)
         ms = launch_ms([lambda _, k=keys, w=window, kw=kw: ingest_sort.launch(k, w, **kw)],
                        reps)
         ms_call = cuda_ms(lambda _: ingest_sort.sort_runs(keys, window, **kw), reps)
-        lib_ms = cuda_ms(lambda _: _library_sort(keys), reps)
-        lib_sort_ms = launch_ms([lambda _: torch.sort(keys, stable=True)], reps)
+        lib_keys = keys[:N]
+        lib_ms = cuda_ms(lambda _: _library_sort(lib_keys), reps)
+        lib_sort_ms = launch_ms([lambda _: torch.sort(lib_keys, stable=True)], reps)
         _, plain_ms = _timed(lambda: ingest_sort.sort_runs_plain(keys, window, **kw))
         b_ms, b_by = bound(0, 8 * N + 8 * V + 24 * R + (4 * V if rid else 0))
         bp_ms, _ = bound(0, ingest_sort.passes_bytes(N, V, R, window, rid))
-        rec = {"keys": N, "valid": V, "runs": R, "longest_run": int(ref.counts.max()) if R
+        rec = {"keys": N, "keys_allocated": keys.shape[0], "device_count": count is not None,
+               "valid": V, "runs": R, "longest_run": int(ref.counts.max()) if R
                else 0, "bits": window.bits, "passes": window.passes,
-               "path": "one CTA" if ingest_sort.small_sort(N) else "multi-CTA",
-               "kernels": ingest_sort.kernels_per_sort(window, N),
+               "path": "one CTA" if ingest_sort.small_sort(keys.shape[0]) else "multi-CTA",
+               "kernels": ingest_sort.kernels_per_sort(window, keys.shape[0]),
                "key_bytes": window.key_bytes, "bit_equal": True,
                "control_fails": ctl_fails, "ms": ms, "ms_call": ms_call, "library_ms": lib_ms,
                "library_sort_ms": lib_sort_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                "bound_by": b_by, "bound_ms_passes": bp_ms,
                "beats_library": ms_call < lib_ms, "beats_torch_sort": ms < lib_sort_ms}
         sorts.append(rec)
-        print(f"K7s, {what}: {N} keys, {V} valid, {R} runs (longest {rec['longest_run']}), "
+        print(f"K7s, {what}: {N} keys{' (a count on the card)' if count is not None else ''}"
+              f", {V} valid, {R} runs (longest {rec['longest_run']}), "
               f"{window.bits}-bit codes in {window.passes} passes of u{8 * window.key_bytes}, "
               f"the {rec['path']} path ({rec['kernels']} kernels); "
               f"bit-equal to the plain version, control (a tie swapped) fails {ctl_fails}; "
@@ -1981,9 +2071,10 @@ def check_k7t(calls, what: str, k7s: dict, reps: int = 5) -> dict:
 
 
 def check_k7_segments(calls, what: str, reps: int = 5) -> dict:
-    """BGKL's device-ingest dispatch: K7b (the hits), K7s (its three sorts)
-    and K7t, as in :func:`check_k7`."""
+    """BGKL's device-ingest dispatch: K7b (the hits), K7c (the hits' dense
+    layout), K7s (its three sorts) and K7t, as in :func:`check_k7`."""
     out = {"ingest_downsample": check_k7b(calls, what, reps),
+           "ingest_members": check_k7c(calls, what, reps),
            "ingest_sort": check_k7s(calls, what, reps)}
     out["ingest_bucket"] = check_k7t(calls, what, out["ingest_sort"], reps)
     return out
@@ -2610,8 +2701,23 @@ def main() -> int:
         stamp("BGK host ingest: K1, K2")
         args, statics = capture_dispatch(cfg, scans[:16], "cuda")
         k1 = check_k1(args, statics)
-        k2 = check_k2(args, statics, k1.pop("acc"))
-        del args
+        acc = k1.pop("acc")
+        k2 = check_k2(args, statics, acc)
+        k2.update(check_k2_pools(args, statics, acc, "16-scan demo dispatch"))
+        del args, acc
+        stamp("BGK host ingest with predict (G = 27): K2")
+        args, statics = capture_dispatch(
+            load_method_config("bgk", max_range=MAX_RANGE, device_ingest="off", predict=True),
+            scans[:16], "cuda")
+        require(statics["G"] == 27, "predict: true does not give 27 slots a block")
+        (_, _, _, _, all_nodes, _, ent, lab, ids, gs, rb, rs, rn, _, ctr, _, _) = args
+        acc = bgk_heavy.bgk_heavy(ent, lab, ids, gs, rb, rs, rn, ctr, all_nodes,
+                                  G=statics["G"], sf2=statics["sf2"], ell=statics["ell"])
+        k2_27 = check_k2(args, statics, acc, reps=2,
+                         what="16-scan demo dispatch, predict (G = 27)")
+        k2_27.update(check_k2_pools(args, statics, acc,
+                                    "16-scan demo dispatch, predict (G = 27)"))
+        del args, acc
 
         stamp("BGK host ingest: main path, profile, card vs CPU")
         path = main_path(cfg, tmp, scans)
@@ -2794,12 +2900,7 @@ def main() -> int:
         mem_ll = table_bytes("K1 accumulator [T, Vall, 2G] f32, 12-scan BGKL large-map "
                              "dispatch", acc.shape[0], acc.shape[1] * acc.shape[2] * 4, 12)
         k2_ll = check_k2(args, statics, acc, what="12-scan BGKL large-map dispatch")
-        kw = {k: statics[k] for k in ("G", "gate", "n", "max_level", "state_fn",
-                                      "do_prune")}
-        k2_ll["collapsible"] = check_light_collapsible(
-            "K2", bgk_light.bgk_light, bgk_light.bgk_light_plain, (acc,),
-            collapsible_pool(args[:4], args[13], statics["n"], templates=BETA_TEMPLATES,
-                             raster=True), args[5], args[13], args[15], args[16], kw)
+        k2_ll.update(check_k2_pools(args, statics, acc, "12-scan BGKL large-map dispatch"))
         del args, acc
         stamp("BGKL large map: K1' (segments), K7d, K7b, K7s, K7t on a 12-scan "
               "device-ingest dispatch")
@@ -2849,7 +2950,7 @@ def main() -> int:
          "source": "la3dm_tpu_torch/csrc/bgk_light.cu",
          "replaces": "la3dm_tpu/models/bgk.py:140", "launches": launches["bgk_light"],
          "work": "the 16 per-scan launches of one 16-scan dispatch", **k2,
-         "library_ms": None,
+         "library_ms": None, "predict_g27": k2_27,
          "large_block": {
              "work": "the 12 per-scan launches of one 12-scan BGKL large-map dispatch "
                      "(16^3 voxels a block)",
@@ -2919,7 +3020,9 @@ def main() -> int:
          "replaces": "la3dm_tpu/geometry/device_ingest.py:256",
          "launches": launches_on["ingest_members"],
          "work": "one 16-scan BGK demo dispatch", **k7["ingest_members"],
-         "library_ms": None, "gp": k7_gp["ingest_members"]},
+         "library_ms": None, "gp": k7_gp["ingest_members"],
+         "bgkl": k7_l["ingest_members"], "bgkl_large_map": k7_ll["ingest_members"],
+         "bgk_large_map": k7_bl["ingest_members"]},
         {"name": "bgk_aligned_heavy", "route": "cuda",
          "source": "la3dm_tpu_torch/csrc/bgk_aligned_heavy.cu",
          "replaces": "la3dm_tpu/models/bgk.py:204",

@@ -49,6 +49,7 @@
 
 namespace {
 
+using la3dm::tile_voxel;
 using la3dm::vote::Cubes;
 using la3dm::vote::Item;
 using la3dm::vote::Votes;
@@ -67,17 +68,6 @@ __device__ __forceinline__ int8_t gp_state(float mi, float iv, bool touched,
   int8_t st = p > q.occupied_thresh ? kOccupied : (p < q.free_thresh ? kFree : kUnknown);
   if (iv < q.min_known_ivar) st = kUnknown;
   return touched ? st : kUnknown;
-}
-
-// The raster voxel (within its block of edge n >= 16) of voxel vt of tile
-// pos; tiles and their voxels are both raster, x fastest.
-__device__ __forceinline__ int tile_voxel(int pos, int vt, int n) {
-  const int tpa = n / kTileEdge;
-  const int tx = pos % tpa, ty = (pos / tpa) % tpa, tz = pos / (tpa * tpa);
-  const int lx = vt % kTileEdge, ly = (vt / kTileEdge) % kTileEdge,
-            lz = vt / (kTileEdge * kTileEdge);
-  return (tx * kTileEdge + lx) + (ty * kTileEdge + ly) * n +
-         (tz * kTileEdge + lz) * n * n;
 }
 
 // The present slots of block t as a G-bit mask (G <= 32).  Where a warp

@@ -1,5 +1,6 @@
-// The bottom-up prune of K5 (csrc/gp_light.cu) and K8 (csrc/lv_prune.cu):
-// the group-collapse test as votes over a Morton order.
+// The bottom-up prune of K2 (csrc/bgk_light.cu), K5 (csrc/gp_light.cu) and
+// K8 (csrc/lv_prune.cu): the group-collapse test as votes over a Morton
+// order.
 //
 // The port of la3dm_tpu/models/pruning.py::prune_blocks.  Levels L = 1..
 // max_level: a 2^L-aligned group collapses iff every member has eff == L-1
@@ -12,9 +13,9 @@
 // (bit 0 = x0, bit 1 = y0, bit 2 = z0, bit 3 = x1, ...), so a group of 8^k
 // items is the 8^k / N consecutive threads from a multiple of that, and its
 // first thread's first item is its minimum corner.  The items are the
-// voxels of a cube of edge <= 8 (K5's block of n <= 8, an 8^3 tile of a
-// larger block, K8's tile), whose global loads and stores stay raster (a
-// thread's N raster-consecutive voxels): the kernels pass them through
+// voxels of a cube of edge <= 8 (K2's and K5's block of n <= 8 or 8^3 tile
+// of a larger block, K8's tile), whose global loads and stores stay raster
+// (a thread's N raster-consecutive voxels): the kernels pass them through
 // shared memory; or, in a block's last CTA, the block's tiles (their
 // summaries: eff and state where uniform over the tile, else -1, and the
 // corner voxel's f0, f1, touched).
@@ -27,13 +28,24 @@
 // warp's vote).
 //
 // The Morton order's Python twin is kernels/group_prune.py (the tests
-// hold it); K2 keeps csrc/raster_prune.cuh.
+// hold it).
 
 #pragma once
 
 #include <stdint.h>
 
 namespace la3dm {
+
+// The raster voxel (within its block of edge n >= 16) of voxel vt of 8^3
+// tile pos; tiles and their voxels are both raster, x fastest (K2's and
+// K5's raster pools, whose tiles are not permuted).
+__device__ __forceinline__ int tile_voxel(int pos, int vt, int n) {
+  const int tpa = n / 8;
+  const int tx = pos % tpa, ty = (pos / tpa) % tpa, tz = pos / (tpa * tpa);
+  const int lx = vt % 8, ly = (vt / 8) % 8, lz = vt / 64;
+  return (tx * 8 + lx) + (ty * 8 + ly) * n + (tz * 8 + lz) * n * n;
+}
+
 namespace vote {
 
 constexpr int8_t kUnknown = 2;

@@ -7,8 +7,7 @@
 // 357-385).  From K7s's sort of the membership keys (perm, and rid, the run
 // of each sorted row) and its sort of the candidate keys (tkey), one launch
 // writes, thread by thread over three ranges:
-//   row i < M       e = mrow[perm[i]] (without mrow: perm[i] / 8, K7c's 8
-//                   memberships an entry): ent_s[i] = ent[e], lab_s[i] = lab[e],
+//   row i < M       e = mrow[perm[i]] (K7c's rows): ent_s[i] = ent[e], lab_s[i] = lab[e],
 //                   ent_rel[i] = ent[e] - (coord in f32) * bs per axis (the
 //                   coordinate of the row's block, ukey[rid[i]]; D = 3 or 6,
 //                   both ends of a segment);
@@ -44,7 +43,7 @@ __device__ __forceinline__ int64_t lower_bound(const int64_t* __restrict__ sorte
 
 __global__ void ingest_bucket_kernel(const int64_t* __restrict__ perm,    // [M]
                                      const int32_t* __restrict__ rid,     // [M]
-                                     const int64_t* __restrict__ mrow,    // [>= M] or null
+                                     const int32_t* __restrict__ mrow,    // [>= M]
                                      const float* __restrict__ ent,       // [E, D]
                                      const float* __restrict__ lab,       // [E]
                                      const int64_t* __restrict__ ukey,    // [U]
@@ -58,7 +57,7 @@ __global__ void ingest_bucket_kernel(const int64_t* __restrict__ perm,    // [M]
   int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i < M) {
     const int64_t p = perm[i];
-    const int64_t e = mrow ? mrow[p] : p >> 3;
+    const int64_t e = mrow[p];
     const int64_t key = ukey[rid[i]];
     const int32_t* anchor = anchors + 3 * (int)(key >> 48);
     float ctr[3];
@@ -94,7 +93,7 @@ constexpr int kThreads = 256;
 // Launch K7t on ``stream``: one thread a row, an (entry block, slot) and a
 // (test block, slot).  Returns cudaGetLastError().
 extern "C" int la3dm_ingest_bucket(const int64_t* perm, const int32_t* rid,
-                                   const int64_t* mrow, const float* ent, const float* lab,
+                                   const int32_t* mrow, const float* ent, const float* lab,
                                    const int64_t* ukey, const int64_t* tkey,
                                    const int64_t* off, const int32_t* anchors, long long M,
                                    long long U, long long T, int G, int D, float bs,

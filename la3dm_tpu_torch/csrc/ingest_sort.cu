@@ -264,6 +264,14 @@ __device__ __forceinline__ unsigned look_back(const unsigned* look, size_t strid
   }
 }
 
+// the keys a sort reads: the first N, or with a device-side count the first
+// min(N, *count) (the rest may hold anything)
+__device__ __forceinline__ long long key_count(long long N, const int32_t* count) {
+  if (count == nullptr) return N;
+  const long long m = *count;
+  return m < N ? (m < 0 ? 0 : m) : N;
+}
+
 __device__ __forceinline__ int digit_of(uint64_t c, int shift, int dbits) {
   return (int)((c >> shift) & ((1ull << dbits) - 1ull));
 }
@@ -334,8 +342,9 @@ struct RowCut {
 // One CTA: the whole sort and run cut of n <= kSmallTile keys in shared memory.
 template <typename KeyT>
 __global__ void __launch_bounds__(kSmallThreads)
-ingest_sort_small_kernel(const int64_t* __restrict__ keys, int n, Window w, int passes,
-                         int dbits, int64_t* __restrict__ out, int32_t* __restrict__ rid,
+ingest_sort_small_kernel(const int64_t* __restrict__ keys, int n_keys,
+                         const int32_t* __restrict__ count, Window w, int passes, int dbits,
+                         int64_t* __restrict__ out, int32_t* __restrict__ rid,
                          int* __restrict__ status) {
   extern __shared__ __align__(16) unsigned char smem[];
   KeyT* s_code = reinterpret_cast<KeyT*>(smem);
@@ -343,6 +352,7 @@ ingest_sort_small_kernel(const int64_t* __restrict__ keys, int n, Window w, int 
   __shared__ RankSmem<kSmallThreads / 32> sm;
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
   const int wbase = wid * 32 * kSmallItems;
+  const int n = (int)key_count(n_keys, count);
   KeyT code[kSmallItems];
   uint32_t idx[kSmallItems];
   int digit[kSmallItems], rank[kSmallItems];
@@ -397,7 +407,8 @@ ingest_sort_small_kernel(const int64_t* __restrict__ keys, int n, Window w, int 
   const long long ex1 = __shfl_sync(
       kAll, block_exclusive_scan<kSmallThreads>(lane ? 0LL : cut.last1, 0LL, Max(), &last1_all),
       0);
-  cut.write(s_code, V, ex, ex1, w, out + n, out + 2 * (size_t)n, out + 3 * (size_t)n, rid);
+  cut.write(s_code, V, ex, ex1, w, out + n_keys, out + 2 * (size_t)n_keys,
+            out + 3 * (size_t)n_keys, rid);
   for (int i = threadIdx.x; i < V; i += kSmallThreads) perm[i] = (int64_t)s_idx[i];
   if (threadIdx.x == 0) {
     status[kValid] = V;
@@ -410,9 +421,11 @@ ingest_sort_small_kernel(const int64_t* __restrict__ keys, int n, Window w, int 
 
 // every pass's digit totals at once, the valid keys and the flag
 __global__ void __launch_bounds__(kThreads)
-ingest_sort_hist_kernel(const int64_t* __restrict__ keys, long long n, Window w, int passes,
-                        int dbits, int* __restrict__ status, unsigned* __restrict__ ghist) {
+ingest_sort_hist_kernel(const int64_t* __restrict__ keys, long long n_keys,
+                        const int32_t* __restrict__ count, Window w, int passes, int dbits,
+                        int* __restrict__ status, unsigned* __restrict__ ghist) {
   __shared__ unsigned cnt[kMaxPasses * kMaxBins];
+  const long long n = key_count(n_keys, count);
   const int nbins = 1 << dbits;
   for (int t = threadIdx.x; t < passes * nbins; t += kThreads) cnt[t] = 0;
   __syncthreads();
@@ -453,7 +466,8 @@ __global__ void __launch_bounds__(kThreads, 4)
 ingest_sort_pass_kernel(const int64_t* __restrict__ keys,      // kFirst
                         const KeyT* __restrict__ codes_in,     // later passes
                         const uint32_t* __restrict__ idx_in,   // later passes
-                        long long n_keys, int* __restrict__ status, Window w, int pass,
+                        long long n_keys, const int32_t* __restrict__ count,  // kFirst
+                        int* __restrict__ status, Window w, int pass,
                         int dbits, const unsigned* __restrict__ ghist,  // this pass's [kMaxBins]
                         unsigned* __restrict__ look,           // this pass's [tiles, 2^dbits]
                         KeyT* __restrict__ codes_out, uint32_t* __restrict__ idx_out,
@@ -470,7 +484,7 @@ ingest_sort_pass_kernel(const int64_t* __restrict__ keys,      // kFirst
   int total;
   const int gstart = block_exclusive_sum(threadIdx.x < nbins ? (int)ghist[threadIdx.x] : 0,
                                          &total);
-  const long long n = kFirst ? n_keys : (long long)status[kValid];
+  const long long n = kFirst ? key_count(n_keys, count) : (long long)status[kValid];
   const long long n_tiles = (n + kTile - 1) / kTile;
   for (;;) {
     if (threadIdx.x == 0) s_tile = atomicAdd(&status[kPassCounter + pass], 1);
@@ -691,7 +705,8 @@ cudaError_t allow_smem(Kernel k, size_t smem) {
 
 template <typename KeyT, bool kFirst, bool kLast>
 cudaError_t launch_pass(const int64_t* keys, const KeyT* ci, const uint32_t* ii, long long N,
-                        int* status, Window w, int pass, int dbits, const unsigned* ghist,
+                        const int32_t* count, int* status, Window w, int pass, int dbits,
+                        const unsigned* ghist,
                         unsigned* look, KeyT* co, uint32_t* io, int64_t* perm,
                         cudaStream_t st) {
   auto kernel = ingest_sort_pass_kernel<KeyT, kFirst, kLast>;
@@ -704,14 +719,14 @@ cudaError_t launch_pass(const int64_t* keys, const KeyT* ci, const uint32_t* ii,
   }
   const long long tiles = (N + kTile - 1) / kTile;
   const int grid = (int)(tiles < resident ? tiles : resident);
-  kernel<<<grid, kThreads, smem, st>>>(keys, ci, ii, N, status, w, pass, dbits, ghist, look,
-                                        co, io, perm);
+  kernel<<<grid, kThreads, smem, st>>>(keys, ci, ii, N, count, status, w, pass, dbits, ghist,
+                                        look, co, io, perm);
   return cudaGetLastError();
 }
 
 template <typename KeyT>
-int run_sort(const int64_t* keys, long long N, Window w, int bits, bool small, char* work,
-             int64_t* out, int32_t* rid, cudaStream_t st) {
+int run_sort(const int64_t* keys, long long N, const int32_t* count, Window w, int bits,
+             bool small, char* work, int64_t* out, int32_t* rid, cudaStream_t st) {
   const Plan p = plan(bits);
   int* status = reinterpret_cast<int*>(work);
   if (small) {
@@ -723,8 +738,8 @@ int run_sort(const int64_t* keys, long long N, Window w, int bits, bool small, c
       if (e != cudaSuccess) return (int)e;
       ready = true;
     }
-    kernel<<<1, kSmallThreads, smem, st>>>(keys, (int)N, w, p.passes, p.dbits, out, rid,
-                                           status);
+    kernel<<<1, kSmallThreads, smem, st>>>(keys, (int)N, count, w, p.passes, p.dbits, out,
+                                           rid, status);
     return (int)cudaGetLastError();
   }
   const Layout l = layout(N, bits, (int)sizeof(KeyT), false);
@@ -742,7 +757,7 @@ int run_sort(const int64_t* keys, long long N, Window w, int bits, bool small, c
   const long long hist_ctas = (N + 4 * kThreads - 1) / (4 * kThreads);  // 4 keys a thread
   ingest_sort_hist_kernel<<<(int)(hist_ctas < hist_grid ? hist_ctas : hist_grid), kThreads, 0,
                             st>>>(
-      keys, N, w, p.passes, p.dbits, status, ghist);
+      keys, N, count, w, p.passes, p.dbits, status, ghist);
   int cur = 0;  // the buffers the pass reads (after the first)
   for (int q = 0; q < p.passes; ++q) {
     const bool first = q == 0, last = q == p.passes - 1;
@@ -751,16 +766,16 @@ int run_sort(const int64_t* keys, long long N, Window w, int bits, bool small, c
     KeyT* co = codes[1 - cur];
     uint32_t* io = idx[1 - cur];
     if (first && last) {
-      e = launch_pass<KeyT, true, true>(keys, codes[cur], idx[cur], N, status, w, q, p.dbits, gh,
+      e = launch_pass<KeyT, true, true>(keys, codes[cur], idx[cur], N, count, status, w, q, p.dbits, gh,
                                         lk, co, io, out, st);
     } else if (first) {
-      e = launch_pass<KeyT, true, false>(keys, codes[cur], idx[cur], N, status, w, q, p.dbits,
+      e = launch_pass<KeyT, true, false>(keys, codes[cur], idx[cur], N, count, status, w, q, p.dbits,
                                          gh, lk, co, io, out, st);
     } else if (last) {
-      e = launch_pass<KeyT, false, true>(keys, codes[cur], idx[cur], N, status, w, q, p.dbits,
+      e = launch_pass<KeyT, false, true>(keys, codes[cur], idx[cur], N, count, status, w, q, p.dbits,
                                          gh, lk, co, io, out, st);
     } else {
-      e = launch_pass<KeyT, false, false>(keys, codes[cur], idx[cur], N, status, w, q, p.dbits,
+      e = launch_pass<KeyT, false, false>(keys, codes[cur], idx[cur], N, count, status, w, q, p.dbits,
                                           gh, lk, co, io, out, st);
     }
     if (e != cudaSuccess) return (int)e;
@@ -782,7 +797,10 @@ extern "C" long long la3dm_ingest_sort_workspace(long long N, int bits, int key_
   return (long long)layout(N, bits, key_bytes, small != 0).bytes;
 }
 
-// Queue K7s on ``stream`` over the N int64 keys (1 <= N < 2^30): ``lo``,
+// Queue K7s on ``stream`` over the N int64 keys (1 <= N < 2^30), or, where
+// ``count`` (int32 on the device) is not null, over the first min(N, *count)
+// of them: the histogram and the first pass read only those, and the tiles
+// past them leave at once; N still sizes the launches and the outputs.  ``lo``,
 // ``W``, ``K`` the window, ``bits`` the code's bit length, ``key_bytes`` 4 or
 // 8, ``small`` != 0 the one-CTA path (N <= 4096).  ``out`` [4, N] int64
 // receives perm, ukey, starts, counts (their valid prefixes: status[0] rows
@@ -792,7 +810,7 @@ extern "C" long long la3dm_ingest_sort_workspace(long long N, int bits, int key_
 extern "C" int la3dm_ingest_sort(const int64_t* keys, long long N, int lo, int W, int K,
                                  int bits, int key_bytes, int small, void* work,
                                  long long work_bytes, int64_t* out, int32_t* rid,
-                                 void* stream) {
+                                 const int32_t* count, void* stream) {
   if (N <= 0 || N >= (1LL << 30) || bits < 1 || bits > 64 || W < 1 || K < 1 ||
       (key_bytes != 4 && key_bytes != 8) || (key_bytes == 4 && bits > 32) ||
       (small && N > kSmallTile) ||
@@ -801,6 +819,7 @@ extern "C" int la3dm_ingest_sort(const int64_t* keys, long long N, int lo, int W
   const Window w{lo, W, K};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   char* ws = static_cast<char*>(work);
-  return key_bytes == 4 ? run_sort<uint32_t>(keys, N, w, bits, small != 0, ws, out, rid, st)
-                        : run_sort<uint64_t>(keys, N, w, bits, small != 0, ws, out, rid, st);
+  return key_bytes == 4
+             ? run_sort<uint32_t>(keys, N, count, w, bits, small != 0, ws, out, rid, st)
+             : run_sort<uint64_t>(keys, N, count, w, bits, small != 0, ws, out, rid, st);
 }

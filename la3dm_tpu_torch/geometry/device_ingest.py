@@ -10,7 +10,9 @@ The port of ``la3dm_tpu/geometry/device_ingest.py``: the point family
          ──► range filter + Kf + 2 beam samples       (K7a, ``beam_samples``)
          ──► stable sort, runs (K7s), compensated centroids (K7b)  = frees
          ──► entries: hits (label 1) then frees (free label), z-major
-         ──► ≤ 8 closed-box memberships an entry      (K7c)
+         ──► ≤ 8 closed-box memberships an entry, only
+             those that exist, in order, their count on
+             the card                                 (K7c)
          ──► stable sort by block key → per-block runs (K7s); the test
              blocks, unique(u + off_g) (K7s); the rows in block order and
              the slot maps ``nb_row`` / ``tb_u``      (K7t)
@@ -21,7 +23,7 @@ and the BGKL segment family (``bgkloctomap.cpp:285-344``),
   clouds ──► outlier mask + ds-voxel keys, downsample  (K7a, K7s, K7b)  = hits
          ──► range filter, occ, free ray, Kf + 1 proxy samples, their
              closed-box block keys and each ray's distinct keys  (K7d)
-         ──► hits' memberships                         (K7c, on occ)
+         ──► hits' memberships, 8 slots a hit          (K7c, on occ)
          ──► entries [·,6]: hits as [occ, occ] (label 1), then rays
              (label 0) once per distinct block; the stable sort by block
              key leaves per block the hits first, then the rays by id
@@ -131,8 +133,10 @@ def ingest_batch(pts, scan, origins, cell_anchor, block_anchor, off_keys, *, ds:
                                 device=dev)])
     escan = (torch.cat([hkey, fkey]) >> 48).to(torch.int32)
     evalid = torch.cat([inr, torch.ones(len(frees), dtype=torch.bool, device=dev)])
-    mkey = ingest_members.memberships(ent, escan, evalid, block_anchor, block_size=block_size)
-    return _bucket(mkey, None, ent, lab, block_anchor, off_keys, block_size, bwin)
+    mkey, mrow, count = ingest_members.memberships(ent, escan, evalid, block_anchor,
+                                                   block_size=block_size)
+    return _bucket(mkey, mrow, ent, lab, block_anchor, off_keys, block_size, bwin,
+                   count=count)
 
 
 def ingest_batch_bgkl(pts, scan, origins, cell_anchor, block_anchor, off_keys, *, ds: float,
@@ -152,8 +156,11 @@ def ingest_batch_bgkl(pts, scan, origins, cell_anchor, block_anchor, off_keys, *
     occ, seg, inr, pray, pkey, _ = ingest_rays.ray_pairs(
         hits, hkey, origins, block_anchor, kf=kf, mr=mr32, fr=fr32, block_size=block_size)
     dev, R = pts.device, hits.shape[0]
-    hmkey = ingest_members.memberships(occ, (hkey >> 48).to(torch.int32), inr, block_anchor,
-                                       block_size=block_size)
+    # the hits' dense layout (8 slots a hit): the ray pairs follow it in one
+    # key array whose size the host knows, so no count sits between them
+    hmkey, hrow, _ = ingest_members.memberships(occ, (hkey >> 48).to(torch.int32), inr,
+                                                block_anchor, block_size=block_size,
+                                                dense=True)
     ent = torch.cat([torch.cat([occ, occ], dim=1), seg])
     lab = torch.cat([torch.ones(R, dtype=torch.float32, device=dev),
                      torch.zeros(R, dtype=torch.float32, device=dev)])
@@ -161,18 +168,19 @@ def ingest_batch_bgkl(pts, scan, origins, cell_anchor, block_anchor, off_keys, *
     # keeps that order inside each block (the JAX step's mkey = [hkey…,
     # ukeys_r…])
     mkey = torch.cat([hmkey, pkey])
-    mrow = torch.cat([torch.arange(R * 8, device=dev) // 8, R + pray])
+    mrow = torch.cat([hrow, (R + pray).to(torch.int32)])
     return _bucket(mkey, mrow, ent, lab, block_anchor, off_keys, block_size, bwin)
 
 
 def _bucket(mkey, mrow, ent, lab, block_anchor, off_keys, block_size: float,
-            window) -> dict | None:
+            window, count=None) -> dict | None:
     """Membership keys [E'] in ``window`` and the entry row of each
-    (``mrow``; None: membership p is entry p // 8) → the block tables of
-    :func:`ingest_batch`.  The test blocks
+    (``mrow`` int32) → the block tables of :func:`ingest_batch`; ``count``
+    (K7c's, on the keys' device): only the first ``count`` keys hold
+    memberships.  The test blocks
     are the runs of the candidate keys u + off_g, whose window is one block
     wider (the neighbour offsets reach one block an axis)."""
-    runs = ingest_sort.sort_runs(mkey, window, want_rid=True)
+    runs = ingest_sort.sort_runs(mkey, window, want_rid=True, count=count)
     ukey = runs.ukey
     if ukey.shape[0] == 0:
         return None

@@ -112,11 +112,12 @@ def _bind(lib):
     lib.la3dm_ingest_sort_workspace.restype = cl
     lib.la3dm_ingest_sort_workspace.argtypes = [cl, ci, ci, ci]
     lib.la3dm_ingest_sort.restype = ci
-    lib.la3dm_ingest_sort.argtypes = [vp, cl] + [ci] * 6 + [vp, cl] + [vp] * 3
+    lib.la3dm_ingest_sort.argtypes = [vp, cl] + [ci] * 6 + [vp, cl] + [vp] * 4
     lib.la3dm_ingest_bucket.restype = ci
     lib.la3dm_ingest_bucket.argtypes = [vp] * 9 + [cl] * 3 + [ci, ci, cf] + [vp] * 6
     lib.la3dm_ingest_members.restype = ci
-    lib.la3dm_ingest_members.argtypes = [vp] * 4 + [cl, cf, cf, vp, vp]
+    lib.la3dm_ingest_members.argtypes = ([vp] * 4 + [cl, cf, cf, ci] + [vp] * 5
+                                         + [ctypes.c_uint, vp])
     lib.la3dm_ingest_rays_workspace.restype = cl
     lib.la3dm_ingest_rays_workspace.argtypes = [cl, ci]
     lib.la3dm_ingest_rays_count.restype = ci

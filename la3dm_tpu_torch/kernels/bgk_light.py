@@ -10,22 +10,29 @@ scan: the per-slot gate k̄_g > gate, ΔA = Σ gated ȳ and ΔB = Σ gated
 tensors are updated in place.
 
 On a CUDA tensor :func:`bgk_light` launches the hand-written kernel
-(``csrc/bgk_light.cu``, one thread per voxel: one CTA per block up to 8³
-voxels, the prune in shared memory; one CTA per 8³ tile for blocks of 16³
-to 64³ voxels, the levels across tiles run by each block's last CTA over
-per-tile summaries); on a CPU tensor it runs :func:`bgk_light_plain`.  The
-kernel is bound by memory: it moves each accumulator and pool byte once.
+(``csrc/bgk_light.cu``, K5's shape with the Beta fold: up to 8³ voxels a
+block, a thread a voxel and one block a CTA, or eight blocks of 2³ a CTA;
+above, one CTA per 8³ tile, two voxels a thread at G = 7, with the scratch
+of ``group_prune.tile_scratch``; the pool row's loads, then each warp's
+accumulator rows laid end to end through shared memory, before the fold;
+the prune of ``csrc/group_prune.cuh``, votes over a Morton order); on a
+CPU tensor it runs :func:`bgk_light_plain`.
+The kernel is bound by memory: it moves each accumulator and pool byte
+once.
 """
 
 from __future__ import annotations
 
 import torch
 
-from la3dm_tpu_torch.kernels import _build, predict as kp
+from la3dm_tpu_torch.kernels import _build, group_prune, predict as kp
 from la3dm_tpu_torch.models import pruning
 
 #: kernel launches since the counter was last reset (one per scan)
 launches = 0
+#: slots a block the kernel takes (G: the face neighbours, or all 27 with
+#: ``predict``)
+SLOT_COUNTS = (7, 27)
 
 #: the largest block edge the kernels take (block_depth 7), as K8's
 MAX_N = 64
@@ -39,26 +46,6 @@ def check_block_edge(name: str, n: int, V: int) -> None:
     if n <= 0 or n & (n - 1) or n > MAX_N or V != n ** 3:
         raise ValueError(f"{name}: blocks of n³ voxels with n a power of two "
                          f"≤ {MAX_N} (block_depth ≤ 7); got n={n}, {V} voxels a row")
-
-
-def tile_scratch(device, n: int, count: int) -> tuple:
-    """Scratch of a tiled launch over ``count`` blocks of edge ``n``: tile
-    summaries (eff, state) int8 [.,2], (f0, f1) f32 [.,2],
-    touched u8 [.], and the per-block counters int32 [count], zeroed on the
-    launch's stream; none for n ≤ TILE_EDGE.  The caller holds the tensors
-    until the launch is queued."""
-    if n <= TILE_EDGE:
-        return ()
-    tiles = count * (n // TILE_EDGE) ** 3
-    return (torch.empty((tiles, 2), dtype=torch.int8, device=device),
-            torch.empty((tiles, 2), dtype=torch.float32, device=device),
-            torch.empty((tiles,), dtype=torch.uint8, device=device),
-            torch.zeros((count,), dtype=torch.int32, device=device))
-
-
-def scratch_ptrs(scratch: tuple) -> list:
-    """The launcher's four scratch pointers (0 where there is none)."""
-    return [x.data_ptr() for x in scratch] or [0, 0, 0, 0]
 
 
 def bgk_light(acc, A, Bv, touched, eff, node_idx_tab, slots, start: int,
@@ -85,6 +72,8 @@ def bgk_light(acc, A, Bv, touched, eff, node_idx_tab, slots, start: int,
                              f"on {acc.device}")
     if not A.shape == Bv.shape == touched.shape == eff.shape:
         raise ValueError("bgk_light: pool tensors differ in shape")
+    if G not in SLOT_COUNTS:
+        raise ValueError(f"bgk_light: G must be one of {SLOT_COUNTS}, got {G}")
     check_block_edge("bgk_light", n, A.shape[1])
     if (acc.shape[0] != slots.shape[0] or acc.shape[2] != 2 * G
             or node_idx_tab.shape[1] != A.shape[1] or start < 0
@@ -94,14 +83,17 @@ def bgk_light(acc, A, Bv, touched, eff, node_idx_tab, slots, start: int,
     if count <= 0:
         return
     stream = torch.cuda.current_stream(acc.device).cuda_stream
-    scratch = tile_scratch(acc.device, n, count)
+    scratch = [0, 0, 0, 0]
+    if n > TILE_EDGE:
+        scratch = [x.data_ptr() for x in group_prune.tile_scratch(
+            acc.device, stream, count * (n // TILE_EDGE) ** 3, count)]
     code = _build.lib().la3dm_bgk_light(
         acc.data_ptr(), slots.data_ptr(), node_idx_tab.data_ptr(),
         A.data_ptr(), Bv.data_ptr(), touched.data_ptr(), eff.data_ptr(),
         int(start), int(count), A.shape[0], n, acc.shape[1], G, float(gate),
         max_level if do_prune else 0, float(state_fn.var_thresh),
         float(state_fn.free_thresh), float(state_fn.occupied_thresh),
-        *scratch_ptrs(scratch), stream)
+        *scratch, stream)
     _build.check(code, "bgk_light")
     launches += 1
 

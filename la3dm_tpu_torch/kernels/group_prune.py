@@ -1,4 +1,4 @@
-"""The Morton order of the vote-based prune of K5 and K8
+"""The Morton order of the vote-based prune of K2, K5 and K8
 (``csrc/group_prune.cuh``): its Python twin, which the tests hold.
 
 In the kernels, thread t of a CTA holds the item at Morton index t of a
@@ -52,7 +52,7 @@ def morton_order(e: int) -> np.ndarray:
 
 
 def tile_scratch(device, stream: int, tiles: int, blocks: int) -> tuple:
-    """Scratch of a tiled K5 or K8 launch on ``stream`` (its handle) over
+    """Scratch of a tiled K2, K5 or K8 launch on ``stream`` (its handle) over
     ``blocks`` blocks of ``tiles`` tiles in all: tile summaries (eff, state)
     int8 [≥ tiles, 2], (f0, f1) f32 [≥ tiles, 2], touched u8 [≥ tiles], and
     the block counters int32 [≥ blocks], zero.  Kept per device and stream
@@ -139,3 +139,9 @@ def near_pool_values(state, values, seed=0):
 #: with a model
 GP_NEAR_VALUES = {po.OCCUPIED: (1e4, 500.0, True), po.FREE: (-1e4, 500.0, True),
                   po.UNKNOWN: (1e4, 5.0, True)}
+#: Beta templates of the near-collapsible pools of K2, far from the state
+#: thresholds of the BGK configs (free 0.3, occupied 0.7, var_thresh 100):
+#: state → (A, B, touched); UNKNOWN voxels sit at probability 0.5, touched,
+#: since the light pass touches every voxel that an update reaches
+BGK_NEAR_VALUES = {po.OCCUPIED: (1000.0, 1.0, True), po.FREE: (1.0, 1000.0, True),
+                   po.UNKNOWN: (1000.0, 1000.0, True)}

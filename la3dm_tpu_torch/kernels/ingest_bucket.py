@@ -31,11 +31,10 @@ def bucket(perm, rid, mrow, ent, lab, ukey, tkey, off, anchors, *, block_size: f
     """(ent_s [M,D], ent_rel [M,D], lab_s [M] f32, nb_row [U,G], tb_u [T,G]
     int64) of the M sorted memberships: ``perm`` [M] int64 each one's row in
     the membership keys, ``rid`` [M] int32 its run (its block ``ukey[rid]``),
-    ``mrow`` [≥ M] int64 each membership's entry row in ``ent`` [E,D] /
-    ``lab`` [E], or None where membership p is entry p // 8 (K7c's 8 an
-    entry); ``ukey`` [U] and ``tkey`` [T] the sorted entry-block and
-    test-block keys, ``off`` [G] the neighbour offsets as key deltas,
-    ``anchors`` [K,3] int32 the block anchors."""
+    ``mrow`` [≥ M] int32 each membership's entry row in ``ent`` [E,D] /
+    ``lab`` [E] (K7c's rows); ``ukey`` [U] and ``tkey`` [T] the sorted
+    entry-block and test-block keys, ``off`` [G] the neighbour offsets as
+    key deltas, ``anchors`` [K,3] int32 the block anchors."""
     if ent.device.type == "cpu":
         return bucket_plain(perm, rid, mrow, ent, lab, ukey, tkey, off, anchors,
                             block_size=block_size)
@@ -43,7 +42,7 @@ def bucket(perm, rid, mrow, ent, lab, ukey, tkey, off, anchors, *, block_size: f
         raise ValueError(f"bucket: unsupported device {ent.device}")
     global launches
     want = {"perm": (perm, torch.int64), "rid": (rid, torch.int32),
-            "mrow": (perm if mrow is None else mrow, torch.int64),
+            "mrow": (mrow, torch.int32),
             "ent": (ent, torch.float32),
             "lab": (lab, torch.float32), "ukey": (ukey, torch.int64),
             "tkey": (tkey, torch.int64), "off": (off, torch.int64),
@@ -54,7 +53,7 @@ def bucket(perm, rid, mrow, ent, lab, ukey, tkey, off, anchors, *, block_size: f
     M, U, T, G = perm.shape[0], ukey.shape[0], tkey.shape[0], off.shape[0]
     D = ent.shape[1] if ent.dim() == 2 else 0
     if D not in (3, 6) or rid.shape != (M,) or lab.shape != ent.shape[:1] \
-            or (mrow is not None and mrow.shape[0] < M) or anchors.shape[1:] != (3,) \
+            or mrow.shape[0] < M or anchors.shape[1:] != (3,) \
             or U == 0 or T == 0 or G == 0:
         raise ValueError("bucket: inconsistent shapes")
     dev = ent.device
@@ -65,7 +64,7 @@ def bucket(perm, rid, mrow, ent, lab, ukey, tkey, off, anchors, *, block_size: f
     tb_u = torch.empty((T, G), dtype=torch.int64, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = _build.lib().la3dm_ingest_bucket(
-        perm.data_ptr(), rid.data_ptr(), None if mrow is None else mrow.data_ptr(),
+        perm.data_ptr(), rid.data_ptr(), mrow.data_ptr(),
         ent.data_ptr(), lab.data_ptr(),
         ukey.data_ptr(), tkey.data_ptr(), off.data_ptr(), anchors.data_ptr(), M, U, T, G, D,
         float(np.float32(block_size)), ent_s.data_ptr(), ent_rel.data_ptr(),
@@ -77,7 +76,7 @@ def bucket(perm, rid, mrow, ent, lab, ukey, tkey, off, anchors, *, block_size: f
 
 def bucket_plain(perm, rid, mrow, ent, lab, ukey, tkey, off, anchors, *, block_size: float):
     """The plain PyTorch :func:`bucket`: gathers and ``torch.searchsorted``."""
-    eidx = perm // 8 if mrow is None else mrow[perm]
+    eidx = mrow[perm].long()
     ent_s, lab_s = ent[eidx], lab[eidx]
     ctr = ingest_keys.unpack(ukey[rid.long()], anchors).to(torch.float32) \
         * float(np.float32(block_size))

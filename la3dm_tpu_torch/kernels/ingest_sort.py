@@ -170,11 +170,13 @@ def _outside_error(n: int, window: Window) -> ValueError:
 
 # ------------------------------------------------------------ the sort
 
-def launch(keys: torch.Tensor, window: Window, *, want_rid: bool = False):
+def launch(keys: torch.Tensor, window: Window, *, want_rid: bool = False, count=None):
     """Queue K7s on the current stream and return without waiting: (out [4,
     N] int64 — perm, ukey, starts, counts, each valid on a prefix —, rid [N]
     int32 or None, status [4] int32 on the card — valid keys, runs, the
-    out-of-window flag).  ``keys`` [N] int64 on a CUDA device, N ≥ 1."""
+    out-of-window flag).  ``keys`` [N] int64 on a CUDA device, N ≥ 1;
+    ``count`` (a one-element int32 tensor on that device, or None): sort
+    only the first min(N, count) keys, the count read on the device."""
     global launches, kernel_launches
     if keys.device.type != "cuda":
         raise ValueError(f"ingest_sort.launch: unsupported device {keys.device}")
@@ -187,6 +189,10 @@ def launch(keys: torch.Tensor, window: Window, *, want_rid: bool = False):
             or window.lo < 0 or window.lo + window.width > 0x10000:
         raise ValueError(f"ingest_sort: bad window {window}")
     dev = keys.device
+    if count is not None and (count.device != dev or count.dtype != torch.int32
+                              or count.numel() != 1):
+        raise ValueError("ingest_sort: count must be a one-element int32 tensor on the "
+                         "keys' device")
     lib = _build.lib()
     small = small_sort(N)
     # one allocation: out [4,N] int64, rid [N] int32, the workspace (its
@@ -201,29 +207,34 @@ def launch(keys: torch.Tensor, window: Window, *, want_rid: bool = False):
     code = lib.la3dm_ingest_sort(
         keys.data_ptr(), N, window.lo, window.width, window.scans, window.bits,
         window.key_bytes, int(small), work.data_ptr(), n_work, out.data_ptr(),
-        rid.data_ptr() if want_rid else None, stream)
+        rid.data_ptr() if want_rid else None, None if count is None else count.data_ptr(),
+        stream)
     _build.check(code, "ingest_sort")
     launches += 1
     kernel_launches += kernels_per_sort(window, N)
     return out, rid, work[:16].view(torch.int32)
 
 
-def sort_runs(keys: torch.Tensor, window: Window, *, want_rid: bool = False) -> Runs:
+def sort_runs(keys: torch.Tensor, window: Window, *, want_rid: bool = False,
+              count=None) -> Runs:
     """The stable sort of ``keys`` [N] int64 restricted to its valid keys,
-    and their runs (:class:`Runs`); ``window`` bounds the valid keys."""
+    and their runs (:class:`Runs`); ``window`` bounds the valid keys.
+    ``count`` (a one-element int32 tensor on the keys' device, or None):
+    only the first min(N, count) keys are sorted; the rest may hold
+    anything (K7c's compact keys, whose count stays on the card)."""
     if keys.device.type == "cpu":
-        return sort_runs_plain(keys, window, want_rid=want_rid)
+        return sort_runs_plain(keys, window, want_rid=want_rid, count=count)
     if keys.device.type != "cuda":
         raise ValueError(f"sort_runs: unsupported device {keys.device}")
     if keys.shape[0] == 0:
         return _empty(keys.device, want_rid)
-    out, rid, status = launch(keys, window, want_rid=want_rid)
+    out, rid, status = launch(keys, window, want_rid=want_rid, count=count)
     host = _host_status(keys.device)
     host.copy_(status, non_blocking=True)
     torch.cuda.current_stream(keys.device).synchronize()
     V, R, flag, _ = host.tolist()
     if flag:
-        n_out = int(pack_plain(keys, window)[1].sum())
+        n_out = int(pack_plain(_first(keys, count), window)[1].sum())
         raise _outside_error(n_out, window)
     return Runs(out[0, :V], out[1, :R], out[2, :R], out[3, :R],
                 rid[:V] if want_rid else None)
@@ -249,11 +260,18 @@ def _empty(dev, want_rid: bool) -> Runs:
     return Runs(e, e, e, e, torch.empty(0, dtype=torch.int32, device=dev) if want_rid else None)
 
 
-def sort_runs_plain(keys: torch.Tensor, window: Window, *, want_rid: bool = False) -> Runs:
+def _first(keys: torch.Tensor, count) -> torch.Tensor:
+    """The keys a sort with ``count`` reads (a host read of the count)."""
+    return keys if count is None else keys[:min(int(count.item()), keys.shape[0])]
+
+
+def sort_runs_plain(keys: torch.Tensor, window: Window, *, want_rid: bool = False,
+                    count=None) -> Runs:
     """The plain PyTorch :func:`sort_runs`: the window check of
     :func:`pack_plain`, then ``torch.sort(stable=True)`` and
     ``unique_consecutive`` over the int64 keys with a sentinel appended (its
     run, the last, dropped)."""
+    keys = _first(keys, count)
     n_out = int(pack_plain(keys, window)[1].sum())
     if n_out:
         raise _outside_error(n_out, window)

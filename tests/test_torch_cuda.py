@@ -25,9 +25,9 @@ from torch_cases import (BETA_TEMPLATES, GP_BCM, GP_STATE,  # tests/ on sys.path
                          RAY_CONFIGS, aligned_heavy_inputs, collapsible_raster_pool, edge_rays,
                          gp_heavy_inputs,
                          gp_light_inputs, heavy_inputs, ingest_scene, light_inputs,
-                         lv_prune_inputs, lv_rows_inputs, near_gp_light_inputs,
-                         near_lv_prune_inputs, ray_inputs, raycast_chain_inputs,
-                         raycast_inputs)
+                         lv_prune_inputs, lv_rows_inputs, member_entries,
+                         near_bgk_light_inputs, near_gp_light_inputs, near_lv_prune_inputs,
+                         ray_inputs, raycast_chain_inputs, raycast_inputs)
 
 
 @pytest.fixture
@@ -148,6 +148,49 @@ def test_bgk_light_tiled_kernel_equals_plain(cuda_dev, depth, start):
     sl = slots[:-1].long()
     assert int((k[3][sl] == depth - 1).sum()) >= n ** 3   # a whole block collapsed
     assert start == "prior" or (k[3][sl] == 1).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", bgk_light.SLOT_COUNTS)
+@pytest.mark.parametrize("start", ["prior", "collapsible", "near"])
+@pytest.mark.parametrize("depth", [2, 3, 4, 5, 6, 7])
+def test_bgk_light_kernel_equals_plain_on_every_pool(cuda_dev, depth, start, G):
+    """K2 at 2³ (eight blocks a CTA), 4³, 8³ (a block a CTA), 16³, 32³ and
+    64³ (a CTA a tile, the levels across tiles in each block's last CTA),
+    with the 7 face neighbours' slots and the 27 of ``predict``, from the
+    prior, from a raster pool that collapses at every level and from
+    near-collapsible blocks (each group one change from collapsing): bit
+    for bit with its plain version; every level reached from the
+    near-collapsible blocks, the first and the block's own from the
+    collapsible pool (its cubes have edges n, 8, 4 and 2)."""
+    n = 2 ** (depth - 1)
+    if start == "near":
+        acc, *pool, node_idx, slots = near_bgk_light_inputs(40 + depth, depth=depth, G=G,
+                                                            dev=cuda_dev)
+        scans = [(0, 12), (12, 12)]
+    else:
+        acc, *pool, node_idx, slots = light_inputs(40 + depth, G=G, depth=depth,
+                                                   dev=cuda_dev)
+        if start == "collapsible":
+            pool = _collapsible_start(pool, slots, BETA_TEMPLATES, seed=depth)
+        scans = [(0, 6), (6, 6)]
+    kw = dict(G=G, gate=0.0, n=n, max_level=depth - 1,
+              state_fn=po.BetaStateFn(100.0, 0.3, 0.7), do_prune=True)
+    before = bgk_light.launches
+
+    def kernel(*a):
+        bgk_light.bgk_light(*a[:5], node_idx, slots, *a[5:], **kw)
+
+    def plain(*a):
+        bgk_light.bgk_light_plain(*a[:5], node_idx, slots, *a[5:], **kw)
+
+    k, p = _light_runs(kernel, plain, (acc,), pool, scans)
+    assert bgk_light.launches == before + 2
+    for x, y in zip(k, p):
+        assert torch.equal(x, y)
+    sl = slots[:-1].long()
+    levels = {"prior": [], "collapsible": [1, depth - 1], "near": range(1, depth)}[start]
+    assert all((k[3][sl] == L).any() for L in levels)
 
 
 @pytest.mark.cuda
@@ -846,15 +889,104 @@ def test_ingest_downsample_kernel_matches_plain(cuda_dev):
 
 @pytest.mark.cuda
 def test_ingest_members_kernel_matches_plain(cuda_dev):
+    """K7c on a scene's points, a seventh invalid: the compact layout's keys,
+    rows and count and the dense layout's keys and rows equal the plain
+    versions'."""
     pts, scan, _, _, ba = ingest_scene(42, dev=cuda_dev)
     valid = torch.arange(len(pts), device=cuda_dev) % 7 != 0
     before = ingest_members.launches
-    keys = ingest_members.memberships(pts, scan, valid, ba, block_size=INGEST["block_size"])
+    keys, rows, count = ingest_members.memberships(pts, scan, valid, ba,
+                                                   block_size=INGEST["block_size"])
+    dkeys, drows, _ = ingest_members.memberships(pts, scan, valid, ba,
+                                                 block_size=INGEST["block_size"], dense=True)
     ref = ingest_members.memberships_plain(pts, scan, valid, ba,
                                            block_size=INGEST["block_size"])
+    ckeys, crows = ingest_members.compact_memberships_plain(pts, scan, valid, ba,
+                                                           block_size=INGEST["block_size"])
     torch.cuda.synchronize()
-    assert ingest_members.launches == before + 1
-    assert torch.equal(keys, ref)
+    assert ingest_members.launches == before + 2
+    M = int(count.item())
+    assert M == ckeys.shape[0] > 0
+    assert torch.equal(keys[:M], ckeys) and torch.equal(rows[:M], crows)
+    assert torch.equal(dkeys, ref)
+    assert torch.equal(drows, torch.arange(ref.shape[0], device=cuda_dev,
+                                           dtype=torch.int32) // 8)
+
+
+def _members_equal_plain(ent, scan, valid, anchors):
+    """K7c in both layouts against the plain versions; returns M."""
+    keys, rows, count = ingest_members.memberships(ent, scan, valid, anchors, block_size=0.4)
+    dkeys, drows, _ = ingest_members.memberships(ent, scan, valid, anchors, block_size=0.4,
+                                                 dense=True)
+    ckeys, crows = ingest_members.compact_memberships_plain(ent, scan, valid, anchors,
+                                                           block_size=0.4)
+    dense = ingest_members.memberships_plain(ent, scan, valid, anchors, block_size=0.4)
+    torch.cuda.synchronize()
+    M = int(count.item())
+    assert M == ckeys.shape[0]
+    assert keys.shape[0] == rows.shape[0] == 8 * ent.shape[0]
+    assert torch.equal(keys[:M], ckeys) and torch.equal(rows[:M], crows)
+    assert torch.equal(dkeys, dense)
+    assert torch.equal(drows, torch.arange(dense.shape[0], device=ent.device,
+                                           dtype=torch.int32) // 8)
+    return M
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("corners", [False, True])
+@pytest.mark.parametrize("E", [1, 511, 1500, 200_001])
+def test_ingest_members_kernel_compact_equals_plain(cuda_dev, E, corners):
+    """K7c on entries inside blocks and on their faces, edges and corners
+    (corner-heavy with ``corners``), among runs of invalid entries that span
+    a 512-entry tile (:func:`member_entries`), E a tile's size less one, not
+    a multiple of it, and enough for several waves of tiles: keys, rows and
+    count of the compact layout (its tiles' places by the look-back) and
+    the dense layout, equal to the plain versions."""
+    ent, scan, valid, anchors = member_entries(70 + E, E=E, corners=corners, dev=cuda_dev)
+    M = _members_equal_plain(ent, scan, valid, anchors)
+    assert E < 600 or 0 < M < 8 * E
+
+
+@pytest.mark.cuda
+def test_ingest_members_kernel_repeats_across_launches(cuda_dev):
+    """The compact launch's kept scratch (a tile counter each launch leaves
+    at zero, look-back words tagged with the launch's epoch): launches of
+    other sizes in turn, on other data, each equal to the plain version;
+    no entry valid gives M = 0."""
+    for i, E in enumerate([200_001, 3000, 200_001, 40_000, 1500]):
+        ent, scan, valid, anchors = member_entries(90 + i, E=E, dev=cuda_dev)
+        _members_equal_plain(ent, scan, valid, anchors)
+    ent, scan, valid, anchors = member_entries(99, E=5000, dev=cuda_dev)
+    assert _members_equal_plain(ent, scan, torch.zeros_like(valid), anchors) == 0
+    key = (str(ent.device), torch.cuda.current_stream(cuda_dev).cuda_stream)
+    assert int(ingest_members._SCRATCH[key][0][0]) == 0        # the tile counter
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["small", "large"])
+@pytest.mark.parametrize("E", [300, 200_001])
+def test_ingest_sort_kernel_with_a_device_count(cuda_dev, E, path, monkeypatch):
+    """K7s on K7c's compact keys with their count on the card (the rest of
+    the buffer set to valid keys of the window, which the sort must not
+    read) equals the same sort of the exact-size keys, on the card and by
+    the plain version, on both paths."""
+    if path == "large":
+        monkeypatch.setattr(ingest_sort, "SMALL_SORT_KEYS", 0)
+    ent, scan, valid, anchors = member_entries(80 + E, E=E, dev=cuda_dev)
+    keys, _, count = ingest_members.memberships(ent, scan, valid, anchors, block_size=0.4)
+    M = int(count.item())
+    if path == "small":
+        keys, M = keys[:ingest_sort.SMALL_SORT_KEYS].contiguous(), min(M, 4000)
+        count = torch.tensor([M], dtype=torch.int32, device=cuda_dev)
+    keys[M:] = keys[0]
+    w = ingest_sort.Window(16, 3)
+    runs = ingest_sort.sort_runs(keys, w, want_rid=True, count=count)
+    exact = ingest_sort.sort_runs(keys[:M].clone(), w, want_rid=True)
+    ref = ingest_sort.sort_runs_plain(keys.cpu(), w, want_rid=True, count=count.cpu())
+    torch.cuda.synchronize()
+    for name, x, y, z in zip(runs._fields, runs, exact, ref):
+        assert torch.equal(x, y) and torch.equal(x.cpu(), z), name
+    assert runs.perm.shape[0] == M and int(runs.perm.max()) < M
 
 
 def _sort_case(case: str):

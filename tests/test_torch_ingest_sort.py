@@ -217,13 +217,28 @@ def test_plain_sort_equals_a_stable_argsort_and_run_cut(case):
     assert torch.equal(again.perm, runs.perm) and again.rid is None
 
 
+@pytest.mark.parametrize("where", ["none", "all", "middle"])
+def test_plain_sort_with_a_count_reads_only_the_first_keys(where):
+    """A sort with a count (K7c's compact keys, whose count stays on the
+    card): the first ``count`` keys sorted as if they were all, whatever the
+    rest holds (valid keys of the window here)."""
+    rng = np.random.default_rng(9)
+    w = _windows("demo", 4)["block"]
+    anchors = _anchors(rng, 4)
+    keys = _keys_at_edges(rng, w, 3000, anchors)
+    M = {"none": 0, "all": 3000, "middle": 1777}[where]
+    runs = ingest_sort.sort_runs_plain(keys, w, want_rid=True,
+                                       count=torch.tensor([M], dtype=torch.int32))
+    ref = ingest_sort.sort_runs_plain(keys[:M].clone(), w, want_rid=True)
+    assert all(torch.equal(x, y) for x, y in zip(runs, ref))
+    assert runs.perm.shape[0] == M and (M == 0 or int(runs.perm.max()) < M)
+
+
 def _parent_bucket(mkey, mrow, ent, lab, block_anchor, off_keys, block_size):
     """The parent's ``device_ingest._bucket`` (torch.sort over the keys and a
     sentinel, unique_consecutive, torch.unique of the candidates,
     searchsorted; rows past the valid memberships padding)."""
     SENT = ingest_keys.SENT
-    if mrow is None:  # the parent built K7c's entry rows as arange // 8
-        mrow = torch.arange(mkey.shape[0]) // 8
     sent = torch.full((1,), SENT, dtype=torch.int64)
     skey, perm = torch.sort(torch.cat([mkey, sent]), stable=True)
     ukey, counts = torch.unique_consecutive(skey, return_counts=True)
@@ -251,16 +266,19 @@ def _parent_bucket(mkey, mrow, ent, lab, block_anchor, off_keys, block_size):
 def test_plain_bucket_tail_equals_the_parents(G, segments, monkeypatch):
     """On a real dispatch's membership keys (3 scans of ``ingest_scene``),
     K7s + K7t give the parent's tables: every table bit for bit, the entry
-    columns on the valid rows (the parent padded them to E·8 rows)."""
+    columns on the valid rows (the parent padded them to its keys and a
+    sentinel; the point family's compact keys are the valid memberships
+    alone, BGKL's hits keep 8 slots a hit)."""
     pts, scan, origins, ca, ba = ingest_scene(50)
     mr, ds, fr, bs = INGEST["mr"], INGEST["ds"], INGEST["fr"], INGEST["block_size"]
     offsets = geo.FACE_NEIGHBOR_OFFSETS if G == 7 else geo.full_neighbor_offsets()
     off = torch.from_numpy(ingest_keys.pack_offsets(offsets))
     seen = {}
 
-    def spy(mkey, mrow, ent, lab, block_anchor, off_keys, block_size, window):
+    def spy(mkey, mrow, ent, lab, block_anchor, off_keys, block_size, window, count=None):
         seen["args"] = (mkey, mrow, ent, lab, block_anchor, off_keys, block_size)
-        return orig(mkey, mrow, ent, lab, block_anchor, off_keys, block_size, window)
+        return orig(mkey, mrow, ent, lab, block_anchor, off_keys, block_size, window,
+                    count=count)
 
     orig = device_ingest._bucket
     monkeypatch.setattr(device_ingest, "_bucket", spy)
@@ -271,6 +289,8 @@ def test_plain_bucket_tail_equals_the_parents(G, segments, monkeypatch):
     ref = _parent_bucket(*seen["args"])
     M = int(tabs["ucount"].sum())
     assert tabs["ent"].shape[0] == M < ref["ent"].shape[0]
+    if not segments:
+        assert seen["args"][0].shape[0] == M     # the compact keys: no sentinel
     assert tabs["ent"].shape[1] == (6 if segments else 3)
     for k in ("ukey", "ustart", "ucount", "tkey", "nb_row", "tb_u"):
         assert torch.equal(tabs[k], ref[k]), k
@@ -280,8 +300,8 @@ def test_plain_bucket_tail_equals_the_parents(G, segments, monkeypatch):
 
 
 def test_plain_bucket_rows_follow_the_sort_index():
-    """K7t's plain version row by row: entry e = mrow[perm[i]] (without mrow,
-    perm[i] // 8), its block's centre from ukey[rid[i]]."""
+    """K7t's plain version row by row: entry e = mrow[perm[i]] (int64 rows,
+    and K7c's int32 ones alike), its block's centre from ukey[rid[i]]."""
     rng = np.random.default_rng(3)
     w = _windows("demo", 2)["block"]
     anchors = _anchors(rng, 2)
@@ -298,8 +318,8 @@ def test_plain_bucket_rows_follow_the_sort_index():
         block_size=0.4)
     assert all(torch.equal(x, y) for x, y in zip(
         (ent_s, ent_rel, lab_s, nb_row, tb_u),
-        ingest_bucket.bucket(runs.perm, runs.rid, None, ent, lab, runs.ukey, tkey, off,
-                             torch.from_numpy(anchors), block_size=0.4)))
+        ingest_bucket.bucket(runs.perm, runs.rid, mrow.to(torch.int32), ent, lab, runs.ukey,
+                             tkey, off, torch.from_numpy(anchors), block_size=0.4)))
     for i in range(64):
         e = int(mrow[runs.perm[i]])
         c = ingest_keys.unpack(runs.ukey[runs.rid[i].long()][None], torch.from_numpy(anchors))

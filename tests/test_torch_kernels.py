@@ -28,7 +28,7 @@ from torch_cases import (GP_BCM, GP_STATE, GP_STATICS, INGEST, LV_ROWS_STATICS, 
                          LV_STATE, aligned_heavy_inputs, gp_heavy_inputs, gp_light_inputs,
                          heavy_inputs as _heavy_inputs, ingest_scene,
                          light_inputs as _light_inputs, lv_prune_inputs, lv_rows_inputs,
-                         one_torch_thread, ray_inputs,  # (one_torch_thread: autouse fixture)
+                         member_entries, one_torch_thread, ray_inputs,  # (one_torch_thread: autouse fixture)
                          raycast_inputs)
 
 
@@ -662,6 +662,40 @@ def test_membership_keys_sort_as_jax_local_keys():
                                   jdi.unpack_local_keys(jkey[ok], np.asarray(bmin)))
     np.testing.assert_array_equal(np.argsort(keys, kind="stable"),
                                   np.argsort(jkey, kind="stable"))
+
+
+@pytest.mark.parametrize("corners", [False, True])
+def test_compact_memberships_are_the_dense_keys_in_order(corners):
+    """K7c's compact layout (the point family's): the dense plain keys that
+    are not the sentinel, in their order, each with its entry (index // 8)
+    and their count; on entries strictly inside a block and on one, two or
+    three face planes (1, 2, 4 and 8 memberships; corner-heavy with
+    ``corners``) among runs of invalid entries.  The wrapper on CPU tensors
+    gives the compact plain version and its count, or the dense one; the
+    dense keys are JAX's memberships."""
+    ent, scan, valid, anchors = member_entries(40 + corners, corners=corners)
+    dense = ingest_members.memberships_plain(ent, scan, valid, anchors, block_size=0.4)
+    keys, rows = ingest_members.compact_memberships_plain(ent, scan, valid, anchors,
+                                                          block_size=0.4)
+    at = np.flatnonzero(dense.numpy() != ingest_keys.SENT)
+    np.testing.assert_array_equal(keys.numpy(), dense.numpy()[at])
+    np.testing.assert_array_equal(rows.numpy(), at // 8)
+    assert keys.dtype == torch.int64 and rows.dtype == torch.int32
+    per_entry = (dense.reshape(-1, 8) != ingest_keys.SENT).sum(1)
+    assert set(per_entry[valid].tolist()) == {1, 2, 4, 8}
+    assert not per_entry[~valid].any()
+    before = ingest_members.launches
+    k, r, m = ingest_members.memberships(ent, scan, valid, anchors, block_size=0.4)
+    assert torch.equal(k, keys) and torch.equal(r, rows)
+    assert m.dtype == torch.int32 and m.tolist() == [len(at)]
+    kd, rd, none = ingest_members.memberships(ent, scan, valid, anchors, block_size=0.4,
+                                              dense=True)
+    assert torch.equal(kd, dense) and none is None
+    assert torch.equal(rd, torch.arange(8 * len(ent), dtype=torch.int32) // 8)
+    assert ingest_members.launches == before
+    _, jmok = jdi._closed_box_memberships(jnp.asarray(ent.numpy()), jnp.asarray(valid.numpy()),
+                                          0.4)
+    np.testing.assert_array_equal(np.flatnonzero(np.asarray(jmok).reshape(-1)), at)
 
 
 def test_downsample_plain_matches_jax():

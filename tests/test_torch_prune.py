@@ -1,7 +1,7 @@
-"""The vote-based prune of K5 and K8 on the CPU: the Morton order the kernels
-use (``la3dm_tpu_torch/kernels/group_prune.py``, the twin of
-``csrc/group_prune.cuh``), and the plain versions of both kernels against
-the JAX package's steps on near-collapsible pools
+"""The vote-based prune of K2, K5 and K8 on the CPU: the Morton order the
+kernels use (``la3dm_tpu_torch/kernels/group_prune.py``, the twin of
+``csrc/group_prune.cuh``), and the plain versions of the three kernels
+against the JAX package's steps on near-collapsible pools
 (``kernels/group_prune.py::near_collapsible_rows``).  The kernels themselves
 run on a card: tests/test_torch_cuda.py holds them against these plain
 versions on the same pools.
@@ -13,14 +13,15 @@ import torch
 
 import jax.numpy as jnp
 
-from la3dm_tpu.models import bgklv as jlv, gp as jgp, posterior as jpo
+from la3dm_tpu.kernels import predict as jkp
+from la3dm_tpu.models import bgklv as jlv, gp as jgp, posterior as jpo, pruning as jpr
 
 from la3dm_tpu_torch.geometry import blocks as geo
-from la3dm_tpu_torch.kernels import gp_light, group_prune, lv_prune
+from la3dm_tpu_torch.kernels import bgk_light, gp_light, group_prune, lv_prune
 from la3dm_tpu_torch.models import posterior as po, pruning as pr
 
-from torch_cases import (GP_BCM, GP_STATE, LV_STATE, near_gp_light_inputs,  # noqa: F401
-                         near_lv_prune_inputs,
+from torch_cases import (GP_BCM, GP_STATE, LV_STATE, near_bgk_light_inputs,  # noqa: F401
+                         near_gp_light_inputs, near_lv_prune_inputs,
                          one_torch_thread)  # (one_torch_thread: autouse fixture)
 
 NEAR_KINDS, near_collapsible_rows = group_prune.NEAR_KINDS, group_prune.near_collapsible_rows
@@ -122,6 +123,82 @@ def test_gp_light_plain_matches_jax_on_near_collapsible_pools(depth, seed):
              "touched": jnp.asarray(ref[2].astype(np.float32))}
     np.testing.assert_array_equal(po.GPStateFn(**GP_STATE)(vals).numpy(),
                                   np.asarray(jpo.GPStateFn(**GP_STATE)(jvals)))
+    sl = slots[:-1].long()
+    assert all((pool[3][sl] == L).any() for L in range(1, depth))
+
+
+#: the BGK configs' state thresholds (var_thresh, free, occupied)
+BGK_STATE = (100.0, 0.3, 0.7)
+
+
+def _jax_bgk_light(pool, acc, node_idx, slots, scans, n, G):
+    """la3dm_tpu's light pass, scan by scan: the body of ``_bgk_seq_step``'s
+    ``light_step`` (models/bgk.py:140-177) with the JAX package's
+    ``beta_update``, ``prune_blocks`` and ``BetaStateFn``, at the gate 0;
+    its pool has one spare row past the capacity (the padding slot's)."""
+    cap = pool[0].shape[0]
+    A, Bv, touched, eff = (jnp.asarray(np.concatenate([x.numpy(), x.numpy()[:1] * 0]))
+                           for x in pool)
+    accj, ntab, sl = (jnp.asarray(x.numpy()) for x in (acc, node_idx, slots))
+    Tp, V = acc.shape[0], node_idx.shape[1]
+    vcol = jnp.arange(V, dtype=jnp.int32)
+    brow = jnp.arange(max(c for _, c in scans), dtype=jnp.int32)
+    for start, count in scans:
+        bidx = jnp.minimum(start + brow, Tp - 1)
+        slots_k = jnp.where(brow < count, sl[bidx], cap + 1)
+        accb = accj[bidx]
+        dAall, dBall, tchall = jkp.beta_update(accb[..., :G], accb[..., G:], 0.0)
+        eff_b = eff[jnp.minimum(slots_k, cap)]
+        nidx = ntab[eff_b.astype(jnp.int32), vcol[None, :]]
+        A = A.at[slots_k].add(jnp.take_along_axis(dAall, nidx, axis=1), mode="drop")
+        Bv = Bv.at[slots_k].add(jnp.take_along_axis(dBall, nidx, axis=1), mode="drop")
+        touched = touched.at[slots_k].max(jnp.take_along_axis(tchall, nidx, axis=1),
+                                          mode="drop")
+        safe = jnp.minimum(slots_k, cap)
+        vals = {"A": A[safe], "B": Bv[safe], "touched": touched[safe].astype(jnp.float32)}
+        new_vals, new_eff = jpr.prune_blocks(vals, eff[safe], n=n, max_level=n.bit_length() - 1,
+                                             state_fn=jpo.BetaStateFn(*BGK_STATE))
+        A = A.at[slots_k].set(new_vals["A"], mode="drop")
+        Bv = Bv.at[slots_k].set(new_vals["B"], mode="drop")
+        touched = touched.at[slots_k].set(new_vals["touched"] > 0, mode="drop")
+        eff = eff.at[slots_k].set(new_eff, mode="drop")
+    return [np.asarray(x)[:cap] for x in (A, Bv, touched, eff)]
+
+
+@pytest.mark.parametrize("acc", ["gated", "updates"])
+@pytest.mark.parametrize("G", bgk_light.SLOT_COUNTS)
+@pytest.mark.parametrize("n", [4, 8, 16])
+def test_bgk_light_plain_matches_jax_on_near_collapsible_pools(n, G, acc):
+    """K2's plain version (the gated Beta update, then the prune) against
+    the JAX light pass at 4³, 8³ and 16³ voxels a block, with the 7 face
+    neighbours' slots and the 27 of ``predict``, from an accumulator that
+    the gate leaves out entirely (the near-collapsible states reach the
+    prune as made) and from one that updates every block: A and B bit for
+    bit (the updates are sums of eighths, exact in any order), touched, eff
+    and state equal; every level reached."""
+    depth = n.bit_length()
+    a, *pool, node_idx, slots = near_bgk_light_inputs(50 + depth, depth=depth, G=G,
+                                                      gated=acc == "gated")
+    unpruned = [x.clone() for x in pool]
+    bgk_light.bgk_light_plain(a, *unpruned, node_idx, slots, 0, 24, G=G, gate=0.0, n=n,
+                              max_level=depth - 1, state_fn=po.BetaStateFn(*BGK_STATE),
+                              do_prune=False)
+    assert torch.equal(unpruned[0], pool[0]) == (acc == "gated")    # the updates
+    scans = [(0, 12), (12, 12)]
+    ref = _jax_bgk_light(pool, a, node_idx, slots, scans, n, G)
+    before = bgk_light.launches
+    for s, c in scans:
+        bgk_light.bgk_light(a, *pool, node_idx, slots, s, c, G=G, gate=0.0, n=n,
+                            max_level=depth - 1, state_fn=po.BetaStateFn(*BGK_STATE),
+                            do_prune=True)
+    assert bgk_light.launches == before               # the CPU: the plain version
+    for ours, r in zip(pool, ref):
+        np.testing.assert_array_equal(ours.numpy(), r)
+    vals = {"A": pool[0], "B": pool[1], "touched": pool[2].float()}
+    jvals = {"A": jnp.asarray(ref[0]), "B": jnp.asarray(ref[1]),
+             "touched": jnp.asarray(ref[2].astype(np.float32))}
+    np.testing.assert_array_equal(po.BetaStateFn(*BGK_STATE)(vals).numpy(),
+                                  np.asarray(jpo.BetaStateFn(*BGK_STATE)(jvals)))
     sl = slots[:-1].long()
     assert all((pool[3][sl] == L).any() for L in range(1, depth))
 

@@ -6,8 +6,8 @@ import pytest
 import torch
 
 from la3dm_tpu_torch.geometry import blocks as geo
-from la3dm_tpu_torch.kernels.group_prune import (GP_NEAR_VALUES, near_collapsible_rows,
-                                                 near_pool_values)
+from la3dm_tpu_torch.kernels.group_prune import (BGK_NEAR_VALUES, GP_NEAR_VALUES,
+                                                 near_collapsible_rows, near_pool_values)
 from la3dm_tpu_torch.models import posterior as po
 
 
@@ -403,6 +403,65 @@ def near_gp_light_inputs(seed, depth=3, T=24, cap=32, G=7, dev="cpu"):
     m_ivar[sl], ivar[sl], touched[sl], eff[sl] = mi0, iv0, t0, eff0
     arrs = (mean.reshape(T * G, Vall), var.reshape(T * G, Vall), present.reshape(-1),
             m_ivar, ivar, touched, eff, node_idx, slots)
+    return tuple(torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in arrs)
+
+
+def near_bgk_light_inputs(seed, depth=3, T=24, cap=32, G=7, gated=False, dev="cpu"):
+    """:func:`light_inputs` with near-collapsible blocks
+    (:func:`near_collapsible_rows`, OCCUPIED and FREE groups, the templates
+    of ``BGK_NEAR_VALUES``) and an accumulator that moves no state: ȳ and
+    k̄ multiples of 1/8 in [0, 1] (some k̄ 0 or negative, which the gate at
+    0 leaves out), so that every order of summing the slots is exact and
+    each voxel's A and B move by at most G; with ``gated`` every k̄ is at or
+    below 0, so that no slot passes the gate and the generator's states
+    reach the prune as made.  Returns (acc, A, B, touched, eff, node_idx,
+    slots)."""
+    rng = np.random.default_rng(seed)
+    _, node_idx = geo.all_level_nodes(0.1, depth)
+    V, Vall = node_idx.shape[1], int(node_idx.max()) + 1
+    n = 2 ** (depth - 1)
+    kbar = rng.integers(0, 9, (T, Vall, G)).astype(np.float32) / 8
+    kbar[rng.uniform(size=kbar.shape) < 0.2] = -0.125
+    if gated:
+        kbar = -np.abs(kbar) * (rng.uniform(size=kbar.shape) < 0.5)
+    ybar = np.minimum(kbar, rng.integers(0, 9, kbar.shape) / 8).astype(np.float32)
+    acc = np.concatenate([ybar, kbar], axis=-1).astype(np.float32)
+    st, eff0 = near_collapsible_rows(n, T - 1, (po.FREE, po.OCCUPIED), seed=seed)
+    A0, B0, t0 = near_pool_values(st, BGK_NEAR_VALUES, seed=seed + 1)
+    slots = rng.permutation(cap)[:T].astype(np.int32)
+    slots[-1] = cap                      # a padding slot
+    A = np.full((cap, V), 0.001, np.float32)
+    B = np.full((cap, V), 0.001, np.float32)
+    touched = np.zeros((cap, V), bool)
+    eff = np.zeros((cap, V), np.int8)
+    sl = slots[:-1]
+    A[sl], B[sl], touched[sl], eff[sl] = A0, B0, t0, eff0
+    arrs = (acc, A, B, touched, eff, node_idx, slots)
+    return tuple(torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in arrs)
+
+
+def member_entries(seed, E=1500, corners=False, dev="cpu"):
+    """Entries for K7c (0.4 m blocks, 3 scans): each strictly inside a block
+    or on one, two or three of its face planes (1, 2, 4 or 8 memberships;
+    with ``corners`` three in four on a corner), valid but for two runs of
+    600 and 100 invalid entries (the first spans a 512-entry tile edge) and
+    a tenth at random.  Returns (ent [E,3] f32, scan [E] int32, evalid [E],
+    anchors [3,3] int32)."""
+    rng = np.random.default_rng(seed)
+    bs = np.float32(0.4)
+    c = rng.integers(-6, 7, (E, 3))
+    faces = rng.integers(0, 4, E) if not corners else np.where(
+        rng.uniform(size=E) < 0.75, 3, rng.integers(0, 3, E))
+    on = np.argsort(rng.uniform(size=(E, 3)), axis=1) < faces[:, None]
+    inside = rng.uniform(-0.15, 0.15, (E, 3)).astype(np.float32)
+    face = np.where(rng.uniform(size=(E, 3)) < 0.5, np.float32(0.2), np.float32(-0.2))
+    ent = (c.astype(np.float32) * bs + np.where(on, face, inside)).astype(np.float32)
+    valid = rng.uniform(size=E) > 0.1
+    valid[100:700] = False
+    valid[1000:1100] = False
+    scan = rng.integers(0, 3, E).astype(np.int32)
+    anchors = rng.integers(-3, 4, (3, 3)).astype(np.int32)
+    arrs = (ent, scan, valid, anchors)
     return tuple(torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in arrs)
 
 

@@ -1,15 +1,15 @@
 #!/usr/bin/env python3
 """K3 (the BGKLV tile row engine), K1 (the BGK and BGKL heavy pass, both
-branches), K1′ (the device-ingest heavy pass, both branches), K5 (the GP
-light pass), K6 (the raycast DDA), K7 (device ingest: K7s, K7t, K7b,
-BGKL's K7d) and K8 (the BGKLV prune) of two checkouts on the same captured
-inputs, in one call.
+branches), K1′ (the device-ingest heavy pass, both branches), K2 (the BGK
+light pass), K5 (the GP light pass), K6 (the raycast DDA), K7 (device
+ingest: K7c, K7s, K7t, K7b, BGKL's K7d) and K8 (the BGKLV prune) of two
+checkouts on the same captured inputs, in one call.
 
 Run from the repository root on a machine with one CUDA card, with the
 other checkout unpacked into a directory that .gitignore lists:
 
     git archive <parent> | tar -x -C .archive/parent
-    python3 tools/seg_kernels_ab.py .archive/parent [--only k5,k8]
+    python3 tools/seg_kernels_ab.py .archive/parent [--only k2,k7]
 
 ``--only`` keeps the captured inputs whose names start with one of the
 given prefixes and drops the main-path runs (run_static, OnlineIntegrator,
@@ -25,18 +25,20 @@ BGK demo scans (points), 16 BGKL demo scans and 12 BGKL large-map scans
 into the 60-scan BGK demo map, 100,000 into the BGKL and BGKLV maps), and
 the arguments of one device-ingest dispatch (``ingest_batch`` or
 ``ingest_batch_bgkl``) of the BGK, GP and BGKL demos (16 scans) and the
-BGKL and BGK large maps (12 scans), K5 on the prediction tables (K4's, made
-by this checkout) and pool of a 16-scan GP demo dispatch (4³ voxels a
-block), a 12-scan GP large-map dispatch (8³) and a 12-scan GP
+BGKL and BGK large maps (12 scans), K2 on the accumulator (K1's, made by
+this checkout) and pool of a 16-scan BGK demo host-ingest dispatch (4³
+voxels a block) and of a 12-scan BGKL large-map dispatch (16³), K5 on the
+prediction tables (K4's, made by this checkout) and pool of a 16-scan GP
+demo dispatch (4³), a 12-scan GP large-map dispatch (8³) and a 12-scan GP
 block_depth-5 dispatch (16³), and K8 on the prune of one BGKLV large-map
-scan (32³).  K5 and K8 also run from the same blocks made collapsible
+scan (32³).  K2, K5 and K8 also run from the same blocks made collapsible
 (chip_smoke.py's ``collapsible_pool``) and near-collapsible
 (``kernels/group_prune.py::near_collapsible_rows``); each pool after is
-hashed, and each kernel is timed with its prune (K5's ``do_prune``, K8's
-levels) and without it (K5 ``do_prune=False``; K8 the levels inside a
-tile, ``max_level`` 3), which splits its time between the prune and the
-rest, and its call is timed by CUDA events (the host's work between
-launches included: each wrapper's checks and scratch).  Then each
+hashed, and each kernel is timed with its prune (K2's and K5's
+``do_prune``, K8's levels) and without it (``do_prune=False``; K8 the
+levels inside a tile, ``max_level`` 3), which splits its time between the
+prune and the rest, and its call is timed by CUDA events (the host's work
+between launches included: each wrapper's checks and scratch).  Then each
 checkout, in the order other, this, this, other, runs in a process of
 its own (importing its own ``la3dm_tpu_torch`` and building its own
 kernels): it times each kernel (chip_smoke.py's ``launch_ms``: device time
@@ -52,9 +54,9 @@ maps, times
 ``OnlineIntegrator`` on 12 scans of the BGK, GP and BGKL demos (device
 ingest), then times ``raycast_device`` over the 1,000,000 rays on its own
 60-scan BGK demo map.  K7's times: the whole dispatch's call (CUDA events,
-its host syncs inside), and each K7b, K7s and K7t launch of it as
-chip_smoke.py's ``launch_ms`` times them (a checkout without K7s or K7t
-reports none); on the BGKL dispatches K7d's call, its outputs hashed, its
+its host syncs inside), each K7b, K7c, K7s and K7t launch of it as
+chip_smoke.py's ``launch_ms`` times them, and each of its sorts alone (the
+membership sort is the third of the point family's four); on the BGKL dispatches K7d's call, its outputs hashed, its
 device time from torch.profiler (every kernel, copy and memset of the
 call, the host's wait between its launches left out, the same measure for
 both checkouts) and the call with its wait by CUDA events.  The last lines
@@ -75,14 +77,15 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DISPATCHES = ("k3_demo", "k3_large", "k1_demo", "k1_large", "k1_bgk_demo", "k1p_bgk_demo",
               "k1p_demo", "k1p_large", "k6_bgk", "k6_bgkl", "k6_bgklv", "k7_bgk_demo",
-              "k7_gp_demo", "k7_bgkl_demo", "k7_bgkl_large", "k7_bgk_large", "k5_gp_demo",
-              "k5_gp_large", "k5_gp_depth5", "k8_lv_large")
+              "k7_gp_demo", "k7_bgkl_demo", "k7_bgkl_large", "k7_bgk_large", "k2_bgk_demo",
+              "k2_bgkl_large", "k5_gp_demo", "k5_gp_large", "k5_gp_depth5", "k8_lv_large")
 REPS = {"k3_demo": 5, "k3_large": 5, "k1_demo": 5, "k1_large": 3, "k1_bgk_demo": 5,
         "k1p_bgk_demo": 5, "k1p_demo": 5, "k1p_large": 3, "k6_bgk": 5, "k6_bgkl": 5,
         "k6_bgklv": 5, "k7_bgk_demo": 5, "k7_gp_demo": 5, "k7_bgkl_demo": 5,
-        "k7_bgkl_large": 3, "k7_bgk_large": 3, "k5_gp_demo": 10, "k5_gp_large": 10,
+        "k7_bgkl_large": 3, "k7_bgk_large": 3, "k2_bgk_demo": 10, "k2_bgkl_large": 10,
+        "k5_gp_demo": 10, "k5_gp_large": 10,
         "k5_gp_depth5": 10, "k8_lv_large": 20}
-#: K5's and K8's start pools: the captured one, then the same blocks made
+#: K2's, K5's and K8's start pools: the captured one, then the same blocks made
 #: collapsible and near-collapsible
 POOLS = ("real", "collapsible", "near")
 
@@ -121,6 +124,30 @@ def capture_ingest(cfg, scans):
             setattr(di, n, f)
     (name, args, kw), = rec
     return args, {**kw, "fn": name}
+
+
+def k2_inputs(cs, cfg, scans):
+    """K2's inputs of one host-ingest BGK or BGKL dispatch of ``scans``: the
+    pool, the same blocks made collapsible and near-collapsible, the
+    dispatch's accumulator as K1 fills it (this checkout's), the node table
+    and the block lists.  Returns (tensors, kwargs)."""
+    import dataclasses
+
+    from la3dm_tpu_torch.kernels import bgk_heavy
+
+    args, st = cs.capture_dispatch(cfg, scans, "cuda")
+    (_, _, _, _, all_nodes, node_idx, ent, lab, ids, gs, rb, rs, rn, slots, ctr, ss,
+     sc) = args
+    acc = bgk_heavy.bgk_heavy(ent, lab, ids, gs, rb, rs, rn, ctr, all_nodes, G=st["G"],
+                              sf2=st["sf2"], ell=st["ell"])
+    pool0, n = list(args[:4]), st["n"]
+    pools = pool0 + cs.collapsible_pool(pool0, slots, n, templates=cs.BETA_TEMPLATES,
+                                        raster=True)
+    pools += cs.near_collapsible_pool(pool0, slots, n, cs.BGK_NEAR_VALUES, raster=True)
+    kw = {k: st[k] for k in ("G", "gate", "n", "max_level")}
+    kw.update(ss=[int(x) for x in ss], sc=[int(x) for x in sc],
+              state=dataclasses.asdict(st["state_fn"]))
+    return [*pools, acc, node_idx, slots], kw
 
 
 def k5_inputs(cs, cfg, scans):
@@ -250,6 +277,8 @@ def capture(out_dir: str, only=None) -> None:
             load_method_config("bgkloctomap_large_map"), scans[:12]),
         "k7_bgk_large": lambda: capture_ingest(
             load_method_config("bgkoctomap_large_map"), scans[:12]),
+        "k2_bgk_demo": lambda: k2_inputs(cs, cfg_b, scans[:16]),
+        "k2_bgkl_large": lambda: k2_inputs(cs, cfg_ll, scans[:12]),
         "k5_gp_demo": lambda: k5_inputs(cs, cfg_gp, scans[:16]),
         "k5_gp_large": lambda: k5_inputs(cs, cfg_gp_large, scans[:12]),
         "k5_gp_depth5": lambda: k5_inputs(cs, cfg_gp5, scans[:12]),
@@ -280,23 +309,21 @@ def device_ms(cs, fn, reps: int, kernel: str, per_call: int) -> float:
 def k7_run(args, kw, reps: int, cs) -> dict:
     """One device-ingest dispatch of this checkout: its tables' digest, the
     whole call's device time (CUDA events, its host syncs inside,
-    ``cs.cuda_ms``), and each K7b, K7s and K7t launch of it timed by
-    ``cs.launch_ms`` (``cs``: the checkout's chip_smoke); BGKL's K7d call
+    ``cs.cuda_ms``), each K7b, K7c, K7s and K7t launch of it timed by
+    ``cs.launch_ms`` (``cs``: the checkout's chip_smoke), and each sort
+    alone (``k7s_each_ms``); BGKL's K7d call
     hashed (occ, seg, inr, the pair list) and timed by :func:`device_ms` and
     by ``cs.cuda_ms`` (its wait inside)."""
     import torch
 
     from la3dm_tpu_torch.geometry import device_ingest
-    from la3dm_tpu_torch.kernels import ingest_downsample, ingest_rays
-    try:
-        from la3dm_tpu_torch.kernels import ingest_bucket, ingest_sort
-    except ImportError:  # a checkout before K7s and K7t
-        ingest_bucket = ingest_sort = None
+    from la3dm_tpu_torch.kernels import (ingest_bucket, ingest_downsample, ingest_members,
+                                         ingest_rays, ingest_sort)
     kw = dict(kw)
     fn = getattr(device_ingest, kw.pop("fn"))
-    wrapped = [(ingest_downsample, "centroids", "k7b"), (ingest_rays, "ray_pairs", "k7d")]
-    if ingest_sort is not None:
-        wrapped += [(ingest_sort, "sort_runs", "k7s"), (ingest_bucket, "bucket", "k7t")]
+    wrapped = [(ingest_downsample, "centroids", "k7b"), (ingest_rays, "ray_pairs", "k7d"),
+               (ingest_members, "memberships", "k7c"), (ingest_sort, "sort_runs", "k7s"),
+               (ingest_bucket, "bucket", "k7t")]
     calls = {tag: [] for _, _, tag in wrapped}
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in wrapped]
     for (mod, name, tag), (_, _, orig) in zip(wrapped, saved):
@@ -316,13 +343,14 @@ def k7_run(args, kw, reps: int, cs) -> dict:
     out["repeat_equal"] = _digest(*(again[k][:M] for k in K7_ROWS),
                                   *(again[k] for k in K7_TABLES)) == out["digest"]
     out["ms"] = cs.cuda_ms(lambda _: fn(*args, **kw), reps)
-    launch = {"k7b": ingest_downsample.centroids}
-    if ingest_sort is not None:
-        launch.update(k7s=ingest_sort.launch, k7t=ingest_bucket.bucket)
+    launch = {"k7b": ingest_downsample.centroids, "k7c": ingest_members.memberships,
+              "k7s": ingest_sort.launch, "k7t": ingest_bucket.bucket}
     for tag, f in launch.items():
         out[f"{tag}_ms"] = cs.launch_ms([lambda _, a=a, k=k, f=f: f(*a, **k)
                                          for a, k in calls[tag]], reps)
         out[f"{tag}_launches"] = len(calls[tag])
+    out["k7s_each_ms"] = [cs.launch_ms([lambda _, a=a, k=k: ingest_sort.launch(*a, **k)],
+                                       reps) for a, k in calls["k7s"]]
     if calls["k7d"]:
         (a, k), = calls["k7d"]
         rays = ingest_rays.ray_pairs(*a, **k)
@@ -335,21 +363,31 @@ def k7_run(args, kw, reps: int, cs) -> dict:
 
 
 def prune_run(name: str, args, kw, reps: int, cs) -> dict:
-    """K5 or K8 of this checkout on one captured input: from each start pool
-    of :data:`POOLS`, the pool after (hashed; a second run from the same
-    start bit-equal) and its voxels by eff level on the input's blocks; from
-    the real pool, the time of the launches (``cs.launch_ms``) with the
-    prune and without it (K5 ``do_prune=False``, K8 ``max_level`` 3)."""
+    """K2, K5 or K8 of this checkout on one captured input: from each start
+    pool of :data:`POOLS`, the pool after (hashed; a second run from the
+    same start bit-equal) and its voxels by eff level on the input's blocks;
+    from the real pool, the time of the launches (``cs.launch_ms``) with the
+    prune and without it (K2 and K5 ``do_prune=False``, K8 ``max_level``
+    3)."""
     import torch
 
-    from la3dm_tpu_torch.kernels import gp_light, lv_prune
+    from la3dm_tpu_torch.kernels import bgk_light, gp_light, lv_prune
     from la3dm_tpu_torch.models import posterior
 
     kw = dict(kw)
     starts = [args[4 * i:4 * i + 4] for i in range(len(POOLS))]
     rest = args[4 * len(POOLS):]
     slots = rest[-1]
-    if name.startswith("k5"):
+    if name.startswith("k2"):
+        acc, node_idx, _ = rest
+        ss, sc = kw.pop("ss"), kw.pop("sc")
+        sf = posterior.BetaStateFn(**kw.pop("state"))
+
+        def calls(prune: bool) -> list:
+            return [lambda st, s=s, c=c: bgk_light.bgk_light(
+                acc, *st, node_idx, slots, s, c, **kw, state_fn=sf, do_prune=prune)
+                for s, c in zip(ss, sc)]
+    elif name.startswith("k5"):
         am, av, pr, node_idx, _ = rest
         ss, sc = kw.pop("ss"), kw.pop("sc")
         sf = posterior.GPStateFn(**kw.pop("state"))
@@ -431,7 +469,7 @@ def worker(tree: str, data_dir: str, only=None) -> dict:
     for name in selected(only):
         args, kw = torch.load(os.path.join(data_dir, f"{name}.pt"))
         args = [a.cuda() for a in args]
-        if name.startswith(("k5", "k8")):
+        if name.startswith(("k2", "k5", "k8")):
             out[name] = prune_run(name, args, kw, REPS[name], cs)
             del args
             torch.cuda.empty_cache()
@@ -574,7 +612,7 @@ def main() -> int:
     o1, t1, t2, o2 = results
     for name in selected(only):
         same = len({r[name]["digest"] for r in results}) == 1
-        if name.startswith(("k5", "k8")):
+        if name.startswith(("k2", "k5", "k8")):
             pools = "; ".join(
                 f"{tag} pool bit-equal across checkouts "
                 f"{len({r[name][tag + '_digest'] for r in results}) == 1}, repeat runs "
@@ -593,7 +631,11 @@ def main() -> int:
             parts = "; ".join(
                 f"{tag} other {o1[name].get(tag + '_ms')}, {o2[name].get(tag + '_ms')} / this "
                 f"{t1[name].get(tag + '_ms')}, {t2[name].get(tag + '_ms')} ms "
-                f"({t1[name].get(tag + '_launches')} launches)" for tag in ("k7b", "k7s", "k7t"))
+                f"({t1[name].get(tag + '_launches')} launches)"
+                for tag in ("k7b", "k7c", "k7s", "k7t"))
+            parts += (f"; each sort alone other {o1[name]['k7s_each_ms']}, "
+                      f"{o2[name]['k7s_each_ms']} / this {t1[name]['k7s_each_ms']}, "
+                      f"{t2[name]['k7s_each_ms']} ms")
             if "k7d_digest" in t1[name]:
                 print(f"{name} K7d: {t1[name]['k7d_pairs']} pairs; device time other "
                       f"{o1[name]['k7d_device_ms']:.4f}, {o2[name]['k7d_device_ms']:.4f} / this "
