@@ -43,9 +43,11 @@ then on the device-ingest path, the default of a CUDA map:
 
 8. records the device-ingest kernels' calls of a real 16-scan dispatch and
    holds each against its plain version: K7a (outlier mask and voxel keys
-   of the raw points; range filter and beam samples of the hit voxels) —
-   keys and in-range flags equal, samples equal (the control, the samples
-   in f64, must differ); K7b (compensated centroids, hits and frees) —
+   of the raw points; range filter and the beam samples that exist, with
+   their count on the card) — keys, count and in-range flags equal, the
+   samples the dense layout's kept rows in order (the control, the samples
+   in f64, must differ), each launch timed alone, its bound on the samples
+   kept and the dense layout's beside it; K7b (compensated centroids, hits and frees) —
    bit for bit, and so within 2^-23·(|plain| + leaf) (the control, the
    uncompensated mean, must fail it); K7c (closed-box memberships, the
    compact layout) — keys, entry rows and count equal, the keys the dense
@@ -56,8 +58,11 @@ then on the device-ingest path, the default of a CUDA map:
    torch.sort(stable=True) + unique_consecutive on the same keys, and its
    fixed cost a sort on 64 keys through each of its paths (one CTA, and
    multi-CTA) beside the library's; K7t (the
-   bucket tail: rows in block order, nb_row, tb_u) — bit for bit, timed
-   beside torch.unique + searchsorted + the gathers; K1′ (the aligned
+   bucket tail: rows in block order, nb_row, tb_u read off the candidate
+   sort's runs) — bit for bit against both plain versions (read off the
+   runs, and by torch.searchsorted), timed with the candidate sort beside
+   torch.unique + searchsorted + the gathers, its bound and the
+   search-based one beside it; K1′ (the aligned
    heavy pass) — bit for bit, and so within |Δ| ≤ 1e-5 + 1e-5·|plain| (the
    control, the plain version on TF32-rounded coordinates, must fail it);
    its warp work units and culled (warp, entry) pairs printed, its own cull
@@ -1766,35 +1771,49 @@ def check_k7(calls, what: str, reps: int = 5) -> dict:
     require(len(calls["ingest_downsample"]) == 2, "K7b did not run twice (hits, frees)")
     out = {}
 
-    # K7a
+    # K7a: the raw points' keys; the beam samples that exist, in the dense
+    # layout's order, and their count, against the dense layout's kept rows
     pref, pplain_ms = _timed(lambda: ingest_beams.point_keys_plain(*pa, **pkw))
-    bref, bplain_ms = _timed(lambda: ingest_beams.beam_samples_plain(*ba, **bkw))
-    keep = bref[1] != SENT
+    bref, bplain_ms = _timed(lambda: ingest_beams.compact_beam_samples_plain(*ba, **bkw))
+    dense = ingest_beams.beam_samples_plain(*ba, **bkw)
+    keep = dense[1] != SENT
+    n = int(bout[3])
     ctl = ingest_beams.beam_samples_plain(ba[0].double(), ba[1], ba[2].double(), ba[3],
-                                          **bkw)[0].float()
-    err = float((bout[0] - bref[0])[keep].abs().max())
-    err_ctl = float((ctl - bref[0])[keep].abs().max())
-    n_ctl = int(((ctl - bref[0])[keep] != 0).any(1).sum())
-    same = (torch.equal(pout, pref), torch.equal(bout[1], bref[1]),
-            torch.equal(bout[2], bref[2]))
+                                          **bkw)[0].float()[keep]
+    err = float((bout[0][:n] - bref[0]).abs().max())
+    err_ctl = float((ctl - bref[0]).abs().max())
+    n_ctl = int(((ctl - bref[0]) != 0).any(1).sum())
+    same = (torch.equal(pout, pref), n == int(bref[3]) == int(keep.sum()),
+            torch.equal(bout[1][:n], bref[1]), torch.equal(bout[2], bref[2]))
     N, R, S = pa[0].shape[0], ba[0].shape[0], bkw["kf"] + 2
-    print(f"K7a, {what}: {N} raw points, {R} hit voxels x {S} samples, {int(keep.sum())} "
-          f"kept; point keys, sample keys, in-range flags equal to the plain version "
-          f"{same}; max |sample kernel - plain| = {err:.3e} (limit 0; control, the samples "
-          f"in f64: {err_ctl:.3e} at {n_ctl} samples)")
+    print(f"K7a, {what}: {N} raw points, {R} hit voxels x {S} slots, {n} samples kept "
+          f"({n / (R * S):.1%} of the slots); point keys, the count, sample keys, in-range "
+          f"flags equal to the plain version {same}; max |sample kernel - plain| = "
+          f"{err:.3e} (limit 0; control, the samples in f64: {err_ctl:.3e} at {n_ctl} "
+          f"samples)")
     require(all(same), f"K7a disagrees with its plain version ({what})")
     require(err == 0.0, f"K7a samples differ from the plain version ({what})")
     require(err_ctl > 0.0, f"the K7a limit passes the f64 control ({what})")
-    ms = launch_ms([lambda _: ingest_beams.point_keys(*pa, **pkw),
-                    lambda _: ingest_beams.beam_samples(*ba, **bkw)], reps)
-    # each input read once, each output written once; ~20 operations a row
-    b_ms, b_by = bound(20 * (N + R * S),
-                       nbytes(*pa) + nbytes(pout) + nbytes(*ba[:2]) + nbytes(*bout))
+    launches = [lambda _: ingest_beams.point_keys(*pa, **pkw),
+                lambda _: ingest_beams.beam_samples(*ba, **bkw)]
+    ms = launch_ms(launches, reps)
+    ms_points, ms_beams = (launch_ms([f], reps) for f in launches)
+    # each input read once, each output written once: the raw points (12 + 4
+    # bytes in, a key out), the hits (12 + 8 in, the flag out), the kept
+    # samples (12 + 8 out) and the count; about 20 operations a point or a
+    # sample, 40 a hit.  The dense layout's bound writes every slot.
+    points = nbytes(*pa) + nbytes(pout)
+    b_ms, b_by = bound(20 * (N + n) + 40 * R, points + nbytes(*ba) + R + 20 * n + 4)
+    bd_ms, _ = bound(20 * (N + R * S), points + nbytes(*ba[:2]) + R * S * 20 + R)
     out["ingest_beams"] = {"max_abs_err": err, "control_err": err_ctl, "ms": ms,
+                           "ms_points": ms_points, "ms_beams": ms_beams,
                            "plain_ms": pplain_ms + bplain_ms, "bound_ms": b_ms,
-                           "bound_by": b_by}
-    print(f"K7a, {what}: {ms:.4f} ms device time for its 2 launches (plain "
-          f"{pplain_ms + bplain_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by})")
+                           "bound_by": b_by, "bound_ms_dense": bd_ms, "samples": n,
+                           "slots": R * S}
+    print(f"K7a, {what}: {ms:.4f} ms device time for its 2 launches (alone: the raw points "
+          f"{ms_points:.4f}, the beams {ms_beams:.4f}; plain {pplain_ms + bplain_ms:.3f} ms), "
+          f"bound {b_ms:.4f} ms by {b_by} on the samples kept (the dense layout's, every "
+          f"slot written: {bd_ms:.4f} ms)")
 
     out["ingest_downsample"] = check_k7b(calls, what, reps)
 
@@ -2037,18 +2056,25 @@ def k7s_fixed_cost(keys, window, reps: int = 5) -> dict:
 
 
 def check_k7t(calls, what: str, k7s: dict, reps: int = 5) -> dict:
-    """K7t on one dispatch's recorded call: every output bit-equal to its
-    plain version (gathers, torch.searchsorted) on the same card inputs.
+    """K7t on one dispatch's recorded call: every output bit-equal to both
+    plain versions on the same card inputs (the slot maps read off the
+    candidate runs, the kernel's rule; and gathers with torch.searchsorted).
     ``library_ms``: torch.unique of the candidate keys, both searchsorted
-    and the gathers (what the parent ran after its membership sort), to be
-    read beside K7t's time plus the candidate sort's (``ms_with_candidates``,
-    the last of ``k7s``'s sorts)."""
+    and the gathers (what the parent of PR 11 ran after its membership
+    sort), to be read beside K7t's time plus the candidate sort's
+    (``ms_with_candidates``, the last of ``k7s``'s sorts).  Bound: the bytes
+    the data needs (the sorted rows' indices, their entries and labels, the
+    block keys, the candidate sort's index and runs in; the slabs and both
+    maps out); ``bound_ms_searches`` beside it, the search-based bound
+    (each row's block key, and ⌈log₂⌉ probes a slot-map entry)."""
     (a, kw, out), = calls["ingest_bucket"]
-    perm, rid, mrow, ent, lab, ukey, tkey, off, anchors = a
-    ref, plain_ms = _timed(lambda: ingest_bucket.bucket_plain(*a, **kw))
+    perm, rid, mrow, ent, lab, ukey, tkey, cperm, cstart, ccount, off, anchors = a
+    ref, plain_ms = _timed(lambda: ingest_bucket.bucket_runs_plain(*a, **kw))
+    search = ingest_bucket.bucket_plain(*a, **kw)
     names = ("ent", "ent_rel", "lab", "nb_row", "tb_u")
-    same = {n: bool(torch.equal(x, y)) for n, x, y in zip(names, out, ref)}
-    require(all(same.values()), f"K7t disagrees with its plain version ({what}): {same}")
+    same = {n: bool(torch.equal(x, y) and torch.equal(x, z))
+            for n, x, y, z in zip(names, out, ref, search)}
+    require(all(same.values()), f"K7t disagrees with its plain versions ({what}): {same}")
     ms = launch_ms([lambda _: ingest_bucket.bucket(*a, **kw)], reps)
 
     def library(_):
@@ -2057,17 +2083,21 @@ def check_k7t(calls, what: str, k7s: dict, reps: int = 5) -> dict:
 
     lib_ms = cuda_ms(library, reps)
     M, D, U, T, G = perm.shape[0], ent.shape[1], ukey.shape[0], tkey.shape[0], off.shape[0]
-    nbyte = M * (8 + 4 + 8 + 4 * D + 4) + 8 * (U + T + G) + M * (8 * D + 4) + 8 * G * (U + T)
-    ops = 3 * G * (U * math.ceil(math.log2(T + 1)) + T * math.ceil(math.log2(U + 1)))
-    b_ms, b_by = bound(ops, nbyte)
+    nbyte = M * (8 + 4 + 4 + 4 * D + 4) + 8 * U + 8 * U * G + 16 * T + 4 * G \
+        + M * (8 * D + 4) + 8 * G * (U + T)
+    b_ms, b_by = bound(0, nbyte)
+    nbyte_s = M * (8 + 4 + 8 + 4 * D + 4) + 8 * (U + T + G) + M * (8 * D + 4) + 8 * G * (U + T)
+    ops_s = 3 * G * (U * math.ceil(math.log2(T + 1)) + T * math.ceil(math.log2(U + 1)))
+    bs_ms, _ = bound(ops_s, nbyte_s)
     with_cand = ms + k7s["sorts"][-1]["ms"]
-    print(f"K7t, {what}: {M} rows (D {D}), U {U} entry blocks, T {T} test blocks, G {G}; "
-          f"equal to the plain version {same}; {ms:.4f} ms device time ({with_cand:.4f} with "
-          f"the candidate sort; torch.unique + searchsorted + gathers {lib_ms:.4f} ms), plain "
-          f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by}")
+    print(f"K7t, {what}: {M} rows (D {D}), U {U} entry blocks, T {T} test blocks, G {G} "
+          f"(longest run {int(ccount.max())} candidates); equal to both plain versions "
+          f"{same}; {ms:.4f} ms device time ({with_cand:.4f} with the candidate sort; "
+          f"torch.unique + searchsorted + gathers {lib_ms:.4f} ms), plain {plain_ms:.3f} ms, "
+          f"bound {b_ms:.4f} ms by {b_by} (the search-based bound: {bs_ms:.4f} ms)")
     return {"max_abs_err": 0.0, "bit_equal": True, "ms": ms, "ms_with_candidates": with_cand,
             "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "rows": M, "U": U, "T": T}
+            "bound_ms_searches": bs_ms, "rows": M, "U": U, "T": T}
 
 
 def check_k7_segments(calls, what: str, reps: int = 5) -> dict:
@@ -2988,8 +3018,10 @@ def main() -> int:
          "source": "la3dm_tpu_torch/csrc/ingest_beams.cu",
          "replaces": "la3dm_tpu/geometry/device_ingest.py:390",
          "launches": launches_on["ingest_beams"],
-         "work": "the 2 launches (raw points, beams) of one 16-scan BGK demo dispatch",
-         **k7["ingest_beams"], "library_ms": None, "gp": k7_gp["ingest_beams"]},
+         "work": "the 2 launches (raw points, beams) of one 16-scan BGK demo dispatch; "
+                 "bound_ms on the samples kept, bound_ms_dense with every slot written",
+         **k7["ingest_beams"], "library_ms": None, "gp": k7_gp["ingest_beams"],
+         "bgk_large_map": k7_bl["ingest_beams"]},
         {"name": "ingest_downsample", "route": "cuda",
          "source": "la3dm_tpu_torch/csrc/ingest_downsample.cu",
          "replaces": "la3dm_tpu/geometry/device_ingest.py:192",
@@ -3012,7 +3044,8 @@ def main() -> int:
          "replaces": "la3dm_tpu/geometry/device_ingest.py:357",
          "launches": launches_on["ingest_bucket"],
          "work": "one 16-scan BGK demo dispatch; library_ms: torch.unique of the candidate "
-                 "keys + both searchsorted + the gathers (ms_with_candidates beside it)",
+                 "keys + both searchsorted + the gathers (ms_with_candidates beside it); "
+                 "bound_ms_searches: the search-based bound",
          **k7["ingest_bucket"], "gp": k7_gp["ingest_bucket"], "bgkl": k7_l["ingest_bucket"],
          "bgkl_large_map": k7_ll["ingest_bucket"], "bgk_large_map": k7_bl["ingest_bucket"]},
         {"name": "ingest_members", "route": "cuda",

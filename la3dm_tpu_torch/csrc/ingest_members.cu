@@ -27,14 +27,12 @@
 //   (popcounts of the masks, 16 bits each) gives each its place in the
 //   tile; the tile publishes its count, stages its memberships in order (as
 //   entry * 8 + j, 2 bytes each), and takes its place among the tiles by a
-//   decoupled look-back (tiles numbered in the order their CTAs start, from
-//   an atomic counter, so each waits only on tiles already running); then
-//   each staged membership's key leaves with its entry, coalesced.  23 KB of
-//   shared memory and at most 42 registers a CTA keep 6 CTAs on an SM.  The
-//   look-back words carry the launch's epoch (kept on the host, one more a
-//   launch), so a word of an earlier launch counts as not yet published and
-//   the scratch needs no memset; the last tile sets the tile counter back
-//   to 0.
+//   decoupled look-back (tile_scan.cuh: tiles numbered in the order their
+//   CTAs start, from an atomic counter, so each waits only on tiles already
+//   running); then each staged membership's key leaves with its entry,
+//   coalesced.  23 KB of shared memory and at most 42 registers a CTA keep
+//   6 CTAs on an SM.  The look-back words carry the launch's epoch, so the
+//   scratch needs no memset; the last tile sets the tile counter back to 0.
 // * dense (BGKL's hits, which the ray pairs follow in one key array whose
 //   size the host knows): 8 slots an entry, key or the sentinel at 8e + j,
 //   the entry e beside each, a thread a slot (coalesced); no look-back.
@@ -45,6 +43,7 @@
 #include <stdint.h>
 
 #include "ingest_keys.cuh"
+#include "tile_scan.cuh"
 
 namespace {
 
@@ -52,16 +51,6 @@ constexpr int kThreads = 256;
 constexpr int kPer = 2;                   // entries a thread
 constexpr int kTileE = kThreads * kPer;   // entries a tile
 constexpr int kSlots = 8 * kTileE;        // candidate slots a tile
-constexpr unsigned kAll = 0xffffffffu;
-
-// a look-back word: the launch's epoch (32 bits), 2 bits of flag, 30 of count
-constexpr unsigned long long kAggregate = 1ull << 30, kInclusive = 2ull << 30,
-                             kCount = (1ull << 30) - 1;
-
-__device__ __forceinline__ unsigned long long word(unsigned epoch, unsigned long long flag,
-                                                   unsigned long long n) {
-  return ((unsigned long long)epoch << 32) | flag | n;
-}
 
 // The candidate blocks of the entry at ent[0..2]: per axis its base and
 // second candidate, and the mask (bit j: candidate j is a membership).
@@ -92,59 +81,6 @@ __device__ __forceinline__ unsigned candidates(const float* ent, bool valid, flo
     mask |= (ok ? 1u : 0u) << j;
   }
   return mask;
-}
-
-// exclusive sum of v over the CTA; *total the CTA's
-__device__ __forceinline__ unsigned block_exclusive_sum(unsigned v, unsigned* total) {
-  __shared__ unsigned ws[kThreads / 32];
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  unsigned x = v;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const unsigned y = __shfl_up_sync(kAll, x, o);
-    if (lane >= o) x += y;
-  }
-  if (lane == 31) ws[wid] = x;
-  __syncthreads();
-  if (wid == 0) {
-    unsigned s = lane < kThreads / 32 ? ws[lane] : 0u;
-#pragma unroll
-    for (int o = 1; o < kThreads / 32; o <<= 1) {
-      const unsigned y = __shfl_up_sync(kAll, s, o);
-      if (lane >= o) s += y;
-    }
-    if (lane < kThreads / 32) ws[lane] = s;
-  }
-  __syncthreads();
-  *total = ws[kThreads / 32 - 1];
-  return (wid ? ws[wid - 1] : 0u) + x - v;
-}
-
-// The look-back of tile `tile` by warp 0: the memberships of the tiles
-// before it (look[t]: tile t's word, of this launch where its epoch is
-// `epoch`), 32 words a round back to the first inclusive one.  (128 words a
-// round, four a lane, was slower on an H100: more lanes polling words not
-// yet published.)
-__device__ __forceinline__ unsigned long long look_back(const unsigned long long* look,
-                                                        unsigned epoch, int tile) {
-  const int lane = threadIdx.x & 31;
-  unsigned long long before = 0;
-  for (int t = tile - 1;; t -= 32) {
-    const int j = t - lane;
-    unsigned long long w = word(epoch, kInclusive, 0);  // before tile 0
-    if (j >= 0) {
-      do {
-        w = *(const volatile unsigned long long*)&look[j];
-      } while ((unsigned)(w >> 32) != epoch);
-    }
-    const unsigned incl = __ballot_sync(kAll, (w & kInclusive) != 0);
-    const int stop = incl ? __ffs(incl) - 1 : 31;
-    unsigned long long n = lane <= stop ? (w & kCount) : 0;
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) n += __shfl_xor_sync(kAll, n, o);
-    before += n;
-    if (incl) return before;
-  }
 }
 
 // The key of candidate j of tile entry le from its staged key fields
@@ -179,13 +115,7 @@ ingest_members_kernel(const float* __restrict__ ent,        // [E,3]
   __shared__ uint16_t s_code[kSlots];       // compact: the staged memberships, le * 8 + j
   __shared__ int s_tile;
   __shared__ long long s_base;
-  if (!kDense && threadIdx.x == 0) {
-    const int tile = (int)atomicAdd(counter, 1u);
-    if (tile == n_tiles - 1) *counter = 0u;  // every CTA has taken its tile
-    s_tile = tile;
-  }
-  if (!kDense) __syncthreads();
-  const int tile = kDense ? (int)blockIdx.x : s_tile;
+  const int tile = kDense ? (int)blockIdx.x : tile_scan::take_tile(counter, n_tiles, &s_tile);
   const long long e0 = (long long)tile * kTileE;
   const int ne = (int)(E - e0 < kTileE ? E - e0 : kTileE);
   for (int i = threadIdx.x; i < 3 * ne; i += kThreads) s_ent[i] = ent[3 * e0 + i];
@@ -227,10 +157,11 @@ ingest_members_kernel(const float* __restrict__ ent,        // [E,3]
   // each entry's place in the tile: one scan of both entries' counts (the
   // first entry's in the low 16 bits), entries in tile order k*256 + tid
   unsigned total;
-  const unsigned ex = block_exclusive_sum(__popc(mask[0]) | (__popc(mask[1]) << 16), &total);
+  const unsigned ex =
+      tile_scan::block_exclusive_sum<kThreads>(__popc(mask[0]) | (__popc(mask[1]) << 16), &total);
   const unsigned tot0 = total & 0xFFFFu, tot = tot0 + (total >> 16);
   // the tile's count, published before its memberships are staged
-  if (threadIdx.x == 0 && tile > 0) atomicExch(&look[tile], word(epoch, kAggregate, tot));
+  tile_scan::publish(look, epoch, tile, tot);
 #pragma unroll
   for (int k = 0; k < kPer; ++k) {
     const int le = k * kThreads + threadIdx.x;
@@ -240,13 +171,8 @@ ingest_members_kernel(const float* __restrict__ ent,        // [E,3]
       if ((mask[k] >> j) & 1u) s_code[at++] = (uint16_t)(le * 8 + j);
   }
   if (threadIdx.x < 32) {
-    unsigned long long before = 0;
-    if (tile > 0) before = look_back(look, epoch, tile);
-    if (threadIdx.x == 0) {
-      atomicExch(&look[tile], word(epoch, kInclusive, before + tot));
-      if (tile == n_tiles - 1) *count = (int32_t)(before + tot);
-      s_base = (long long)before;
-    }
+    const unsigned long long before = tile_scan::place(look, epoch, tile, n_tiles, tot, count);
+    if (threadIdx.x == 0) s_base = (long long)before;
   }
   __syncthreads();
   const long long b0 = s_base;

@@ -7,15 +7,19 @@ The port of ``la3dm_tpu/geometry/device_ingest.py``: the point family
 
   clouds ──► outlier mask + ds-voxel keys            (K7a, ``point_keys``)
          ──► stable sort, runs (K7s), compensated centroids (K7b)  = hits
-         ──► range filter + Kf + 2 beam samples       (K7a, ``beam_samples``)
-         ──► stable sort, runs (K7s), compensated centroids (K7b)  = frees
+         ──► range filter + the Kf + 2 beam samples
+             that exist, in order, their count on
+             the card                                 (K7a, ``beam_samples``)
+         ──► stable sort of those, runs (K7s), compensated centroids (K7b)
+                                                      = frees
          ──► entries: hits (label 1) then frees (free label), z-major
          ──► ≤ 8 closed-box memberships an entry, only
              those that exist, in order, their count on
              the card                                 (K7c)
          ──► stable sort by block key → per-block runs (K7s); the test
-             blocks, unique(u + off_g) (K7s); the rows in block order and
-             the slot maps ``nb_row`` / ``tb_u``      (K7t)
+             blocks, the runs of the candidates u + off_g (K7s); the rows in
+             block order and the slot maps ``nb_row`` / ``tb_u``, read off
+             the candidate runs                       (K7t)
 
 and the BGKL segment family (``bgkloctomap.cpp:285-344``),
 :func:`ingest_batch_bgkl`:
@@ -35,11 +39,14 @@ z-major voxel order, hits before frees, the stable sort by block key, and
 ``ent_rel = ent − coord·bs`` in f32.  What answered TPU costs is not carried
 over: the static pads and their overflow ladder (every table here takes its
 exact size, so no chunk overflows or falls back for its size), one-hot
-equality matmuls (binary searches), log-shift segmented scans (run
-boundaries of a stable sort), payload sorts (a sort index and gathers) and
-the Wa = 8 alignment pads (K1′ sums rows of 8 from each run's start without
-them).  The entry tables hold the valid memberships only: K1′ and GP's
-models read rows by ``ustart`` / ``ucount``, never past the last run.
+equality matmuls (the candidate sort's runs: run t holds every (u, g′) with
+u + off_g′ = test block t, and the offsets are symmetric, so each member
+gives nb_row[u, mirror(g′)] = t and tb_u[t, mirror(g′)] = u), log-shift
+segmented scans (run boundaries of a stable sort), payload sorts (a sort
+index and gathers) and the Wa = 8 alignment pads (K1′ sums rows of 8 from
+each run's start without them).  The entry tables hold the valid
+memberships only: K1′ and GP's models read rows by ``ustart`` /
+``ucount``, never past the last run.
 
 Keys are scan-local (``kernels/ingest_keys.py``), anchored at each scan's
 origin cell or block; a dispatch's K scans share one sort, whose window
@@ -47,9 +54,12 @@ origin cell or block; a dispatch's K scans share one sort, whose window
 package's 1024-cell windows cannot bound take the host path in both packages
 (:func:`beam_slots`).  Each data-dependent size is a host sync, one a sort:
 four per dispatch here (the runs of the two downsamples, the memberships
-and the test blocks); BGKL has one downsample and the size of the ray-block
-pair list instead.  JAX keeps the first ``Rmax`` distinct blocks of a ray
-and regrows Rmax or takes the host path when a ray has more
+and the test blocks; BGKL has one downsample and the size of the ray-block
+pair list instead), and the map's copy of the test-block keys and counts
+(``models/ingest.py``) makes five.  The counts of K7a's beam samples and
+K7c's memberships stay on the card, where the sorts that follow read them.
+JAX keeps the first ``Rmax`` distinct blocks of a ray and regrows Rmax or
+takes the host path when a ray has more
 (``la3dm_tpu/models/ingest.py:150-175``), so what it integrates is never
 cut; the pair list here takes its exact size and cuts nothing either.
 """
@@ -83,13 +93,14 @@ def anchors(origins: np.ndarray, size: float) -> np.ndarray:
     return np.floor(np.asarray(origins, np.float64) / size).astype(np.int32)
 
 
-def _downsample(pts, keys, cell_anchor, leaf: float, window=None):
+def _downsample(pts, keys, cell_anchor, leaf: float, window=None, count=None):
     """Voxel keys → (voxel keys [R], centroids [R,3]), z-major within each
     scan (``_downsample`` of the JAX package); ``window`` bounds the valid
-    keys (by default the widest that device ingest accepts)."""
+    keys (by default the widest that device ingest accepts); ``count`` (on
+    the keys' device): only the first ``count`` keys are read."""
     if window is None:
         window = ingest_sort.widest_window(cell_anchor.shape[0])
-    runs = ingest_sort.sort_runs(keys, window)
+    runs = ingest_sort.sort_runs(keys, window, count=count)
     return runs.ukey, ingest_downsample.centroids(pts, runs.perm, runs.starts, runs.counts,
                                                   runs.ukey, cell_anchor, leaf=leaf)
 
@@ -101,8 +112,8 @@ def _windows(mr: float, ds: float, block_size: float, scans: int):
 
 
 def ingest_batch(pts, scan, origins, cell_anchor, block_anchor, off_keys, *, ds: float,
-                 fr: float, mr: float, kf: int, block_size: float,
-                 free_label: float) -> dict | None:
+                 fr: float, mr: float, kf: int, block_size: float, free_label: float,
+                 mirror=None) -> dict | None:
     """K scans' raw points (``pts`` [N,3] f32, ``scan`` [N] int32, ``origins``
     [K,3] f32, the anchors of :func:`anchors` at ``ds`` and at
     ``block_size``) → the block tables, or None without entries:
@@ -116,6 +127,10 @@ def ingest_batch(pts, scan, origins, cell_anchor, block_anchor, off_keys, *, ds:
     nb_row [U,G]: the test block entry block u serves at slot g (u − off_g).
     tb_u [T,G]: the entry block feeding test block t at slot g (t + off_g),
       U where there is none.
+
+    ``mirror`` [G] int32 on the device: ``ingest_bucket.mirror_slots`` of
+    the offsets, which the caller works out on the host; None derives it
+    from ``off_keys`` (on a card a host read).
     """
     inv = float(np.float32(1.0 / ds))
     lim = float(np.float32((mr + np.sqrt(3.0) * ds) ** 2))
@@ -123,9 +138,10 @@ def ingest_batch(pts, scan, origins, cell_anchor, block_anchor, off_keys, *, ds:
     keys = ingest_beams.point_keys(pts, scan, origins, cell_anchor, inv_leaf=inv, lim=lim)
     cwin, bwin = _windows(mr, ds, block_size, origins.shape[0])
     hkey, hits = _downsample(pts, keys, cell_anchor, float(np.float32(ds)), cwin)
-    fpts, fkeys, inr = ingest_beams.beam_samples(hits, hkey, origins, cell_anchor, kf=kf,
-                                                 mr=mr32, fr=fr32, inv_leaf=inv)
-    fkey, frees = _downsample(fpts, fkeys, cell_anchor, float(np.float32(ds)), cwin)
+    fpts, fkeys, inr, fcount = ingest_beams.beam_samples(hits, hkey, origins, cell_anchor,
+                                                         kf=kf, mr=mr32, fr=fr32, inv_leaf=inv)
+    fkey, frees = _downsample(fpts, fkeys, cell_anchor, float(np.float32(ds)), cwin,
+                              count=fcount)
     dev = pts.device
     ent = torch.cat([hits, frees])
     lab = torch.cat([torch.ones(len(hits), dtype=torch.float32, device=dev),
@@ -136,11 +152,12 @@ def ingest_batch(pts, scan, origins, cell_anchor, block_anchor, off_keys, *, ds:
     mkey, mrow, count = ingest_members.memberships(ent, escan, evalid, block_anchor,
                                                    block_size=block_size)
     return _bucket(mkey, mrow, ent, lab, block_anchor, off_keys, block_size, bwin,
-                   count=count)
+                   count=count, mirror=mirror)
 
 
 def ingest_batch_bgkl(pts, scan, origins, cell_anchor, block_anchor, off_keys, *, ds: float,
-                      fr: float, mr: float, kf: int, block_size: float) -> dict | None:
+                      fr: float, mr: float, kf: int, block_size: float,
+                      mirror=None) -> dict | None:
     """BGKL (``_ingest_scan_bgkl`` of the JAX package): the arguments and
     tables of :func:`ingest_batch`, with segment entries ``ent`` /
     ``ent_rel`` [M,6] (start, end; relative: both minus the block's centre).
@@ -169,26 +186,28 @@ def ingest_batch_bgkl(pts, scan, origins, cell_anchor, block_anchor, off_keys, *
     # ukeys_r…])
     mkey = torch.cat([hmkey, pkey])
     mrow = torch.cat([hrow, (R + pray).to(torch.int32)])
-    return _bucket(mkey, mrow, ent, lab, block_anchor, off_keys, block_size, bwin)
+    return _bucket(mkey, mrow, ent, lab, block_anchor, off_keys, block_size, bwin,
+                   mirror=mirror)
 
 
 def _bucket(mkey, mrow, ent, lab, block_anchor, off_keys, block_size: float,
-            window, count=None) -> dict | None:
+            window, count=None, mirror=None) -> dict | None:
     """Membership keys [E'] in ``window`` and the entry row of each
     (``mrow`` int32) → the block tables of :func:`ingest_batch`; ``count``
     (K7c's, on the keys' device): only the first ``count`` keys hold
-    memberships.  The test blocks
-    are the runs of the candidate keys u + off_g, whose window is one block
-    wider (the neighbour offsets reach one block an axis)."""
+    memberships.  The test blocks are the runs of the candidate keys u +
+    off_g, whose window is one block wider (the neighbour offsets reach one
+    block an axis); K7t reads the slot maps off those runs."""
     runs = ingest_sort.sort_runs(mkey, window, want_rid=True, count=count)
     ukey = runs.ukey
     if ukey.shape[0] == 0:
         return None
-    tkey = ingest_sort.sort_runs((ukey[:, None] + off_keys[None, :]).reshape(-1),
-                                 window.wider(1)).ukey
+    cand = ingest_sort.sort_runs((ukey[:, None] + off_keys[None, :]).reshape(-1),
+                                 window.wider(1))
+    tkey = cand.ukey
     ent_s, ent_rel, lab_s, nb_row, tb_u = ingest_bucket.bucket(
-        runs.perm, runs.rid, mrow, ent, lab, ukey, tkey, off_keys, block_anchor,
-        block_size=block_size)
+        runs.perm, runs.rid, mrow, ent, lab, ukey, tkey, cand.perm, cand.starts, cand.counts,
+        off_keys, block_anchor, block_size=block_size, mirror=mirror)
     return {"ent": ent_s, "ent_rel": ent_rel, "lab": lab_s, "ukey": ukey,
             "ustart": runs.starts, "ucount": runs.counts, "tkey": tkey, "nb_row": nb_row,
             "tb_u": tb_u}

@@ -106,7 +106,8 @@ def _bind(lib):
     lib.la3dm_ingest_points.restype = ci
     lib.la3dm_ingest_points.argtypes = [vp] * 4 + [cl, cf, cf, vp, vp]
     lib.la3dm_ingest_beams.restype = ci
-    lib.la3dm_ingest_beams.argtypes = [vp] * 4 + [cl, ci] + [cf] * 3 + [vp] * 4
+    lib.la3dm_ingest_beams.argtypes = ([vp] * 4 + [cl, ci, ci] + [cf] * 3 + [ci] + [vp] * 5
+                                      + [ctypes.c_uint, vp])
     lib.la3dm_ingest_downsample.restype = ci
     lib.la3dm_ingest_downsample.argtypes = [vp] * 6 + [cl, cf, vp, vp]
     lib.la3dm_ingest_sort_workspace.restype = cl
@@ -114,7 +115,7 @@ def _bind(lib):
     lib.la3dm_ingest_sort.restype = ci
     lib.la3dm_ingest_sort.argtypes = [vp, cl] + [ci] * 6 + [vp, cl] + [vp] * 4
     lib.la3dm_ingest_bucket.restype = ci
-    lib.la3dm_ingest_bucket.argtypes = [vp] * 9 + [cl] * 3 + [ci, ci, cf] + [vp] * 6
+    lib.la3dm_ingest_bucket.argtypes = [vp] * 11 + [cl] * 3 + [ci, ci, cf] + [vp] * 6
     lib.la3dm_ingest_members.restype = ci
     lib.la3dm_ingest_members.argtypes = ([vp] * 4 + [cl, cf, cf, ci] + [vp] * 5
                                          + [ctypes.c_uint, vp])

@@ -39,10 +39,11 @@ TILE_ENTRIES = 512
 _BITS = np.stack(np.meshgrid(np.arange(2), np.arange(2), np.arange(2), indexing="ij"),
                  axis=-1).reshape(8, 3)
 
-#: (device, stream) → [words, epoch]: the compact kernel's tile counter (word
-#: 0, zero between launches) and look-back words (one a tile, each tagged
-#: with its launch's epoch), grown as needed and kept for the process, and
-#: the epoch of the last launch; a launch needs no memset
+#: (device, stream) → [words, epoch]: the tile counter (word 0, zero between
+#: launches) and look-back words (one a tile, each tagged with its launch's
+#: epoch) of the compacting launches on that stream (this compact kernel
+#: and K7a's beams, ``csrc/tile_scan.cuh``), grown as needed and kept for the
+#: process, and the epoch of the last launch; a launch needs no memset
 _SCRATCH: dict = {}
 _EPOCH_MAX = 0xFFFFFFFF
 
@@ -51,9 +52,10 @@ def _sizes(block_size: float) -> tuple[float, float]:
     return float(np.float32(block_size)), float(np.float32(block_size / 2.0))
 
 
-def _look_back_words(device, stream: int, tiles: int) -> tuple[torch.Tensor, int]:
-    """The compact launch's scratch on ``stream`` for ``tiles`` tiles and
-    its epoch (one more than the last launch's)."""
+def look_back_words(device, stream: int, tiles: int) -> tuple[torch.Tensor, int]:
+    """A compacting launch's scratch on ``stream`` for ``tiles`` tiles and
+    its epoch (one more than the last launch's).  The launches on one stream
+    run in turn, so they share it."""
     key = (str(device), stream)
     have = _SCRATCH.get(key)
     if have is None or have[0].shape[0] < 1 + tiles:
@@ -109,7 +111,7 @@ def memberships(ent, scan, evalid, anchors, *, block_size: float, dense: bool = 
         return keys, rows, count
     bs, half = _sizes(block_size)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    words, epoch = (None, 0) if dense else _look_back_words(
+    words, epoch = (None, 0) if dense else look_back_words(
         dev, stream, -(-E // TILE_ENTRIES))
     code = _build.lib().la3dm_ingest_members(
         ent.data_ptr(), scan.data_ptr(), evalid.data_ptr(), anchors.data_ptr(), E, bs, half,

@@ -17,8 +17,9 @@ the host path, counted in ``stats["ingest_host_chunks"]``.
 
 Host syncs per dispatch: the four of ``device_ingest.ingest_batch`` (or of
 ``ingest_batch_bgkl`` for a family with ``SEGMENTS``) and one for the key
-and count copy (every host→device copy is pinned and does not
-wait).  The next dispatch's host work (concatenation, pinned copies)
+and count copy (every host→device copy is pinned and does not wait; the
+neighbour offsets' mirror slots, which K7t reads, are worked out here on
+the host).  The next dispatch's host work (concatenation, pinned copies)
 overlaps the current dispatch's engine launches, which the host does not
 wait for.
 """
@@ -31,7 +32,7 @@ import numpy as np
 import torch
 
 from la3dm_tpu_torch.geometry import blocks as geo, device_ingest
-from la3dm_tpu_torch.kernels import ingest_keys
+from la3dm_tpu_torch.kernels import ingest_bucket, ingest_keys
 
 
 class DeviceIngestMixin:
@@ -79,17 +80,19 @@ class DeviceIngestMixin:
         scan = np.repeat(np.arange(n, dtype=np.int32), [len(c) for c in clouds])
         banchor = device_ingest.anchors(origins, self.block_size)
         dev = self._to_device
+        off = ingest_keys.pack_offsets(self._neighbor_offsets)
         args = (dev(pts), dev(scan), dev(origins), dev(device_ingest.anchors(origins, ds)),
-                dev(banchor), dev(ingest_keys.pack_offsets(self._neighbor_offsets)))
+                dev(banchor), dev(off))
+        mirror = dev(ingest_bucket.mirror_slots(off))
         self.stats["host_s"] += time.perf_counter() - t0
 
         if self.SEGMENTS:
             tabs = device_ingest.ingest_batch_bgkl(*args, ds=ds, fr=fr, mr=mr, kf=kf,
-                                                   block_size=self.block_size)
+                                                   block_size=self.block_size, mirror=mirror)
         else:
             tabs = device_ingest.ingest_batch(
                 *args, ds=ds, fr=fr, mr=mr, kf=kf, block_size=self.block_size,
-                free_label=self.FREE_LABEL)
+                free_label=self.FREE_LABEL, mirror=mirror)
         self.stats["scans"] += n
         if tabs is None:
             return

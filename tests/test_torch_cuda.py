@@ -22,8 +22,8 @@ from la3dm_tpu_torch.models import posterior as po
 
 from torch_cases import (BETA_TEMPLATES, GP_BCM, GP_STATE,  # tests/ on sys.path
                          GP_STATICS, GP_TEMPLATES, INGEST, LV_ROWS_STATICS, LV_STATE,
-                         RAY_CONFIGS, aligned_heavy_inputs, collapsible_raster_pool, edge_rays,
-                         gp_heavy_inputs,
+                         RAY_CONFIGS, aligned_heavy_inputs, beam_edge_hits, beam_kwargs,
+                         bucket_inputs, collapsible_raster_pool, edge_rays, gp_heavy_inputs,
                          gp_light_inputs, heavy_inputs, ingest_scene, light_inputs,
                          lv_prune_inputs, lv_rows_inputs, member_entries,
                          near_bgk_light_inputs, near_gp_light_inputs, near_lv_prune_inputs,
@@ -849,8 +849,9 @@ def _ingest_params():
 
 @pytest.mark.cuda
 def test_ingest_beams_kernels_match_plain(cuda_dev):
-    """K7a: point keys and beam samples equal to the plain versions (the same
-    f32 operations, no FMA)."""
+    """K7a: point keys equal to the plain version; the beam samples that
+    exist, their keys, the in-range flags and the count equal to the dense
+    plain version's kept rows, in order (the same f32 operations, no FMA)."""
     pts, scan, origins, ca, _ = ingest_scene(40, dev=cuda_dev)
     p = _ingest_params()
     before = ingest_beams.launches
@@ -861,12 +862,72 @@ def test_ingest_beams_kernels_match_plain(cuda_dev):
     hkey, hits = device_ingest._downsample(pts, keys, ca, p["leaf"])
     kw = dict(kf=p["kf"], mr=p["mr"], fr=p["fr"], inv_leaf=p["inv_leaf"])
     out = ingest_beams.beam_samples(hits, hkey, origins, ca, **kw)
-    ref = ingest_beams.beam_samples_plain(hits, hkey, origins, ca, **kw)
     torch.cuda.synchronize()
     assert ingest_beams.launches == before + 2
-    keep = ref[1] != ingest_keys.SENT
-    assert torch.equal(out[1], ref[1]) and torch.equal(out[2], ref[2])
-    assert torch.equal(out[0][keep], ref[0][keep]) and int(keep.sum()) > 1000
+    _assert_compact_beams(out, ingest_beams.beam_samples_plain(hits, hkey, origins, ca, **kw))
+    assert int(out[3]) > 1000
+
+
+def _assert_compact_beams(out, dense):
+    """K7a's compact outputs (samples, keys, in range, count) against the
+    dense plain layout: its kept rows in order, bit for bit."""
+    fpts, fkeys, inr, count = out
+    keep = dense[1] != ingest_keys.SENT
+    n = int(count)
+    assert count.dtype == torch.int32 and n == int(keep.sum())
+    assert fpts.shape[0] == fkeys.shape[0] == keep.numel()     # room for every slot
+    assert torch.equal(fpts[:n], dense[0][keep]) and torch.equal(fkeys[:n], dense[1][keep])
+    assert torch.equal(inr, dense[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fr", [0.5, 0.1, 0.3])
+def test_ingest_beams_kernel_at_range_and_cell_edges(cuda_dev, fr):
+    """K7a's closed-form kept count on the card at the boundaries: hits
+    along x from an origin on a cell face, out of range, at the origin,
+    within fr, at fr, at (k + 1)·fr and one ulp either side, at mr."""
+    hits, keys, origins, anchors, names, kept = beam_edge_hits(fr, dev=cuda_dev)
+    kw = beam_kwargs(fr=fr)
+    out = ingest_beams.beam_samples(hits, keys, origins, anchors, **kw)
+    dense = ingest_beams.beam_samples_plain(hits, keys, origins, anchors, **kw)
+    torch.cuda.synchronize()
+    _assert_compact_beams(out, dense)
+    assert (dense[1] != ingest_keys.SENT).view(len(names), -1).sum(1).tolist() == kept
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_hits", [1, "tile", "tile + 1", 20000])
+def test_ingest_beams_kernel_across_look_back_tiles(cuda_dev, n_hits):
+    """K7a's compaction over one hit, a tile (``ingest_beams.tile_hits``),
+    a tile and one hit, and 20,000 hits, 187 tiles (ranges spread over (0,
+    1.2 mr], a tenth of the hits out of range), three launches in a row (the
+    look-back words of one launch must not count in the next): bit for bit
+    the dense layout's kept rows, the scratch's tile counter (K7c's) left
+    at 0."""
+    tile = ingest_beams.tile_hits(_ingest_params()["kf"])
+    n_hits = {"tile": tile, "tile + 1": tile + 1}.get(n_hits, n_hits)
+    rng = np.random.default_rng(n_hits)
+    origins = torch.tensor([[0.05, -0.2, 0.3], [1.0, 2.0, -0.5]], dtype=torch.float32)
+    d = rng.normal(size=(n_hits, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    scan = rng.integers(0, 2, n_hits)
+    hits = torch.from_numpy((origins.numpy()[scan] + d * rng.uniform(
+        0, 1.2 * INGEST["mr"], (n_hits, 1))).astype(np.float32))
+    ca = torch.from_numpy(device_ingest.anchors(origins.numpy(), INGEST["ds"]))
+    p = _ingest_params()
+    hkey = ingest_beams.point_keys_plain(hits, torch.from_numpy(scan.astype(np.int32)),
+                                         origins, ca, inv_leaf=p["inv_leaf"],
+                                         lim=float("inf"))
+    args = [x.to(cuda_dev) for x in (hits, hkey, origins, ca)]
+    kw = dict(kf=p["kf"], mr=p["mr"], fr=p["fr"], inv_leaf=p["inv_leaf"])
+    dense = ingest_beams.beam_samples_plain(*args, **kw)
+    for _ in range(3):
+        _assert_compact_beams(ingest_beams.beam_samples(*args, **kw), dense)
+    torch.cuda.synchronize()
+    dev = args[0].device
+    key = (str(dev), torch.cuda.current_stream(dev).cuda_stream)
+    assert int(ingest_members._SCRATCH[key][0][0]) == 0        # the tile counter
+    assert (n_hits < 100) or not bool(dense[2].all())
 
 
 @pytest.mark.cuda
@@ -1161,9 +1222,10 @@ def test_ingest_downsample_kernel_long_runs_bit_for_bit(cuda_dev):
 @pytest.mark.cuda
 @pytest.mark.parametrize("segments", [False, True])
 def test_ingest_dispatch_sorts_and_tail_equal_plain(cuda_dev, segments, monkeypatch):
-    """One dispatch on the card: every K7s sort (4 a dispatch, BGKL 3), the
-    K7t launch and both K7b launches (BGKL: one) equal their plain versions on
-    the same card inputs bit for bit."""
+    """One dispatch on the card: every K7s sort (4 a dispatch, BGKL 3; the
+    free samples' over K7a's count), the K7t launch (against both its plain
+    versions) and both K7b launches (BGKL: one) equal their plain versions
+    on the same card inputs bit for bit."""
     pts, scan, origins, ca, ba = ingest_scene(62)
     mr, ds, fr, bs = INGEST["mr"], INGEST["ds"], INGEST["fr"], INGEST["block_size"]
     off = torch.from_numpy(ingest_keys.pack_offsets(np.array(
@@ -1193,7 +1255,10 @@ def test_ingest_dispatch_sorts_and_tail_equal_plain(cuda_dev, segments, monkeypa
         ref = ingest_sort.sort_runs_plain(*a, **k)
         for name, x, y in zip(out._fields, out, ref):
             assert (x is None and y is None) or torch.equal(x, y), name
+    if not segments:   # the free downsample's sort reads K7a's count
+        assert calls["sort_runs"][1][1].get("count") is not None
     for name, plain in (("bucket", ingest_bucket.bucket_plain),
+                        ("bucket", ingest_bucket.bucket_runs_plain),
                         ("centroids", ingest_downsample.centroids_plain)):
         for a, k, out in calls[name]:
             ref = plain(*a, **k)
@@ -1201,6 +1266,29 @@ def test_ingest_dispatch_sorts_and_tail_equal_plain(cuda_dev, segments, monkeypa
                             ref if name == "bucket" else (ref,)):
                 assert torch.equal(x, y), name
     assert int(tabs["ucount"].sum()) == tabs["ent"].shape[0] > 1000
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("long_run", [0, 300])
+@pytest.mark.parametrize("D", [3, 6])
+@pytest.mark.parametrize("G", [7, 27])
+def test_ingest_bucket_kernel_equals_both_plains(cuda_dev, G, D, long_run):
+    """K7t on ``bucket_inputs`` (a test block fed at all G slots; runs of 1
+    to 40 rows, or one of 300, longer than a warp's 64 rows; points and
+    segments): every output bit for bit the searchsorted plain version's and
+    the one read off the candidate runs, one launch."""
+    a, kw = bucket_inputs(70 + G + D, G=G, D=D, long_run=long_run, dev=cuda_dev)
+    before = ingest_bucket.launches
+    out = ingest_bucket.bucket(*a, **kw)
+    torch.cuda.synchronize()
+    assert ingest_bucket.launches == before + 1
+    for plain in (ingest_bucket.bucket_plain, ingest_bucket.bucket_runs_plain):
+        for x, y in zip(out, plain(*a, **kw)):
+            assert torch.equal(x, y), plain.__name__
+    U = a[5].shape[0]
+    assert bool((out[4] < U).all(1).any())            # a test block fed at every slot
+    assert int(a[9].max()) == G and out[0].shape[1] == D
+    assert long_run == 0 or int(torch.bincount(a[1].long()).max()) >= long_run
 
 
 #: K1′'s cases: block_depth → (res, ℓ, T, U, spread): the demo's 0.4 m

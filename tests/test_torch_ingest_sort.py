@@ -22,7 +22,8 @@ from la3dm_tpu_torch.geometry import blocks as geo, device_ingest
 from la3dm_tpu_torch.kernels import (ingest_beams, ingest_bucket, ingest_keys, ingest_members,
                                      ingest_sort)
 
-from torch_cases import INGEST, ingest_scene, one_torch_thread  # noqa: F401
+from torch_cases import (INGEST, bucket_inputs, ingest_scene,  # noqa: F401
+                         one_torch_thread)
 
 #: (mr, ds, block_size) of the demos (BGK, GP, BGKL: 8 m, ds 0.1, 0.4 m
 #: blocks), the BGK large map (30 m, ds 0.1, 0.8 m blocks) and the BGKL
@@ -261,27 +262,36 @@ def _parent_bucket(mkey, mrow, ent, lab, block_anchor, off_keys, block_size):
             "ucount": ucount, "tkey": tkey, "nb_row": nb_row, "tb_u": tb_u}
 
 
+@pytest.mark.parametrize("plain", ["runs", "search"])
 @pytest.mark.parametrize("G", [7, 27])
 @pytest.mark.parametrize("segments", [False, True])
-def test_plain_bucket_tail_equals_the_parents(G, segments, monkeypatch):
+def test_plain_bucket_tail_equals_the_parents(G, segments, plain, monkeypatch):
     """On a real dispatch's membership keys (3 scans of ``ingest_scene``),
     K7s + K7t give the parent's tables: every table bit for bit, the entry
     columns on the valid rows (the parent padded them to its keys and a
     sentinel; the point family's compact keys are the valid memberships
-    alone, BGKL's hits keep 8 slots a hit)."""
+    alone, BGKL's hits keep 8 slots a hit).  K7t's tail runs through each
+    plain version (``runs``: the slot maps read off the candidate sort's
+    runs, the kernel's; ``search``: torch.searchsorted), and the other gives
+    the same on the same call."""
     pts, scan, origins, ca, ba = ingest_scene(50)
     mr, ds, fr, bs = INGEST["mr"], INGEST["ds"], INGEST["fr"], INGEST["block_size"]
     offsets = geo.FACE_NEIGHBOR_OFFSETS if G == 7 else geo.full_neighbor_offsets()
     off = torch.from_numpy(ingest_keys.pack_offsets(offsets))
     seen = {}
 
-    def spy(mkey, mrow, ent, lab, block_anchor, off_keys, block_size, window, count=None):
+    def spy(mkey, mrow, ent, lab, block_anchor, off_keys, block_size, window, **kw):
         seen["args"] = (mkey, mrow, ent, lab, block_anchor, off_keys, block_size)
-        return orig(mkey, mrow, ent, lab, block_anchor, off_keys, block_size, window,
-                    count=count)
+        return orig(mkey, mrow, ent, lab, block_anchor, off_keys, block_size, window, **kw)
+
+    def tail(*a, **k):
+        seen["tail"] = (a, k)
+        return fns[plain](*a, **k)
 
     orig = device_ingest._bucket
+    fns = {"runs": ingest_bucket.bucket_runs_plain, "search": ingest_bucket.bucket_plain}
     monkeypatch.setattr(device_ingest, "_bucket", spy)
+    monkeypatch.setattr(ingest_bucket, "bucket", tail)
     kf = device_ingest.beam_slots(ds, fr, mr, bs)
     fn = device_ingest.ingest_batch_bgkl if segments else device_ingest.ingest_batch
     kw = {} if segments else {"free_label": 0.0}
@@ -297,6 +307,10 @@ def test_plain_bucket_tail_equals_the_parents(G, segments, monkeypatch):
     for k in ("ent", "ent_rel", "lab"):
         assert torch.equal(tabs[k], ref[k][:M]), k
     assert int(tabs["ucount"].max()) > 10 and (tabs["tb_u"] == len(tabs["ukey"])).any()
+    a, k = seen["tail"]
+    other = fns["search" if plain == "runs" else "runs"](*a, **k)
+    names = ("ent", "ent_rel", "lab", "nb_row", "tb_u")
+    assert all(torch.equal(tabs[n], x) for n, x in zip(names, other))
 
 
 def test_plain_bucket_rows_follow_the_sort_index():
@@ -311,19 +325,78 @@ def test_plain_bucket_rows_follow_the_sort_index():
     lab = torch.from_numpy(rng.random(8).astype(np.float32))
     runs = ingest_sort.sort_runs_plain(mkey, w, want_rid=True)
     off = torch.from_numpy(ingest_keys.pack_offsets(geo.FACE_NEIGHBOR_OFFSETS))
-    tkey = ingest_sort.sort_runs_plain((runs.ukey[:, None] + off).reshape(-1),
-                                       w.wider(1)).ukey
+    cand = ingest_sort.sort_runs_plain((runs.ukey[:, None] + off).reshape(-1), w.wider(1))
+    tail = (runs.ukey, cand.ukey, cand.perm, cand.starts, cand.counts, off,
+            torch.from_numpy(anchors))
     ent_s, ent_rel, lab_s, nb_row, tb_u = ingest_bucket.bucket(
-        runs.perm, runs.rid, mrow, ent, lab, runs.ukey, tkey, off, torch.from_numpy(anchors),
-        block_size=0.4)
+        runs.perm, runs.rid, mrow, ent, lab, *tail, block_size=0.4)
     assert all(torch.equal(x, y) for x, y in zip(
         (ent_s, ent_rel, lab_s, nb_row, tb_u),
-        ingest_bucket.bucket(runs.perm, runs.rid, mrow.to(torch.int32), ent, lab, runs.ukey,
-                             tkey, off, torch.from_numpy(anchors), block_size=0.4)))
+        ingest_bucket.bucket(runs.perm, runs.rid, mrow.to(torch.int32), ent, lab, *tail,
+                             block_size=0.4)))
     for i in range(64):
         e = int(mrow[runs.perm[i]])
         c = ingest_keys.unpack(runs.ukey[runs.rid[i].long()][None], torch.from_numpy(anchors))
         ctr = c.to(torch.float32)[0] * np.float32(0.4)
         assert torch.equal(ent_s[i], ent[e]) and lab_s[i] == lab[e]
         assert torch.equal(ent_rel[i], ent[e] - ctr.repeat(2))
-    assert torch.equal(tkey[nb_row], runs.ukey[:, None] - off[None, :])
+    assert torch.equal(cand.ukey[nb_row], runs.ukey[:, None] - off[None, :])
+
+@pytest.mark.parametrize("G", [7, 27])
+def test_mirror_slots_pair_the_offsets(G):
+    """The mirror of each neighbour slot: off[mirror[g]] = −off[g]; the face
+    offsets pair 2k − 1 with 2k, the 27-cell ones i with 27 − i (self first
+    in both), from the offsets and from their key deltas alike."""
+    offsets = geo.FACE_NEIGHBOR_OFFSETS if G == 7 else geo.full_neighbor_offsets()
+    want = [0] + ([g + 1 if g % 2 else g - 1 for g in range(1, 7)] if G == 7
+                  else [27 - g for g in range(1, 27)])
+    for o in (offsets, ingest_keys.pack_offsets(offsets)):
+        m = ingest_bucket.mirror_slots(o)
+        assert m.dtype == np.int32 and m.tolist() == want
+        assert np.array_equal(np.asarray(o)[m], -np.asarray(o))
+
+
+@pytest.mark.parametrize("case", ["a face left out", "one offset moved"])
+def test_bucket_raises_on_offsets_that_are_not_symmetric(case):
+    """Slot maps read off the candidate runs need each offset's negative
+    among the offsets: K7t's wrapper (its plain version here) and
+    :func:`mirror_slots` raise where one has none."""
+    offsets = geo.FACE_NEIGHBOR_OFFSETS.copy()
+    if case == "a face left out":
+        offsets = offsets[:6]
+    else:
+        offsets[3] = [1, 1, 0]
+    off = torch.from_numpy(ingest_keys.pack_offsets(offsets))
+    with pytest.raises(ValueError, match="not symmetric"):
+        ingest_bucket.mirror_slots(off)
+    rng = np.random.default_rng(4)
+    w = _windows("demo", 1)["block"]
+    anchors = _anchors(rng, 1)
+    runs = ingest_sort.sort_runs_plain(_keys_at_edges(rng, w, 16, anchors), w, want_rid=True)
+    cand = ingest_sort.sort_runs_plain((runs.ukey[:, None] + off).reshape(-1), w.wider(1))
+    ent, lab = torch.zeros((16, 3)), torch.zeros(16)
+    with pytest.raises(ValueError, match="not symmetric"):
+        ingest_bucket.bucket(runs.perm, runs.rid, torch.arange(16, dtype=torch.int32), ent,
+                             lab, runs.ukey, cand.ukey, cand.perm, cand.starts, cand.counts,
+                             off, torch.from_numpy(anchors), block_size=0.4)
+
+
+@pytest.mark.parametrize("D", [3, 6])
+@pytest.mark.parametrize("G", [7, 27])
+def test_plain_slot_maps_read_off_the_runs_equal_the_searched(G, D):
+    """On ``bucket_inputs`` (a full 3×3×3 cube of blocks, so a test block
+    fed at all G slots, and 300 blocks at random), the slot maps read off
+    the candidate runs equal the searchsorted ones, and every one of their
+    (u, g) and (t, g) is the key relation: tkey[nb_row[u, g]] = ukey[u] −
+    off[g], ukey[tb_u[t, g]] = tkey[t] + off[g] where it is not U."""
+    a, kw = bucket_inputs(80 + G + D, G=G, D=D)
+    runs = ingest_bucket.bucket_runs_plain(*a, **kw)
+    search = ingest_bucket.bucket_plain(*a, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(runs, search))
+    ukey, tkey, off = a[5], a[6], a[10]
+    nb_row, tb_u = runs[3], runs[4]
+    U = ukey.shape[0]
+    assert torch.equal(tkey[nb_row], ukey[:, None] - off[None, :])
+    fed = tb_u < U
+    assert torch.equal(ukey[tb_u[fed]], (tkey[:, None] + off[None, :])[fed])
+    assert bool(fed.all(1).any()) and bool((~fed).any())

@@ -102,11 +102,11 @@ def test_kernel_library_binds_every_entry_point():
     n_args = {"la3dm_bgk_heavy": 20, "la3dm_sparse_kernel_scan": 5, "la3dm_bgk_light": 23,
               "la3dm_lv_rows": 31, "la3dm_lv_prune": 18, "la3dm_gp_heavy": 35,
               "la3dm_gp_light": 27,
-              "la3dm_ingest_points": 9, "la3dm_ingest_beams": 13,
+              "la3dm_ingest_points": 9, "la3dm_ingest_beams": 18,
               "la3dm_ingest_downsample": 10, "la3dm_ingest_members": 15,
               "la3dm_bgk_aligned_heavy": 18, "la3dm_ingest_rays_count": 18,
               "la3dm_ingest_rays_write": 17,
-              "la3dm_raycast": 22, "la3dm_ingest_sort": 14, "la3dm_ingest_bucket": 21}
+              "la3dm_raycast": 22, "la3dm_ingest_sort": 14, "la3dm_ingest_bucket": 23}
     for name, n in n_args.items():
         fn = getattr(lib, name)
         assert fn.restype is ctypes.c_int and len(fn.argtypes) == n, name

@@ -500,6 +500,81 @@ def ingest_scene(seed, n_scans=3, n=400, dev="cpu"):
     return tuple(torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in arrs)
 
 
+def beam_kwargs(fr=INGEST["fr"], mr=INGEST["mr"], ds=INGEST["ds"]) -> dict:
+    """K7a's beam arguments (kf, mr, fr, inv_leaf) in f32, as ingest_batch
+    passes them."""
+    from la3dm_tpu_torch.geometry import device_ingest
+
+    f32 = np.float32
+    return dict(kf=device_ingest.beam_slots(ds, fr, mr, INGEST["block_size"]),
+                mr=float(f32(mr)), fr=float(f32(fr)), inv_leaf=float(f32(1.0 / ds)))
+
+
+def beam_edge_hits(fr, mr=INGEST["mr"], dev="cpu"):
+    """Hits of one scan at K7a's boundaries, along +x from an origin on a
+    cell face (x = 0, so each hit's range is its offset exactly and the
+    samples at multiples of fr sit on cell faces): beyond mr, at the origin,
+    within fr, at fr, at 6·fr in f32 and one ulp either side, at mr.
+    Returns (hits [8,3], their keys, origins [1,3], cell anchors, names,
+    the samples each keeps)."""
+    from la3dm_tpu_torch.geometry import device_ingest
+    from la3dm_tpu_torch.kernels import ingest_beams
+
+    f32 = np.float32
+    d6 = float(f32(6) * f32(fr))
+    kf = int(np.floor(mr / fr)) + 1
+    last = sum(float(f32(k + 1) * f32(fr)) < float(f32(mr)) for k in range(kf))
+
+    def ulp(x, toward):
+        return float(np.nextafter(f32(x), f32(toward)))
+
+    cases = [("beyond mr", ulp(mr, 2 * mr), 0), ("at the origin", 0.0, 0),
+             ("within fr", 0.5 * fr, 1), ("at fr", float(f32(fr)), 1),
+             ("at 6 fr", d6, 5 + 2), ("below 6 fr", ulp(d6, 0), 5 + 2),
+             ("above 6 fr", ulp(d6, 10), 6 + 2), ("at mr", float(f32(mr)), last + 2)]
+    origins = torch.tensor([[0.0, -0.05, 0.33]], dtype=torch.float32)
+    hits = (origins + torch.tensor([[x, 0.0, 0.0] for _, x, _ in cases])).contiguous()
+    anchors = torch.from_numpy(device_ingest.anchors(origins.numpy(), INGEST["ds"]))
+    keys = ingest_beams.point_keys_plain(hits, torch.zeros(len(hits), dtype=torch.int32),
+                                         origins, anchors,
+                                         inv_leaf=beam_kwargs()["inv_leaf"], lim=float("inf"))
+    return (*(x.to(dev) for x in (hits, keys, origins, anchors)), [c for c, _, _ in cases],
+            [k for _, _, k in cases])
+
+
+def bucket_inputs(seed, G=7, D=3, long_run=0, dev="cpu"):
+    """K7t's arguments (as ``device_ingest._bucket`` passes them, the sorts
+    by their plain versions) on memberships of random blocks round one scan's
+    anchor: a full 3×3×3 cube of blocks (its centre a test block fed at all
+    G slots), 300 blocks at random, each run 1-40 memberships, one of
+    ``long_run``; entries [E,D] (D = 6: segments), a tenth of them unused.
+    Returns (args, kwargs) of ``ingest_bucket.bucket``."""
+    from la3dm_tpu_torch.kernels import ingest_keys, ingest_sort
+
+    rng = np.random.default_rng(seed)
+    anchors = torch.from_numpy(rng.integers(-50, 50, (1, 3)).astype(np.int32))
+    cube = np.stack(np.meshgrid(*[np.arange(-1, 2)] * 3, indexing="ij"), -1).reshape(-1, 3)
+    blocks = np.concatenate([cube, rng.integers(-12, 13, (300, 3))]) + anchors.numpy()
+    counts = rng.integers(1, 41, len(blocks))
+    counts[5] = max(counts[5], long_run)
+    coords = torch.from_numpy(np.repeat(blocks, counts, 0))
+    mkey = ingest_keys.pack(torch.zeros(len(coords), dtype=torch.int32), coords, anchors)
+    mkey = mkey[torch.from_numpy(rng.permutation(len(mkey)))]
+    E = int(len(mkey) * 1.1)
+    mrow = torch.from_numpy(rng.permutation(E)[:len(mkey)].astype(np.int32))
+    ent = torch.from_numpy(rng.normal(0, 5, (E, D)).astype(np.float32))
+    lab = torch.from_numpy(rng.random(E).astype(np.float32))
+    window = ingest_sort.block_window(8.0, 0.1, 0.4, 1)
+    runs = ingest_sort.sort_runs_plain(mkey, window, want_rid=True)
+    offsets = geo.FACE_NEIGHBOR_OFFSETS if G == 7 else geo.full_neighbor_offsets()
+    off = torch.from_numpy(ingest_keys.pack_offsets(offsets))
+    cand = ingest_sort.sort_runs_plain((runs.ukey[:, None] + off[None, :]).reshape(-1),
+                                       window.wider(1))
+    args = (runs.perm, runs.rid, mrow, ent, lab, runs.ukey, cand.ukey, cand.perm,
+            cand.starts, cand.counts, off, anchors)
+    return tuple(x.to(dev) for x in args), {"block_size": 0.4}
+
+
 def aligned_heavy_inputs(seed, G=7, U=40, T=60, dev="cpu", segments=False, depth=3, res=0.1,
                          spread=0.3, counts=None):
     """K1′'s arguments on random tables: U entry blocks of 0..150 entries

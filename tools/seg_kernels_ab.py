@@ -2,7 +2,7 @@
 """K3 (the BGKLV tile row engine), K1 (the BGK and BGKL heavy pass, both
 branches), K1′ (the device-ingest heavy pass, both branches), K2 (the BGK
 light pass), K5 (the GP light pass), K6 (the raycast DDA), K7 (device
-ingest: K7c, K7s, K7t, K7b, BGKL's K7d) and K8 (the BGKLV prune) of two
+ingest: K7a, K7b, K7c, K7s, K7t, BGKL's K7d) and K8 (the BGKLV prune) of two
 checkouts on the same captured inputs, in one call.
 
 Run from the repository root on a machine with one CUDA card, with the
@@ -54,9 +54,11 @@ maps, times
 ``OnlineIntegrator`` on 12 scans of the BGK, GP and BGKL demos (device
 ingest), then times ``raycast_device`` over the 1,000,000 rays on its own
 60-scan BGK demo map.  K7's times: the whole dispatch's call (CUDA events,
-its host syncs inside), each K7b, K7c, K7s and K7t launch of it as
-chip_smoke.py's ``launch_ms`` times them, and each of its sorts alone (the
-membership sort is the third of the point family's four); on the BGKL dispatches K7d's call, its outputs hashed, its
+its host syncs inside), each K7a, K7b, K7c, K7s and K7t launch of it as
+chip_smoke.py's ``launch_ms`` times them, each K7a launch and each sort
+alone (the membership sort is the third of the point family's four, the
+candidate sort the last), and K7t with the candidate sort that feeds it; the
+beam slots kept; on the BGKL dispatches K7d's call, its outputs hashed, its
 device time from torch.profiler (every kernel, copy and memset of the
 call, the host's wait between its launches left out, the same measure for
 both checkouts) and the call with its wait by CUDA events.  The last lines
@@ -309,26 +311,41 @@ def device_ms(cs, fn, reps: int, kernel: str, per_call: int) -> float:
 def k7_run(args, kw, reps: int, cs) -> dict:
     """One device-ingest dispatch of this checkout: its tables' digest, the
     whole call's device time (CUDA events, its host syncs inside,
-    ``cs.cuda_ms``), each K7b, K7c, K7s and K7t launch of it timed by
-    ``cs.launch_ms`` (``cs``: the checkout's chip_smoke), and each sort
-    alone (``k7s_each_ms``); BGKL's K7d call
+    ``cs.cuda_ms``), each K7a, K7b, K7c, K7s and K7t launch of it timed by
+    ``cs.launch_ms`` (``cs``: the checkout's chip_smoke), each K7a launch
+    and each sort alone (``k7a_each_ms``: the raw points, then the beams;
+    ``k7s_each_ms``), K7t with the candidate sort that feeds it (the last
+    sort), the beam samples kept and the beam slots; BGKL's K7d call
     hashed (occ, seg, inr, the pair list) and timed by :func:`device_ms` and
-    by ``cs.cuda_ms`` (its wait inside)."""
+    by ``cs.cuda_ms`` (its wait inside).  Keyword arguments the checkout's
+    function does not take are dropped."""
+    import inspect
+
     import torch
 
     from la3dm_tpu_torch.geometry import device_ingest
-    from la3dm_tpu_torch.kernels import (ingest_bucket, ingest_downsample, ingest_members,
-                                         ingest_rays, ingest_sort)
+    from la3dm_tpu_torch.kernels import (ingest_beams, ingest_bucket, ingest_downsample,
+                                         ingest_keys, ingest_members, ingest_rays,
+                                         ingest_sort)
     kw = dict(kw)
     fn = getattr(device_ingest, kw.pop("fn"))
-    wrapped = [(ingest_downsample, "centroids", "k7b"), (ingest_rays, "ray_pairs", "k7d"),
+    kw = {k: v for k, v in kw.items() if k in inspect.signature(fn).parameters}
+    wrapped = [(ingest_beams, "point_keys", "k7a"), (ingest_beams, "beam_samples", "k7a"),
+               (ingest_downsample, "centroids", "k7b"), (ingest_rays, "ray_pairs", "k7d"),
                (ingest_members, "memberships", "k7c"), (ingest_sort, "sort_runs", "k7s"),
                (ingest_bucket, "bucket", "k7t")]
     calls = {tag: [] for _, _, tag in wrapped}
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in wrapped]
+
+    def recorder(orig, tag):
+        def rec(*a, **k):
+            res = orig(*a, **k)
+            calls[tag].append((orig, a, k, res))
+            return res
+        return rec
+
     for (mod, name, tag), (_, _, orig) in zip(wrapped, saved):
-        setattr(mod, name, lambda *a, _o=orig, _t=tag, **k: (calls[_t].append((a, k)),
-                                                            _o(*a, **k))[1])
+        setattr(mod, name, recorder(orig, tag))
     try:
         tabs = fn(*args, **kw)
     finally:
@@ -343,16 +360,27 @@ def k7_run(args, kw, reps: int, cs) -> dict:
     out["repeat_equal"] = _digest(*(again[k][:M] for k in K7_ROWS),
                                   *(again[k] for k in K7_TABLES)) == out["digest"]
     out["ms"] = cs.cuda_ms(lambda _: fn(*args, **kw), reps)
-    launch = {"k7b": ingest_downsample.centroids, "k7c": ingest_members.memberships,
-              "k7s": ingest_sort.launch, "k7t": ingest_bucket.bucket}
-    for tag, f in launch.items():
-        out[f"{tag}_ms"] = cs.launch_ms([lambda _, a=a, k=k, f=f: f(*a, **k)
-                                         for a, k in calls[tag]], reps)
+
+    def timed(f, a, k):
+        return lambda _: (ingest_sort.launch if f is ingest_sort.sort_runs else f)(*a, **k)
+
+    for tag in ("k7a", "k7b", "k7c", "k7s", "k7t"):
+        out[f"{tag}_ms"] = cs.launch_ms([timed(f, a, k) for f, a, k, _ in calls[tag]], reps)
         out[f"{tag}_launches"] = len(calls[tag])
-    out["k7s_each_ms"] = [cs.launch_ms([lambda _, a=a, k=k: ingest_sort.launch(*a, **k)],
-                                       reps) for a, k in calls["k7s"]]
+    for tag in ("k7a", "k7s"):
+        out[f"{tag}_each_ms"] = [cs.launch_ms([timed(f, a, k)], reps)
+                                 for f, a, k, _ in calls[tag]]
+    out["k7t_with_candidates_ms"] = out["k7t_ms"] + out["k7s_each_ms"][-1]
+    beams = [res for f, _, _, res in calls["k7a"] if f.__name__ == "beam_samples"]
+    if beams:
+        keys = beams[0][1]
+        out["k7a_slots"] = int(keys.numel())
+        # the compact layout leaves its count on the card; the dense one
+        # marks a dropped slot with the sentinel
+        out["k7a_kept"] = int(beams[0][3]) if len(beams[0]) > 3 \
+            else int((keys != ingest_keys.SENT).sum())
     if calls["k7d"]:
-        (a, k), = calls["k7d"]
+        (_, a, k, _), = calls["k7d"]
         rays = ingest_rays.ray_pairs(*a, **k)
         out["k7d_digest"] = _digest(*rays[:5])
         out["k7d_pairs"] = int(rays[3].numel())
@@ -632,10 +660,21 @@ def main() -> int:
                 f"{tag} other {o1[name].get(tag + '_ms')}, {o2[name].get(tag + '_ms')} / this "
                 f"{t1[name].get(tag + '_ms')}, {t2[name].get(tag + '_ms')} ms "
                 f"({t1[name].get(tag + '_launches')} launches)"
-                for tag in ("k7b", "k7c", "k7s", "k7t"))
-            parts += (f"; each sort alone other {o1[name]['k7s_each_ms']}, "
-                      f"{o2[name]['k7s_each_ms']} / this {t1[name]['k7s_each_ms']}, "
-                      f"{t2[name]['k7s_each_ms']} ms")
+                for tag in ("k7a", "k7b", "k7c", "k7s", "k7t"))
+            for tag, what in (("k7a", "each K7a launch alone (points, beams)"),
+                              ("k7s", "each sort alone")):
+                parts += (f"; {what} other {o1[name][tag + '_each_ms']}, "
+                          f"{o2[name][tag + '_each_ms']} / this {t1[name][tag + '_each_ms']}, "
+                          f"{t2[name][tag + '_each_ms']} ms")
+            parts += (f"; K7t with the candidate sort other "
+                      f"{o1[name]['k7t_with_candidates_ms']:.4f}, "
+                      f"{o2[name]['k7t_with_candidates_ms']:.4f} / this "
+                      f"{t1[name]['k7t_with_candidates_ms']:.4f}, "
+                      f"{t2[name]['k7t_with_candidates_ms']:.4f} ms")
+            if "k7a_kept" in t1[name]:
+                parts += (f"; beam samples kept {t1[name]['k7a_kept']} of "
+                          f"{t1[name]['k7a_slots']} slots (other: {o1[name]['k7a_kept']} of "
+                          f"{o1[name]['k7a_slots']})")
             if "k7d_digest" in t1[name]:
                 print(f"{name} K7d: {t1[name]['k7d_pairs']} pairs; device time other "
                       f"{o1[name]['k7d_device_ms']:.4f}, {o2[name]['k7d_device_ms']:.4f} / this "
