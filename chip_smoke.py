@@ -241,6 +241,25 @@ The large maps, after raycast (the BGK-family ones at their YAML's own
     f32 factors part from it by more than the limit at these models; its
     deviation and the card-vs-CPU ratio are printed).
 
+The command line, last (``la3dm_tpu_torch.cli.main`` in process, on the 60
+scans, :func:`cli_phase`):
+
+29. ``static`` for each family, BGK and BGKL on both ingest paths, every
+    export written (PLY, CSV, NPZ, ``.bt``, HTML), the family's kernels
+    launched once a scan on the card and its checkpoint bit-equal to an
+    in-process ``run_static(..., progress=...)``; ``static --profile-dir``
+    (BGK, 12 scans), its trace holding 12 K1′ and 12 K2 launches;
+    ``query``, ``raycast`` (one K6 launch) and ``frontier`` on the BGK
+    checkpoint, equal to ``search``, ``raycast_device`` and
+    ``frontier_leaves``; ``server --once`` and ``bag`` on 12 scans with a
+    repeated pose (the bag from :func:`write_bag`), each bit-equal to an
+    in-process ``OnlineIntegrator`` with the same gated count; ``eval``
+    against the scene's geometry as a ``.bt`` (:func:`scene_truth`) on 60
+    scans, and on 3 on the card and on the CPU; ``python -m
+    la3dm_tpu_torch.cli static --method bgklv`` in a subprocess;
+    ``entry()``'s step.  A ``{"cli": ...}`` JSON line gives each command's
+    seconds and the scans/s that ``static`` printed.
+
 Last, a ``kernels`` JSON line (K2's and K5's entries carry a ``large_block``
 record for 16³-voxel blocks beside their 4³ figures) and the device JSON
 line.  Every kernel time
@@ -253,10 +272,14 @@ failure exits non-zero.  Without a CUDA card it exits 2 at once.
 
 from __future__ import annotations
 
+import bz2
+import contextlib
 import dataclasses
+import io
 import json
 import math
 import os
+import struct
 import subprocess
 import sys
 import tempfile
@@ -267,9 +290,11 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from la3dm_tpu_torch import pipeline  # noqa: E402
+from la3dm_tpu_torch import cli, pipeline  # noqa: E402
 from la3dm_tpu_torch.geometry import blocks as geo, native  # noqa: E402
-from la3dm_tpu_torch.io.pcd import save_pcd  # noqa: E402
+from la3dm_tpu_torch.entry import entry, tiny_scan  # noqa: E402
+from la3dm_tpu_torch.io import octomap_bt, rosbag  # noqa: E402
+from la3dm_tpu_torch.io.pcd import load_pcd_full, save_pcd  # noqa: E402
 from la3dm_tpu_torch.kernels import (_build, bgk_aligned_heavy, bgk_heavy,  # noqa: E402
                                      bgk_light, gp_heavy, gp_light, group_prune, ingest_beams,
                                      ingest_bucket, ingest_downsample, ingest_keys,
@@ -278,7 +303,9 @@ from la3dm_tpu_torch.kernels import (_build, bgk_aligned_heavy, bgk_heavy,  # no
 from la3dm_tpu_torch.models import gp as gp_model, posterior, raycast as rc  # noqa: E402
 from la3dm_tpu_torch.models.bgklv import BGKLVOctoMap  # noqa: E402
 from la3dm_tpu_torch.models.gp import GPOctoMap  # noqa: E402
-from la3dm_tpu_torch.utils.config import DatasetConfig, load_method_config  # noqa: E402
+from la3dm_tpu_torch.utils.config import (DatasetConfig, load_dataset_config,  # noqa: E402
+                                          load_method_config)
+from la3dm_tpu_torch.viz import markers  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet): FP32 on the CUDA cores, HBM3 rate
 PEAK_FP32_FLOPS = 67e12
@@ -342,6 +369,84 @@ def synthetic_scans(n_scans: int, seed: int = 0):
 def write_pcds(scans, directory: str, prefix: str = "synth") -> None:
     for i, (cloud, origin) in enumerate(scans, start=1):
         save_pcd(os.path.join(directory, f"{prefix}_{i}.pcd"), cloud, origin)
+
+
+def _bag_record(fields: dict, data: bytes) -> bytes:
+    """One ROS bag v2.0 record: header fields (name=value), then data."""
+    head = b"".join(struct.pack("<I", len(k) + 1 + len(v)) + k.encode() + b"=" + v
+                    for k, v in fields.items())
+    return struct.pack("<I", len(head)) + head + struct.pack("<I", len(data)) + data
+
+
+def _ros_string(s: str) -> bytes:
+    return struct.pack("<I", len(s)) + s.encode()
+
+
+def _ros_header(seq: int, stamp_ns: int, frame: str) -> bytes:
+    return struct.pack("<III", seq, stamp_ns // 10**9, stamp_ns % 10**9) + _ros_string(frame)
+
+
+def _pointcloud2(cloud: np.ndarray, seq: int, stamp_ns: int) -> bytes:
+    """sensor_msgs/PointCloud2 of ``cloud`` [N,3] as x, y, z float32 and an
+    intensity float32 (16 bytes a point, one row)."""
+    n = len(cloud)
+    rec = np.zeros((n, 4), "<f4")
+    rec[:, :3] = cloud
+    rec[:, 3] = np.arange(n, dtype=np.float32)
+    fields = b"".join(_ros_string(name) + struct.pack("<IBI", 4 * k, 7, 1)
+                      for k, name in enumerate(("x", "y", "z", "intensity")))
+    body = rec.tobytes()
+    return (_ros_header(seq, stamp_ns, "map") + struct.pack("<II", 1, n)
+            + struct.pack("<I", 4) + fields + struct.pack("<B", 0)
+            + struct.pack("<II", 16, 16 * n) + struct.pack("<I", len(body)) + body
+            + struct.pack("<B", 1))
+
+
+def _pose_stamped(origin, quat_xyzw, seq: int, stamp_ns: int) -> bytes:
+    """geometry_msgs/PoseStamped: position, then orientation (x, y, z, w)."""
+    return (_ros_header(seq, stamp_ns, "map")
+            + struct.pack("<3d", *(float(v) for v in origin))
+            + struct.pack("<4d", *(float(v) for v in quat_xyzw)))
+
+
+def write_bag(path: str, scans, cloud_topic: str = "/selected_pc2_map",
+              pose_topic: str = "/robot_pose", per_chunk: int = 6) -> None:
+    """A ROS bag v2.0 of ``scans`` ((cloud, origin) pairs): a PoseStamped
+    (identity orientation) and a PointCloud2 each, 0.1 s apart, the pose
+    first, in chunks of ``per_chunk`` scans alternately uncompressed and
+    bz2, the connections written in the first chunk and again after the
+    chunks, as a recorder lays them out."""
+    conns = [(0, cloud_topic, "sensor_msgs/PointCloud2"),
+             (1, pose_topic, "geometry_msgs/PoseStamped")]
+
+    def conn_record(conn, topic, mtype):
+        data = b"".join(struct.pack("<I", len(f)) + f for f in (
+            f"topic={topic}".encode(), f"type={mtype}".encode(), b"md5sum=*"))
+        return _bag_record({"op": b"\x07", "conn": struct.pack("<I", conn),
+                            "topic": topic.encode()}, data)
+
+    chunks = []
+    for c0 in range(0, len(scans), per_chunk):
+        body = b"".join(conn_record(*c) for c in conns) if c0 == 0 else b""
+        for i in range(c0, min(c0 + per_chunk, len(scans))):
+            cloud, origin = scans[i]
+            t = (i + 1) * 100_000_000
+            body += _bag_record({"op": b"\x02", "conn": struct.pack("<I", 1),
+                                 "time": struct.pack("<Q", t)},
+                                _pose_stamped(origin, (0.0, 0.0, 0.0, 1.0), i, t))
+            body += _bag_record({"op": b"\x02", "conn": struct.pack("<I", 0),
+                                 "time": struct.pack("<Q", t + 1000)},
+                                _pointcloud2(cloud, i, t + 1000))
+        comp = "bz2" if (c0 // per_chunk) % 2 else "none"
+        data = bz2.compress(body) if comp == "bz2" else body
+        chunks.append(_bag_record({"op": b"\x05", "compression": comp.encode(),
+                                   "size": struct.pack("<I", len(body))}, data))
+    header = _bag_record({"op": b"\x03", "index_pos": struct.pack("<Q", 0),
+                          "conn_count": struct.pack("<I", len(conns)),
+                          "chunk_count": struct.pack("<I", len(chunks))}, b" " * 4000)
+    with open(path, "wb") as f:
+        f.write(b"#ROSBAG V2.0\n" + header + b"".join(chunks)
+                + b"".join(conn_record(*c) for c in conns))
 
 
 # ----------------------------------------------------------------- timing
@@ -1942,10 +2047,30 @@ def check_k7b(calls, what: str, reps: int = 5) -> dict:
                            for a, kw, _, _, _ in sorted_calls], reps)
     gather_ms = launch_ms([lambda _, p=p, q=q: p.index_select(0, q)
                            for _, _, _, p, q in sorted_calls], reps)
+    # the library's segmented sum: torch.segment_reduce over each run's
+    # members gathered in sorted order, compensated by the run's corner (the
+    # kernel's sums), one call a launch; its centroids beside the kernel's
+    lib_calls, lib_err = [], 0.0
+    for a, kw, cent in ds_calls:
+        pts, perm, starts, counts, run_keys, anchors = a
+        n_in = int(counts.sum())
+        corner = ingest_keys.unpack(run_keys, anchors).to(torch.float32) * kw["leaf"]
+        rid = torch.repeat_interleave(torch.arange(len(counts), device=pts.device), counts)
+        offs = (pts[perm[:n_in]] - corner[rid]).contiguous()
+        lengths = counts.to(torch.int64)
+        lib = corner + torch.segment_reduce(offs, "sum", lengths=lengths, axis=0) \
+            / counts.to(torch.float32)[:, None]
+        lib_err = max(lib_err, float((lib - cent).abs().max()))
+        lib_calls.append((offs, lengths))
+    library_ms = launch_ms([lambda _, o=o, n=n: torch.segment_reduce(o, "sum", lengths=n, axis=0)
+                            for o, n in lib_calls], reps)
     print(f"K7b, {what}: {ms:.4f} ms device time for its {len(ds_calls)} launch(es) (plain "
           f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by}); on points in sorted order "
-          f"{ms_sorted:.4f} ms, beside {gather_ms:.4f} ms for the gather that payload adds")
+          f"{ms_sorted:.4f} ms, beside {gather_ms:.4f} ms for the gather that payload adds; "
+          f"library (torch.segment_reduce sum over the gathered, compensated offsets) "
+          f"{library_ms:.4f} ms, its centroids within {lib_err:.3e} of the kernel's")
     return {"max_abs_err": err, "bit_equal": all(same), "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "library_max_abs_diff": lib_err,
             "bound_ms": b_ms, "bound_by": b_by, "outside_control": bad_ctl,
             "reverse_order_control_differs": n_rev,
             "launches_timed": len(ds_calls), "longest_run": longest, "warp_runs": warp_runs,
@@ -2694,6 +2819,312 @@ def large_bgk_family(cfg_off, cfg_on, pcd_dir: str, scans, heavy: bool) -> dict:
     return out
 
 
+# ------------------------------------------------------------- the command line
+
+def all_counts() -> dict:
+    """Every kernel wrapper's launch count (``ingest_sort``: its calls)."""
+    return {**ingest_counts(), "lv_rows": lv_rows.launches, "lv_prune": lv_prune.launches,
+            "raycast": k6.launches}
+
+
+def run_cli(argv) -> tuple[str, float]:
+    """``la3dm_tpu_torch.cli.main(argv)`` in this process, its standard
+    output captured; prints that output but for the per-scan lines, and
+    fails the run unless the command returns 0.  Returns (output, seconds)."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        code = cli.main(list(argv))
+    dt = time.perf_counter() - t0
+    text = buf.getvalue()
+    shown = [ln for ln in text.splitlines() if not ln.startswith(("Scan ", "One cloud"))]
+    print(f"cli {' '.join(argv[:3])} ... ({dt:.2f} s, rc {code}): " + " | ".join(shown)[:600],
+          flush=True)
+    require(code == 0, f"la3dm_tpu_torch.cli {argv[0]} returned {code}")
+    return text, dt
+
+
+def npz_arrays(path: str) -> dict:
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def require_same_npz(a: str, b: str, what: str) -> None:
+    """Two map checkpoints hold the same arrays, bit for bit."""
+    x, y = npz_arrays(a), npz_arrays(b)
+    require(sorted(x) == sorted(y) and all(
+        x[k].dtype == y[k].dtype and x[k].shape == y[k].shape and np.array_equal(x[k], y[k])
+        for k in x), f"{what}: the checkpoints differ")
+
+
+#: each static run of the CLI phase: (label, method, --set overrides, the
+#: kernels its main path must launch on the card)
+CLI_STATIC = (
+    ("bgk_host", "bgk", ['device_ingest="off"'], ("bgk_heavy", "bgk_light")),
+    ("bgk_device", "bgk", [], ("ingest_beams", "ingest_downsample", "ingest_members",
+                               "ingest_sort", "ingest_bucket", "bgk_aligned_heavy",
+                               "bgk_light")),
+    ("bgkl_host", "bgkl", ['device_ingest="off"'], ("bgk_heavy", "bgk_light")),
+    ("bgkl_device", "bgkl", [], ("ingest_beams", "ingest_downsample", "ingest_rays",
+                                 "ingest_members", "ingest_sort", "ingest_bucket",
+                                 "bgk_aligned_heavy", "bgk_light")),
+    ("bgklv", "bgklv", [], ("lv_rows",)),
+    ("gp", "gp", [], ("ingest_beams", "ingest_downsample", "ingest_members", "ingest_sort",
+                      "ingest_bucket", "gp_heavy", "gp_light")),
+)
+#: the exports of ``static --out``
+CLI_EXPORTS = ("_occupied.ply", "_free.ply", "_occupied.csv", "_map.npz", "_map.bt",
+               "_map.html")
+
+
+def write_dataset_yaml(path: str, pcd_dir: str, n_scans: int) -> str:
+    """The dataset YAML of the synthetic scans (``max_range`` 8 m, the room's
+    height as the colour range)."""
+    with open(path, "w") as f:
+        f.write(f"name: synth\ndir: {pcd_dir}\nprefix: synth\nscan_num: {n_scans}\n"
+                f"max_range: {MAX_RANGE}\nmin_z: 0.0\nmax_z: {ROOM[1][2]}\n")
+    return path
+
+
+def scene_truth(path: str, z_lo: float = 0.7, z_hi: float = 1.3, res: float = 0.1) -> int:
+    """The scene's known geometry as an OctoMap ``.bt`` at ``res``, the base
+    voxels of the band z_lo < z < z_hi over the room and one layer beyond its
+    walls: occupied where the voxel meets a wall (the last layer inside and
+    the first outside) or an obstacle, free elsewhere.  Returns the voxels."""
+    g = (np.arange(-61, 61) + 0.5) * res                         # -6.05 .. 6.05
+    z = (np.arange(int(round(z_lo / res)), int(round(z_hi / res))) + 0.5) * res
+    X, Y, Z = np.meshgrid(g, g, z, indexing="ij")
+    c = np.stack([X, Y, Z], -1).reshape(-1, 3)
+    lo, hi = ROOM
+    occ = ((c[:, :2] < lo[:2] + res) | (c[:, :2] > hi[:2] - res)).any(axis=1)
+    for blo, bhi in OBSTACLES:
+        occ |= np.all((c >= blo - res / 2) & (c <= bhi + res / 2), axis=1)
+    octomap_bt.write_bt(path, np.round(c, 6), np.full(len(c), res), occ, res)
+    return len(c)
+
+
+def cli_phase(tmp: str, scans) -> dict:
+    """The command line, ``la3dm_tpu_torch.cli.main`` in this process (so
+    that the kernels' launch counts can be read), over the synthetic scans
+    (60): ``static`` for each family (BGK and BGKL on both ingest paths),
+    every export written, the family's kernels launched on the card, its
+    checkpoint bit-equal to an in-process ``run_static(..., progress=...)``;
+    ``static --profile-dir`` (BGK, 12 scans), whose trace must name K1′ and
+    K2; ``query``, ``raycast`` (one K6 launch) and ``frontier`` on the BGK
+    checkpoint, each equal to ``search``, ``raycast_device`` and
+    ``frontier_leaves`` in process; ``server --once`` and ``bag`` on 12
+    scans with a repeated pose, each equal to an in-process
+    ``OnlineIntegrator`` with the same gated count; ``eval`` on 60 scans
+    against the scene's truth (``auc`` > 0.6, 0 < ``coverage`` < 1) and at 3
+    scans on the card and on the CPU (``gt_voxels`` equal, ``auc`` within
+    1e-3, ``known`` equal but for voxels on the update gate's boundary,
+    each shown with its added mass ≤ 1e-5); one subprocess, ``python -m
+    la3dm_tpu_torch.cli static --method bgklv`` on 12 scans; ``entry()``'s
+    step on the card, bit-equal to the pool its insert produced."""
+    root = os.path.join(tmp, "cli")
+    os.makedirs(root)
+    n = len(scans)
+    ds60 = write_dataset_yaml(os.path.join(root, "synth60.yaml"), tmp, n)
+    ds = load_dataset_config(ds60)
+    out = {"static": {}}
+
+    for label, method, sets, kernels in CLI_STATIC:
+        pre = os.path.join(root, label, "map")
+        argv = ["static", "--method", method, "--dataset", ds60, "--out", pre]
+        for s in sets:
+            argv += ["--set", s]
+        reset_counts()
+        text, dt = run_cli(argv)
+        got = all_counts()
+        rate = float(next(ln for ln in text.splitlines()
+                          if ln.startswith("Mapping finished")).split("(")[1].split()[0])
+        require(text.count("Scan ") == n, f"static {label}: not {n} scans one by one")
+        for suffix in CLI_EXPORTS:
+            require(os.path.getsize(pre + suffix) > 0, f"static {label}: no {suffix}")
+        # the same run in process, on the per-scan path the CLI takes
+        cfg = load_method_config(method, **cli._parse_overrides(sets))
+        reset_counts()
+        res = pipeline.run_static(cfg, ds, progress=lambda i, dt: None)
+        want = all_counts()
+        res.map.save(pre + "_inproc.npz")
+        require_same_npz(pre + "_map.npz", pre + "_inproc.npz", f"static {label}")
+        once_a_scan = [k for k in ("bgk_heavy", "bgk_aligned_heavy", "bgk_light", "lv_rows",
+                                   "gp_light") if k in kernels]
+        require(got == want and all(got[k] > 0 for k in kernels)
+                and all(got[k] == n for k in once_a_scan)
+                and not any(v for k, v in got.items() if k not in kernels),
+                f"static {label}: launches {got}, in process {want}")
+        print(f"cli static {label}: {rate:.2f} scans/s (printed), launches {got}, "
+              "checkpoint bit-equal to the in-process run", flush=True)
+        out["static"][label] = {"seconds": dt, "scans_per_s": rate, "launches": got}
+
+    n12 = min(n, 12)
+    ds12 = write_dataset_yaml(os.path.join(root, "synth12.yaml"), tmp, n12)
+    text, dt = run_cli(["static", "--method", "bgk", "--dataset", ds12,
+                        "--profile-dir", os.path.join(root, "profile")])
+    path = text.split("Chrome trace: ")[1].split(")")[0]
+    with open(path) as f:
+        names = [e.get("name", "") for e in json.load(f)["traceEvents"]
+                 if e.get("cat") == "kernel"]
+    seen = {k: sum(k in name for name in names)
+            for k in ("bgk_aligned_heavy_kernel", "bgk_light_kernel")}
+    print(f"cli static --profile-dir: {len(names)} kernels in {path}, {seen}", flush=True)
+    require(seen == {"bgk_aligned_heavy_kernel": n12, "bgk_light_kernel": n12},
+            f"the CLI's trace does not hold {n12} K1' and {n12} K2 launches: {seen}")
+    out["profile"] = {"seconds": dt, "kernels_in_trace": len(names),
+                      "trace_bytes": os.path.getsize(path)}
+
+    # query, raycast and frontier on the BGK device-ingest checkpoint
+    ckpt = os.path.join(root, "bgk_device", "map_map.npz")
+    m = pipeline.build_map(load_method_config("bgk"))
+    m.load(ckpt)
+    rng = np.random.default_rng(5)
+    hits = np.concatenate([c[rng.integers(0, len(c), 4)] for c, _ in scans[::6]])
+    origins = np.stack([o for _, o in scans[::6]]).repeat(4, axis=0)
+    words = [",".join(repr(float(v)) for v in p)
+             for p in np.concatenate([hits, 0.5 * (hits + origins)])]
+    pts = np.array([[float(x) for x in w.split(",")] for w in words])   # as the CLI reads
+    text, dt = run_cli(["query", "--method", "bgk", "--checkpoint", ckpt, "--", *words])
+    require(text.splitlines() == cli.query_lines(m, pts), "query differs from search()")
+    out["query"] = {"seconds": dt, "points": len(pts)}
+
+    n_rays = 400
+    ri = rng.integers(0, len(scans), n_rays)
+    r_o = np.stack([scans[i][1] for i in ri]).astype(np.float64)
+    r_t = np.stack([scans[i][0][rng.integers(0, len(scans[i][0]))] for i in ri]).astype(np.float64)
+    rays = np.concatenate([r_o, r_t], axis=1)
+    reset_counts()
+    text, dt = run_cli(["raycast", "--method", "bgk", "--checkpoint", ckpt, "--max-range",
+                        str(MAX_RANGE), "--", *(",".join(repr(float(v)) for v in r) for r in rays)])
+    launches = k6.launches
+    ref = rc.raycast_device(m, r_o, r_t - r_o, max_range=MAX_RANGE)
+    n_hit = int(ref["hit"].sum())
+    require(launches == 1, f"raycast launched K6 {launches} times")
+    require(text.splitlines() == cli.raycast_lines(ref) and n_hit > n_rays // 2,
+            f"raycast differs from raycast_device ({n_hit} hits)")
+    out["raycast"] = {"seconds": dt, "rays": n_rays, "hits": n_hit, "launches": launches}
+
+    fpath = os.path.join(root, "frontier.csv")
+    text, dt = run_cli(["frontier", "--method", "bgk", "--checkpoint", ckpt, "--out", fpath])
+    f = pipeline.frontier_leaves(m, var_min=0.02, prob_max=0.3, z_min=0.3, z_max=1.0)
+    markers.export_csv(fpath + ".inproc", f)
+    with open(fpath, "rb") as a, open(fpath + ".inproc", "rb") as b:
+        same = a.read() == b.read()
+    count = json.loads(text.splitlines()[0])["frontier_voxels"]
+    require(count == len(f["x"]) and same, "frontier differs from frontier_leaves()")
+    out["frontier"] = {"seconds": dt, "frontier_voxels": count}
+    del m
+
+    # server and bag: 12 scans, the seventh at the sixth's pose
+    online_scans = list(scans[:6]) + [scans[5]] + list(scans[6:n12 - 1])
+    watch = os.path.join(root, "watch")
+    os.makedirs(watch)
+    for i, (cloud, origin) in enumerate(online_scans):
+        save_pcd(os.path.join(watch, f"scan_{i:02d}.pcd"), cloud, origin)
+    cfg = load_method_config("bgk")
+    pre = os.path.join(root, "server", "map")
+    os.makedirs(os.path.dirname(pre))
+    reset_counts()
+    text, dt = run_cli(["server", "--method", "bgk", "--watch", watch, "--once", "--out", pre])
+    got = all_counts()
+    online = pipeline.OnlineIntegrator(pipeline.build_map(cfg))
+    for name in sorted(os.listdir(watch)):
+        online.offer(*load_pcd_full(os.path.join(watch, name)))
+    online.map.save(pre + "_inproc.npz")
+    require_same_npz(pre + "_map.npz", pre + "_inproc.npz", "server")
+    skipped = text.count("(motion gate)")
+    require(skipped == online.n_skipped == 1 and got["bgk_light"] == online.n_integrated,
+            f"server gated {skipped}, in process {online.n_skipped}; launches {got}")
+    out["server"] = {"seconds": dt, "integrated": online.n_integrated, "gated": skipped,
+                     "launches": got}
+
+    bag = os.path.join(root, "scans.bag")
+    write_bag(bag, online_scans)
+    pre = os.path.join(root, "bag", "map")
+    os.makedirs(os.path.dirname(pre))
+    text, dt = run_cli(["bag", "--method", "bgk", "--bag", bag, "--out", pre])
+    online = pipeline.OnlineIntegrator(pipeline.build_map(cfg))
+    for cloud, origin, quat in rosbag.replay(bag, with_orientation=True):
+        online.offer(cloud, origin, quat)
+    online.map.save(pre + "_inproc.npz")
+    require_same_npz(pre + "_map.npz", pre + "_inproc.npz", "bag")
+    summary = next(ln for ln in text.splitlines() if "clouds integrated" in ln)
+    require(summary.startswith(f"{online.n_integrated} clouds integrated "
+                               f"({online.n_skipped} gated)") and online.n_skipped == 1,
+            f"bag: {summary!r}, in process {online.n_integrated} / {online.n_skipped}")
+    out["bag"] = {"seconds": dt, "integrated": online.n_integrated,
+                  "gated": online.n_skipped}
+
+    truth = os.path.join(root, "truth.bt")
+    t0 = time.perf_counter()
+    n_truth = scene_truth(truth)
+    t_truth = time.perf_counter() - t0
+    text, dt = run_cli(["eval", "--method", "bgk", "--dataset", ds60, "--ground-truth", truth])
+    rep = json.loads(text.splitlines()[-1])
+    require(rep["gt_voxels"] == n_truth and rep["auc"] > 0.6 and 0 < rep["coverage"] < 1,
+            f"eval on 60 scans: {rep}")
+    reps = {}
+    for device in ("cuda", "cpu"):
+        text, dt3 = run_cli(["eval", "--method", "bgk", "--dataset", ds60, "--scan-num", "3",
+                             "--ground-truth", truth, "--device", device])
+        reps[device] = {**json.loads(text.splitlines()[-1]), "seconds": dt3}
+    card, host = reps["cuda"], reps["cpu"]
+    # the same maps in process, read at the truth's voxels: a voxel known on
+    # one side only must sit on the update gate's boundary, its added mass
+    # ≤ 1e-5 on both (k̄ > 0 on the sparse kernel's clamp, where the card's
+    # and the CPU's last ulp may decide apart; card_vs_cpu's rule)
+    centers = octomap_bt.expand_to_voxels(octomap_bt.read_bt(truth))["centers"]
+    ds3 = dataclasses.replace(ds, scan_num=3)
+    cfg = load_method_config("bgk")
+    at = {d: pipeline.run_static(cfg, ds3, device=d).map.search(centers.astype(np.float32))
+          for d in ("cuda", "cpu")}
+    apart = at["cuda"]["touched"] != at["cpu"]["touched"]
+    mass = np.max([np.abs(at[d][k] - p)[apart] for d in at
+                   for k, p in (("A", cfg.prior_A), ("B", cfg.prior_B))], axis=0,
+                  initial=0.0)
+    ties = {"voxels": int(apart.sum()), "card_only": int((apart & at["cuda"]["touched"]).sum()),
+            "largest_mass": float(mass.max(initial=0.0))}
+    print(f"cli eval, 3 scans: card {card}, cpu {host}; known on one side only "
+          f"{ties}", flush=True)
+    require(all(int(at[d]["touched"].sum()) == reps[d]["known"] for d in at),
+            "eval: the in-process maps do not reproduce the reports")
+    require(card["gt_voxels"] == host["gt_voxels"] and abs(card["auc"] - host["auc"]) <= 1e-3
+            and card["known"] - host["known"] == 2 * ties["card_only"] - ties["voxels"]
+            and ties["largest_mass"] <= 1e-5,
+            "eval: card and CPU differ beyond the gate boundary")
+    out["eval"] = {"seconds": dt, "truth_seconds": t_truth, "report": rep, "scans3": reps,
+                   "known_apart_at_gate": ties}
+
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "la3dm_tpu_torch.cli", "static", "--method",
+                        "bgklv", "--dataset", ds12],
+                       capture_output=True, text=True, timeout=300,
+                       cwd=os.path.dirname(os.path.abspath(__file__)))
+    dt = time.perf_counter() - t0
+    line = next((ln for ln in r.stdout.splitlines() if ln.startswith("Mapping finished")), "")
+    print(f"cli subprocess static --method bgklv, 12 scans: exit {r.returncode} in {dt:.2f} s; "
+          f"{line}; stderr {r.stderr[-300:]!r}", flush=True)
+    require(r.returncode == 0 and line, "python -m la3dm_tpu_torch.cli static failed")
+    out["subprocess"] = {"seconds": dt, "scans_per_s": float(line.split("(")[1].split()[0])}
+
+    # the single-card entry: the BGK step (K1, K2) on its captured arguments
+    # gives the pool its insert produced
+    step, args = entry()
+    reset_counts()
+    got = step(*args)
+    torch.cuda.synchronize()
+    launches = {"bgk_heavy": bgk_heavy.launches, "bgk_light": bgk_light.launches}
+    m = pipeline.build_map(load_method_config("bgk", max_range=8.0, device_ingest="off"))
+    m.insert_pointcloud(*tiny_scan(400))
+    pool = (m.pool.fields["A"], m.pool.fields["B"], m.pool.touched, m.pool.eff_level)
+    same = all(torch.equal(a, b) for a, b in zip(got, pool))
+    print(f"entry(): step launches {launches}, its pool bit-equal to the insert's {same} "
+          f"({m.pool.n_blocks} blocks)", flush=True)
+    require(same and launches == {"bgk_heavy": 1, "bgk_light": 1}, "entry() step differs")
+    out["entry"] = {"launches": launches, "blocks": m.pool.n_blocks}
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2969,6 +3400,10 @@ def main() -> int:
         # f32 factors part from f64 by more than GP_CPU_TOL
         dev_gp5 = card_vs_cpu_gp(cfg_gp5, tmp, n_scans=1, f64_ref=True)
 
+        stamp("the command line: static (every family), profile, query, raycast, frontier, "
+              "server, bag, eval, python -m")
+        cli_out = cli_phase(tmp, scans)
+
     launches = path["static60"]["launches"]
     launches_on = path_on["static60"]["launches"]
     kernels = [
@@ -3026,8 +3461,10 @@ def main() -> int:
          "source": "la3dm_tpu_torch/csrc/ingest_downsample.cu",
          "replaces": "la3dm_tpu/geometry/device_ingest.py:192",
          "launches": launches_on["ingest_downsample"],
-         "work": "the 2 launches (hits, frees) of one 16-scan BGK demo dispatch",
-         **k7["ingest_downsample"], "library_ms": None, "gp": k7_gp["ingest_downsample"],
+         "work": "the 2 launches (hits, frees) of one 16-scan BGK demo dispatch; "
+                 "library_ms: torch.segment_reduce sum over the gathered, compensated "
+                 "offsets, one call a launch",
+         **k7["ingest_downsample"], "gp": k7_gp["ingest_downsample"],
          "bgkl": k7_l["ingest_downsample"], "bgkl_large_map": k7_ll["ingest_downsample"],
          "bgk_large_map": k7_bl["ingest_downsample"]},
         {"name": "ingest_sort", "route": "cuda",
@@ -3136,6 +3573,7 @@ def main() -> int:
           f"{1e3 * k2['ms_per_launch']:.2f} us at 4^3")
     stamp("done")
     print(json.dumps(summary))
+    print(json.dumps({"cli": cli_out}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

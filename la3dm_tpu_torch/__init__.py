@@ -18,7 +18,8 @@ Raycast (``models/raycast.py``: the host stepper ``raycast`` and the device
 DDA ``raycast_device`` / ``raycast_snapshot``, K6) runs over any map.
 
 Maps run on the GPU unless the caller passes ``device="cpu"``; there is no
-silent fall-back to the CPU.
+silent fall-back to the CPU.  The command line is ``python -m
+la3dm_tpu_torch.cli`` (the JAX CLI's seven commands, plus ``--device``).
 """
 
 __version__ = "0.1.0"

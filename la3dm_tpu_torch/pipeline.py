@@ -22,6 +22,7 @@ import numpy as np
 
 from la3dm_tpu_torch.geometry.preprocess import voxel_downsample
 from la3dm_tpu_torch.io.pcd import load_pcd
+from la3dm_tpu_torch.io.rosbag import quat_angle
 from la3dm_tpu_torch.models.base import OccupancyMapBase, State
 from la3dm_tpu_torch.models.bgk import BGKOctoMap
 from la3dm_tpu_torch.models.bgkl import BGKLOctoMap
@@ -99,12 +100,6 @@ def run_static(cfg: MapConfig, ds: DatasetConfig,
     if batched:
         per_scan = [total / max(ds.scan_num, 1)] * ds.scan_num
     return StaticRunResult(map=m, per_scan_seconds=per_scan, total_seconds=total)
-
-
-def quat_angle(q1: np.ndarray, q2: np.ndarray) -> float:
-    """Rotation angle (rad) between two unit quaternions (xyzw)."""
-    d = abs(float(np.dot(q1, q2)))
-    return 2.0 * float(np.arccos(min(1.0, d)))
 
 
 class OnlineIntegrator:

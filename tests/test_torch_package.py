@@ -44,6 +44,9 @@ def test_import_pulls_in_no_jax():
         "import la3dm_tpu_torch.geometry.device_ingest, la3dm_tpu_torch.models.ingest\n"
         "import la3dm_tpu_torch.kernels.bgk_aligned_heavy, la3dm_tpu_torch.models.bgkl\n"
         "import la3dm_tpu_torch.models.raycast, la3dm_tpu_torch.kernels.ingest_rays\n"
+        "import la3dm_tpu_torch.cli, la3dm_tpu_torch.entry, la3dm_tpu_torch.io.octomap_bt\n"
+        "import la3dm_tpu_torch.io.rosbag, la3dm_tpu_torch.viz.markers\n"
+        "import la3dm_tpu_torch.viz.html, la3dm_tpu_torch.utils.profiling\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "assert not bad, bad\n"

@@ -156,6 +156,14 @@ def assert_matches_jax_device(m, jm, o, d, max_range, snapshot=None, jsnapshot=N
 
     assert agree(ours) >= agree(ref) and agree(ours) >= 0.95 * len(o), \
         (agree(ours), agree(ref), named)
+    assert_ties_on_path(m, o, d, ours, named)
+    return ours, named
+
+
+def assert_ties_on_path(m, o, d, ours, named):
+    """Each ray of ``named`` has a voxel on the port's path (``ours``) that
+    XLA's CPU code and the f32 expressions read apart, and each such voxel
+    is a tie: its centre on a block or voxel face in exact arithmetic."""
     cfg = m.cfg
     for i in named:
         dn = (d[i] / np.linalg.norm(d[i].astype(np.float64))).astype(np.float32)
@@ -172,7 +180,6 @@ def assert_matches_jax_device(m, jm, o, d, max_range, snapshot=None, jsnapshot=N
         loc_exact = k - fb[apart].astype(np.int64) * m.n + m.n / 2
         tie = (blk_exact == np.round(blk_exact)) | (loc_exact == np.round(loc_exact))
         assert tie.all(), f"ray {i}: a voxel read apart off a face"
-    return ours, named
 
 
 def test_raycast_plain_counts_the_probes_each_lookup_takes():
