@@ -260,6 +260,34 @@ scans, :func:`cli_phase`):
     ``entry()``'s step.  A ``{"cli": ...}`` JSON line gives each command's
     seconds and the scans/s that ``static`` printed.
 
+Sharding (``la3dm_tpu_torch/parallel/``, :func:`sharded_phase`), after the
+command line:
+
+30. (a) each family's YAML on ``block_mesh(4)`` on cuda:0, on each ingest
+    path it has (BGK 60 scans, the others 12), and BGKLV's large-map YAML
+    (``original_size``, 12 scans), through ``run_static``: the map
+    bit-equal, keyed by block coordinates, to the unsharded map's (every
+    field, ``touched``, ``eff_level``); the heavy kernel (K1, K1 seg, K1′,
+    K3) and K8 launched once per (dispatch, shard with a block), K2 or K5
+    once per (scan, shard with a block), and K4 once per (dispatch, shard
+    with a block, size tier, models counted there or on a lower shard)
+    holding a model that serves the shard, counted from the unsharded map's
+    own dispatches, by the wrappers' counters and (but K4) again by
+    torch.profiler; timed unsharded, sharded, sharded, unsharded; (b) BGK
+    and GP on the host path from ``capacity=16`` in one batched insert (the
+    pool grows inside it), then ``rebalance()`` before each of 4 more scans:
+    bit-equal, the generation moved, the shards' touched voxels within the
+    LPT bound; (c) a one-rank NCCL group (a file store) over 4 shards, BGK
+    as (b) on device ingest, so that the relayouts, the load gathers and the
+    checkpoint's reads run on NCCL: bit-equal; (d) two ``gloo`` ranks of 2
+    shards on cuda:0 in subprocesses (``chip_smoke.py --sharded-worker``),
+    BGK and GP as (c): rank 0's checkpoints bit-equal to the unsharded
+    maps'; (e) the same on NCCL, one card a rank, where the machine has two
+    cards (else printed as not run); (f) ``entry.dryrun_multichip(4)`` with
+    its skew lines.  A ``{"sharded": ...}`` JSON line, before the
+    ``kernels`` line, gives each case's seconds, scans/s beside the
+    unsharded map's and launch counts, with the card's name and power limit.
+
 Last, a ``kernels`` JSON line (K2's and K5's entries carry a ``large_block``
 record for 16³-voxel blocks beside their 4³ figures) and the device JSON
 line.  Every kernel time
@@ -294,7 +322,7 @@ from la3dm_tpu_torch import cli, pipeline  # noqa: E402
 from la3dm_tpu_torch.geometry import blocks as geo, native  # noqa: E402
 from la3dm_tpu_torch.entry import entry, tiny_scan  # noqa: E402
 from la3dm_tpu_torch.io import octomap_bt, rosbag  # noqa: E402
-from la3dm_tpu_torch.io.pcd import load_pcd_full, save_pcd  # noqa: E402
+from la3dm_tpu_torch.io.pcd import load_pcd, load_pcd_full, save_pcd  # noqa: E402
 from la3dm_tpu_torch.kernels import (_build, bgk_aligned_heavy, bgk_heavy,  # noqa: E402
                                      bgk_light, gp_heavy, gp_light, group_prune, ingest_beams,
                                      ingest_bucket, ingest_downsample, ingest_keys,
@@ -3125,6 +3153,391 @@ def cli_phase(tmp: str, scans) -> dict:
     return out
 
 
+
+# ---------------------------------------------------------------- sharding
+
+#: shards of phase 30's one-process meshes (``block_mesh(SHARDS)`` on cuda:0)
+SHARDS = 4
+
+
+def keyed_state(m) -> dict:
+    """A map's blocks in coordinate order: coords, every field, touched and
+    eff_level as host arrays (raster voxel order)."""
+    slots = np.asarray(m.pool.active_slots())
+    coords = m.pool.coords[slots]
+    order = np.lexsort((coords[:, 2], coords[:, 1], coords[:, 0]))
+    slots = slots[order]
+    out = {"coords": coords[order], "touched": m._gather_rows(m.pool.touched, slots),
+           "eff_level": m._gather_rows(m.pool.eff_level, slots)}
+    for k, v in m.pool.fields.items():
+        out[f"field_{k}"] = m._gather_rows(v, slots)
+    return out
+
+
+def keyed_npz(path: str) -> dict:
+    """A checkpoint's arrays, its blocks in coordinate order."""
+    data = npz_arrays(path)
+    c = data["coords"]
+    order = np.lexsort((c[:, 2], c[:, 1], c[:, 0]))
+    return {k: v[order] for k, v in data.items() if k != "config"}
+
+
+def require_same_state(a: dict, b: dict, what: str) -> int:
+    """Two keyed states hold the same blocks and the same bits in every
+    array; returns the block count."""
+    require(sorted(a) == sorted(b), f"{what}: the arrays differ")
+    for k in a:
+        x, y = np.ascontiguousarray(a[k]), np.ascontiguousarray(b[k])
+        same = (x.shape == y.shape and x.dtype == y.dtype
+                and np.array_equal(x.view(np.uint8), y.view(np.uint8)))
+        require(same, f"{what}: {k} differs from the unsharded map's")
+    return len(a["coords"])
+
+
+def step_log(m) -> list:
+    """Record each engine dispatch of the unsharded map ``m`` as a dict of
+    its test blocks' (or tiles') ``coords``, scan starts ``ss`` and counts
+    ``sc``, and for GP its models' target rows ``nb`` and point ``counts``,
+    by wrapping the family's step on the instance."""
+    log = []
+
+    def wrap(name, pick):
+        step = getattr(m, name)
+
+        def recorded(*a, **kw):
+            slots, ss, sc, *models = pick(*a)
+            rec = {"coords": m.pool.coords[np.asarray(slots, np.int64)].copy(),
+                   "ss": list(ss), "sc": list(sc)}
+            if models:  # the device's nb is copied on the device: no sync
+                nb, counts = models
+                rec["nb"] = nb.clone() if torch.is_tensor(nb) else np.array(nb)
+                rec["counts"] = np.array(counts)
+            log.append(rec)
+            return step(*a, **kw)
+
+        setattr(m, name, recorded)
+
+    if isinstance(m, BGKLVOctoMap):
+        wrap("_lv_step", lambda e, lab, ids, tiles: (tiles["slots"], [0],
+                                                     [len(tiles["slots"])]))
+    elif isinstance(m, GPOctoMap):
+        wrap("_gp_step", lambda *a: (a[6], a[8], a[9], a[4], a[5]))
+    else:
+        wrap("_host_step", lambda cat, ss, sc: (cat["slots"], ss, sc))
+        wrap("_ingest_step", lambda tabs, slots, ss, sc: (slots, ss, sc))
+    return log
+
+
+def gp_tier_launches(nb, counts, shard: np.ndarray) -> int:
+    """K4's launches on a sharded GP map for one dispatch: for each shard
+    with a test block, one per size tier and per counted / uncounted half
+    that holds a model serving it (a model is counted on the lowest shard it
+    serves).  ``nb`` [M, G] indexes the dispatch's test blocks (their
+    ``shard``; an index past them serves none), ``counts`` [M] the models'
+    points."""
+    nb = nb.cpu().numpy() if torch.is_tensor(nb) else np.asarray(nb)
+    T = len(shard)
+    owner = np.append(shard, np.iinfo(np.int64).max)[np.minimum(nb.astype(np.int64), T)]
+    home = owner.min(axis=1)
+    base = counts <= gp_heavy.BASE_MAX_C
+    n = 0
+    for d in np.unique(shard):
+        serves = (owner == d).any(axis=1)
+        for tier in (base, ~base):
+            for half in (home == d, home != d):
+                n += int((serves & tier & half).any())
+    return n
+
+
+def expected_launches(log, sm, rule: str) -> int:
+    """The launches a sharded map ``sm`` (no relayout since its first
+    block) owes for the dispatches of ``log`` of a kernel whose ``rule`` is
+    "dispatch" (once per dispatch and shard with a block), "scan" (once per
+    scan and shard with a block of it) or "tier" (GP's K4,
+    :func:`gp_tier_launches`)."""
+    n = 0
+    for rec in log:
+        slots = sm.pool.lookup(rec["coords"])
+        require((slots >= 0).all(), "a block of the unsharded map is not in the sharded map")
+        shard = slots // sm.pool.chunk
+        if rule == "dispatch":
+            n += len(np.unique(shard))
+        elif rule == "scan":
+            n += sum(len(np.unique(shard[a:a + c])) for a, c in zip(rec["ss"], rec["sc"]))
+        else:
+            n += gp_tier_launches(rec["nb"], rec["counts"], shard)
+    return n
+
+
+#: phase 30's cases: (label, method YAML, device_ingest, scans, the kernels
+#: counted as (counter module, CUDA name for torch.profiler or None, launch
+#: rule of :func:`expected_launches`))
+SHARD_CASES = (
+    ("bgk_host", "bgk", "off", 60, ((bgk_heavy, "bgk_heavy_kernel", "dispatch"),
+                                    (bgk_light, "bgk_light_kernel", "scan"))),
+    ("bgk_device", "bgk", "auto", 60,
+     ((bgk_aligned_heavy, "bgk_aligned_heavy_kernel", "dispatch"),
+      (bgk_light, "bgk_light_kernel", "scan"))),
+    ("bgkl_host", "bgkl", "off", 12, ((bgk_heavy, "bgk_heavy_seg_kernel", "dispatch"),
+                                      (bgk_light, "bgk_light_kernel", "scan"))),
+    ("bgkl_device", "bgkl", "auto", 12,
+     ((bgk_aligned_heavy, "bgk_aligned_heavy_kernel", "dispatch"),
+      (bgk_light, "bgk_light_kernel", "scan"))),
+    # K4 is one launch a call of its wrapper but a factorisation kernel and
+    # a prediction kernel a chunk of models: counted by the wrapper alone
+    ("gp_host", "gp", "off", 12, ((gp_heavy, None, "tier"),
+                                  (gp_light, "gp_light_kernel", "scan"))),
+    ("gp_device", "gp", "auto", 12, ((gp_heavy, None, "tier"),
+                                     (gp_light, "gp_light_kernel", "scan"))),
+    ("bgklv_host", "bgklv", "auto", 12, ((lv_rows, "lv_rows_acc_kernel", "dispatch"),)),
+    # original_size: one scan a dispatch, and K8 after each K3
+    ("bgklv_large", "bgklvoctomap_large_map", "auto", 12,
+     ((lv_rows, "lv_rows_acc_kernel", "dispatch"),
+      (lv_prune, "lv_prune_kernel", "dispatch"))),
+)
+
+
+def sharded_case(label, yaml, ingest, n_scans, kernels, pcd_dir: str) -> dict:
+    """(a): ``run_static`` of the family's YAML on the unsharded map and on
+    a ``block_mesh(SHARDS)`` map of ample capacity; bit-equal maps; each of
+    ``kernels`` launched as its rule says for the unsharded map's
+    dispatches, by the wrappers' counters and (where it has a CUDA name)
+    again by torch.profiler on a last sharded run.  Timed runs in the order
+    unsharded, sharded, sharded, unsharded, each on a fresh map."""
+    from la3dm_tpu_torch.parallel import mesh as pm, sharded_map as smod
+
+    cfg = load_method_config(yaml, max_range=MAX_RANGE, device_ingest=ingest)
+    method = cfg.method
+    cls = {"bgk": smod.ShardedBGKOctoMap, "bgkl": smod.ShardedBGKLOctoMap,
+           "gp": smod.ShardedGPOctoMap, "bgklv": smod.ShardedBGKLVOctoMap}[method]
+    ds = DatasetConfig(name="synth", dir=pcd_dir, prefix="synth", scan_num=n_scans,
+                       max_range=cfg.max_range)
+    um = pipeline.MAP_CLASSES[method](cfg)
+    log = step_log(um)
+    ures = [pipeline.run_static(cfg, ds, map_obj=um)]
+    cap = 4 * um.pool.n_blocks
+
+    def sharded_run():
+        return pipeline.run_static(cfg, ds, map_obj=cls(cfg, mesh=pm.block_mesh(SHARDS),
+                                                        capacity=cap))
+
+    reset_counts()
+    res = [sharded_run()]
+    sm = res[0].map
+    counted = {mod.__name__.rsplit(".", 1)[1]: mod.launches for mod, _, _ in kernels}
+    require(sm.pool.generation == 0, f"{label}: the sharded pool was re-laid out")
+    want, prof_want = {}, {}
+    for mod, cuda_name, rule in kernels:
+        name = mod.__name__.rsplit(".", 1)[1]
+        want[name] = expected_launches(log, sm, rule)
+        require(counted[name] == want[name] > 0,
+                f"{label}: {name} launched {counted[name]} times, expected {want[name]}")
+        if cuda_name:
+            prof_want[cuda_name] = want[name]
+    n_blocks = require_same_state(keyed_state(sm), keyed_state(um), f"sharded {label}")
+    per_shard = np.bincount(sm.pool.active_slots() // sm.pool.chunk, minlength=SHARDS)
+    res.append(sharded_run())
+    ures.append(pipeline.run_static(cfg, ds, map_obj=pipeline.MAP_CLASSES[method](cfg)))
+    profiled(sharded_run, prof_want)
+    if method == "gp":
+        require(int(sm.failed_models) == int(um.failed_models) == 0,
+                f"{label}: failed factorisations")
+    out = {"scans": n_scans, "seconds": [r.total_seconds for r in res],
+           "scans_per_s": [r.scans_per_second for r in res],
+           "unsharded_seconds": [r.total_seconds for r in ures],
+           "unsharded_scans_per_s": [r.scans_per_second for r in ures],
+           "blocks": n_blocks, "blocks_per_shard": per_shard.tolist(),
+           "dispatches": len(log), "launches": counted, "expected": want,
+           "profiler": prof_want}
+    print(f"sharded {label} ({SHARDS} shards, {n_scans} scans): bit-equal over {n_blocks} "
+          f"blocks {per_shard.tolist()}; scans/s {out['scans_per_s']} (unsharded, first and "
+          f"last {out['unsharded_scans_per_s']}); launches {counted}, expected {want} over "
+          f"{len(log)} dispatches; profiler {prof_want}", flush=True)
+    return out
+
+
+def grow_and_rebalance(m, scans, sharded: bool) -> list:
+    """Scans 0-11 in one batched insert, then 12-15 one at a time, each
+    after a ``rebalance()`` of a sharded map; returns each rebalance's
+    (max, mean + heaviest block) of the shards' touched voxels."""
+    m.insert_pointclouds([c for c, _ in scans[:12]], [o for _, o in scans[:12]])
+    bounds = []
+    for cloud, origin in scans[12:16]:
+        if sharded:
+            m.rebalance()
+            block = m.pool.whole_rows(m.pool.touched).sum(dim=1, dtype=torch.float64)
+            block = block.cpu().numpy()
+            per = block.reshape(m.pool.n_shards, -1).sum(axis=1)
+            bounds.append((float(per.max()), float(per.mean() + block.max())))
+        m.insert_pointcloud(cloud, origin)
+    return bounds
+
+
+def pcd_scans(pcd_dir: str, n: int) -> list:
+    return [load_pcd(os.path.join(pcd_dir, f"synth_{i}.pcd")) for i in range(1, n + 1)]
+
+
+def growth_case(method: str, pcd_dir: str) -> dict:
+    """(b): from ``capacity=16`` on the host path (growth inside a batched
+    insert re-resolves the earlier scans' slots), then ``rebalance()``
+    between scans: bit-equal, generation moved, the LPT bound held."""
+    from la3dm_tpu_torch.parallel import mesh as pm, sharded_map as smod
+
+    cfg = load_method_config(method, max_range=MAX_RANGE, device_ingest="off")
+    cls = {"bgk": smod.ShardedBGKOctoMap, "gp": smod.ShardedGPOctoMap}[method]
+    scans = pcd_scans(pcd_dir, 16)
+    um = pipeline.MAP_CLASSES[method](cfg)
+    t0 = time.perf_counter()
+    grow_and_rebalance(um, scans, False)
+    um.synchronize()
+    t_u = time.perf_counter() - t0
+    sm = cls(cfg, mesh=pm.block_mesh(SHARDS), capacity=16)
+    t0 = time.perf_counter()
+    bounds = grow_and_rebalance(sm, scans, True)
+    sm.synchronize()
+    t_s = time.perf_counter() - t0
+    n_blocks = require_same_state(keyed_state(sm), keyed_state(um), f"growth {method}")
+    require(sm.pool.capacity > 16 and sm.pool.generation >= 5,
+            f"growth {method}: capacity {sm.pool.capacity}, generation {sm.pool.generation}")
+    require(all(mx <= lim + 1e-9 for mx, lim in bounds), f"growth {method}: LPT bound {bounds}")
+    print(f"sharded growth {method}: bit-equal over {n_blocks} blocks, capacity 16 -> "
+          f"{sm.pool.capacity}, generation {sm.pool.generation}; shard loads (max, bound) "
+          f"{bounds}; {t_s:.3f} s (unsharded {t_u:.3f} s) for 16 scans", flush=True)
+    return {"scans": 16, "seconds": t_s, "unsharded_seconds": t_u, "blocks": n_blocks,
+            "capacity": sm.pool.capacity, "generation": sm.pool.generation,
+            "lpt_max_and_bound": bounds}
+
+
+def sharded_worker(argv) -> int:
+    """One rank of (d) or (e), run as ``chip_smoke.py --sharded-worker
+    <init_method> <world> <rank> <backend> <pcd_dir> <out_dir>``: 2 shards
+    on cuda:0 (gloo) or cuda:<rank> (nccl), BGK and GP on their YAML (device
+    ingest) from ``capacity=16`` as :func:`grow_and_rebalance`; process 0
+    saves each map."""
+    from la3dm_tpu_torch.parallel import distributed, sharded_map as smod
+
+    init, world, rank, backend, pcd_dir, out = argv
+    world, rank = int(world), int(rank)
+    device = "cuda:0" if backend == "gloo" else f"cuda:{rank}"
+    distributed.initialize(backend=backend, init_method=init, rank=rank, world_size=world,
+                           device=device)
+    mesh = distributed.global_mesh(shards_per_rank=2, device=device)
+    scans = pcd_scans(pcd_dir, 16)
+    for method, cls in (("bgk", smod.ShardedBGKOctoMap), ("gp", smod.ShardedGPOctoMap)):
+        m = cls(load_method_config(method, max_range=MAX_RANGE), mesh=mesh, capacity=16)
+        t0 = time.perf_counter()
+        bounds = grow_and_rebalance(m, scans, True)
+        m.synchronize()
+        dt = time.perf_counter() - t0
+        require(all(mx <= lim + 1e-9 for mx, lim in bounds), f"rank {rank}: LPT bound")
+        m.save(os.path.join(out, f"{method}_{backend}.npz"))
+        print(json.dumps({"rank": rank, "method": method, "seconds": dt,
+                          "capacity": m.pool.capacity, "generation": m.pool.generation}),
+              flush=True)
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def ranks_case(backend: str, pcd_dir: str, out: str) -> dict:
+    """(d) gloo, two ranks on cuda:0, or (e) nccl, one card each: two
+    subprocesses of :func:`sharded_worker`; process 0's checkpoints bit-equal
+    to the unsharded maps of the same inserts."""
+    init = f"tcp://localhost:{free_port()}"
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--sharded-worker",
+                               init, "2", str(r), backend, pcd_dir, out],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    wall = time.perf_counter() - t0
+    for p, (o, e) in zip(procs, outs):
+        require(p.returncode == 0, f"a {backend} rank failed:\n{o[-2000:]}\n{e[-4000:]}")
+    rows = [json.loads(line) for o, _ in outs for line in o.splitlines()
+            if line.startswith("{")]
+    scans = pcd_scans(pcd_dir, 16)
+    res = {"wall_s": wall, "ranks": rows}
+    for method in ("bgk", "gp"):
+        um = pipeline.MAP_CLASSES[method](load_method_config(method, max_range=MAX_RANGE))
+        grow_and_rebalance(um, scans, False)
+        path = os.path.join(out, f"{method}_unsharded.npz")
+        um.save(path)
+        n = require_same_state(keyed_npz(os.path.join(out, f"{method}_{backend}.npz")),
+                               keyed_npz(path), f"{backend} ranks {method}")
+        res[f"{method}_blocks"] = n
+    print(f"sharded {backend}: 2 ranks x 2 shards, BGK and GP (device ingest, 16 scans, "
+          f"growth and rebalance) bit-equal to the unsharded maps; {wall:.1f} s with the "
+          f"ranks' start; ranks {rows}", flush=True)
+    return res
+
+
+def nccl_one_rank(pcd_dir: str, tmp: str) -> dict:
+    """(c): a one-rank NCCL group (file store) over 4 shards on cuda:0, BGK
+    on its YAML (device ingest) as :func:`grow_and_rebalance`, so that the
+    relayouts, the load gathers and the checkpoint's reads run on NCCL."""
+    from la3dm_tpu_torch.parallel import distributed, sharded_map as smod
+
+    distributed.initialize(backend="nccl", init_method=f"file://{tmp}/nccl_store", rank=0,
+                           world_size=1, device="cuda:0")
+    try:
+        mesh = distributed.global_mesh(shards_per_rank=SHARDS, device="cuda:0")
+        require(torch.distributed.get_backend() == "nccl" and mesh.distributed,
+                "the one-rank group is not on NCCL")
+        cfg = load_method_config("bgk", max_range=MAX_RANGE)
+        scans = pcd_scans(pcd_dir, 16)
+        sm = smod.ShardedBGKOctoMap(cfg, mesh=mesh, capacity=16)
+        t0 = time.perf_counter()
+        grow_and_rebalance(sm, scans, True)
+        sm.synchronize()
+        dt = time.perf_counter() - t0
+        um = pipeline.MAP_CLASSES["bgk"](cfg)
+        grow_and_rebalance(um, scans, False)
+        a, b = os.path.join(tmp, "nccl_sharded.npz"), os.path.join(tmp, "nccl_unsharded.npz")
+        sm.save(a)
+        um.save(b)
+        n = require_same_state(keyed_npz(a), keyed_npz(b), "one-rank NCCL BGK")
+    finally:
+        torch.distributed.destroy_process_group()
+    print(f"sharded nccl (one rank, {SHARDS} shards): BGK 16 scans bit-equal over {n} "
+          f"blocks, generation {sm.pool.generation}; {dt:.3f} s", flush=True)
+    return {"scans": 16, "seconds": dt, "blocks": n, "generation": sm.pool.generation}
+
+
+def sharded_phase(pcd_dir: str, tmp: str, smi: str) -> dict:
+    """Phase 30 (module docstring)."""
+    from la3dm_tpu_torch.entry import dryrun_multichip
+
+    t0 = time.perf_counter()
+    out = {"card": smi, "shards": SHARDS, "cases": {}}
+    for label, yaml, ingest, n, kernels in SHARD_CASES:
+        out["cases"][label] = sharded_case(label, yaml, ingest, n, kernels, pcd_dir)
+    out["growth"] = {m: growth_case(m, pcd_dir) for m in ("bgk", "gp")}
+    out["nccl_one_rank"] = nccl_one_rank(pcd_dir, tmp)
+    out["gloo_two_ranks"] = ranks_case("gloo", pcd_dir, tmp)
+    if torch.cuda.device_count() >= 2:
+        out["nccl_two_cards"] = ranks_case("nccl", pcd_dir, tmp)
+    else:
+        out["nccl_two_cards"] = None
+        print("sharded: NCCL across cards did not run (one card)", flush=True)
+    out["dryrun_multichip"] = dryrun_multichip(SHARDS)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3404,6 +3817,10 @@ def main() -> int:
               "server, bag, eval, python -m")
         cli_out = cli_phase(tmp, scans)
 
+        stamp("sharding: 4 shards on the card (every family, both ingest paths), growth and "
+              "rebalance, a one-rank NCCL group, two gloo ranks, dryrun_multichip")
+        sharded_out = sharded_phase(tmp, tmp, smi)
+
     launches = path["static60"]["launches"]
     launches_on = path_on["static60"]["launches"]
     kernels = [
@@ -3574,6 +3991,7 @@ def main() -> int:
     stamp("done")
     print(json.dumps(summary))
     print(json.dumps({"cli": cli_out}))
+    print(json.dumps({"sharded": sharded_out}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3582,4 +4000,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--sharded-worker"]:
+        sys.exit(sharded_worker(sys.argv[2:]))
     sys.exit(main())

@@ -15,7 +15,11 @@ GP maps on a CUDA device ingest their scans on the card (``device_ingest:
 auto``): the ingest pipeline (K7a/b/c, and BGKL's per-ray block dedup K7d)
 and, for BGK and BGKL, the aligned heavy pass (K1′) are CUDA kernels too.
 Raycast (``models/raycast.py``: the host stepper ``raycast`` and the device
-DDA ``raycast_device`` / ``raycast_snapshot``, K6) runs over any map.
+DDA ``raycast_device`` / ``raycast_snapshot``, K6) runs over any map.  The
+sharded maps (``parallel/``: ``sharded_map.Sharded*OctoMap`` on a
+``mesh.block_mesh`` or a ``torch.distributed`` group's
+``distributed.global_mesh``) split the pool into shards and run each
+family's kernels once per shard.
 
 Maps run on the GPU unless the caller passes ``device="cpu"``; there is no
 silent fall-back to the CPU.  The command line is ``python -m

@@ -45,6 +45,12 @@ class BlockPool:
     tensor, plus ``touched`` (bool) and ``eff_level`` (int8).
     """
 
+    #: growth generation.  This pool's growth appends (slot ids are stable),
+    #: so it never moves; the sharded pool (parallel/sharded_map.py) bumps it
+    #: whenever it re-lays out its slots.  Engines that hold slot ids across
+    #: ``ensure`` calls compare generations and re-resolve with ``lookup``.
+    generation = 0
+
     def __init__(self, voxels_per_block: int, fields: dict[str, float],
                  device: torch.device, capacity: int | None = None):
         self.V = voxels_per_block
@@ -93,9 +99,22 @@ class BlockPool:
             out[hit] = self._key_slots[pos[hit]]
         return out
 
-    def ensure(self, coords: np.ndarray) -> np.ndarray:
+    @property
+    def shard_rows(self) -> int:
+        """Rows of the pool tensors one engine call addresses: the whole
+        pool here, a shard's slice in the sharded pool."""
+        return self.capacity
+
+    def whole_rows(self, arr: torch.Tensor) -> torch.Tensor:
+        """The pool tensor ``arr`` as rows addressed by slot: the tensor
+        itself (a pool sharded over several processes gathers its rows)."""
+        return arr
+
+    def ensure(self, coords: np.ndarray,
+               weights: np.ndarray | None = None) -> np.ndarray:
         """Slots for integer block coords [N,3], allocating missing blocks in
-        first-seen order."""
+        first-seen order.  ``weights`` [N], the work each block brings, is
+        for the sharded pool's placement; this pool ignores it."""
         keys = geo.pack_key(np.asarray(coords))
         slots = self._find(keys)
         miss = np.nonzero(slots < 0)[0]
@@ -141,7 +160,7 @@ class OccupancyMapBase:
         self.V = cfg.voxels_per_block
         self.block_size = cfg.block_size
         self.FIELD_FILLS = self._field_fills()
-        self.pool = BlockPool(self.V, self.FIELD_FILLS, self.device)
+        self.pool = self._make_pool()
         # voxel-center offset tables per octree level, [L, V, 3]
         self._level_offsets = np.stack(
             [geo.level_offsets(cfg.resolution, cfg.block_depth, L)
@@ -156,6 +175,9 @@ class OccupancyMapBase:
         #: query_fetch_bytes = device→host bytes fetched by queries
         self.stats = {"kernel_evals": 0, "scans": 0, "host_s": 0.0,
                       "query_fetch_bytes": 0}
+
+    def _make_pool(self) -> BlockPool:
+        return BlockPool(self.V, self.FIELD_FILLS, self.device)
 
     def _make_state_fn(self):
         raise NotImplementedError
@@ -172,10 +194,12 @@ class OccupancyMapBase:
         self.stats["query_fetch_bytes"] += out.nbytes
         return out
 
-    def _to_device(self, x: np.ndarray) -> torch.Tensor:
-        """Host array → tensor on the map's device.  To a GPU the copy goes
-        from pinned memory without blocking the host, so building the next
-        chunk's tables overlaps the device work."""
+    def _to_device(self, x) -> torch.Tensor:
+        """Host array → tensor on the map's device (a tensor passes as it
+        is).  To a GPU the copy goes from pinned memory without blocking the
+        host, so building the next chunk's tables overlaps the device work."""
+        if torch.is_tensor(x):
+            return x
         t = torch.from_numpy(np.ascontiguousarray(x))
         if self.device.type == "cuda":
             return t.pin_memory().to(self.device, non_blocking=True)
@@ -218,6 +242,7 @@ class OccupancyMapBase:
     def _gather_rows(self, arr: torch.Tensor, slots: np.ndarray) -> np.ndarray:
         """``arr[slots]`` as host numpy, raster voxel order; the gather runs
         on the device and only len(slots)·V elements cross to the host."""
+        arr = self.pool.whole_rows(arr)
         idx = torch.as_tensor(np.asarray(slots, np.int64), device=arr.device)
         return self._stored_to_raster(self._fetch(arr[idx]))
 
@@ -237,9 +262,9 @@ class OccupancyMapBase:
                              device=self.device)
         out = {}
         for name, arr in self.pool.fields.items():
-            vals = self._fetch(arr[sl, vi])
+            vals = self._fetch(self.pool.whole_rows(arr)[sl, vi])
             out[name] = np.where(exists, vals, np.float32(self.FIELD_FILLS[name]))
-        tch = self._fetch(self.pool.touched[sl, vi])
+        tch = self._fetch(self.pool.whole_rows(self.pool.touched)[sl, vi])
         out["touched"] = np.where(exists, tch, False)
         post = self._posterior(out)
         post["touched"] = out["touched"]
@@ -310,6 +335,10 @@ class OccupancyMapBase:
 
     def save(self, path: str) -> None:
         """Serialize the full map state (the JAX package's NPZ format)."""
+        np.savez_compressed(path, **self._checkpoint())
+
+    def _checkpoint(self) -> dict[str, np.ndarray]:
+        """The arrays :meth:`save` writes."""
         slots = self.pool.active_slots()
         data = {
             "coords": self.pool.coords[slots],
@@ -319,7 +348,7 @@ class OccupancyMapBase:
         }
         for k, v in self.pool.fields.items():
             data[f"field_{k}"] = self._gather_rows(v, slots)
-        np.savez_compressed(path, **data)
+        return data
 
     def load(self, path: str) -> None:
         """Load a checkpoint written by :meth:`save` of either package."""

@@ -42,6 +42,12 @@ from la3dm_tpu_torch.utils.config import MapConfig
 _ROW_W = bgk_heavy.ROW_W
 #: max scans per dispatch (one heavy pass, then one light pass per scan)
 _SCAN_BATCH = 16
+#: the host path's dispatch tables, in the step's argument order, and their
+#: types: entries, labels, merged entry ids and their neighbour slot, the
+#: rows' block, start and count, the test blocks' slots and centres
+_HOST_TABLES = {"ent": np.float32, "lab": np.float32, "ids": np.int32, "gs": np.int8,
+                "rb": np.int32, "rs": np.int32, "rn": np.int32, "slots": np.int32,
+                "ctr": np.float32}
 
 
 def _bgk_seq_step(A, Bv, touched, eff, all_nodes, node_idx_tab,
@@ -220,14 +226,14 @@ class BGKOctoMap(ingest.DeviceIngestMixin, base.OccupancyMapBase):
                 self._integrate(tables[i:i + _SCAN_BATCH])
             return
         t_host0 = time.perf_counter()
-        cfg = self.cfg
         Vall = self._all_nodes_host.shape[0]
-        parts = {k: [] for k in ("ent", "lab", "ids", "gs", "rb", "rs", "rn",
-                                 "slots", "ctr")}
-        scan_start, scan_count = [], []
+        parts = {k: [] for k in _HOST_TABLES}
+        coords, scan_start, scan_count = [], [], []
         ent_off = id_off = blk_off = 0
+        gen0 = self.pool.generation
         for t in tables:
-            slots = self.pool.ensure(t.test_coords)
+            # entry totals weight the sharded pool's placement
+            slots = self.pool.ensure(t.test_coords, weights=t.counts.sum(axis=1))
             ids, gslot, row_block, row_start, row_count, totals = \
                 self._row_tables(t)
             parts["ent"].append(t.entries)
@@ -239,6 +245,7 @@ class BGKOctoMap(ingest.DeviceIngestMixin, base.OccupancyMapBase):
             parts["rn"].append(row_count)
             parts["slots"].append(slots)
             parts["ctr"].append(self.block_centers(t.test_coords))
+            coords.append(t.test_coords)
             scan_start.append(blk_off)
             scan_count.append(len(slots))
             ent_off += len(t.entries)
@@ -247,22 +254,30 @@ class BGKOctoMap(ingest.DeviceIngestMixin, base.OccupancyMapBase):
             self.stats["kernel_evals"] += int(totals.sum()) * Vall
             self.stats["scans"] += 1
 
-        cat = {k: np.concatenate(v) for k, v in parts.items()}
+        cat = {k: np.concatenate(v).astype(_HOST_TABLES[k]) for k, v in parts.items()}
+        if self.pool.generation != gen0:
+            # a sharded pool re-laid out its slots while later tables were
+            # ensured: re-resolve the whole batch
+            cat["slots"] = self.pool.lookup(np.concatenate(coords)).astype(np.int32)
+        self.stats["host_s"] += time.perf_counter() - t_host0
+        self._host_step(cat, scan_start, scan_count)
+
+    def _host_step(self, cat: dict, scan_start: list, scan_count: list,
+                   rows: slice = slice(None)) -> None:
+        """K1, then K2 a scan, on the host path's tables ``cat`` (host
+        arrays of :data:`_HOST_TABLES`' types, or tensors on the device) and
+        the pool rows ``rows``, which the slots address."""
+        t0 = time.perf_counter()
+        cfg = self.cfg
         dev = self._to_device
-        args = (self.pool.fields["A"], self.pool.fields["B"], self.pool.touched,
-                self.pool.eff_level, self._all_nodes, self._node_idx,
-                dev(cat["ent"].astype(np.float32)),
-                dev(cat["lab"].astype(np.float32)),
-                dev(cat["ids"].astype(np.int32)), dev(cat["gs"].astype(np.int8)),
-                dev(cat["rb"].astype(np.int32)), dev(cat["rs"].astype(np.int32)),
-                dev(cat["rn"].astype(np.int32)),
-                dev(cat["slots"].astype(np.int32)),
-                dev(cat["ctr"].astype(np.float32)),
-                scan_start, scan_count)
+        pool = self.pool
+        args = (pool.fields["A"][rows], pool.fields["B"][rows], pool.touched[rows],
+                pool.eff_level[rows], self._all_nodes, self._node_idx,
+                *(dev(cat[k]) for k in _HOST_TABLES), scan_start, scan_count)
         statics = dict(G=self.num_slots, sf2=cfg.sf2, ell=cfg.ell, gate=self.GATE,
                        n=self.n, max_level=cfg.block_depth - 1,
                        state_fn=self._state_fn, do_prune=cfg.block_depth > 1)
-        self.stats["host_s"] += time.perf_counter() - t_host0
+        self.stats["host_s"] += time.perf_counter() - t0
         if getattr(self, "_capture_step_args", False):
             # the step updates the pool in place: keep copies of its inputs
             self._last_step_call = (
@@ -274,16 +289,25 @@ class BGKOctoMap(ingest.DeviceIngestMixin, base.OccupancyMapBase):
                                scan_count) -> None:
         """Device tables of one dispatch → K1′ + K2 (``centers`` unused: K1′
         takes the entries relative to their block's centre)."""
-        cfg = self.cfg
         G, Vall = self.num_slots, self._all_nodes_host.shape[0]
         self.stats["kernel_evals"] += int(ucount.sum()) * G * Vall
+        self._ingest_step(tabs, slots, scan_start, scan_count)
+
+    def _ingest_step(self, tabs: dict, slots: np.ndarray, scan_start: list,
+                     scan_count: list, rows: slice = slice(None)) -> None:
+        """K1′, then K2 a scan, on the device tables ``tabs`` (``tb_u`` [T, G]
+        the test blocks' rows, ``slots`` [T] their slots) and the pool rows
+        ``rows``."""
+        cfg = self.cfg
+        pool = self.pool
         _bgk_seq_step_aligned(
-            self.pool.fields["A"], self.pool.fields["B"], self.pool.touched,
-            self.pool.eff_level, self._ext_nodes, self._node_idx, tabs["ent_rel"],
+            pool.fields["A"][rows], pool.fields["B"][rows], pool.touched[rows],
+            pool.eff_level[rows], self._ext_nodes, self._node_idx, tabs["ent_rel"],
             tabs["lab"], tabs["ustart"], tabs["ucount"], tabs["tb_u"],
-            self._to_device(slots), scan_start, scan_count, G=G, sf2=cfg.sf2,
-            ell=cfg.ell, gate=self.GATE, n=self.n, max_level=cfg.block_depth - 1,
-            state_fn=self._state_fn, do_prune=cfg.block_depth > 1)
+            self._to_device(slots), scan_start, scan_count, G=self.num_slots,
+            sf2=cfg.sf2, ell=cfg.ell, gate=self.GATE, n=self.n,
+            max_level=cfg.block_depth - 1, state_fn=self._state_fn,
+            do_prune=cfg.block_depth > 1)
 
     def _posterior(self, fields: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
         cfg = self.cfg

@@ -226,10 +226,15 @@ class BGKLVOctoMap(base.OccupancyMapBase):
         pos = np.clip(np.searchsorted(cand_keys, bk), 0, max(len(cand_keys) - 1, 0))
         in_sweep = cand_keys[pos] == bk if len(cand_keys) else np.zeros(len(bk), bool)
         # the worked blocks first, in key order, then the rest of the sweep:
-        # the JAX package's allocation order, so both give the same slots
-        wb_keys = np.unique(bk[in_sweep])
+        # the JAX package's allocation order, so both give the same slots;
+        # the worked blocks' hit and ray counts weight the sharded pool's
+        # placement
+        wb_keys, wb_inv = np.unique(bk[in_sweep], return_inverse=True)
         if len(wb_keys):
-            self.pool.ensure(geo.unpack_key(wb_keys))
+            w = np.zeros(len(wb_keys), np.float64)
+            np.add.at(w, wb_inv.reshape(-1),
+                      (h_count + r_count)[in_sweep].astype(np.float64))
+            self.pool.ensure(geo.unpack_key(wb_keys), weights=w)
         self.pool.ensure(cand)
         slots = self.pool.lookup(blk_coords)
         keep = (slots >= 0) & in_sweep
@@ -251,14 +256,13 @@ class BGKLVOctoMap(base.OccupancyMapBase):
         ri_ = _intra(r_count)
         ids[np.repeat(mstart + h_count, r_count) + ri_] = \
             rays_sorted[np.repeat(r_start, r_count) + ri_].astype(np.int64) + H
-        return {"slots": slots, "pos_id": pos_id, "centers": centers,
-                "mcount": mcount, "ids": ids, "td": td}
+        return {"slots": slots, "blk_coords": blk_coords[keep], "pos_id": pos_id,
+                "centers": centers, "mcount": mcount, "ids": ids, "td": td}
 
     def _integrate_many(self, tds: list, tables: list | None = None) -> None:
         """Integrate K ≤ SCAN_BATCH scans in one dispatch (then prune each
         updated block with original_size)."""
-        cfg = self.cfg
-        if self.pool.capacity * self.V >= 2 ** 31:
+        if self.pool.shard_rows * self.V >= 2 ** 31:
             raise ValueError("pool capacity × V overflows int32 flat addressing")
         if tables is None:
             tables = [None] * len(tds)
@@ -268,11 +272,16 @@ class BGKLVOctoMap(base.OccupancyMapBase):
                                      tables[i:i + _SCAN_BATCH])
             return
         t_host0 = time.perf_counter()
+        gen0 = self.pool.generation
         scans = [s for s in (self._scan_rows(td, tb)
                              for td, tb in zip(tds, tables)) if s is not None]
         if not scans:
             return
-        W = _ROW_W
+        if self.pool.generation != gen0:
+            # a sharded pool re-laid out its slots while later scans' sweeps
+            # were ensured: re-resolve the earlier scans' slots
+            for s in scans:
+                s["slots"] = self.pool.lookup(s["blk_coords"])
 
         # global entries: per scan [hits as degenerate segments; rays]
         ent_parts, lab_parts, base_off = [], [], []
@@ -289,47 +298,59 @@ class BGKLVOctoMap(base.OccupancyMapBase):
         entries = np.concatenate(ent_parts, axis=0).astype(np.float32)
         labels = np.concatenate(lab_parts)
         ids = np.concatenate([s["ids"] + b for s, b in zip(scans, base_off)])
-        slots = np.concatenate([s["slots"] for s in scans])
-        pos_id = np.concatenate([s["pos_id"] for s in scans])
-        centers = np.concatenate([s["centers"] for s in scans], axis=0)
-        mcount = np.concatenate([s["mcount"] for s in scans])
-        mstart = np.concatenate([[0], np.cumsum(mcount)[:-1]])
-        T = len(slots)
+        tiles = {k: np.concatenate([s[k] for s in scans])
+                 for k in ("slots", "pos_id", "centers", "mcount")}
+        tiles["mstart"] = np.concatenate([[0], np.cumsum(tiles["mcount"])[:-1]])
 
-        # fixed-width rows over each tile's merged entry list
+        self.stats["kernel_evals"] += int(tiles["mcount"].sum()) * self.Vt
+        self.stats["scans"] += len(scans)
+        dev = self._to_device
+        entries, labels, ids = dev(entries), dev(labels), dev(ids.astype(np.int32))
+        self.stats["host_s"] += time.perf_counter() - t_host0
+        self._lv_step(entries, labels, ids, tiles)
+
+    def _lv_step(self, entries, labels, ids, tiles: dict, rows: slice = slice(None)) -> None:
+        """K3 on the (scan, tile) list ``tiles`` (host arrays: each tile's
+        slot, position in its block, block centre, and its run ``mstart``,
+        ``mcount`` of the merged entry ids ``ids``), cut into rows of
+        ``_ROW_W``, on the pool rows ``rows``, which the slots address; then,
+        with original_size, K8 over the tiles' blocks."""
+        t0 = time.perf_counter()
+        W = _ROW_W
+        mcount = tiles["mcount"]
         nrows = (mcount + W - 1) // W
         j = _intra(nrows)
-        row_tile = np.repeat(np.arange(T, dtype=np.int32), nrows)
-        row_start = (np.repeat(mstart, nrows) + j * W).astype(np.int32)
+        row_tile = np.repeat(np.arange(len(mcount), dtype=np.int32), nrows)
+        row_start = (np.repeat(tiles["mstart"], nrows) + j * W).astype(np.int32)
         row_count = np.minimum(W, np.repeat(mcount, nrows) - j * W).astype(np.int32)
 
-        self.stats["kernel_evals"] += int(mcount.sum()) * self.Vt
-        self.stats["scans"] += len(scans)
-
+        cfg = self.cfg
         dev = self._to_device
-        args = (self.pool.fields["A"], self.pool.fields["B"], self.pool.touched,
-                self.pool.eff_level, self._vox_base_t,
-                dev(entries), dev(labels), dev(ids.astype(np.int32)),
+        pool = self.pool
+        args = (pool.fields["A"][rows], pool.fields["B"][rows], pool.touched[rows],
+                pool.eff_level[rows], self._vox_base_t, entries, labels, ids,
                 dev(row_tile), dev(row_start), dev(row_count),
-                dev(slots.astype(np.int32)), dev(pos_id),
-                dev(centers.astype(np.float32)))
+                dev(tiles["slots"].astype(np.int32)), dev(tiles["pos_id"]),
+                dev(tiles["centers"].astype(np.float32)))
         statics = dict(sf2=cfg.sf2, ell=cfg.ell, free_res=self._last_free_res,
                        gate=self.GATE)
-        self.stats["host_s"] += time.perf_counter() - t_host0
+        self.stats["host_s"] += time.perf_counter() - t0
         if getattr(self, "_capture_step_args", False):
             # the step updates the pool in place: keep copies of its inputs
             self._last_step_call = (tuple(a.clone() for a in args), statics)
         lv_rows.lv_rows(*args, **statics)
 
         if cfg.original_size and cfg.block_depth > 1:
-            self._prune(np.unique(slots))
+            self._prune(np.unique(tiles["slots"]), rows)
 
-    def _prune(self, slots: np.ndarray) -> None:
-        """original_size pruning of the given blocks on the tile-major pool."""
+    def _prune(self, slots: np.ndarray, rows: slice = slice(None)) -> None:
+        """original_size pruning of the given blocks on the tile-major pool
+        rows ``rows``, which ``slots`` address."""
         if self.cfg.block_depth <= 1 or len(slots) == 0:
             return
-        args = (self.pool.fields["A"], self.pool.fields["B"], self.pool.touched,
-                self.pool.eff_level, self._to_device(np.asarray(slots, np.int32)))
+        pool = self.pool
+        args = (pool.fields["A"][rows], pool.fields["B"][rows], pool.touched[rows],
+                pool.eff_level[rows], self._to_device(np.asarray(slots, np.int32)))
         statics = dict(n=self.n, max_level=self.cfg.block_depth - 1,
                        state_fn=self._state_fn)
         if getattr(self, "_capture_step_args", False):

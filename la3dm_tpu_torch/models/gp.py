@@ -53,7 +53,7 @@ def _gp_seq_step(m_ivar, ivar, touched, eff, all_nodes, node_idx_tab, pts, lab,
                  tiers, slots_flat, centers_flat, scan_start, scan_count, failed, *,
                  G: int, sf2: float, ell: float, noise: float, min_known_ivar: float,
                  max_ivar: float, n: int, max_level: int, state_fn,
-                 do_prune: bool) -> None:
+                 do_prune: bool, uncounted=()) -> None:
     """K scans in one dispatch: the heavy pass once per tier, then the light
     pass once per scan, in scan order.  Updates the pool in place and adds
     failed factorisations to ``failed``.
@@ -63,23 +63,35 @@ def _gp_seq_step(m_ivar, ivar, touched, eff, all_nodes, node_idx_tab, pts, lab,
     block-sorted training points; slots_flat/centers_flat [T] the stacked
     per-scan block lists.
     ``scan_start``/``scan_count`` [K] are host integers: each scan's segment
-    of the block lists.
+    of the block lists.  ``uncounted``: tiers as ``tiers`` whose failed
+    factorisations are not added to ``failed`` (a sharded map's models that
+    another shard counts).
     """
     T, Vall = centers_flat.shape[0], all_nodes.shape[0]
     dev = pts.device
     acc_mean = torch.zeros((T * G, Vall), dtype=torch.float32, device=dev)
     acc_var = torch.ones((T * G, Vall), dtype=torch.float32, device=dev)
     present = torch.zeros((T * G,), dtype=torch.bool, device=dev)
-    for starts, counts, nb_rows, host_counts in tiers:
-        gp_heavy.gp_heavy(pts, lab, starts, counts, nb_rows, centers_flat, all_nodes,
-                          acc_mean, acc_var, present, failed,
-                          host_counts=host_counts, sf2=sf2, ell=ell, noise=noise)
+    scratch = torch.zeros_like(failed) if uncounted else None
+    for tier_list, fails in ((tiers, failed), (uncounted, scratch)):
+        for starts, counts, nb_rows, host_counts in tier_list:
+            gp_heavy.gp_heavy(pts, lab, starts, counts, nb_rows, centers_flat, all_nodes,
+                              acc_mean, acc_var, present, fails,
+                              host_counts=host_counts, sf2=sf2, ell=ell, noise=noise)
     for start, count in zip(scan_start, scan_count):
         gp_light.gp_light(acc_mean, acc_var, present, m_ivar, ivar, touched, eff,
                           node_idx_tab, slots_flat, int(start), int(count), G=G,
                           sf2=sf2, min_known_ivar=min_known_ivar, max_ivar=max_ivar,
                           n=n, max_level=max_level, state_fn=state_fn,
                           do_prune=do_prune)
+
+
+def _size_tiers(counts: np.ndarray) -> list[np.ndarray]:
+    """The models of each size tier of the host ``counts``, as index arrays:
+    the base tier (≤ ``gp_heavy.BASE_MAX_C`` points), then the overflow tier,
+    each if it holds a model."""
+    base_tier = counts <= gp_heavy.BASE_MAX_C
+    return [sel for sel in (np.nonzero(base_tier)[0], np.nonzero(~base_tier)[0]) if len(sel)]
 
 
 def _gp_tier_gather(ustart, ucount, nb_row, sel):
@@ -211,14 +223,18 @@ class GPOctoMap(ingest.DeviceIngestMixin, base.OccupancyMapBase):
                 self._integrate(tables[i:i + _SCAN_BATCH])
             return
         t_host0 = time.perf_counter()
-        cfg = self.cfg
         G = self.num_slots
         Vall = self._all_nodes.shape[0]
-        parts = {k: [] for k in ("pts", "lab", "st", "ct", "nb", "slots", "ctr")}
+        parts = {k: [] for k in ("pts", "lab", "st", "ct", "nb", "slots", "ctr", "coords")}
         scan_start, scan_count = [], []
         pt_off = blk_off = 0
+        gen0 = self.pool.generation
         for t in tables:
-            slots = self.pool.ensure(t["test_coords"])
+            # each test block's training-point total over the G models it
+            # reads weights the sharded pool's placement
+            w = np.zeros(len(t["test_coords"]), np.float64)
+            np.add.at(w, t["nb_t"].reshape(-1), np.repeat(t["counts"], t["nb_t"].shape[1]))
+            slots = self.pool.ensure(t["test_coords"], weights=w)
             parts["pts"].append(t["pts"])
             parts["lab"].append(t["lab"])
             parts["st"].append(t["starts"] + pt_off)
@@ -226,6 +242,7 @@ class GPOctoMap(ingest.DeviceIngestMixin, base.OccupancyMapBase):
             parts["nb"].append(t["nb_t"] + blk_off)
             parts["slots"].append(slots)
             parts["ctr"].append(self.block_centers(t["test_coords"]))
+            parts["coords"].append(t["test_coords"])
             scan_start.append(blk_off)
             scan_count.append(len(slots))
             pt_off += len(t["pts"])
@@ -235,61 +252,76 @@ class GPOctoMap(ingest.DeviceIngestMixin, base.OccupancyMapBase):
             self.stats["scans"] += 1
 
         cat = {k: np.concatenate(v) for k, v in parts.items()}
-        dev = self._to_device
+        if self.pool.generation != gen0:
+            # a sharded pool re-laid out its slots while later tables were
+            # ensured: re-resolve the whole batch
+            cat["slots"] = self.pool.lookup(cat["coords"])
         counts = cat["ct"]
-        tiers = []
-        base_tier = counts <= gp_heavy.BASE_MAX_C
-        for sel in (np.nonzero(base_tier)[0], np.nonzero(~base_tier)[0]):
-            if len(sel):
-                tiers.append((dev(cat["st"][sel].astype(np.int32)),
-                              dev(counts[sel].astype(np.int32)),
-                              dev(cat["nb"][sel].astype(np.int32)),
-                              counts[sel]))
-        self.stats["heavy_tiers"] += len(tiers)
-        args = (self.pool.fields["m_ivar"], self.pool.fields["ivar"],
-                self.pool.touched, self.pool.eff_level, self._all_nodes,
-                self._node_idx, dev(cat["pts"].astype(np.float32)),
-                dev(cat["lab"].astype(np.float32)), tiers,
-                dev(cat["slots"].astype(np.int32)),
-                dev(cat["ctr"].astype(np.float32)), scan_start, scan_count,
-                self.failed_models)
-        statics = dict(G=G, sf2=cfg.sf2, ell=cfg.ell, noise=cfg.noise,
-                       min_known_ivar=self.min_known_ivar, max_ivar=self.max_ivar,
-                       n=self.n, max_level=cfg.block_depth - 1,
-                       state_fn=self._state_fn, do_prune=cfg.block_depth > 1)
+        self.stats["heavy_tiers"] += len(_size_tiers(counts))
+        dev = self._to_device
+        pts, lab = dev(cat["pts"].astype(np.float32)), dev(cat["lab"].astype(np.float32))
         self.stats["host_s"] += time.perf_counter() - t_host0
-        if getattr(self, "_capture_step_args", False):
-            # the step updates the pool in place: keep copies of its inputs
-            self._last_step_call = (
-                tuple(a.clone() if torch.is_tensor(a) else list(a) for a in args),
-                statics)
-        _gp_seq_step(*args, **statics)
+        self._gp_step(pts, lab, cat["st"], counts, cat["nb"], counts, cat["slots"],
+                      cat["ctr"], scan_start, scan_count)
 
     def _dispatch_ingest_chunk(self, tabs, ucount, slots, centers, scan_start,
                                scan_count) -> None:
         """Device tables of one dispatch → one K4 per size tier (the entry
         blocks are the models, on absolute points, predicting at the host's
         block centres), then K5 per scan."""
-        cfg = self.cfg
         G, Vall = self.num_slots, self._all_nodes.shape[0]
         counts = ucount.astype(np.int64)
         self.stats["kernel_evals"] += int((counts ** 2).sum() + counts.sum() * G * Vall)
-        tiers = []
-        base_tier = counts <= gp_heavy.BASE_MAX_C
-        for sel in (np.nonzero(base_tier)[0], np.nonzero(~base_tier)[0]):
-            if len(sel):
-                tiers.append((*_gp_tier_gather(tabs["ustart"], tabs["ucount"],
-                                               tabs["nb_row"], self._to_device(sel)),
-                              counts[sel]))
-        self.stats["heavy_tiers"] += len(tiers)
-        _gp_seq_step(self.pool.fields["m_ivar"], self.pool.fields["ivar"],
-                     self.pool.touched, self.pool.eff_level, self._all_nodes,
-                     self._node_idx, tabs["ent"], tabs["lab"], tiers,
-                     self._to_device(slots), self._to_device(centers), scan_start,
-                     scan_count, self.failed_models, G=G, sf2=cfg.sf2, ell=cfg.ell,
-                     noise=cfg.noise, min_known_ivar=self.min_known_ivar,
-                     max_ivar=self.max_ivar, n=self.n, max_level=cfg.block_depth - 1,
-                     state_fn=self._state_fn, do_prune=cfg.block_depth > 1)
+        self.stats["heavy_tiers"] += len(_size_tiers(counts))
+        self._gp_step(tabs["ent"], tabs["lab"], tabs["ustart"], tabs["ucount"],
+                      tabs["nb_row"], counts, slots, centers, scan_start, scan_count)
+
+    def _gp_step(self, pts, lab, starts, counts, nb, host_counts, slots, centers,
+                 scan_start, scan_count, rows: slice = slice(None),
+                 counted: np.ndarray | None = None) -> None:
+        """K4 once per size tier of the models, then K5 once per scan, on the
+        pool rows ``rows``, which ``slots`` address.  The models' ``starts``,
+        ``counts`` and ``nb`` [M, G] rows are host arrays or tensors on the
+        device, ``host_counts`` the counts on the host; ``centers`` [T, 3]
+        host.  Models outside the host mask ``counted`` (None: every model)
+        add their failed factorisations to a scratch counter, not to
+        ``failed_models``: a sharded map counts them where it counts them
+        once."""
+        t0 = time.perf_counter()
+        cfg = self.cfg
+        dev = self._to_device
+
+        def tier(sel):
+            if torch.is_tensor(starts):
+                return (*_gp_tier_gather(starts, counts, nb, dev(sel)), host_counts[sel])
+            return (dev(starts[sel].astype(np.int32)), dev(counts[sel].astype(np.int32)),
+                    dev(nb[sel].astype(np.int32)), host_counts[sel])
+
+        tiers, uncounted = [], []
+        for sel in _size_tiers(host_counts):
+            parts = ((sel, tiers),) if counted is None else \
+                ((sel[counted[sel]], tiers), (sel[~counted[sel]], uncounted))
+            for s, out in parts:
+                if len(s):
+                    out.append(tier(s))
+        args = (self.pool.fields["m_ivar"][rows], self.pool.fields["ivar"][rows],
+                self.pool.touched[rows], self.pool.eff_level[rows], self._all_nodes,
+                self._node_idx, pts, lab, tiers, dev(np.asarray(slots, np.int32)),
+                dev(np.asarray(centers, np.float32)), scan_start, scan_count,
+                self.failed_models)
+        statics = dict(G=self.num_slots, sf2=cfg.sf2, ell=cfg.ell, noise=cfg.noise,
+                       min_known_ivar=self.min_known_ivar, max_ivar=self.max_ivar,
+                       n=self.n, max_level=cfg.block_depth - 1,
+                       state_fn=self._state_fn, do_prune=cfg.block_depth > 1)
+        if uncounted:
+            statics["uncounted"] = uncounted
+        self.stats["host_s"] += time.perf_counter() - t0
+        if getattr(self, "_capture_step_args", False):
+            # the step updates the pool in place: keep copies of its inputs
+            self._last_step_call = (
+                tuple(a.clone() if torch.is_tensor(a) else list(a) for a in args),
+                statics)
+        _gp_seq_step(*args, **statics)
 
     def _posterior(self, fields: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
         cfg = self.cfg

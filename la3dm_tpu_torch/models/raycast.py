@@ -163,8 +163,8 @@ class RaycastSnapshot:
         # the JAX package rounds the probe bound so its rebuilds reuse an
         # executable; kept, so both packages probe alike
         self.max_probes = max(4, 1 << int(np.ceil(np.log2(maxp))))
-        vals = dict(m.pool.fields)
-        vals["touched"] = m.pool.touched
+        vals = {k: m.pool.whole_rows(v) for k, v in m.pool.fields.items()}
+        vals["touched"] = m.pool.whole_rows(m.pool.touched)
         st = m._stored_to_raster_dev(m._state_fn(vals)).to(torch.int8)  # [cap, V]
         guard = torch.full((1, st.shape[1]), posterior.UNKNOWN, dtype=torch.int8,
                            device=dev)

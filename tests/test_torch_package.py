@@ -47,6 +47,8 @@ def test_import_pulls_in_no_jax():
         "import la3dm_tpu_torch.cli, la3dm_tpu_torch.entry, la3dm_tpu_torch.io.octomap_bt\n"
         "import la3dm_tpu_torch.io.rosbag, la3dm_tpu_torch.viz.markers\n"
         "import la3dm_tpu_torch.viz.html, la3dm_tpu_torch.utils.profiling\n"
+        "import la3dm_tpu_torch.parallel.mesh, la3dm_tpu_torch.parallel.sharded_map\n"
+        "import la3dm_tpu_torch.parallel.distributed\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "assert not bad, bad\n"
@@ -59,7 +61,9 @@ def test_import_pulls_in_no_jax():
 
 def test_sources_import_no_jax():
     n = 0
+    seen = set()
     for path in _port_sources():
+        seen.add(os.path.relpath(path, ROOT))
         with open(path) as f:
             tree = ast.parse(f.read(), filename=path)
         for node in ast.walk(tree):
@@ -72,6 +76,22 @@ def test_sources_import_no_jax():
             assert not any(_forbidden(nm) for nm in names), (path, names)
         n += 1
     assert n > 10
+    for mod in ("mesh", "sharded_map", "distributed"):
+        assert os.path.join("la3dm_tpu_torch", "parallel", f"{mod}.py") in seen
+
+
+def test_sharded_map_without_device_does_not_fall_back_to_cpu(monkeypatch):
+    from la3dm_tpu_torch.parallel import mesh, sharded_map
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = load_method_config("bgk", max_range=8.0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        sharded_map.ShardedBGKOctoMap(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mesh.block_mesh(4)
+    m = sharded_map.ShardedGPOctoMap(load_method_config("gp", max_range=8.0),
+                                     mesh=mesh.block_mesh(4, "cpu"), capacity=64)
+    assert m.device.type == "cpu" and m.pool.fields["ivar"].device.type == "cpu"
 
 
 def test_map_without_device_does_not_fall_back_to_cpu(monkeypatch):
