@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from la3dm_tpu_torch.kernels import _build, ingest_keys, ingest_members
+from la3dm_tpu_torch.utils import profiling
 
 #: kernel launches since the counter was last reset (two per dispatch: the
 #: count pass, then the write pass)
@@ -101,8 +102,10 @@ def ray_pairs(hits, hit_keys, origins, anchors, *, kf: int, mr: float, fr: float
                                        stream.cuda_stream)
     _build.check(code, "ingest_rays (count)")
     launches += 1
-    stream.synchronize()                          # a host sync: the list's size
-    total, cap = host.tolist()
+    with profiling.span("la3dm.sync.ray_pairs"):
+        stream.synchronize()                      # a host sync: the list's size
+        total, cap = host.tolist()
+    profiling.count("host_syncs")
     pair_ray = torch.empty(total, dtype=torch.int64, device=dev)
     pair_key = torch.empty(total, dtype=torch.int64, device=dev)
     code = lib.la3dm_ingest_rays_write(*common, cap, total, pair_ray.data_ptr(),

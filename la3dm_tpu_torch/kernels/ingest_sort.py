@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from la3dm_tpu_torch.kernels import _build, ingest_keys
+from la3dm_tpu_torch.utils import profiling
 
 #: sorts run since the counter was last reset (one C call each, which
 #: queues the kernels of :func:`kernels_per_sort`)
@@ -229,10 +230,12 @@ def sort_runs(keys: torch.Tensor, window: Window, *, want_rid: bool = False,
     if keys.shape[0] == 0:
         return _empty(keys.device, want_rid)
     out, rid, status = launch(keys, window, want_rid=want_rid, count=count)
-    host = _host_status(keys.device)
-    host.copy_(status, non_blocking=True)
-    torch.cuda.current_stream(keys.device).synchronize()
-    V, R, flag, _ = host.tolist()
+    with profiling.span("la3dm.sync.sort_runs"):
+        host = _host_status(keys.device)
+        host.copy_(status, non_blocking=True)
+        torch.cuda.current_stream(keys.device).synchronize()
+        V, R, flag, _ = host.tolist()
+    profiling.count("host_syncs")
     if flag:
         n_out = int(pack_plain(_first(keys, count), window)[1].sum())
         raise _outside_error(n_out, window)

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from la3dm_tpu_torch.geometry import blocks as geo
+from la3dm_tpu_torch.utils import profiling
 from la3dm_tpu_torch.utils.config import MapConfig
 
 
@@ -110,6 +111,7 @@ class BlockPool:
         itself (a pool sharded over several processes gathers its rows)."""
         return arr
 
+    @profiling.traced("la3dm.pool.ensure")
     def ensure(self, coords: np.ndarray,
                weights: np.ndarray | None = None) -> np.ndarray:
         """Slots for integer block coords [N,3], allocating missing blocks in
@@ -171,10 +173,8 @@ class OccupancyMapBase:
         self.num_slots = len(self._neighbor_offsets)
         self._state_fn = self._make_state_fn()
         #: counters: kernel_evals = training-entry × node pairs evaluated;
-        #: host_s = main-thread host work before each dispatch;
-        #: query_fetch_bytes = device→host bytes fetched by queries
-        self.stats = {"kernel_evals": 0, "scans": 0, "host_s": 0.0,
-                      "query_fetch_bytes": 0}
+        #: host_s = main-thread host work before each dispatch
+        self.stats = {"kernel_evals": 0, "scans": 0, "host_s": 0.0}
 
     def _make_pool(self) -> BlockPool:
         return BlockPool(self.V, self.FIELD_FILLS, self.device)
@@ -187,12 +187,6 @@ class OccupancyMapBase:
 
     def _posterior(self, fields: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
         raise NotImplementedError
-
-    def _fetch(self, t: torch.Tensor) -> np.ndarray:
-        """Copy a tensor to host numpy, accounting the bytes."""
-        out = t.cpu().numpy()
-        self.stats["query_fetch_bytes"] += out.nbytes
-        return out
 
     def _to_device(self, x) -> torch.Tensor:
         """Host array → tensor on the map's device (a tensor passes as it
@@ -208,7 +202,9 @@ class OccupancyMapBase:
     def synchronize(self) -> None:
         """Wait for the map's queued device work."""
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            with profiling.span("la3dm.sync.synchronize"):
+                torch.cuda.synchronize(self.device)
+            profiling.count("host_syncs")
 
     # -- geometry helpers -------------------------------------------------
 
@@ -244,7 +240,7 @@ class OccupancyMapBase:
         on the device and only len(slots)·V elements cross to the host."""
         arr = self.pool.whole_rows(arr)
         idx = torch.as_tensor(np.asarray(slots, np.int64), device=arr.device)
-        return self._stored_to_raster(self._fetch(arr[idx]))
+        return self._stored_to_raster(arr[idx].cpu().numpy())
 
     def search(self, points: np.ndarray) -> dict[str, np.ndarray]:
         """Vectorized ``search(point3f)`` (bgkoctomap.cpp:563-574): per-point
@@ -262,9 +258,9 @@ class OccupancyMapBase:
                              device=self.device)
         out = {}
         for name, arr in self.pool.fields.items():
-            vals = self._fetch(self.pool.whole_rows(arr)[sl, vi])
+            vals = self.pool.whole_rows(arr)[sl, vi].cpu().numpy()
             out[name] = np.where(exists, vals, np.float32(self.FIELD_FILLS[name]))
-        tch = self._fetch(self.pool.whole_rows(self.pool.touched)[sl, vi])
+        tch = self.pool.whole_rows(self.pool.touched)[sl, vi].cpu().numpy()
         out["touched"] = np.where(exists, tch, False)
         post = self._posterior(out)
         post["touched"] = out["touched"]

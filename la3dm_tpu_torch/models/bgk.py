@@ -36,6 +36,7 @@ import torch
 from la3dm_tpu_torch.geometry import blocks as geo, native
 from la3dm_tpu_torch.kernels import bgk_aligned_heavy, bgk_heavy, bgk_light
 from la3dm_tpu_torch.models import base, bucketing, ingest, posterior
+from la3dm_tpu_torch.utils import profiling
 from la3dm_tpu_torch.utils.config import MapConfig
 
 #: fixed entry-row width; per-block entry lists are cut into rows of W
@@ -70,10 +71,11 @@ def _bgk_seq_step(A, Bv, touched, eff, all_nodes, node_idx_tab,
                               row_start, row_count, centers_flat, all_nodes,
                               G=G, sf2=sf2, ell=ell)
     for start, count in zip(scan_start, scan_count):
-        bgk_light.bgk_light(acc, A, Bv, touched, eff, node_idx_tab, slots_flat,
-                            int(start), int(count), G=G, gate=gate, n=n,
-                            max_level=max_level, state_fn=state_fn,
-                            do_prune=do_prune)
+        with profiling.span("la3dm.light.launch"):
+            bgk_light.bgk_light(acc, A, Bv, touched, eff, node_idx_tab, slots_flat,
+                                int(start), int(count), G=G, gate=gate, n=n,
+                                max_level=max_level, state_fn=state_fn,
+                                do_prune=do_prune)
 
 
 def _bgk_seq_step_aligned(A, Bv, touched, eff, ext_nodes, node_idx_tab, ent_rel, labels,
@@ -87,10 +89,11 @@ def _bgk_seq_step_aligned(A, Bv, touched, eff, ext_nodes, node_idx_tab, ent_rel,
     acc = bgk_aligned_heavy.bgk_aligned_heavy(ent_rel, labels, ustart, ucount, tb_u,
                                               ext_nodes, G=G, sf2=sf2, ell=ell)
     for start, count in zip(scan_start, scan_count):
-        bgk_light.bgk_light(acc, A, Bv, touched, eff, node_idx_tab, slots_flat,
-                            int(start), int(count), G=G, gate=gate, n=n,
-                            max_level=max_level, state_fn=state_fn,
-                            do_prune=do_prune)
+        with profiling.span("la3dm.light.launch"):
+            bgk_light.bgk_light(acc, A, Bv, touched, eff, node_idx_tab, slots_flat,
+                                int(start), int(count), G=G, gate=gate, n=n,
+                                max_level=max_level, state_fn=state_fn,
+                                do_prune=do_prune)
 
 
 class BGKOctoMap(ingest.DeviceIngestMixin, base.OccupancyMapBase):
@@ -105,6 +108,7 @@ class BGKOctoMap(ingest.DeviceIngestMixin, base.OccupancyMapBase):
     GATE = 0.0  # update gate: k̄ > 0 (bgkoctomap.cpp:332)
     SCAN_BATCH = _SCAN_BATCH
 
+    @profiling.traced("la3dm.map.build")
     def __init__(self, cfg: MapConfig, device=None):
         super().__init__(cfg, device)
         nodes, node_idx = geo.all_level_nodes(cfg.resolution, cfg.block_depth)
@@ -131,6 +135,7 @@ class BGKOctoMap(ingest.DeviceIngestMixin, base.OccupancyMapBase):
 
     # ------------------------------------------------------------------ API
 
+    @profiling.traced("la3dm.map.insert")
     def insert_pointcloud(self, cloud: np.ndarray, origin: np.ndarray,
                           ds_resolution: float | None = None,
                           free_resolution: float | None = None,
@@ -145,6 +150,7 @@ class BGKOctoMap(ingest.DeviceIngestMixin, base.OccupancyMapBase):
         self.stats["host_s"] += time.perf_counter() - t0
         self._integrate([t] if t is not None else [])
 
+    @profiling.traced("la3dm.map.insert")
     def insert_pointclouds(self, clouds, origins, ds_resolution=None,
                            free_resolution=None, max_range=None) -> None:
         """Integrate a scan sequence, ≤ SCAN_BATCH scans per dispatch.
@@ -253,6 +259,8 @@ class BGKOctoMap(ingest.DeviceIngestMixin, base.OccupancyMapBase):
             blk_off += len(slots)
             self.stats["kernel_evals"] += int(totals.sum()) * Vall
             self.stats["scans"] += 1
+        profiling.count("scans", len(tables))
+        profiling.count("dispatches")
 
         cat = {k: np.concatenate(v).astype(_HOST_TABLES[k]) for k, v in parts.items()}
         if self.pool.generation != gen0:
@@ -262,6 +270,7 @@ class BGKOctoMap(ingest.DeviceIngestMixin, base.OccupancyMapBase):
         self.stats["host_s"] += time.perf_counter() - t_host0
         self._host_step(cat, scan_start, scan_count)
 
+    @profiling.traced("la3dm.heavy.launch")
     def _host_step(self, cat: dict, scan_start: list, scan_count: list,
                    rows: slice = slice(None)) -> None:
         """K1, then K2 a scan, on the host path's tables ``cat`` (host
@@ -293,6 +302,7 @@ class BGKOctoMap(ingest.DeviceIngestMixin, base.OccupancyMapBase):
         self.stats["kernel_evals"] += int(ucount.sum()) * G * Vall
         self._ingest_step(tabs, slots, scan_start, scan_count)
 
+    @profiling.traced("la3dm.heavy.launch")
     def _ingest_step(self, tabs: dict, slots: np.ndarray, scan_start: list,
                      scan_count: list, rows: slice = slice(None)) -> None:
         """K1′, then K2 a scan, on the device tables ``tabs`` (``tb_u`` [T, G]

@@ -36,6 +36,7 @@ from la3dm_tpu_torch.geometry import blocks as geo, native
 from la3dm_tpu_torch.geometry.preprocess import SegmentTrainingData
 from la3dm_tpu_torch.kernels import lv_prune, lv_rows
 from la3dm_tpu_torch.models import base, posterior
+from la3dm_tpu_torch.utils import profiling
 from la3dm_tpu_torch.utils.config import MapConfig
 
 #: fixed entry-row width; tiles with more entries get several rows
@@ -63,6 +64,7 @@ class BGKLVOctoMap(base.OccupancyMapBase):
     # the server passes the raw cloud through (bgklvoctomap_server.cpp:76-77)
     SERVER_DOWNSAMPLE = False
 
+    @profiling.traced("la3dm.map.build")
     def __init__(self, cfg: MapConfig, device=None):
         # ``cfg.device_ingest`` is not read: LV runs its own ray-shortening
         # host ingest whatever the flag, as the JAX class does
@@ -114,6 +116,7 @@ class BGKLVOctoMap(base.OccupancyMapBase):
         self._last_free_res = float(fr)
         return native.lv_training_data(cloud, origin, ds, fr, mr, cfg.ell)
 
+    @profiling.traced("la3dm.map.insert")
     def insert_pointcloud(self, cloud, origin, ds_resolution=None,
                           free_resolution=None, max_range=None) -> None:
         """Integrate one scan (reference insert_pointcloud, bgklvoctomap.cpp:89)."""
@@ -123,6 +126,7 @@ class BGKLVOctoMap(base.OccupancyMapBase):
         self.stats["host_s"] += time.perf_counter() - t0
         self._integrate_many([td])
 
+    @profiling.traced("la3dm.map.insert")
     def insert_pointclouds(self, clouds, origins, ds_resolution=None,
                            free_resolution=None, max_range=None) -> None:
         """Integrate a scan sequence, ≤ SCAN_BATCH scans per dispatch.
@@ -304,6 +308,8 @@ class BGKLVOctoMap(base.OccupancyMapBase):
 
         self.stats["kernel_evals"] += int(tiles["mcount"].sum()) * self.Vt
         self.stats["scans"] += len(scans)
+        profiling.count("scans", len(scans))
+        profiling.count("dispatches")
         dev = self._to_device
         entries, labels, ids = dev(entries), dev(labels), dev(ids.astype(np.int32))
         self.stats["host_s"] += time.perf_counter() - t_host0

@@ -43,6 +43,7 @@ import torch
 from la3dm_tpu_torch.geometry import blocks as geo, native
 from la3dm_tpu_torch.kernels import gp_heavy, gp_light
 from la3dm_tpu_torch.models import base, ingest, posterior
+from la3dm_tpu_torch.utils import profiling
 from la3dm_tpu_torch.utils.config import MapConfig
 
 #: max scans per dispatch (one heavy pass per tier, then one light per scan)
@@ -79,11 +80,12 @@ def _gp_seq_step(m_ivar, ivar, touched, eff, all_nodes, node_idx_tab, pts, lab,
                               acc_mean, acc_var, present, fails,
                               host_counts=host_counts, sf2=sf2, ell=ell, noise=noise)
     for start, count in zip(scan_start, scan_count):
-        gp_light.gp_light(acc_mean, acc_var, present, m_ivar, ivar, touched, eff,
-                          node_idx_tab, slots_flat, int(start), int(count), G=G,
-                          sf2=sf2, min_known_ivar=min_known_ivar, max_ivar=max_ivar,
-                          n=n, max_level=max_level, state_fn=state_fn,
-                          do_prune=do_prune)
+        with profiling.span("la3dm.light.launch"):
+            gp_light.gp_light(acc_mean, acc_var, present, m_ivar, ivar, touched, eff,
+                              node_idx_tab, slots_flat, int(start), int(count), G=G,
+                              sf2=sf2, min_known_ivar=min_known_ivar, max_ivar=max_ivar,
+                              n=n, max_level=max_level, state_fn=state_fn,
+                              do_prune=do_prune)
 
 
 def _size_tiers(counts: np.ndarray) -> list[np.ndarray]:
@@ -116,6 +118,7 @@ class GPOctoMap(ingest.DeviceIngestMixin, base.OccupancyMapBase):
     SCAN_BATCH = _SCAN_BATCH
     FREE_LABEL = -1.0  # gpoctomap.cpp:399
 
+    @profiling.traced("la3dm.map.build")
     def __init__(self, cfg: MapConfig, device=None):
         # min_ivar = 1/max_var etc. (gpoctomap.cpp:39-41)
         self.min_ivar = 1.0 / cfg.max_var
@@ -140,6 +143,7 @@ class GPOctoMap(ingest.DeviceIngestMixin, base.OccupancyMapBase):
 
     # ------------------------------------------------------------------ API
 
+    @profiling.traced("la3dm.map.insert")
     def insert_pointcloud(self, cloud: np.ndarray, origin: np.ndarray,
                           ds_resolution: float | None = None,
                           free_resolution: float | None = None,
@@ -154,6 +158,7 @@ class GPOctoMap(ingest.DeviceIngestMixin, base.OccupancyMapBase):
         self.stats["host_s"] += time.perf_counter() - t0
         self._integrate([t] if t is not None else [])
 
+    @profiling.traced("la3dm.map.insert")
     def insert_pointclouds(self, clouds, origins, ds_resolution=None,
                            free_resolution=None, max_range=None) -> None:
         """Integrate a scan sequence, ≤ SCAN_BATCH scans per dispatch (one
@@ -250,6 +255,8 @@ class GPOctoMap(ingest.DeviceIngestMixin, base.OccupancyMapBase):
             self.stats["kernel_evals"] += int(
                 (t["counts"] ** 2).sum() + t["counts"].sum() * G * Vall)
             self.stats["scans"] += 1
+        profiling.count("scans", len(tables))
+        profiling.count("dispatches")
 
         cat = {k: np.concatenate(v) for k, v in parts.items()}
         if self.pool.generation != gen0:
@@ -276,6 +283,7 @@ class GPOctoMap(ingest.DeviceIngestMixin, base.OccupancyMapBase):
         self._gp_step(tabs["ent"], tabs["lab"], tabs["ustart"], tabs["ucount"],
                       tabs["nb_row"], counts, slots, centers, scan_start, scan_count)
 
+    @profiling.traced("la3dm.heavy.launch")
     def _gp_step(self, pts, lab, starts, counts, nb, host_counts, slots, centers,
                  scan_start, scan_count, rows: slice = slice(None),
                  counted: np.ndarray | None = None) -> None:

@@ -22,6 +22,18 @@ neighbour offsets' mirror slots, which K7t reads, are worked out here on
 the host).  The next dispatch's host work (concatenation, pinned copies)
 overlaps the current dispatch's engine launches, which the host does not
 wait for.
+
+Each wait is a span and counts one ``host_syncs`` (``utils/profiling.py``):
+``la3dm.sync.sort_runs``, the status read of each K7s sort
+(``kernels/ingest_sort.py``: the point family's four, BGKL's three);
+``la3dm.sync.ray_pairs``, the size of BGKL's ray-block pair list
+(``kernels/ingest_rays.py``); ``la3dm.sync.fetch_small``, the key and count
+copy here; and ``la3dm.sync.synchronize``, the map's
+``OccupancyMapBase.synchronize``.  So a dispatch counts five, and a pass of
+D dispatches ending in ``synchronize`` 5·D + 1.  The host work between them
+is ``la3dm.ingest.prepare`` (concatenation, anchors, pinned copies),
+``la3dm.ingest.tables`` (K7's host side) and ``la3dm.ingest.slots`` (key
+unpack, ``np.unique``, ``BlockPool.ensure``, centres and scan runs).
 """
 
 from __future__ import annotations
@@ -33,6 +45,7 @@ import torch
 
 from la3dm_tpu_torch.geometry import blocks as geo, device_ingest
 from la3dm_tpu_torch.kernels import ingest_bucket, ingest_keys
+from la3dm_tpu_torch.utils import profiling
 
 
 class DeviceIngestMixin:
@@ -75,36 +88,42 @@ class DeviceIngestMixin:
     def _ingest_chunk(self, clouds, origins, ds, fr, mr, kf: int) -> None:
         t0 = time.perf_counter()
         n = len(clouds)
-        origins = np.stack([np.asarray(o, np.float32).reshape(3) for o in origins])
-        pts = np.concatenate([np.asarray(c, np.float32).reshape(-1, 3) for c in clouds])
-        scan = np.repeat(np.arange(n, dtype=np.int32), [len(c) for c in clouds])
-        banchor = device_ingest.anchors(origins, self.block_size)
-        dev = self._to_device
-        off = ingest_keys.pack_offsets(self._neighbor_offsets)
-        args = (dev(pts), dev(scan), dev(origins), dev(device_ingest.anchors(origins, ds)),
-                dev(banchor), dev(off))
-        mirror = dev(ingest_bucket.mirror_slots(off))
+        with profiling.span("la3dm.ingest.prepare"):
+            origins = np.stack([np.asarray(o, np.float32).reshape(3) for o in origins])
+            pts = np.concatenate([np.asarray(c, np.float32).reshape(-1, 3) for c in clouds])
+            scan = np.repeat(np.arange(n, dtype=np.int32), [len(c) for c in clouds])
+            banchor = device_ingest.anchors(origins, self.block_size)
+            dev = self._to_device
+            off = ingest_keys.pack_offsets(self._neighbor_offsets)
+            args = (dev(pts), dev(scan), dev(origins), dev(device_ingest.anchors(origins, ds)),
+                    dev(banchor), dev(off))
+            mirror = dev(ingest_bucket.mirror_slots(off))
         self.stats["host_s"] += time.perf_counter() - t0
 
-        if self.SEGMENTS:
-            tabs = device_ingest.ingest_batch_bgkl(*args, ds=ds, fr=fr, mr=mr, kf=kf,
-                                                   block_size=self.block_size, mirror=mirror)
-        else:
-            tabs = device_ingest.ingest_batch(
-                *args, ds=ds, fr=fr, mr=mr, kf=kf, block_size=self.block_size,
-                free_label=self.FREE_LABEL, mirror=mirror)
+        with profiling.span("la3dm.ingest.tables"):
+            if self.SEGMENTS:
+                tabs = device_ingest.ingest_batch_bgkl(*args, ds=ds, fr=fr, mr=mr, kf=kf,
+                                                       block_size=self.block_size,
+                                                       mirror=mirror)
+            else:
+                tabs = device_ingest.ingest_batch(
+                    *args, ds=ds, fr=fr, mr=mr, kf=kf, block_size=self.block_size,
+                    free_label=self.FREE_LABEL, mirror=mirror)
         self.stats["scans"] += n
+        profiling.count("scans", n)
+        profiling.count("dispatches")
         if tabs is None:
             return
         tkey, ucount = self._fetch_small(tabs["tkey"], tabs["ucount"])
 
         t0 = time.perf_counter()
-        tscan, coords = ingest_keys.unpack_np(tkey, banchor)
-        uniq, inv = np.unique(geo.pack_key(coords), return_inverse=True)
-        slots = self.pool.ensure(geo.unpack_key(uniq))[inv.reshape(-1)]
-        centers = geo.block_center(coords, self.block_size)
-        scan_count = np.bincount(tscan, minlength=n)
-        scan_start = np.concatenate([[0], np.cumsum(scan_count)[:-1]])
+        with profiling.span("la3dm.ingest.slots"):
+            tscan, coords = ingest_keys.unpack_np(tkey, banchor)
+            uniq, inv = np.unique(geo.pack_key(coords), return_inverse=True)
+            slots = self.pool.ensure(geo.unpack_key(uniq))[inv.reshape(-1)]
+            centers = geo.block_center(coords, self.block_size)
+            scan_count = np.bincount(tscan, minlength=n)
+            scan_start = np.concatenate([[0], np.cumsum(scan_count)[:-1]])
         self.stats["host_s"] += time.perf_counter() - t0
         self._dispatch_ingest_chunk(tabs, ucount, slots.astype(np.int32), centers,
                                     scan_start.tolist(), scan_count.tolist())
@@ -114,10 +133,12 @@ class DeviceIngestMixin:
         wait on the stream."""
         if self.device.type != "cuda":
             return [t.numpy() for t in tensors]
-        host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
-        for h, t in zip(host, tensors):
-            h.copy_(t, non_blocking=True)
-        torch.cuda.current_stream(self.device).synchronize()
+        with profiling.span("la3dm.sync.fetch_small"):
+            host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
+            for h, t in zip(host, tensors):
+                h.copy_(t, non_blocking=True)
+            torch.cuda.current_stream(self.device).synchronize()
+        profiling.count("host_syncs")
         return [h.numpy() for h in host]
 
     def _dispatch_ingest_chunk(self, tabs: dict, ucount: np.ndarray, slots: np.ndarray,

@@ -43,6 +43,7 @@ from la3dm_tpu_torch.models.bgklv import BGKLVOctoMap
 from la3dm_tpu_torch.models.gp import GPOctoMap
 from la3dm_tpu_torch.parallel import distributed
 from la3dm_tpu_torch.parallel.mesh import ShardMesh, block_mesh
+from la3dm_tpu_torch.utils import profiling
 from la3dm_tpu_torch.utils.config import MapConfig
 
 
@@ -122,6 +123,7 @@ class ShardedBlockPool(base.BlockPool):
         lo = (d - self.mesh.rank * self.mesh.shards_per_rank) * self.chunk
         return slice(lo, lo + self.chunk)
 
+    @profiling.traced("la3dm.pool.ensure")
     def ensure(self, coords: np.ndarray, weights: np.ndarray | None = None) -> np.ndarray:
         """Slots for coords [N,3], placing new blocks by the LPT greedy.
         ``weights`` [N] (work units of this call) feed the load of existing
@@ -243,6 +245,7 @@ class _ShardedMixin:
     """A map family over a :class:`ShardedBlockPool` (module docstring).
     ``mesh`` defaults to one shard on ``device`` (CUDA unless named)."""
 
+    @profiling.traced("la3dm.map.build")
     def __init__(self, cfg: MapConfig, mesh: ShardMesh | None = None,
                  capacity: int = 8192, device=None):
         if mesh is None:
@@ -305,6 +308,7 @@ class _ShardedMixin:
 class _ShardedBGKMixin(_ShardedMixin):
     """BGK and BGKL: K1 or K1′, then K2 a scan, once per shard."""
 
+    @profiling.traced("la3dm.heavy.launch")
     def _host_step(self, cat, scan_start, scan_count, rows=slice(None)):
         # the entry tables go to every shard whole, copied once
         whole = {k: self._to_device(cat[k]) for k in ("ent", "lab", "ids", "gs")}
@@ -317,6 +321,7 @@ class _ShardedBGKMixin(_ShardedMixin):
             super()._host_step(sub, *_scan_segments(own, scan_start, scan_count),
                                rows=rows)
 
+    @profiling.traced("la3dm.heavy.launch")
     def _ingest_step(self, tabs, slots, scan_start, scan_count, rows=slice(None)):
         for _, rows, own, local in self._shards(slots):
             sel = self._to_device(np.flatnonzero(own))
@@ -339,6 +344,7 @@ class ShardedGPOctoMap(_ShardedMixin, GPOctoMap):
     the lowest of them (``failed_models`` of a process counts the models
     whose lowest shard it owns)."""
 
+    @profiling.traced("la3dm.heavy.launch")
     def _gp_step(self, pts, lab, starts, counts, nb, host_counts, slots, centers,
                  scan_start, scan_count, rows=slice(None), counted=None):
         slots = np.asarray(slots, np.int64)

@@ -79,12 +79,32 @@ def test_profile_dir_writes_a_trace(tmp_path):
     prof = tmp_path / "prof"
     assert cli.main(["static", "--method", "bgk", "--dataset", ds, "--device", "cpu",
                      "--profile-dir", str(prof)]) == 0
-    traces = list(prof.iterdir())
+    traces = list(prof.glob("trace_*"))
     assert len(traces) == 1 and traces[0].suffix == ".json"
     with open(traces[0]) as f:
         events = json.load(f)["traceEvents"]
     assert len(events) > 100
     assert any(e.get("name", "").startswith("aten::") for e in events)
+
+
+def test_profile_dir_writes_the_spans_beside_the_trace(tmp_path):
+    """``--profile-dir`` also writes the run's span and counter totals
+    (``utils/profiling.py``), named as its trace is, and the trace holds the
+    spans as events."""
+    ds = tiny_scene(str(tmp_path))
+    prof = tmp_path / "prof"
+    assert cli.main(["static", "--method", "bgk", "--dataset", ds, "--device", "cpu",
+                     "--profile-dir", str(prof)]) == 0
+    (trace,), (spans,) = list(prof.glob("trace_*.json")), list(prof.glob("spans_*.json"))
+    assert spans.name[len("spans_"):] == trace.name[len("trace_"):]
+    with open(spans) as f:
+        totals = json.load(f)
+    insert = totals["spans"]["la3dm.map.insert"]
+    assert insert["calls"] == 2 and 0 < insert["self_s"] <= insert["s"]
+    assert totals["counts"]["scans"] == 2
+    with open(trace) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert {"la3dm.map.build", "la3dm.map.insert", "la3dm.heavy.launch"} <= names
 
 
 @pytest.mark.parametrize("command", COMMANDS)

@@ -19,6 +19,9 @@ from la3dm_tpu_torch.kernels import (bgk_aligned_heavy, bgk_heavy, bgk_light, gp
                                      ingest_downsample, ingest_keys, ingest_members,
                                      ingest_rays, ingest_sort, lv_prune, lv_rows, raycast)
 from la3dm_tpu_torch.models import posterior as po
+from la3dm_tpu_torch.pipeline import build_map
+from la3dm_tpu_torch.utils import profiling
+from la3dm_tpu_torch.utils.config import MapConfig
 
 from torch_cases import (BETA_TEMPLATES, GP_BCM, GP_STATE,  # tests/ on sys.path
                          GP_STATICS, GP_TEMPLATES, INGEST, LV_ROWS_STATICS, LV_STATE,
@@ -1217,6 +1220,45 @@ def test_ingest_downsample_kernel_long_runs_bit_for_bit(cuda_dev):
     moved = ingest_downsample.centroids(pts2.to(cuda_dev), perm.to(cuda_dev),
                                         *(x.to(cuda_dev) for x in args[2:]), leaf=0.1)
     assert not torch.equal(moved.cpu()[r], ref[r])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method,sites", [
+    ("bgk", {"la3dm.sync.sort_runs": 4, "la3dm.sync.fetch_small": 1}),
+    ("bgkl", {"la3dm.sync.sort_runs": 3, "la3dm.sync.ray_pairs": 1,
+              "la3dm.sync.fetch_small": 1})])
+def test_device_ingest_dispatch_counts_its_host_syncs(cuda_dev, method, sites):
+    """One 16-scan device-ingest dispatch waits for the card five times (BGK:
+    four K7s status reads; BGKL: three and its ray-pair size; both: the key
+    and count copy), and the map's ``synchronize`` a sixth, each a
+    ``la3dm.sync.*`` span and a ``host_syncs`` count (utils/profiling.py)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = MapConfig(method=method, resolution=0.1, block_depth=3, sf2=1.0, ell=0.2,
+                    free_resolution=0.5, ds_resolution=0.1, free_thresh=0.3,
+                    occupied_thresh=0.7, var_thresh=100.0, prior_A=0.001, prior_B=0.001,
+                    max_range=8.0, device_ingest="on")
+    rng = np.random.default_rng(16)
+    clouds, origins = [], []
+    for i in range(16):
+        y, z = rng.uniform(-2.0, 2.0, 300), rng.uniform(0.0, 2.0, 300)
+        clouds.append(np.stack([2.0 + 0.05 * rng.standard_normal(300), y, z],
+                               -1).astype(np.float32))
+        origins.append(np.array([0.1, -0.2 + 0.05 * i, 0.3], np.float32))
+    m = build_map(cfg, device=cuda_dev)
+    m.synchronize()
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        m.insert_pointclouds(clouds, origins, max_range=6.0)
+        after_insert = profiling.snapshot()
+        m.synchronize()
+        after_sync = profiling.snapshot()
+    assert after_insert["counts"] == {"scans": 16, "dispatches": 1, "host_syncs": 5}
+    assert {k: v["calls"] for k, v in after_insert["spans"].items()
+            if k.startswith("la3dm.sync.")} == sites
+    assert after_sync["counts"]["host_syncs"] == 6
+    assert after_sync["spans"]["la3dm.sync.synchronize"]["calls"] == 1
+    assert m.stats["scans"] == 16 and m.stats["ingest_host_chunks"] == 0
 
 
 @pytest.mark.cuda
