@@ -62,7 +62,12 @@ then on the device-ingest path, the default of a CUDA map:
    sort's runs) — bit for bit against both plain versions (read off the
    runs, and by torch.searchsorted), timed with the candidate sort beside
    torch.unique + searchsorted + the gathers, its bound and the
-   search-based one beside it; K1′ (the aligned
+   search-based one beside it; K7w (the test blocks' world keys and
+   per-scan counts, the world-key sort, the slot gather) — bit for bit
+   against the plain versions, and the resolution the host's (np.unique's
+   distinct blocks in its order, slots, counts; the control, two slots
+   swapped, must fail), timed with the sort beside torch.unique + the
+   slots' index; K1′ (the aligned
    heavy pass) — bit for bit, and so within |Δ| ≤ 1e-5 + 1e-5·|plain| (the
    control, the plain version on TF32-rounded coordinates, must fail it);
    its warp work units and culled (warp, entry) pairs printed, its own cull
@@ -70,8 +75,8 @@ then on the device-ingest path, the default of a CUDA map:
    repeat launch bit-equal; its bound on the work the culling leaves, the
    bound on every evaluation beside it;
 9. runs the main path as in 5 with ``BGKOctoMap(cfg)`` on its default,
-   asserting per dispatch two K7a, two K7b, one K7c, four K7s, one K7t and
-   one K1′ launches, one K2 per scan, no K1 and no chunk on the host path;
+   asserting per dispatch two K7a, two K7b, one K7c, five K7s (the fifth
+   of the world keys), one K7t, two K7w and one K1′ launches, one K2 per scan, no K1 and no chunk on the host path;
    counts the host syncs as in 5 (at most 5 a dispatch required); profiles
    the 60-scan run as in 6, the device time outside the named kernels
    ("other") broken down by op; compares card and CPU
@@ -143,8 +148,9 @@ host-ingest path:
 
 then on the device-ingest path:
 
-19. holds K7a, K7b, K7c, K7s and K7t against their plain versions on a
-    real 16-scan GP dispatch (81 free samples a beam), as in 8;
+19. holds K7a, K7b, K7c, K7s, K7t and K7w (with the centres) against their
+    plain versions on a real 16-scan GP dispatch (81 free samples a beam),
+    as in 8;
 20. runs the main path as in 9 (K4 = the map's size tiers, K5 per scan, no
     failed factorisation), counts the host syncs, profiles, and compares
     card and CPU (both on) as in 18.
@@ -175,10 +181,11 @@ then on device ingest, its default on the card:
     a membership; without the dedup the list must be longer), timed by
     torch.profiler and with its wait —, K7b (the
     hits), K7c (the hits' dense layout, 8 slots a hit, and their rows),
-    K7s (three sorts) and K7t as in 8, and K1′'s segment branch as in 8,
+    K7s (three sorts), K7t and K7w as in 8, and K1′'s segment branch as in 8,
     with the gate count of 21;
 24. runs the main path as in 9 (per dispatch one K7a, one K7b, the two
-    launches of K7d, one K7c, three K7s, one K7t, one K1′; K2 per scan),
+    launches of K7d, one K7c, four K7s, one K7t, two K7w, one K1′; K2 per
+    scan),
     counts the host syncs,
     profiles, and compares card and CPU (both on) on 2 scans within
     1e-5 + 1e-5·|CPU| (the control, with K1′ on TF32-rounded coordinates,
@@ -326,8 +333,8 @@ from la3dm_tpu_torch.io.pcd import load_pcd, load_pcd_full, save_pcd  # noqa: E4
 from la3dm_tpu_torch.kernels import (_build, bgk_aligned_heavy, bgk_heavy,  # noqa: E402
                                      bgk_light, gp_heavy, gp_light, group_prune, ingest_beams,
                                      ingest_bucket, ingest_downsample, ingest_keys,
-                                     ingest_members, ingest_rays, ingest_sort, lv_prune,
-                                     lv_rows, math as km, raycast as k6)
+                                     ingest_members, ingest_rays, ingest_slots, ingest_sort,
+                                     lv_prune, lv_rows, math as km, raycast as k6)
 from la3dm_tpu_torch.models import gp as gp_model, posterior, raycast as rc  # noqa: E402
 from la3dm_tpu_torch.models.bgklv import BGKLVOctoMap  # noqa: E402
 from la3dm_tpu_torch.models.gp import GPOctoMap  # noqa: E402
@@ -838,6 +845,7 @@ def light_levels(eff, slots, max_level: int) -> list:
 def reset_counts() -> None:
     ingest_sort.launches = ingest_sort.kernel_launches = 0
     ingest_bucket.launches = 0
+    ingest_slots.launches = 0
     ingest_rays.launches = 0
     k6.launches = 0
     ingest_beams.launches = 0
@@ -1846,6 +1854,9 @@ INGEST_WRAPPERS = {
     "ingest_sort": (ingest_sort, "sort_runs"),
     "ingest_bucket": (ingest_bucket, "bucket"),
     "bgk_aligned_heavy": (bgk_aligned_heavy, "bgk_aligned_heavy"),
+    "ingest_slots_world": (ingest_slots, "world_keys"),
+    "ingest_slots_sort": (ingest_slots, "sort_world"),
+    "ingest_slots_gather": (ingest_slots, "gather"),
 }
 #: f32 relative spacing: K7b's limit is one ulp of the plain centroid
 F32_EPS = 2.0 ** -23
@@ -1964,6 +1975,107 @@ def check_k7(calls, what: str, reps: int = 5) -> dict:
           f"{mem['ms']:.4f} = {out['ingest_members']['with_membership_sort_ms']:.4f} ms "
           f"device time")
     return out
+
+
+def check_k7w(calls, what: str, reps: int = 5) -> dict:
+    """K7w on one dispatch's recorded calls (the slot resolution of a fresh
+    map's first dispatch): the world keys and scan counts, the world-key
+    sort (K7s with ``want_rid``) and the gather (GP: with centres) bit-equal
+    to their plain versions on the same card inputs; and the resolution the
+    host's: the distinct blocks np.unique's of the packed test-block
+    coordinates in its order, the slots uslots[inverse], the counts
+    bincount's, the centres block_center's.  Control: the gather from D
+    slots with two swapped must fail that check.  Times: ``ms`` K7w's two
+    launches behind a spin, ``ms_with_sort`` with the world-key sort's
+    launches between them, ``ms_sort_gather`` the sort and the gather;
+    ``library_ms`` torch.unique(world keys, return_inverse=True) and the
+    slots' index (GP: and the centres from the distinct keys) with their
+    sync, equal to the gather's slots, beside ``ms_sort_gather``;
+    ``plain_ms`` the two plain versions.  Bound: every input read once,
+    every output written once (the keys, anchors, sort index, runs, the D
+    slots and, GP, the D run keys in; world keys, counts, slots and centres
+    out)."""
+    (wa, wkw, (wkey, count)), = calls["ingest_slots_world"]
+    (sa, skw, (perm, ukey, rid, status)), = calls["ingest_slots_sort"]
+    (ga, gkw, (slots, ctr)), = calls["ingest_slots_gather"]
+    tkey, anchors, base, K = wa
+    window, T = sa[1], tkey.shape[0]
+    V, D, flag, _ = status.tolist()
+    ref_w = ingest_slots.world_keys_plain(*wa, **wkw)
+    runs = ingest_sort.sort_runs_plain(wkey, window, want_rid=True)
+    ref_g = ingest_slots.gather_plain(*ga, **gkw)
+    same = {"world_keys": torch.equal(wkey, ref_w[0]), "counts": torch.equal(count, ref_w[1]),
+            "sort": (V, D, flag) == (T, runs.ukey.shape[0], 0)
+            and torch.equal(perm[:V], runs.perm) and torch.equal(rid[:V], runs.rid)
+            and torch.equal(ukey[:D], runs.ukey),
+            "slots": torch.equal(slots, ref_g[0]),
+            "centres": (ctr is None) == (ref_g[1] is None)
+            and (ctr is None or torch.equal(ctr, ref_g[1]))}
+    require(all(same.values()), f"K7w disagrees with its plain versions ({what}): {same}")
+    uslots, bs = ga[2], gkw.get("block_size")
+    tscan, coords = ingest_keys.unpack_np(tkey.cpu().numpy(), anchors.cpu().numpy())
+    uniq, inv = np.unique(geo.pack_key(coords), return_inverse=True)
+    want_slots = uslots.cpu().numpy()[inv.reshape(-1)]
+    host = {"blocks": np.array_equal(
+                ingest_slots.unpack_world_np(ukey[:D].cpu().numpy(), base),
+                geo.unpack_key(uniq)),
+            "slots": np.array_equal(slots.cpu().numpy(), want_slots),
+            "counts": np.array_equal(count.cpu().numpy(), np.bincount(tscan, minlength=K)),
+            "centres": ctr is None or np.array_equal(ctr.cpu().numpy(),
+                                                     geo.block_center(coords, bs))}
+    require(all(host.values()), f"K7w's resolution is not the host's ({what}): {host}")
+    swapped = uslots.clone()
+    swapped[[0, 1]] = swapped[[1, 0]]
+    ctl = ingest_slots.gather(ga[0], ga[1], swapped, *ga[3:], **gkw)[0]
+    ctl_fails = not np.array_equal(ctl.cpu().numpy(), want_slots)
+    require(ctl_fails, f"the K7w check passes two swapped slots ({what})")
+
+    def world(_):
+        ingest_slots.world_keys(*wa, **wkw)
+
+    def sort(_):
+        ingest_slots.sort_world(wkey, window)
+
+    def gather(_):
+        ingest_slots.gather(*ga, **gkw)
+
+    ms = launch_ms([world, gather], reps)
+    ms_world, ms_gather = launch_ms([world], reps), launch_ms([gather], reps)
+    ms_with_sort = launch_ms([world, sort, gather], reps)
+    ms_sort_gather = launch_ms([sort, gather], reps)
+    _, plain_ms = _timed(lambda: (ingest_slots.world_keys_plain(*wa, **wkw),
+                                  ingest_slots.gather_plain(*ga, **gkw)))
+    b = torch.as_tensor(np.asarray(base, np.int64), device=wkey.device)
+
+    def library():
+        u, i = torch.unique(wkey, return_inverse=True)
+        s = uslots[i]
+        if bs is not None:
+            f = torch.stack([(u >> 32) & 0xFFFF, (u >> 16) & 0xFFFF, u & 0xFFFF], -1)
+            c = ((f - ingest_keys.FIELD_BIAS + b).double() * float(np.float32(bs))).float()[i]
+            return s, c
+        return s, None
+
+    lib = library()
+    require(torch.equal(lib[0], slots) and (ctr is None or torch.equal(lib[1], ctr)),
+            f"torch.unique's resolution differs from K7w's ({what})")
+    lib_ms = cuda_ms(lambda _: library(), reps)
+    nbyte = (8 * T + 12 * K + 8 * T + 4 * K                    # world: tkey, anchors in; out
+             + 8 * T + 4 * T + 4 * D + 4 * T                   # gather: perm, rid, uslots; slots
+             + (8 * D + 12 * T if ctr is not None else 0))     # GP: run keys in, centres out
+    b_ms, b_by = bound(0, nbyte)
+    print(f"K7w, {what}: T {T} test blocks, D {D} distinct ({D / T:.1%}), K {K} scans; world "
+          f"keys, counts, sort, slots{', centres' if ctr is not None else ''} bit-equal to the "
+          f"plain versions {same}; the host's resolution {host}; control (two slots swapped) "
+          f"fails {ctl_fails}; {ms:.4f} ms device time for its 2 launches (world {ms_world:.4f}, "
+          f"gather {ms_gather:.4f}; with the world-key sort {ms_with_sort:.4f}; sort + gather "
+          f"{ms_sort_gather:.4f}, torch.unique + index {lib_ms:.4f} with its sync), plain "
+          f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by}")
+    return {"max_abs_err": 0.0, "bit_equal": True, "host_equal": True,
+            "control_fails": ctl_fails, "ms": ms, "ms_world": ms_world, "ms_gather": ms_gather,
+            "ms_with_sort": ms_with_sort, "ms_sort_gather": ms_sort_gather,
+            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "T": T, "D": D, "K": K, "centres": ctr is not None}
 
 
 def check_k7c(calls, what: str, reps: int = 5) -> dict:
@@ -2420,6 +2532,7 @@ def ingest_counts() -> dict:
             "ingest_beams": ingest_beams.launches,
             "ingest_downsample": ingest_downsample.launches,
             "ingest_members": ingest_members.launches, "ingest_rays": ingest_rays.launches,
+            "ingest_slots": ingest_slots.launches,
             "bgk_aligned_heavy": bgk_aligned_heavy.launches, "bgk_heavy": bgk_heavy.launches,
             "bgk_light": bgk_light.launches, "gp_heavy": gp_heavy.launches,
             "gp_light": gp_light.launches}
@@ -2472,8 +2585,9 @@ def ingest_syncs(cfg, scans, name: str) -> dict:
 def main_path_ingest(cfg, pcd_dir: str, scans, runs=(12, 60)) -> dict:
     """run_static on each of ``runs`` scans and OnlineIntegrator on 12 scans
     on the default path of a CUDA map, device ingest: per dispatch two K7a, two K7b,
-    one K7c launches (BGKL: one K7a, one K7b, the two of K7d, one K7c), then
-    K1′ once and K2 per scan (BGK, BGKL) or K4 per size tier and K5 per scan
+    one K7c launches (BGKL: one K7a, one K7b, the two of K7d, one K7c), K7w's
+    world keys and gather around one more K7s sort, then K1′ once and K2 per
+    scan (BGK, BGKL) or K4 per size tier and K5 per scan
     (GP); no chunk on the host path."""
     gp, seg = cfg.method == "gp", cfg.method == "bgkl"
     cls = pipeline.MAP_CLASSES[cfg.method]
@@ -2482,7 +2596,8 @@ def main_path_ingest(cfg, pcd_dir: str, scans, runs=(12, 60)) -> dict:
     def expect(m, dispatches, n_scans, what):
         got = ingest_counts()
         per = 1 if seg else 2
-        want = {"ingest_sort": (3 if seg else 4) * dispatches, "ingest_bucket": dispatches,
+        want = {"ingest_sort": (4 if seg else 5) * dispatches, "ingest_bucket": dispatches,
+                "ingest_slots": 2 * dispatches,
                 "ingest_beams": per * dispatches, "ingest_downsample": per * dispatches,
                 "ingest_members": dispatches, "ingest_rays": 2 * dispatches if seg else 0,
                 "bgk_heavy": 0,
@@ -2890,15 +3005,15 @@ def require_same_npz(a: str, b: str, what: str) -> None:
 CLI_STATIC = (
     ("bgk_host", "bgk", ['device_ingest="off"'], ("bgk_heavy", "bgk_light")),
     ("bgk_device", "bgk", [], ("ingest_beams", "ingest_downsample", "ingest_members",
-                               "ingest_sort", "ingest_bucket", "bgk_aligned_heavy",
-                               "bgk_light")),
+                               "ingest_sort", "ingest_bucket", "ingest_slots",
+                               "bgk_aligned_heavy", "bgk_light")),
     ("bgkl_host", "bgkl", ['device_ingest="off"'], ("bgk_heavy", "bgk_light")),
     ("bgkl_device", "bgkl", [], ("ingest_beams", "ingest_downsample", "ingest_rays",
                                  "ingest_members", "ingest_sort", "ingest_bucket",
-                                 "bgk_aligned_heavy", "bgk_light")),
+                                 "ingest_slots", "bgk_aligned_heavy", "bgk_light")),
     ("bgklv", "bgklv", [], ("lv_rows",)),
     ("gp", "gp", [], ("ingest_beams", "ingest_downsample", "ingest_members", "ingest_sort",
-                      "ingest_bucket", "gp_heavy", "gp_light")),
+                      "ingest_bucket", "ingest_slots", "gp_heavy", "gp_light")),
 )
 #: the exports of ``static --out``
 CLI_EXPORTS = ("_occupied.ply", "_free.ply", "_occupied.csv", "_map.npz", "_map.bt",
@@ -3206,6 +3321,8 @@ def step_log(m) -> list:
 
         def recorded(*a, **kw):
             slots, ss, sc, *models = pick(*a)
+            if torch.is_tensor(slots):  # device ingest's slots: copied back here
+                slots = slots.cpu().numpy()
             rec = {"coords": m.pool.coords[np.asarray(slots, np.int64)].copy(),
                    "ss": list(ss), "sc": list(sc)}
             if models:  # the device's nb is copied on the device: no sync
@@ -3606,9 +3723,10 @@ def main() -> int:
         # keeps three
         dev = card_vs_cpu(cfg, tmp, n_scans=1)
 
-        stamp("BGK device ingest: K7a, K7b, K7c, K7s, K7t, K1'")
+        stamp("BGK device ingest: K7a, K7b, K7c, K7s, K7t, K7w, K1'")
         calls = record_ingest(cfg_on, scans[:16])
         k7 = check_k7(calls, "16-scan BGK demo dispatch")
+        k7w = check_k7w(calls, "16-scan BGK demo dispatch")
         k1p = check_k1p(calls)
         del calls
         stamp("BGK device ingest: main path, host syncs, profile, card vs CPU")
@@ -3618,14 +3736,16 @@ def main() -> int:
                         "ingest_beams": "ingest_beams_kernel",
                         "ingest_downsample": "ingest_downsample_kernel",
                         "ingest_members": "ingest_members_kernel",
-                        "ingest_sort": "ingest_sort_", "ingest_bucket": "ingest_bucket_kernel"}
+                        "ingest_sort": "ingest_sort_", "ingest_bucket": "ingest_bucket_kernel",
+                        "ingest_slots": "ingest_slots_"}
         d60 = path_on["static60"]["launches"]["ingest_members"]
         path_on["profile60"] = profile_main_path(
             cfg_on, tmp, {**ingest_names, "bgk_aligned_heavy": "bgk_aligned_heavy_kernel",
                           "bgk_light": "bgk_light_kernel"},
             {"ingest_points": d60, "ingest_beams": d60, "ingest_downsample": 2 * d60,
              "ingest_members": d60, "ingest_sort": path_on["static60"]["ingest_sort_kernels"],
-             "ingest_bucket": d60, "bgk_aligned_heavy": d60, "bgk_light": 60})
+             "ingest_bucket": d60, "ingest_slots": 2 * d60, "bgk_aligned_heavy": d60,
+             "bgk_light": 60})
         dev_on = card_vs_cpu(load_method_config("bgk", max_range=MAX_RANGE,
                                                 device_ingest="on"), tmp, tol=(1e-5, 1e-5))
 
@@ -3649,10 +3769,11 @@ def main() -> int:
         dev_l = card_vs_cpu(cfg_l, tmp, n_scans=1, tol=(1e-5, 1e-5),
                             control=(bgk_heavy, "bgk_heavy", tf32_k1))
 
-        stamp("BGKL device ingest: K7d, K7b, K7s, K7t, K1' (segments)")
+        stamp("BGKL device ingest: K7d, K7b, K7s, K7t, K7w, K1' (segments)")
         calls = record_ingest(cfg_l_on, scans[:16])
         k7d = check_k7d(calls, "16-scan BGKL demo dispatch")
         k7_l = check_k7_segments(calls, "16-scan BGKL demo dispatch")
+        k7w_l = check_k7w(calls, "16-scan BGKL demo dispatch")
         k1ps = check_k1p(calls, gate=statics["gate"])
         del calls
         stamp("BGKL device ingest: main path, host syncs, profile, card vs CPU")
@@ -3666,12 +3787,14 @@ def main() -> int:
                             "ingest_members": "ingest_members_kernel",
                             "ingest_sort": "ingest_sort_",
                             "ingest_bucket": "ingest_bucket_kernel",
+                            "ingest_slots": "ingest_slots_",
                             "bgk_aligned_heavy": "bgk_aligned_heavy_kernel",
                             "bgk_light": "bgk_light_kernel"},
             {"ingest_points": d60, "ingest_downsample": d60, "ingest_rays": 2 * d60,
              "ingest_members": d60,
              "ingest_sort": path_l_on["static60"]["ingest_sort_kernels"],
-             "ingest_bucket": d60, "bgk_aligned_heavy": d60, "bgk_light": 60})
+             "ingest_bucket": d60, "ingest_slots": 2 * d60, "bgk_aligned_heavy": d60,
+             "bgk_light": 60})
         dev_l_on = card_vs_cpu(load_method_config("bgkl", max_range=MAX_RANGE,
                                                   device_ingest="on"), tmp, n_scans=2,
                                tol=(1e-5, 1e-5),
@@ -3733,8 +3856,11 @@ def main() -> int:
         stamp("GP host ingest: card vs CPU")
         dev_gp = card_vs_cpu_gp(cfg_gp, tmp)
 
-        stamp("GP device ingest: K7a, K7b, K7c, K7s, K7t")
-        k7_gp = check_k7(record_ingest(cfg_gp_on, scans[:16]), "16-scan GP demo dispatch")
+        stamp("GP device ingest: K7a, K7b, K7c, K7s, K7t, K7w")
+        calls = record_ingest(cfg_gp_on, scans[:16])
+        k7_gp = check_k7(calls, "16-scan GP demo dispatch")
+        k7w_gp = check_k7w(calls, "16-scan GP demo dispatch")
+        del calls
         stamp("GP device ingest: main path, host syncs, profile, card vs CPU")
         path_gp_on = main_path_ingest(cfg_gp_on, tmp, scans)
         path_gp_on["host_syncs_per_dispatch"] = ingest_syncs(cfg_gp_on, scans[:16], "gp")
@@ -3746,7 +3872,7 @@ def main() -> int:
             {"ingest_points": d60, "ingest_beams": d60, "ingest_downsample": 2 * d60,
              "ingest_members": d60,
              "ingest_sort": path_gp_on["static60"]["ingest_sort_kernels"],
-             "ingest_bucket": d60,
+             "ingest_bucket": d60, "ingest_slots": 2 * d60,
              "gp_heavy": path_gp_on["static60"]["launches"]["gp_heavy"], "gp_light": 60})
         dev_gp_on = card_vs_cpu_gp(load_method_config("gp", max_range=MAX_RANGE,
                                                       device_ingest="on"), tmp)
@@ -3910,6 +4036,15 @@ def main() -> int:
          "library_ms": None, "gp": k7_gp["ingest_members"],
          "bgkl": k7_l["ingest_members"], "bgkl_large_map": k7_ll["ingest_members"],
          "bgk_large_map": k7_bl["ingest_members"]},
+        {"name": "ingest_slots", "route": "cuda",
+         "source": "la3dm_tpu_torch/csrc/ingest_slots.cu",
+         "replaces": "la3dm_tpu/models/ingest.py:202",
+         "launches": launches_on["ingest_slots"],
+         "work": "the 2 launches (world keys, gather) of one 16-scan BGK demo dispatch; "
+                 "ms_with_sort with the world-key sort (K7s) between them; library_ms: "
+                 "torch.unique(world keys, return_inverse=True) + the slots' index with its "
+                 "sync, beside ms_sort_gather",
+         **k7w, "gp": k7w_gp, "bgkl": k7w_l},
         {"name": "bgk_aligned_heavy", "route": "cuda",
          "source": "la3dm_tpu_torch/csrc/bgk_aligned_heavy.cu",
          "replaces": "la3dm_tpu/models/bgk.py:204",

@@ -55,9 +55,13 @@ package's 1024-cell windows cannot bound take the host path in both packages
 (:func:`beam_slots`).  Each data-dependent size is a host sync, one a sort:
 four per dispatch here (the runs of the two downsamples, the memberships
 and the test blocks; BGKL has one downsample and the size of the ray-block
-pair list instead), and the map's copy of the test-block keys and counts
-(``models/ingest.py``) makes five.  The counts of K7a's beam samples and
-K7c's memberships stay on the card, where the sorts that follow read them.
+pair list instead), and the map's one copy of its slot resolution
+(``models/ingest.py``) makes five: not the test-block keys ``tkey``, which
+stay on the card, but the status of K7w's world-key sort, its run-key row
+(sized for the T test blocks; the host reads the first D, the distinct
+blocks), the per-scan counts of test blocks and ``ucount``.  The counts of
+K7a's beam samples and K7c's memberships stay on the card, where the sorts
+that follow read them.
 JAX keeps the first ``Rmax`` distinct blocks of a ray and regrows Rmax or
 takes the host path when a ray has more
 (``la3dm_tpu/models/ingest.py:150-175``), so what it integrates is never

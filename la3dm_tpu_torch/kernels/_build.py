@@ -126,6 +126,10 @@ def _bind(lib):
     lib.la3dm_ingest_rays_write.restype = ci
     lib.la3dm_ingest_rays_write.argtypes = ([vp] * 4 + [cl, ci] + [cf] * 4 + [vp, cl, ci, cl]
                                             + [vp] * 3)
+    lib.la3dm_ingest_slots_world.restype = ci
+    lib.la3dm_ingest_slots_world.argtypes = [vp, vp, cl] + [ci] * 4 + [vp] * 3
+    lib.la3dm_ingest_slots_gather.restype = ci
+    lib.la3dm_ingest_slots_gather.argtypes = [vp] * 4 + [cl] + [ci] * 3 + [cf] + [vp] * 3
     lib.la3dm_raycast.restype = ci
     lib.la3dm_raycast.argtypes = [vp] * 6 + [cl] + [ci] * 6 + [cf] * 3 + [vp] * 6
     lib.la3dm_bgk_aligned_heavy.restype = ci

@@ -296,18 +296,18 @@ class BGKOctoMap(ingest.DeviceIngestMixin, base.OccupancyMapBase):
 
     def _dispatch_ingest_chunk(self, tabs, ucount, slots, centers, scan_start,
                                scan_count) -> None:
-        """Device tables of one dispatch → K1′ + K2 (``centers`` unused: K1′
+        """Device tables of one dispatch → K1′ + K2 (``centers`` None: K1′
         takes the entries relative to their block's centre)."""
         G, Vall = self.num_slots, self._all_nodes_host.shape[0]
         self.stats["kernel_evals"] += int(ucount.sum()) * G * Vall
         self._ingest_step(tabs, slots, scan_start, scan_count)
 
     @profiling.traced("la3dm.heavy.launch")
-    def _ingest_step(self, tabs: dict, slots: np.ndarray, scan_start: list,
-                     scan_count: list, rows: slice = slice(None)) -> None:
+    def _ingest_step(self, tabs: dict, slots, scan_start: list, scan_count: list,
+                     rows: slice = slice(None)) -> None:
         """K1′, then K2 a scan, on the device tables ``tabs`` (``tb_u`` [T, G]
-        the test blocks' rows, ``slots`` [T] their slots) and the pool rows
-        ``rows``."""
+        the test blocks' rows, ``slots`` [T] int32 their slots, a device
+        tensor or a host array) and the pool rows ``rows``."""
         cfg = self.cfg
         pool = self.pool
         _bgk_seq_step_aligned(

@@ -104,6 +104,11 @@ def _gp_tier_gather(ustart, ucount, nb_row, sel):
             nb_row[sel].to(torch.int32))
 
 
+def _host_typed(x, dtype):
+    """``x`` as it is where it is a tensor, else a host array of ``dtype``."""
+    return x if torch.is_tensor(x) else np.asarray(x, dtype)
+
+
 class GPOctoMap(ingest.DeviceIngestMixin, base.OccupancyMapBase):
     """GP occupancy map (ctor params: gpoctomap.cpp:31-56).
 
@@ -117,6 +122,7 @@ class GPOctoMap(ingest.DeviceIngestMixin, base.OccupancyMapBase):
 
     SCAN_BATCH = _SCAN_BATCH
     FREE_LABEL = -1.0  # gpoctomap.cpp:399
+    TEST_CENTERS = True  # K4 predicts at the test blocks' centres
 
     @profiling.traced("la3dm.map.build")
     def __init__(self, cfg: MapConfig, device=None):
@@ -274,8 +280,8 @@ class GPOctoMap(ingest.DeviceIngestMixin, base.OccupancyMapBase):
     def _dispatch_ingest_chunk(self, tabs, ucount, slots, centers, scan_start,
                                scan_count) -> None:
         """Device tables of one dispatch → one K4 per size tier (the entry
-        blocks are the models, on absolute points, predicting at the host's
-        block centres), then K5 per scan."""
+        blocks are the models, on absolute points, predicting at the test
+        blocks' centres), then K5 per scan."""
         G, Vall = self.num_slots, self._all_nodes.shape[0]
         counts = ucount.astype(np.int64)
         self.stats["kernel_evals"] += int((counts ** 2).sum() + counts.sum() * G * Vall)
@@ -290,9 +296,10 @@ class GPOctoMap(ingest.DeviceIngestMixin, base.OccupancyMapBase):
         """K4 once per size tier of the models, then K5 once per scan, on the
         pool rows ``rows``, which ``slots`` address.  The models' ``starts``,
         ``counts`` and ``nb`` [M, G] rows are host arrays or tensors on the
-        device, ``host_counts`` the counts on the host; ``centers`` [T, 3]
-        host.  Models outside the host mask ``counted`` (None: every model)
-        add their failed factorisations to a scratch counter, not to
+        device, ``host_counts`` the counts on the host; ``slots`` [T] and
+        ``centers`` [T, 3] host arrays or tensors on the device.  Models
+        outside the host mask ``counted`` (None: every model) add their
+        failed factorisations to a scratch counter, not to
         ``failed_models``: a sharded map counts them where it counts them
         once."""
         t0 = time.perf_counter()
@@ -314,8 +321,8 @@ class GPOctoMap(ingest.DeviceIngestMixin, base.OccupancyMapBase):
                     out.append(tier(s))
         args = (self.pool.fields["m_ivar"][rows], self.pool.fields["ivar"][rows],
                 self.pool.touched[rows], self.pool.eff_level[rows], self._all_nodes,
-                self._node_idx, pts, lab, tiers, dev(np.asarray(slots, np.int32)),
-                dev(np.asarray(centers, np.float32)), scan_start, scan_count,
+                self._node_idx, pts, lab, tiers, dev(_host_typed(slots, np.int32)),
+                dev(_host_typed(centers, np.float32)), scan_start, scan_count,
                 self.failed_models)
         statics = dict(G=self.num_slots, sf2=cfg.sf2, ell=cfg.ell, noise=cfg.noise,
                        min_known_ivar=self.min_known_ivar, max_ivar=self.max_ivar,

@@ -245,6 +245,10 @@ class _ShardedMixin:
     """A map family over a :class:`ShardedBlockPool` (module docstring).
     ``mesh`` defaults to one shard on ``device`` (CUDA unless named)."""
 
+    #: device ingest hands the engine host slots (``models/ingest.py``):
+    #: :meth:`_shards` cuts each dispatch on the host
+    SLOTS_ON_HOST = True
+
     @profiling.traced("la3dm.map.build")
     def __init__(self, cfg: MapConfig, mesh: ShardMesh | None = None,
                  capacity: int = 8192, device=None):
@@ -364,8 +368,9 @@ class ShardedGPOctoMap(_ShardedMixin, GPOctoMap):
                 st, ct, nbs = starts[seld], counts[seld], self._to_device(nb_sub)
             else:
                 st, ct, nbs = starts[sel], counts[sel], nb_sub
-            super()._gp_step(pts, lab, st, ct, nbs, host_counts[sel], local,
-                             np.asarray(centers)[own],
+            ctr = (centers[self._to_device(np.flatnonzero(own))] if torch.is_tensor(centers)
+                   else np.asarray(centers)[own])
+            super()._gp_step(pts, lab, st, ct, nbs, host_counts[sel], local, ctr,
                              *_scan_segments(own, scan_start, scan_count), rows=rows,
                              counted=home[sel] == d)
 

@@ -8,6 +8,9 @@ it runs apart from tests/conftest.py:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
 
+import json
+import os
+
 import pytest
 import torch
 
@@ -17,7 +20,8 @@ from la3dm_tpu_torch.geometry import device_ingest
 from la3dm_tpu_torch.kernels import (bgk_aligned_heavy, bgk_heavy, bgk_light, gp_heavy,
                                      gp_light, group_prune, ingest_beams, ingest_bucket,
                                      ingest_downsample, ingest_keys, ingest_members,
-                                     ingest_rays, ingest_sort, lv_prune, lv_rows, raycast)
+                                     ingest_rays, ingest_slots, ingest_sort, lv_prune, lv_rows,
+                                     raycast)
 from la3dm_tpu_torch.models import posterior as po
 from la3dm_tpu_torch.pipeline import build_map
 from la3dm_tpu_torch.utils import profiling
@@ -1253,12 +1257,53 @@ def test_device_ingest_dispatch_counts_its_host_syncs(cuda_dev, method, sites):
         after_insert = profiling.snapshot()
         m.synchronize()
         after_sync = profiling.snapshot()
-    assert after_insert["counts"] == {"scans": 16, "dispatches": 1, "host_syncs": 5}
+    counts = dict(after_insert["counts"])
+    blocks, tests = counts.pop("slot_blocks"), counts.pop("slot_tests")
+    assert counts == {"scans": 16, "dispatches": 1, "host_syncs": 5,
+                      "slot_dispatches_card": 1}
+    assert 0 < blocks < tests
     assert {k: v["calls"] for k, v in after_insert["spans"].items()
             if k.startswith("la3dm.sync.")} == sites
     assert after_sync["counts"]["host_syncs"] == 6
     assert after_sync["spans"]["la3dm.sync.synchronize"]["calls"] == 1
     assert m.stats["scans"] == 16 and m.stats["ingest_host_chunks"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["bgk", "bgkl"])
+def test_sharded_device_ingest_dispatch_counts_its_host_syncs(cuda_dev, method):
+    """A map on four shards of the card waits for one 16-scan dispatch five
+    times too: the slot resolution's one copy also brings back the sort
+    index and the runs, from which the host builds the slots it cuts per
+    shard, with no wait of its own."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from la3dm_tpu_torch.parallel import mesh as pm, sharded_map as smod
+
+    cfg = MapConfig(method=method, resolution=0.1, block_depth=3, sf2=1.0, ell=0.2,
+                    free_resolution=0.5, ds_resolution=0.1, free_thresh=0.3,
+                    occupied_thresh=0.7, var_thresh=100.0, prior_A=0.001, prior_B=0.001,
+                    max_range=8.0, device_ingest="on")
+    rng = np.random.default_rng(16)
+    clouds, origins = [], []
+    for i in range(16):
+        y, z = rng.uniform(-2.0, 2.0, 300), rng.uniform(0.0, 2.0, 300)
+        clouds.append(np.stack([2.0 + 0.05 * rng.standard_normal(300), y, z],
+                               -1).astype(np.float32))
+        origins.append(np.array([0.1, -0.2 + 0.05 * i, 0.3], np.float32))
+    cls = {"bgk": smod.ShardedBGKOctoMap, "bgkl": smod.ShardedBGKLOctoMap}[method]
+    m, ref = cls(cfg, mesh=pm.block_mesh(4, cuda_dev)), build_map(cfg, device=cuda_dev)
+    m.synchronize()
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        m.insert_pointclouds(clouds, origins, max_range=6.0)
+        counts = profiling.snapshot()["counts"]
+    assert counts["host_syncs"] == 5 and counts["slot_dispatches_card"] == 1
+    assert "slot_dispatches_host" not in counts
+    ref.insert_pointclouds(clouds, origins, max_range=6.0)
+    assert m.pool.n_blocks == ref.pool.n_blocks > 0
+    assert set(map(tuple, m.pool.coords[m.pool.active_slots()].tolist())) == \
+        set(map(tuple, ref.pool.coords[:ref.pool.n_blocks].tolist()))
 
 
 @pytest.mark.cuda
@@ -1533,3 +1578,123 @@ def test_cuda_map_auto_takes_the_device_path(cuda_dev, method):
     assert ingest_members.launches == before[0] + 1
     assert ingest_rays.launches == before[1] + (2 if method == "bgkl" else 0)
     assert m.stats["ingest_host_chunks"] == 0 and m.pool.n_blocks > 0
+
+
+def _recording(monkeypatch, mod, names):
+    """Wrap ``mod``'s functions ``names`` to record (args, kwargs, out)."""
+    calls = {n: [] for n in names}
+    for n in names:
+        def rec(*a, _orig=getattr(mod, n), _n=n, **k):
+            out = _orig(*a, **k)
+            calls[_n].append((a, k, out))
+            return out
+        monkeypatch.setattr(mod, n, rec)
+    return calls
+
+
+def _cpu(x):
+    return x.cpu() if torch.is_tensor(x) else x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", ["bgkl_room_vlp16", "gp_room_vlp16"])
+def test_ingest_slots_kernels_equal_plain_on_the_benchmark_dispatch(cuda_dev, config,
+                                                                   monkeypatch):
+    """K7w on the first dispatch of each benchmark cell's configuration (16
+    VLP-16 scans of ``benchmark/scene.py``, seed 3000000101, a fresh map):
+    the world keys and scan counts, the world-key sort and the gather (GP:
+    with centres) equal their plain versions bit for bit, and the map hands
+    its engine the slots, scan runs and centres of the host resolution, with
+    the same blocks in the same slots and the same pool after the dispatch."""
+    from benchmark import scene
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "benchmark", "configs", config + ".json")) as f:
+        conf = json.load(f)
+    clouds, origins = scene.scans(conf, 16, 3000000101)
+    mcfg = MapConfig(**conf["method"])
+    calls = _recording(monkeypatch, ingest_slots, ("world_keys", "sort_world", "gather"))
+    card, host = build_map(mcfg, device=cuda_dev), build_map(mcfg, device=cuda_dev)
+    host._resolve_slots = lambda tabs, banchor, banchor_dev, radius: host._host_slots(
+        tabs, banchor)
+    logs = []
+    for m in (card, host):
+        log, hook = [], m._dispatch_ingest_chunk
+
+        def rec(tabs, ucount, slots, centers, ss, sc, _log=log, _hook=hook):
+            _log.append((slots, centers, list(ss), list(sc)))
+            return _hook(tabs, ucount, slots, centers, ss, sc)
+
+        m._dispatch_ingest_chunk = rec
+        logs.append(log)
+        m.insert_pointclouds(clouds, origins, ds_resolution=mcfg.resolution,
+                             free_resolution=mcfg.free_resolution,
+                             max_range=float(conf["dataset"]["max_range"]))
+        m.synchronize()
+    assert [len(v) for v in calls.values()] == [1, 1, 1]
+
+    (a, k, (wkey, count)), = calls["world_keys"]
+    ref = ingest_slots.world_keys_plain(*map(_cpu, a), **k)
+    assert torch.equal(wkey.cpu(), ref[0]) and torch.equal(count.cpu(), ref[1])
+    T = wkey.shape[0]
+    (a, k, (perm, ukey, rid, status)), = calls["sort_world"]
+    runs = ingest_sort.sort_runs_plain(a[0].cpu(), a[1], want_rid=True)
+    V, D, flag, _ = status.cpu().tolist()
+    assert (V, D, flag) == (T, runs.ukey.shape[0], 0) and D < T
+    assert torch.equal(perm[:V].cpu(), runs.perm) and torch.equal(rid[:V].cpu(), runs.rid)
+    assert torch.equal(ukey[:D].cpu(), runs.ukey)
+    (a, k, (slots, ctr)), = calls["gather"]
+    ref = ingest_slots.gather_plain(*map(_cpu, a), **k)
+    assert torch.equal(slots.cpu(), ref[0])
+    assert (ctr is None) == (ref[1] is None) == (mcfg.method != "gp")
+    if ctr is not None:
+        assert torch.equal(ctr.cpu(), ref[1])
+
+    (cs, cc, css, csc), = logs[0]
+    (hs, hc, hss, hsc), = logs[1]
+    assert torch.is_tensor(cs) and cs.device.type == "cuda" and not torch.is_tensor(hs)
+    assert np.array_equal(cs.cpu().numpy(), hs) and (css, csc) == (hss, hsc)
+    if mcfg.method == "gp":
+        assert np.array_equal(cc.cpu().numpy(), hc)
+    else:
+        assert cc is None and hc is None
+    assert card.pool.n_blocks == host.pool.n_blocks == D
+    assert np.array_equal(card.pool.coords, host.pool.coords)
+    for k in card.pool.fields:
+        assert torch.equal(card.pool.fields[k], host.pool.fields[k]), k
+    assert torch.equal(card.pool.touched, host.pool.touched)
+    assert torch.equal(card.pool.eff_level, host.pool.eff_level)
+
+
+@pytest.mark.cuda
+def test_ingest_slots_kernels_equal_plain_on_edges(cuda_dev):
+    """K7w on small inputs: a scan without test blocks, one test block,
+    fields at the window's edge and past 16 bits (the sentinel), and
+    more test blocks than one CTA's threads."""
+    rng = np.random.default_rng(5)
+    anchors = torch.tensor([[0, 0, 0], [3, -2, 1], [9, 9, 9]], dtype=torch.int32)
+    for n, spread in ((1, 0), (5, 4), (3000, 12), (70000, 30)):
+        scan = torch.from_numpy(np.sort(rng.choice([0, 2], n)))
+        c = anchors[scan].long() + torch.from_numpy(rng.integers(-spread, spread + 1, (n, 3)))
+        tkey = torch.unique(ingest_keys.pack(scan, c, anchors))
+        for base in ([1, 0, 1], [0, 0, 40000]):
+            ref = ingest_slots.world_keys_plain(tkey, anchors, np.array(base), 3)
+            got = ingest_slots.world_keys(tkey.to(cuda_dev), anchors.to(cuda_dev),
+                                          np.array(base), 3)
+            torch.cuda.synchronize()
+            assert torch.equal(got[0].cpu(), ref[0]) and torch.equal(got[1].cpu(), ref[1])
+            assert ref[1].tolist()[1] == 0
+        window, base = ingest_slots.world_window(spread, anchors.numpy())
+        wkey = ingest_slots.world_keys_plain(tkey, anchors, base, 3)[0]
+        perm, ukey, rid, status = ingest_slots.sort_world(wkey.to(cuda_dev), window)
+        V, D, flag, _ = status.cpu().tolist()
+        assert (V, flag) == (tkey.shape[0], 0)
+        uslots = torch.from_numpy(rng.permutation(D).astype(np.int32))
+        for bs in (None, 0.4, 0.8):
+            got = ingest_slots.gather(perm[:V], rid[:V], uslots.to(cuda_dev), ukey, base,
+                                      block_size=bs)
+            ref = ingest_slots.gather_plain(perm[:V].cpu(), rid[:V].cpu(), uslots,
+                                            ukey.cpu(), base, block_size=bs)
+            torch.cuda.synchronize()
+            assert torch.equal(got[0].cpu(), ref[0])
+            assert (got[1] is None and ref[1] is None) or torch.equal(got[1].cpu(), ref[1])

@@ -129,7 +129,8 @@ def test_kernel_library_binds_every_entry_point():
               "la3dm_ingest_downsample": 10, "la3dm_ingest_members": 15,
               "la3dm_bgk_aligned_heavy": 18, "la3dm_ingest_rays_count": 18,
               "la3dm_ingest_rays_write": 17,
-              "la3dm_raycast": 22, "la3dm_ingest_sort": 14, "la3dm_ingest_bucket": 23}
+              "la3dm_raycast": 22, "la3dm_ingest_sort": 14, "la3dm_ingest_bucket": 23,
+              "la3dm_ingest_slots_world": 10, "la3dm_ingest_slots_gather": 12}
     for name, n in n_args.items():
         fn = getattr(lib, name)
         assert fn.restype is ctypes.c_int and len(fn.argtypes) == n, name

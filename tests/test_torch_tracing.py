@@ -160,8 +160,12 @@ def test_every_cpu_span_is_on_the_profilers_timeline(traced):
         assert name in traced["durations"], name
         assert traced["snap"]["spans"][name]["calls"] == len(traced["durations"][name])
     assert not any(k.startswith("la3dm.sync.") for k in traced["durations"])
-    counts = traced["snap"]["counts"]
-    assert counts == {"scans": N_SCANS, "dispatches": -(-N_SCANS // BATCH)}
+    counts = dict(traced["snap"]["counts"])
+    blocks, tests = counts.pop("slot_blocks"), counts.pop("slot_tests")
+    dispatches = -(-N_SCANS // BATCH)
+    assert counts == {"scans": N_SCANS, "dispatches": dispatches,
+                      "slot_dispatches_card": dispatches}
+    assert 0 < blocks < tests
     assert traced["map"].stats["scans"] == N_SCANS
 
 
