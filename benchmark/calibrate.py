@@ -5,10 +5,11 @@ cell's own size, in one process on the card:
     python3 benchmark/calibrate.py --workload <name> --seeds 1,2,... --control-seeds 1,2,3
 
 For each seed of ``--seeds``: one pass of the program exactly as the timed
-window runs it (the traffic generator's own ``step``), held against the reference (the lower readings).  For each
-seed of ``--control-seeds``: the reference with its heavy pass's
-coordinates rounded to TF32, in the program's place, held against the
-reference (the control, the upper readings).  For each seed of
+window runs it (the traffic generator's own ``step``), held against the
+reference fed as the generator says (``run.reference``; the lower
+readings).  For each seed of ``--control-seeds``: the reference with its
+heavy pass's coordinates rounded to TF32, in the program's place, held
+against the reference (the control, the upper readings).  For each seed of
 ``--witness-seeds``: the reference solved in float32, the program's own
 precision, held against the reference (a family whose reference takes
 ``solve``).  One JSON line per reading — a program reading whose
@@ -51,7 +52,6 @@ def main(argv=None) -> int:
                         ("witness", args.witness_seeds)):
         for seed in [int(s) for s in seeds.split(",") if s]:
             load = gen.build(conf, parts["traffic"], seed, "cuda")
-            clouds, origins = load["clouds"], load["origins"]
             t0 = time.perf_counter()
             if kind == "program":
                 m = load["step"]()
@@ -59,10 +59,8 @@ def main(argv=None) -> int:
                 del m
             else:
                 kw = {"tf32": True} if kind == "control" else {"solve": torch.float32}
-                with torch.no_grad():
-                    other = ref_mod.run(clouds, origins, meth, max_range=mr, device="cuda", **kw)
-            with torch.no_grad():
-                ref = ref_mod.run(clouds, origins, meth, max_range=mr, device="cuda")
+                other = run.reference(ref_mod, load, meth, max_range=mr, device="cuda", **kw)
+            ref = run.reference(ref_mod, load, meth, max_range=mr, device="cuda")
             nums = compare.compare(other, ref, state)
             if kind != "witness":
                 agg = worst if kind == "program" else least

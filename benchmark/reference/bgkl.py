@@ -173,11 +173,15 @@ def state(values: dict, method: dict) -> torch.Tensor:
 
 
 def run(clouds, origins, method: dict, *, max_range: float, device, tf32: bool = False,
-        batch: int | None = None) -> dict:
+        batch: int | None = None, ds: float | None = None) -> dict:
     """The BGK-L map of the scan sequence: ``coords`` [B, 3], ``fields`` (A,
     B), ``touched``, ``eff``, and the heavy pass's work (``support_pairs``,
-    ``entries``, ``test_blocks``)."""
+    ``entries``, ``test_blocks``).  ``ds`` is the hits' downsampling leaf
+    (``resolution`` unless named, the static nodes' convention); ``batch``
+    scans go through the heavy pass together (all of them unless named),
+    which leaves every number of the map as it is."""
     res, depth = float(method["resolution"]), int(method["block_depth"])
+    ds = res if ds is None else float(ds)
     bs = block_size(res, depth)
     n = 1 << (depth - 1)
     nodes_np, node_idx_np = node_tables(res, depth)
@@ -195,7 +199,7 @@ def run(clouds, origins, method: dict, *, max_range: float, device, tf32: bool =
         scan = torch.as_tensor(np.repeat(np.arange(len(cl)), [len(c) for c in cl]),
                                device=device)
         org = torch.as_tensor(np.stack(origins[b0:b0 + batch]), device=device)
-        ent, lab, bk = entries(pts, scan, org, ds=res, fr=float(method["free_resolution"]),
+        ent, lab, bk = entries(pts, scan, org, ds=ds, fr=float(method["free_resolution"]),
                                mr=max_range, bs=bs)
         ybar, kbar, sup = heavy(ent, lab, bk, nodes, sf2=float(method["sf2"]),
                                 ell=float(method["ell"]), bs=bs, tf32=tf32)

@@ -149,11 +149,15 @@ def state(values: dict, method: dict) -> torch.Tensor:
 
 
 def run(clouds, origins, method: dict, *, max_range: float, device, tf32: bool = False,
-        solve: torch.dtype = torch.float64, batch: int | None = None) -> dict:
+        solve: torch.dtype = torch.float64, batch: int | None = None,
+        ds: float | None = None) -> dict:
     """The GP map of the scan sequence: ``coords`` [B, 3], ``fields`` (m_ivar,
     ivar), ``touched``, ``eff``, and the heavy pass's work (``models``, the
-    models' point counts; ``served``, the (block, slot) rows each serves)."""
+    models' point counts; ``served``, the (block, slot) rows each serves).
+    ``ds`` is the downsampling leaf of hits and free samples (``resolution``
+    unless named); ``batch`` as BGK-L's."""
     res, depth = float(method["resolution"]), int(method["block_depth"])
+    ds = res if ds is None else float(ds)
     bs = block_size(res, depth)
     n = 1 << (depth - 1)
     nodes_np, node_idx_np = node_tables(res, depth)
@@ -174,7 +178,7 @@ def run(clouds, origins, method: dict, *, max_range: float, device, tf32: bool =
         scan = torch.as_tensor(np.repeat(np.arange(len(cl)), [len(c) for c in cl]),
                                device=device)
         org = torch.as_tensor(np.stack(origins[b0:b0 + batch]), device=device)
-        ent, lab, bk = entries(pts, scan, org, ds=res, fr=float(method["free_resolution"]),
+        ent, lab, bk = entries(pts, scan, org, ds=ds, fr=float(method["free_resolution"]),
                                mr=max_range, bs=bs)
         mean, var, present = heavy(ent, lab, bk, nodes, sf2=sf2, ell=float(method["ell"]),
                                    noise=float(method["noise"]), bs=bs, tf32=tf32, solve=solve)

@@ -13,9 +13,12 @@ kernels on a checkout's first run (``la3dm_tpu_torch/build/``) and runs
 warm passes; the window then runs the generator's passes for
 ``--seconds``.  With ``--trace 1`` a shorter window runs under
 ``torch.profiler`` and the per-layer metrics are read from it by the
-readers in ``benchmark/metrics/``.  After the window the map of the
-last pass is held against the plain reference (``benchmark/reference/``)
-by ``benchmark/compare.py`` with the limits of ``benchmark/checks/``.
+readers in ``benchmark/metrics/``; without it the cell's end-to-end
+metrics are read from the window by the readers in
+``benchmark/end_to_end/``.  After the window the map of the last pass is
+held against the plain reference (``benchmark/reference/``), fed as the
+generator says the program was, by ``benchmark/compare.py`` with the limits
+of ``benchmark/checks/``.
 
 The last line of standard output is one JSON object (``correct``,
 ``attempted``, ``failed``, ``metrics``, ``device``, with ``--trace 1``
@@ -74,17 +77,14 @@ def _by_name(items: list, name: str, what: str) -> dict:
 def load_cell(workload: str, root: str = ROOT) -> dict:
     """Everything a cell names, found by name: the ``BENCHMARK.json`` entry,
     its configuration and traffic files, the generator of the traffic's
-    ``kind`` (which refuses a mix it does not run), its per-layer metric
-    readers and its check file."""
+    ``kind`` (which refuses a mix it does not run), its end-to-end and
+    per-layer metrics with their readers, and its check file."""
     bench = _json(os.path.join(root, "BENCHMARK.json"))
     cell = _by_name(bench["workloads"], workload, "workload")
     conf = _by_name(bench["configs"], cell["config"], "configuration")
     here = os.path.join(root, "benchmark")
-    readers = {}
-    for m in bench["per_layer"]:
-        if workload in m.get("workloads", [workload]):
-            readers[m["name"]] = _module(os.path.join(here, "metrics", m["name"] + ".py"),
-                                         "bench_metric_").read
+    readers = _readers(bench["per_layer"], workload, os.path.join(here, "metrics"))
+    end_to_end = [m for m in bench["end_to_end"] if workload in m.get("workloads", [workload])]
     traffic = _json(os.path.join(here, "traffic", cell["traffic"] + ".json"))
     generator = _module(os.path.join(here, "traffic", traffic["kind"] + ".py"), "bench_traffic_")
     generator.check(traffic)
@@ -92,9 +92,16 @@ def load_cell(workload: str, root: str = ROOT) -> dict:
             "config": _json(os.path.join(root, conf["file"])),
             "traffic": traffic, "generator": generator,
             "check": _json(os.path.join(here, "checks", cell["config"] + ".json")),
-            "readers": readers,
-            "end_to_end": [m for m in bench["end_to_end"]
-                           if workload in m.get("workloads", [workload])]}
+            "readers": readers, "end_to_end": end_to_end,
+            "end_to_end_readers": _readers(bench["end_to_end"], workload,
+                                           os.path.join(here, "end_to_end"))}
+
+
+def _readers(metrics: list, workload: str, folder: str) -> dict:
+    """name → ``read`` of each metric that the cell reports, from
+    ``<folder>/<name>.py``."""
+    return {m["name"]: _module(os.path.join(folder, m["name"] + ".py"), "bench_metric_").read
+            for m in metrics if workload in m.get("workloads", [workload])}
 
 
 def _module(path: str, prefix: str):
@@ -110,6 +117,26 @@ def family(method: str):
     """(reference module, counts module) of a map family, by its name."""
     return (importlib.import_module(f"benchmark.reference.{method}"),
             importlib.import_module(f"benchmark.counts.{method}"))
+
+
+def reference(ref_mod, load: dict, method: dict, *, max_range: float, device, **kw) -> dict:
+    """The reference's map of a load's raw clouds, fed as the load's
+    ``reference`` says the program's path feeds its map: ``server_leaf``,
+    each cloud through the server's pre-downsample at that leaf first;
+    ``ds``, the hits' leaf; ``batch``, the scans of a heavy pass.  A load
+    that names none is the static node's path at the configuration's
+    resolution, in one batch."""
+    import torch
+
+    from benchmark.reference import server
+
+    how = load.get("reference", {})
+    clouds = load["clouds"]
+    with torch.no_grad():
+        if how.get("server_leaf") is not None:
+            clouds = [server.voxel_grid(c, how["server_leaf"], device) for c in clouds]
+        return ref_mod.run(clouds, load["origins"], method, max_range=max_range, device=device,
+                           ds=how.get("ds"), batch=how.get("batch"), **kw)
 
 
 # ------------------------------------------------------------------- trace
@@ -231,19 +258,26 @@ def run_cell(parts: dict, *, seed: int, seconds: float, trace: bool, device: str
     conf = {**conf, "sensor": {**conf["sensor"], **(sensor or {})},
             "method": {**conf["method"], **(method or {})}}
     meth, max_range = conf["method"], float(conf["dataset"]["max_range"])
+    t_load = time.perf_counter()
     load = gen.build(conf, traffic, seed, device, scans=scans)
     step, n_scans = load["step"], load["scans"]
     on_cuda = torch.device(device).type == "cuda"
+    if on_cuda:
+        torch.cuda.reset_peak_memory_stats()    # the load's own scratch is not the program's
 
     t_first = time.perf_counter()
     warm = step()
     if warm.stats.get("ingest_host_chunks", 0):
         raise RuntimeError("the pass took the host-ingest path; the cell measures device ingest")
     del warm
+    t_warm = time.perf_counter()
     if on_cuda:
-        built = time.perf_counter() - t_first > BUILT_S
+        built = t_warm - t_first > BUILT_S
         gen.window(step, WARM_AFTER_BUILD_S if built else WARM_SECONDS, n_scans)
     setup_s = time.perf_counter() - t_start
+    setup_parts = {"before_load_s": t_load - t_start, "load_s": t_first - t_load,
+                   "first_pass_s": t_warm - t_first,
+                   "warm_passes_s": t_start + setup_s - t_warm}
     ref_mod, counts_mod = family(meth["method"])
     layers = _json(os.path.join(HERE, "kernel_layers.json"))["layers"]
     if trace:
@@ -266,9 +300,7 @@ def run_cell(parts: dict, *, seed: int, seconds: float, trace: bool, device: str
         card, kind = "cpu", "cpu"
 
     t_ref = time.perf_counter()
-    with torch.no_grad():
-        ref = ref_mod.run(load["clouds"], load["origins"], meth, max_range=max_range,
-                          device=device)
+    ref = reference(ref_mod, load, meth, max_range=max_range, device=device)
     ref_s = time.perf_counter() - t_ref
     numbers = compare.compare(prog, ref, lambda v: ref_mod.state(v, meth))
     limits = check["limits"]
@@ -286,8 +318,13 @@ def run_cell(parts: dict, *, seed: int, seconds: float, trace: bool, device: str
             if v is not None:
                 metrics[name] = {"value": float(v), "unit": units[name]}
     else:
-        metrics = {"scans_per_s": {"value": attempted / window_s, "unit": "scans/s"},
-                   "setup_s": {"value": setup_s, "unit": "s"}}
+        ctx = {"scans": attempted, "window_s": window_s, "setup_s": setup_s,
+               "latencies_s": w.get("latencies")}
+        metrics = {}
+        for m in parts["end_to_end"]:
+            v = parts["end_to_end_readers"][m["name"]](ctx)
+            if v is not None:
+                metrics[m["name"]] = {"value": float(v), "unit": m["unit"]}
     out = {"correct": bool(correct), "attempted": attempted, "failed": failed,
            "metrics": metrics,
            "device": {"platform": "gpu" if on_cuda else "cpu", "kind": kind, "count": 1,
@@ -302,6 +339,10 @@ def run_cell(parts: dict, *, seed: int, seconds: float, trace: bool, device: str
         steps = np.diff([0.0] + w["ends"])
         out["pass_s"] = {"first3": [float(x) for x in steps[:3]],
                          "median": float(np.median(steps)), "max": float(steps.max())}
+        if w.get("latencies"):
+            out["scan_ms"] = {"median": 1e3 * float(np.median(w["latencies"])),
+                              "max": 1e3 * float(np.max(w["latencies"]))}
+    out["setup_parts"] = setup_parts
     out["reference_s"] = ref_s
     out["work"] = {k: (v if np.isscalar(v) else int(np.asarray(v).size))
                    for k, v in ref["work"].items()}

@@ -12,46 +12,38 @@ refuses a mix that asks for anything else or names a key it does not read.
 
 from __future__ import annotations
 
-import time
+from benchmark.traffic import passes
 
 #: the keys a mix may hold: None where any value goes, else the values run
 KEYS = {"name": None, "kind": None, "why": None, "source": None,
         "sequence_scans": None, "trace_layer": None,
         "fresh_map_per_pass": (True,), "loop": ("closed",), "streams": (1,)}
 REQUIRED = ("sequence_scans", "trace_layer")
+window = passes.window
 
 
 def check(traffic: dict) -> None:
     """Refuse a mix with a key this generator does not read, a value it does
     not run, or a key it needs left out."""
-    name = traffic.get("name")
-    for k, v in traffic.items():
-        if k not in KEYS:
-            raise ValueError(f"traffic {name!r}: offline_passes reads no key {k!r}")
-        if KEYS[k] is not None and not any(type(v) is type(a) and v == a for a in KEYS[k]):
-            raise ValueError(f"traffic {name!r}: offline_passes runs {k} in {KEYS[k]}, "
-                             f"not {v!r}")
-    for k in REQUIRED:
-        if k not in traffic:
-            raise ValueError(f"traffic {name!r}: offline_passes needs {k!r}")
+    passes.check(traffic, "offline_passes", KEYS, REQUIRED)
 
 
 def build(conf: dict, traffic: dict, seed: int, device: str, scans: int | None = None) -> dict:
     """One run's load: the sequence's clouds and origins from the seed, and
     ``step``, one pass of them through the program's public entry — a fresh
     map, ``insert_pointclouds`` with the dataset's ``max_range``,
-    ``synchronize`` — returning the map.  ``scans`` overrides the mix's
-    sequence length."""
+    ``synchronize`` — returning the map (it times no single scan).
+    ``scans`` overrides the mix's sequence length."""
     from benchmark import scene
     from la3dm_tpu_torch.pipeline import build_map
     from la3dm_tpu_torch.utils.config import MapConfig
 
     n = int(scans or traffic["sequence_scans"])
-    clouds, origins = scene.scans(conf, n, seed)
+    clouds, origins = scene.scans(conf, n, seed, device)
     mcfg = MapConfig(**conf["method"])
     max_range = float(conf["dataset"]["max_range"])
 
-    def step():
+    def step(latencies: list | None = None):
         m = build_map(mcfg, device=device)
         m.insert_pointclouds(clouds, origins, ds_resolution=mcfg.resolution,
                              free_resolution=mcfg.free_resolution, max_range=max_range)
@@ -59,24 +51,3 @@ def build(conf: dict, traffic: dict, seed: int, device: str, scans: int | None =
         return m
 
     return {"clouds": clouds, "origins": origins, "scans": n, "step": step}
-
-
-def window(step, seconds: float, scans: int) -> dict:
-    """Whole passes back to back until ``seconds`` have gone: the passes,
-    the window's seconds (to the end of its last pass), the last pass's map,
-    the scans of passes whose map reports failed models, the ingest
-    driver's host seconds and each pass's end."""
-    passes, failed, host_s, m, ends = 0, 0, 0.0, None, []
-    t0 = time.perf_counter()
-    while True:
-        m = None   # the previous map's memory returns to the allocator first
-        m = step()
-        passes += 1
-        host_s += m.stats["host_s"]
-        if int(getattr(m, "failed_models", 0)):
-            failed += scans
-        ends.append(time.perf_counter() - t0)
-        if ends[-1] >= seconds:
-            break
-    return {"passes": passes, "seconds": ends[-1], "map": m, "failed": failed,
-            "host_s": host_s, "ends": ends}
