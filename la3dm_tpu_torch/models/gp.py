@@ -270,7 +270,7 @@ class GPOctoMap(ingest.DeviceIngestMixin, base.OccupancyMapBase):
             # ensured: re-resolve the whole batch
             cat["slots"] = self.pool.lookup(cat["coords"])
         counts = cat["ct"]
-        self.stats["heavy_tiers"] += len(_size_tiers(counts))
+        self._count_models(counts)
         dev = self._to_device
         pts, lab = dev(cat["pts"].astype(np.float32)), dev(cat["lab"].astype(np.float32))
         self.stats["host_s"] += time.perf_counter() - t_host0
@@ -285,9 +285,22 @@ class GPOctoMap(ingest.DeviceIngestMixin, base.OccupancyMapBase):
         G, Vall = self.num_slots, self._all_nodes.shape[0]
         counts = ucount.astype(np.int64)
         self.stats["kernel_evals"] += int((counts ** 2).sum() + counts.sum() * G * Vall)
-        self.stats["heavy_tiers"] += len(_size_tiers(counts))
+        self._count_models(counts)
         self._gp_step(tabs["ent"], tabs["lab"], tabs["ustart"], tabs["ucount"],
                       tabs["nb_row"], counts, slots, centers, scan_start, scan_count)
+
+    def _count_models(self, counts: np.ndarray) -> None:
+        """A dispatch's models, of host ``counts`` points each: its K4 size
+        tiers in ``stats["heavy_tiers"]``, and while a profiler records the
+        counters ``gp_models``, ``gp_model_points`` (Σ counts),
+        ``gp_overflow_models`` (over ``gp_heavy.BASE_MAX_C`` points) and
+        ``gp_tier_launches`` (the size tiers)."""
+        tiers = len(_size_tiers(counts))
+        self.stats["heavy_tiers"] += tiers
+        profiling.count("gp_models", len(counts))
+        profiling.count("gp_model_points", int(counts.sum()))
+        profiling.count("gp_overflow_models", int((counts > gp_heavy.BASE_MAX_C).sum()))
+        profiling.count("gp_tier_launches", tiers)
 
     @profiling.traced("la3dm.heavy.launch")
     def _gp_step(self, pts, lab, starts, counts, nb, host_counts, slots, centers,

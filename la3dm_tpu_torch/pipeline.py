@@ -28,6 +28,7 @@ from la3dm_tpu_torch.models.bgk import BGKOctoMap
 from la3dm_tpu_torch.models.bgkl import BGKLOctoMap
 from la3dm_tpu_torch.models.bgklv import BGKLVOctoMap
 from la3dm_tpu_torch.models.gp import GPOctoMap
+from la3dm_tpu_torch.utils import profiling
 from la3dm_tpu_torch.utils.config import DatasetConfig, MapConfig
 
 MAP_CLASSES = {
@@ -140,7 +141,8 @@ class OnlineIntegrator:
                 return False
         self._last_pos, self._last_quat = origin, quat
         if self.map.SERVER_DOWNSAMPLE:
-            cloud = voxel_downsample(cloud, self.map.cfg.ds_resolution)
+            with profiling.span("la3dm.server.downsample"):
+                cloud = voxel_downsample(cloud, self.map.cfg.ds_resolution)
         self.map.insert_pointcloud(cloud, origin)
         self.n_integrated += 1
         return True

@@ -162,6 +162,14 @@ def test_every_cpu_span_is_on_the_profilers_timeline(traced):
     assert not any(k.startswith("la3dm.sync.") for k in traced["durations"])
     counts = dict(traced["snap"]["counts"])
     blocks, tests = counts.pop("slot_blocks"), counts.pop("slot_tests")
+    gp = {k: counts.pop(k) for k in ("gp_models", "gp_model_points", "gp_overflow_models",
+                                     "gp_tier_launches") if k in counts}
+    if traced["map"].cfg.method == "gp":
+        assert gp["gp_tier_launches"] == traced["map"].stats["heavy_tiers"]
+        assert 0 < gp["gp_models"] <= gp["gp_model_points"]
+        assert gp["gp_overflow_models"] == 0      # walls of 120 points a scan
+    else:
+        assert gp == {}
     dispatches = -(-N_SCANS // BATCH)
     assert counts == {"scans": N_SCANS, "dispatches": dispatches,
                       "slot_dispatches_card": dispatches}
