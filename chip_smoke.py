@@ -233,7 +233,16 @@ The large maps, after raycast (the BGK-family ones at their YAML's own
 27. BGK large map (``bgkoctomap_large_map.yaml``, block_depth 3): K7a, K7b,
     K7c, K7s and K7t on a 12-scan device-ingest dispatch as in 8; the same
     main paths, card vs CPU within 5e-3 (host, 1 scan) and 1e-5 +
-    1e-5·|CPU| (device ingest, 2 scans);
+    1e-5·|CPU| (device ingest, 2 scans); every OnlineIntegrator on device
+    ingest takes the server's pre-downsample on the card (K7v: two launches
+    and one K7s sort a scan, counted);
+27b. K7v (:func:`check_k7v`) on 24 raw clouds of the benchmark's city
+    block at the 0.5 m leaf: bit-equal (uint32) to ``voxel_downsample`` and
+    to its plain version, and on cells of 1 to 4,096 points whose bits show
+    numpy's sum order (a running sum must fail them); its launches, the
+    call with the upload and the wait, the plain version, numpy's and the
+    host library's voxel grids timed, its bound 12 bytes a point in and a
+    centroid out;
 28. GP at block_depth 5 (``gpoctomap_large_map`` with ``block_depth=5``,
     8 m, host ingest): K4 on every size tier of a 12-scan dispatch at 4681
     nodes a block as in 15 — its overflow tier holds models of about 2,100
@@ -334,7 +343,8 @@ from la3dm_tpu_torch.kernels import (_build, bgk_aligned_heavy, bgk_heavy,  # no
                                      bgk_light, gp_heavy, gp_light, group_prune, ingest_beams,
                                      ingest_bucket, ingest_downsample, ingest_keys,
                                      ingest_members, ingest_rays, ingest_slots, ingest_sort,
-                                     lv_prune, lv_rows, math as km, raycast as k6)
+                                     ingest_voxel_grid, lv_prune, lv_rows, math as km,
+                                     raycast as k6)
 from la3dm_tpu_torch.models import gp as gp_model, posterior, raycast as rc  # noqa: E402
 from la3dm_tpu_torch.models.bgklv import BGKLVOctoMap  # noqa: E402
 from la3dm_tpu_torch.models.gp import GPOctoMap  # noqa: E402
@@ -851,6 +861,7 @@ def reset_counts() -> None:
     ingest_beams.launches = 0
     ingest_downsample.launches = 0
     ingest_members.launches = 0
+    ingest_voxel_grid.launches = 0
     bgk_aligned_heavy.launches = 0
     bgk_heavy.launches = 0
     bgk_light.launches = 0
@@ -2533,6 +2544,7 @@ def ingest_counts() -> dict:
             "ingest_downsample": ingest_downsample.launches,
             "ingest_members": ingest_members.launches, "ingest_rays": ingest_rays.launches,
             "ingest_slots": ingest_slots.launches,
+            "ingest_voxel_grid": ingest_voxel_grid.launches,
             "bgk_aligned_heavy": bgk_aligned_heavy.launches, "bgk_heavy": bgk_heavy.launches,
             "bgk_light": bgk_light.launches, "gp_heavy": gp_heavy.launches,
             "gp_light": gp_light.launches}
@@ -2588,15 +2600,17 @@ def main_path_ingest(cfg, pcd_dir: str, scans, runs=(12, 60)) -> dict:
     one K7c launches (BGKL: one K7a, one K7b, the two of K7d, one K7c), K7w's
     world keys and gather around one more K7s sort, then K1′ once and K2 per
     scan (BGK, BGKL) or K4 per size tier and K5 per scan
-    (GP); no chunk on the host path."""
+    (GP); online, per scan K7v's two launches round one more K7s sort (the
+    server's pre-downsample on the card); no chunk on the host path."""
     gp, seg = cfg.method == "gp", cfg.method == "bgkl"
     cls = pipeline.MAP_CLASSES[cfg.method]
     out = {}
 
-    def expect(m, dispatches, n_scans, what):
+    def expect(m, dispatches, n_scans, what, online=0):
         got = ingest_counts()
         per = 1 if seg else 2
-        want = {"ingest_sort": (4 if seg else 5) * dispatches, "ingest_bucket": dispatches,
+        want = {"ingest_sort": (4 if seg else 5) * dispatches + online,
+                "ingest_voxel_grid": 2 * online, "ingest_bucket": dispatches,
                 "ingest_slots": 2 * dispatches,
                 "ingest_beams": per * dispatches, "ingest_downsample": per * dispatches,
                 "ingest_members": dispatches, "ingest_rays": 2 * dispatches if seg else 0,
@@ -2648,7 +2662,7 @@ def main_path_ingest(cfg, pcd_dir: str, scans, runs=(12, 60)) -> dict:
           f"integrated, median latency {med:.2f} ms (min {min(lat) * 1e3:.2f}, max "
           f"{max(lat) * 1e3:.2f})")
     require(online.n_integrated == 12, "the online gate skipped scans")
-    got = expect(m, 12, 12, "OnlineIntegrator 12")
+    got = expect(m, 12, 12, "OnlineIntegrator 12", online=12)
     out["online12"] = {"median_ms": med, "integrated": online.n_integrated,
                        "launches": got}
     return out
@@ -2960,6 +2974,130 @@ def large_bgk_family(cfg_off, cfg_on, pcd_dir: str, scans, heavy: bool) -> dict:
         forced, pcd_dir, n_scans=2, tol=(1e-5, 1e-5),
         control=(bgk_aligned_heavy, "bgk_aligned_heavy", tf32_k1p) if heavy else None)
     return out
+
+
+def k7v_scans(n: int, seed: int):
+    """``n`` raw clouds and origins of the benchmark's city block
+    (``benchmark/scene.py``, the BGK-L large map's configuration: a VLP-16
+    of 28,800 beams, 0.5 m a scan) and that configuration's MapConfig."""
+    from benchmark import scene
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, "benchmark", "configs", "bgkl_large_vlp16.json")) as f:
+        conf = json.load(f)
+    clouds, origins = scene.scans(conf, n, seed, "cuda")
+    from la3dm_tpu_torch.utils.config import MapConfig
+    return clouds, origins, MapConfig(**conf["method"])
+
+
+def _median_ms(fn, reps: int) -> float:
+    """The median host time (ms) of ``reps`` calls of ``fn`` after one."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times)) * 1e3
+
+
+def check_k7v(n_scans: int = 24, seed: int = 2147500002, reps: int = 20) -> dict:
+    """K7v, the server's pre-downsample on the card, on ``n_scans`` raw
+    clouds of the benchmark's city block at the BGK-L large map's 0.5 m
+    leaf: its centroids bit-equal (as uint32) to ``voxel_downsample``'s and
+    to its plain version's on every scan, and on ``sum_order_cells``-like
+    cells whose bits show numpy's sum order (cells of 4 … 4096 points: the
+    lane's running sum, its eight sums, the pairwise tree above 129), which a
+    running sum must fail.  Times on the first scan: ``ms`` K7v's launches
+    (the keys, K7s's, the reduce) behind a spin; ``call_ms`` the call as
+    ``OnlineIntegrator`` pays it, from the host cloud (the pinned upload,
+    the launches and the wait), median host time; ``plain_ms`` the plain
+    version on the CPU; ``numpy_ms`` ``preprocess.voxel_downsample``, the
+    yardstick; ``native_ms`` the host library's hash-grid
+    ``voxel_downsample`` (``native/host_preprocess.cpp``, which the port
+    does not call).  Bound: 12 bytes a point in, 12 a centroid out."""
+    import ctypes
+
+    from la3dm_tpu_torch.geometry.preprocess import voxel_downsample
+
+    clouds, origins, mcfg = k7v_scans(n_scans, seed)
+    leaf = mcfg.ds_resolution
+    bits = lambda x: np.ascontiguousarray(x).view(np.uint32)  # noqa: E731
+    before = (ingest_voxel_grid.launches, ingest_sort.launches)
+    cells = []
+    for cloud, origin in zip(clouds, origins):
+        ref = voxel_downsample(cloud, leaf)
+        got = ingest_voxel_grid.voxel_grid(torch.from_numpy(cloud).cuda(), leaf, origin)
+        plain = ingest_voxel_grid.voxel_grid_plain(torch.from_numpy(cloud), leaf, origin)
+        require(np.array_equal(bits(got.cpu().numpy()), bits(ref))
+                and np.array_equal(bits(plain.numpy()), bits(ref)),
+                "K7v's centroids are not voxel_downsample's")
+        cells.append(len(ref))
+    require((ingest_voxel_grid.launches - before[0], ingest_sort.launches - before[1])
+            == (2 * n_scans, n_scans), "K7v's launches do not match the scans")
+
+    # cells whose float32 bits show numpy's order of summation
+    rng = np.random.default_rng(seed)
+    sizes = (1, 4, 8, 16, 64, 128, 256, 1024, 4096)
+    rows = []
+    for k, n in enumerate(sizes):
+        c = np.empty((n, 3), np.float32)
+        c[:, 0] = 2.0 ** -55
+        c[:2, 0] = (0.25, 2.0 ** -26)[:n]
+        c[:, 1:] = rng.uniform(0.0, 0.5, (n, 2))
+        c[:, 1] += np.float32(2 * k)
+        rows.append(c)
+    label = rng.permutation(np.repeat(np.arange(len(rows)), sizes))
+    order_pts = np.empty((len(label), 3), np.float32)
+    for k, c in enumerate(rows):
+        order_pts[label == k] = c
+    ref = voxel_downsample(order_pts, 0.5)
+    got = ingest_voxel_grid.voxel_grid(torch.from_numpy(order_pts).cuda(), 0.5, np.zeros(3))
+    require(np.array_equal(bits(got.cpu().numpy()), bits(ref)),
+            "K7v's sums are not added in numpy's order")
+    # the control: each cell's running sum from its first point (np.cumsum adds in order)
+    running = np.stack([np.cumsum(c.astype(np.float64), axis=0)[-1] / len(c) for c in rows])
+    order_control_fails = not np.array_equal(bits(running.astype(np.float32)), bits(ref))
+    require(order_control_fails, "a running sum passes the sum-order cells")
+
+    cloud, origin = clouds[0], origins[0]
+    pts = torch.from_numpy(cloud).cuda()
+    N, R = len(cloud), cells[0]
+
+    def queue(_):
+        ingest_voxel_grid.launch(pts, leaf, origin)
+
+    ms = launch_ms([queue], reps)
+
+    def call():
+        host = torch.from_numpy(cloud).pin_memory().to("cuda", non_blocking=True)
+        return ingest_voxel_grid.voxel_grid(host, leaf, origin)
+
+    call_ms = _median_ms(call, reps)
+    cpu = torch.from_numpy(cloud)
+    plain_ms = _median_ms(lambda: ingest_voxel_grid.voxel_grid_plain(cpu, leaf, origin), 5)
+    numpy_ms = _median_ms(lambda: voxel_downsample(cloud, leaf), reps)
+    lib = native._load()
+    lib.voxel_downsample.restype = ctypes.c_int
+    lib.voxel_downsample.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                                     ctypes.c_void_p, ctypes.c_int]
+    out = np.empty_like(cloud)
+    native_ms = _median_ms(lambda: lib.voxel_downsample(cloud.ctypes.data, N, leaf,
+                                                        out.ctypes.data, N), reps)
+    b_ms, b_by = bound(0, 12 * N + 12 * R)
+    print(f"K7v, city-block scans (seed {seed}, leaf {leaf:g}): {n_scans} scans bit-equal to "
+          f"voxel_downsample and the plain version ({N} points, {min(cells)}-{max(cells)} "
+          f"cells a scan); the sum-order cells {sizes} bit-equal (a running sum fails: "
+          f"{order_control_fails}); {ms:.4f} ms device time for its launches (keys, "
+          f"{ingest_sort.kernels_per_sort(ingest_voxel_grid.WINDOW, N)} of K7s, reduce), the "
+          f"call with the upload and the wait {call_ms:.4f} ms, plain {plain_ms:.2f} ms, "
+          f"numpy {numpy_ms:.3f} ms, native {native_ms:.3f} ms, bound {b_ms:.5f} ms by {b_by}",
+          flush=True)
+    return {"max_abs_err": 0.0, "bit_equal": True, "order_control_fails": order_control_fails,
+            "scans": n_scans, "points": N, "cells": R, "ms": ms, "call_ms": call_ms,
+            "plain_ms": plain_ms, "numpy_ms": numpy_ms, "native_ms": native_ms,
+            "bound_ms": b_ms, "bound_by": b_by}
 
 
 # ------------------------------------------------------------- the command line
@@ -3921,6 +4059,9 @@ def main() -> int:
             load_method_config("bgkoctomap_large_map", device_ingest="off"),
             load_method_config("bgkoctomap_large_map"), tmp, scans, heavy=False)
 
+        stamp("K7v: the server's pre-downsample on the card, city-block scans")
+        k7v = check_k7v()
+
         stamp("GP at block_depth 5 (host ingest): K4, K5, main path, card vs CPU")
         cfg_gp5 = load_method_config("gpoctomap_large_map", block_depth=5,
                                      max_range=MAX_RANGE, device_ingest="off")
@@ -4045,6 +4186,15 @@ def main() -> int:
                  "torch.unique(world keys, return_inverse=True) + the slots' index with its "
                  "sync, beside ms_sort_gather",
          **k7w, "gp": k7w_gp, "bgkl": k7w_l},
+        {"name": "ingest_voxel_grid", "route": "cuda",
+         "source": "la3dm_tpu_torch/csrc/ingest_voxel_grid.cu",
+         "replaces": "none: the JAX OnlineIntegrator downsamples on the host "
+                     "(la3dm_tpu/geometry/preprocess.py::voxel_downsample)",
+         "launches": path_bl["device"]["online12"]["launches"]["ingest_voxel_grid"],
+         "work": "one raw city-block scan (28,800 points) at the 0.5 m leaf: the keys, one "
+                 "K7s sort and the reduce; call_ms with the pinned upload and the wait; "
+                 "numpy_ms voxel_downsample, native_ms the host library's, as yardsticks",
+         **k7v, "library_ms": None},
         {"name": "bgk_aligned_heavy", "route": "cuda",
          "source": "la3dm_tpu_torch/csrc/bgk_aligned_heavy.cu",
          "replaces": "la3dm_tpu/models/bgk.py:204",

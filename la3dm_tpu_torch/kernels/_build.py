@@ -130,6 +130,10 @@ def _bind(lib):
     lib.la3dm_ingest_slots_world.argtypes = [vp, vp, cl] + [ci] * 4 + [vp] * 3
     lib.la3dm_ingest_slots_gather.restype = ci
     lib.la3dm_ingest_slots_gather.argtypes = [vp] * 4 + [cl] + [ci] * 3 + [cf] + [vp] * 3
+    lib.la3dm_ingest_voxel_grid_keys.restype = ci
+    lib.la3dm_ingest_voxel_grid_keys.argtypes = [vp, cl, cf, cl, cl, cl, ci, vp, vp]
+    lib.la3dm_ingest_voxel_grid_reduce.restype = ci
+    lib.la3dm_ingest_voxel_grid_reduce.argtypes = [vp] * 5 + [cl, vp, vp]
     lib.la3dm_raycast.restype = ci
     lib.la3dm_raycast.argtypes = [vp] * 6 + [cl] + [ci] * 6 + [cf] * 3 + [vp] * 6
     lib.la3dm_bgk_aligned_heavy.restype = ci

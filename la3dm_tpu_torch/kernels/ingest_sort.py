@@ -231,7 +231,7 @@ def sort_runs(keys: torch.Tensor, window: Window, *, want_rid: bool = False,
         return _empty(keys.device, want_rid)
     out, rid, status = launch(keys, window, want_rid=want_rid, count=count)
     with profiling.span("la3dm.sync.sort_runs"):
-        host = _host_status(keys.device)
+        host = host_status(keys.device)
         host.copy_(status, non_blocking=True)
         torch.cuda.current_stream(keys.device).synchronize()
         V, R, flag, _ = host.tolist()
@@ -252,7 +252,8 @@ def _align(n: int) -> int:
 _HOST_STATUS: dict = {}
 
 
-def _host_status(dev) -> torch.Tensor:
+def host_status(dev) -> torch.Tensor:
+    """The pinned host copy of K7s's status words on ``dev``."""
     if dev not in _HOST_STATUS:
         _HOST_STATUS[dev] = torch.empty(4, dtype=torch.int32, pin_memory=True)
     return _HOST_STATUS[dev]

@@ -188,6 +188,11 @@ class OccupancyMapBase:
     def _posterior(self, fields: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
         raise NotImplementedError
 
+    def _ingests_on_card(self) -> bool:
+        """Whether ``insert_pointcloud`` takes device ingest on a card
+        (``models/ingest.py``); no map without device ingest does."""
+        return False
+
     def _to_device(self, x) -> torch.Tensor:
         """Host array → tensor on the map's device (a tensor passes as it
         is).  To a GPU the copy goes from pinned memory without blocking the

@@ -3,10 +3,11 @@
 The port of ``la3dm_tpu/models/ingest.py``: :class:`DeviceIngestMixin`
 drives :mod:`la3dm_tpu_torch.geometry.device_ingest` over a scan sequence,
 ≤ SCAN_BATCH scans a dispatch: the host concatenates the raw clouds and
-copies them to the device, the device builds the block tables (K7) and
-resolves the test blocks' pool slots, and the family's
-``_dispatch_ingest_chunk`` hands the device tables, slots and (GP) centres
-to its engine.
+copies them to the device (a cloud that is a tensor on the map's device
+already, ``OnlineIntegrator``'s centroids from K7v, skips both), the device
+builds the block tables (K7) and resolves the test blocks' pool slots, and
+the family's ``_dispatch_ingest_chunk`` hands the device tables, slots and
+(GP) centres to its engine.
 
 Slot resolution (``_resolve_slots``): the dispatch's T test-block keys are
 scan-local, so a block seen by 16 scans comes 16 times.  On the device K7w
@@ -94,6 +95,19 @@ class DeviceIngestMixin:
             return mode == "on"
         return self.device.type == "cuda"
 
+    def _beam_slots(self, ds: float, fr: float, mr: float) -> int | None:
+        """``device_ingest.beam_slots`` of the settings: None where device
+        ingest cannot bound them."""
+        return device_ingest.beam_slots(ds, fr, mr, self.block_size)
+
+    def _ingests_on_card(self) -> bool:
+        """Whether ``insert_pointcloud`` with the map's own settings takes
+        device ingest on a card (``OnlineIntegrator`` then downsamples
+        there too)."""
+        cfg = self.cfg
+        return (self.device.type == "cuda" and self._ingest_enabled() and self._beam_slots(
+            cfg.ds_resolution, cfg.free_resolution, cfg.max_range) is not None)
+
     def _insert_device(self, clouds, origins, ds_resolution, free_resolution,
                        max_range) -> bool:
         """Integrate the sequence through device ingest; False (nothing
@@ -104,7 +118,7 @@ class DeviceIngestMixin:
         ds = cfg.ds_resolution if ds_resolution is None else ds_resolution
         fr = cfg.free_resolution if free_resolution is None else free_resolution
         mr = cfg.max_range if max_range is None else max_range
-        kf = device_ingest.beam_slots(ds, fr, mr, self.block_size)
+        kf = self._beam_slots(ds, fr, mr)
         K = self.SCAN_BATCH
         if kf is None:
             self.stats["ingest_host_chunks"] += -(-len(clouds) // K)
@@ -114,14 +128,21 @@ class DeviceIngestMixin:
         return True
 
     def _ingest_chunk(self, clouds, origins, ds, fr, mr, kf: int) -> None:
+        """One dispatch of ``clouds``: host arrays, or one [N,3] f32 tensor
+        on the map's device (``OnlineIntegrator``'s centroids, K7v), which
+        skips the concatenation and the upload."""
         t0 = time.perf_counter()
         n = len(clouds)
         with profiling.span("la3dm.ingest.prepare"):
             origins = np.stack([np.asarray(o, np.float32).reshape(3) for o in origins])
-            pts = np.concatenate([np.asarray(c, np.float32).reshape(-1, 3) for c in clouds])
-            scan = np.repeat(np.arange(n, dtype=np.int32), [len(c) for c in clouds])
-            banchor = device_ingest.anchors(origins, self.block_size)
             dev = self._to_device
+            if torch.is_tensor(clouds[0]):
+                (pts,) = clouds
+                scan = torch.zeros(len(pts), dtype=torch.int32, device=self.device)
+            else:
+                pts = np.concatenate([np.asarray(c, np.float32).reshape(-1, 3) for c in clouds])
+                scan = np.repeat(np.arange(n, dtype=np.int32), [len(c) for c in clouds])
+            banchor = device_ingest.anchors(origins, self.block_size)
             off = ingest_keys.pack_offsets(self._neighbor_offsets)
             args = (dev(pts), dev(scan), dev(origins), dev(device_ingest.anchors(origins, ds)),
                     dev(banchor), dev(off))

@@ -23,6 +23,7 @@ import numpy as np
 from la3dm_tpu_torch.geometry.preprocess import voxel_downsample
 from la3dm_tpu_torch.io.pcd import load_pcd
 from la3dm_tpu_torch.io.rosbag import quat_angle
+from la3dm_tpu_torch.kernels import ingest_voxel_grid
 from la3dm_tpu_torch.models.base import OccupancyMapBase, State
 from la3dm_tpu_torch.models.bgk import BGKOctoMap
 from la3dm_tpu_torch.models.bgkl import BGKLOctoMap
@@ -112,6 +113,18 @@ class OnlineIntegrator:
     * pre-downsample the cloud with a ds_resolution voxel grid before
       ``insert_pointcloud`` (:70-82), where the map class's
       ``SERVER_DOWNSAMPLE`` says so (not BGKLV).
+
+    Where the map will ingest the cloud on the card (a CUDA map with
+    device ingest on and a config that ``device_ingest.beam_slots``
+    bounds), the voxel grid runs there too (K7v,
+    ``kernels/ingest_voxel_grid.py``: the same bits as
+    ``preprocess.voxel_downsample``) and its centroids go to
+    ``insert_pointcloud`` as a tensor on the card, less the cells of points
+    that are not finite or lie past K7v's window, whose centroids device
+    ingest would drop by range; every other map takes numpy's.  The whole
+    of it is the span ``la3dm.server.downsample``; the counters
+    ``server_ds_card`` and ``server_ds_host`` count the clouds each path
+    took.
     """
 
     POS_GATE = 0.1   # m   (server.cpp:17)
@@ -142,10 +155,24 @@ class OnlineIntegrator:
         self._last_pos, self._last_quat = origin, quat
         if self.map.SERVER_DOWNSAMPLE:
             with profiling.span("la3dm.server.downsample"):
-                cloud = voxel_downsample(cloud, self.map.cfg.ds_resolution)
+                cloud = self._downsample(cloud, origin)
         self.map.insert_pointcloud(cloud, origin)
         self.n_integrated += 1
         return True
+
+    def _downsample(self, cloud, origin):
+        """The server's voxel grid of ``cloud``: on the card where the map
+        ingests there (class docstring), else numpy's."""
+        m, leaf = self.map, self.map.cfg.ds_resolution
+        if not m._ingests_on_card():
+            profiling.count("server_ds_host")
+            return voxel_downsample(cloud, leaf)
+        # K7v leaves out the cells past its window, which device ingest
+        # drops by range where the window covers it
+        assert ingest_voxel_grid.covers(leaf, m.cfg.max_range)
+        profiling.count("server_ds_card")
+        return ingest_voxel_grid.voxel_grid(
+            m._to_device(np.asarray(cloud, np.float32).reshape(-1, 3)), leaf, origin)
 
 
 def frontier_leaves(m: OccupancyMapBase, var_min: float, prob_max: float,

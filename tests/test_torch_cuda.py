@@ -16,12 +16,13 @@ import torch
 
 import numpy as np
 
+from la3dm_tpu_torch import pipeline
 from la3dm_tpu_torch.geometry import device_ingest
 from la3dm_tpu_torch.kernels import (bgk_aligned_heavy, bgk_heavy, bgk_light, gp_heavy,
                                      gp_light, group_prune, ingest_beams, ingest_bucket,
                                      ingest_downsample, ingest_keys, ingest_members,
-                                     ingest_rays, ingest_slots, ingest_sort, lv_prune, lv_rows,
-                                     raycast)
+                                     ingest_rays, ingest_slots, ingest_sort, ingest_voxel_grid,
+                                     lv_prune, lv_rows, raycast)
 from la3dm_tpu_torch.models import posterior as po
 from la3dm_tpu_torch.pipeline import build_map
 from la3dm_tpu_torch.utils import profiling
@@ -34,7 +35,9 @@ from torch_cases import (BETA_TEMPLATES, GP_BCM, GP_STATE,  # tests/ on sys.path
                          gp_light_inputs, heavy_inputs, ingest_scene, light_inputs,
                          lv_prune_inputs, lv_rows_inputs, member_entries,
                          near_bgk_light_inputs, near_gp_light_inputs, near_lv_prune_inputs,
-                         ray_inputs, raycast_chain_inputs, raycast_inputs)
+                         jax_voxel_downsample, ray_inputs, raycast_chain_inputs,
+                         raycast_inputs)
+from test_torch_voxel_grid import CASES as VG_CASES, reference as vg_reference
 
 
 @pytest.fixture
@@ -1698,3 +1701,131 @@ def test_ingest_slots_kernels_equal_plain_on_edges(cuda_dev):
             torch.cuda.synchronize()
             assert torch.equal(got[0].cpu(), ref[0])
             assert (got[1] is None and ref[1] is None) or torch.equal(got[1].cpu(), ref[1])
+
+
+# ------------------------------------------------------------ K7v
+
+def _k7v_bits(x) -> np.ndarray:
+    x = x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+    assert x.dtype == np.float32
+    return x.view(np.uint32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", VG_CASES)
+def test_k7v_kernel_equals_voxel_downsample(cuda_dev, name):
+    """K7v on the CPU tests' clouds (``tests/test_torch_voxel_grid.py``):
+    the JAX package's float32 words, the sum-order cells too, less the
+    cells of points past the window or not finite; both sort paths (one
+    CTA up to 4,096 points)."""
+    cloud, origin, leaf, ref = vg_reference(name)
+    before = ingest_voxel_grid.launches
+    got = ingest_voxel_grid.voxel_grid(torch.from_numpy(cloud).to(cuda_dev), leaf, origin)
+    torch.cuda.synchronize()
+    assert got.device.type == "cuda" and got.shape == ref.shape
+    assert np.array_equal(_k7v_bits(got), _k7v_bits(ref))
+    assert ingest_voxel_grid.launches == before + (2 if len(cloud) and leaf > 0 else 0)
+
+
+@pytest.mark.cuda
+def test_k7v_kernel_leaves_no_cell_round_an_origin_without_one(cuda_dev):
+    """An origin that is not finite has no cell: no centroid, no launch."""
+    pts = torch.rand(100, 3, device=cuda_dev)
+    before = ingest_voxel_grid.launches
+    got = ingest_voxel_grid.voxel_grid(pts, 0.5, np.float32([np.nan, 0.0, 0.0]))
+    assert got.shape == (0, 3) and got.device.type == "cuda"
+    assert ingest_voxel_grid.launches == before
+
+
+@pytest.mark.cuda
+def test_k7v_kernel_equals_plain_on_runs_of_every_length(cuda_dev):
+    """Cells of 1 to 40 points and of the lane's and the pairwise tree's
+    edges (127 to 130, 256, 257) up to 5,000 points, their values spread
+    over 30 binades so that the order of the sums shows, merged in a random
+    order: K7v's words equal the plain version's and the JAX package's."""
+    rng = np.random.default_rng(11)
+    sizes = list(range(1, 41)) + [63, 64, 65, 127, 128, 129, 130, 136, 200, 256, 257, 1000,
+                                  1031, 5000]
+    cells = []
+    for k, n in enumerate(sizes):
+        c = (rng.random((n, 3)) ** 30 * 0.49).astype(np.float32)
+        c[:, 0] += np.float32(k)                 # cell k along x at leaf 0.5: [k, k + 0.5)
+        cells.append(c)
+    label = rng.permutation(np.repeat(np.arange(len(sizes)), sizes))
+    pts = np.empty((len(label), 3), np.float32)
+    for k, c in enumerate(cells):
+        pts[label == k] = c
+    ref = jax_voxel_downsample(pts, 0.5)
+    got = ingest_voxel_grid.voxel_grid(torch.from_numpy(pts).to(cuda_dev), 0.5, np.zeros(3))
+    plain = ingest_voxel_grid.voxel_grid_plain(torch.from_numpy(pts), 0.5, np.zeros(3))
+    assert len(ref) == len(sizes)
+    assert np.array_equal(_k7v_bits(plain), _k7v_bits(ref))
+    assert np.array_equal(_k7v_bits(got), _k7v_bits(ref))
+
+
+def _city_block(n_scans: int, seed: int):
+    from benchmark import scene
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "benchmark", "configs", "bgkl_large_vlp16.json")) as f:
+        conf = json.load(f)
+    clouds, origins = scene.scans(conf, n_scans, seed, "cuda")
+    return clouds, origins, MapConfig(**conf["method"])
+
+
+@pytest.mark.cuda
+def test_k7v_kernel_equals_voxel_downsample_on_city_block_scans(cuda_dev):
+    """The benchmark's city block (``benchmark/scene.py``, the BGK-L large
+    map: 28,800 beams a scan, 0.5 m leaf), its first 24 scans: K7v gives
+    the JAX package's words on every scan, two launches and one K7s sort a
+    scan."""
+    clouds, origins, mcfg = _city_block(24, 2147500002)
+    before = (ingest_voxel_grid.launches, ingest_sort.launches)
+    for cloud, origin in zip(clouds, origins):
+        ref = jax_voxel_downsample(cloud, mcfg.ds_resolution)
+        got = ingest_voxel_grid.voxel_grid(torch.from_numpy(cloud).to(cuda_dev),
+                                           mcfg.ds_resolution, origin)
+        assert np.array_equal(_k7v_bits(got), _k7v_bits(ref))
+    assert (ingest_voxel_grid.launches - before[0], ingest_sort.launches - before[1]) \
+        == (48, 24)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dirty", [False, True], ids=["clean", "dirty"])
+def test_online_card_path_equals_numpy_fed_pass_on_the_large_map(cuda_dev, dirty):
+    """A BGK-L large-map pass of 24 city-block scans through
+    ``OnlineIntegrator`` on the card (K7v's centroids handed to device
+    ingest as tensors) leaves the pool that the same pass fed the JAX
+    package's centroids leaves, bit for bit; ``server_ds_card`` counts every
+    scan.  ``dirty``: each scan also holds NaNs, an inf and points past
+    K7v's window (256 m at the 0.5 m leaf), whose cells K7v leaves out and
+    device ingest drops by range from the numpy-fed pass."""
+    from torch.profiler import ProfilerActivity, profile
+
+    clouds, origins, mcfg = _city_block(24, 2147500003)
+    if dirty:
+        for c, o in zip(clouds, origins):
+            c[5] = np.nan
+            c[6, 2] = np.nan
+            c[7, 0] = np.inf
+            c[8:11] = o + np.float32([[300.0, 0.0, 0.0], [0.0, -1e6, 0.0], [100.0, 0.0, 0.0]])
+    card, host = build_map(mcfg, device=cuda_dev), build_map(mcfg, device=cuda_dev)
+    online = pipeline.OnlineIntegrator(card)
+    assert card._ingests_on_card()
+    with profile(activities=[ProfilerActivity.CPU]):
+        profiling.reset()
+        for cloud, origin in zip(clouds, origins):
+            assert online.offer(cloud, origin)
+        card.synchronize()
+        counts = profiling.snapshot()["counts"]
+    assert counts.get("server_ds_card") == 24 and "server_ds_host" not in counts
+    with np.errstate(invalid="ignore"):
+        for cloud, origin in zip(clouds, origins):
+            host.insert_pointcloud(jax_voxel_downsample(cloud, mcfg.ds_resolution), origin)
+    host.synchronize()
+    assert card.pool.n_blocks == host.pool.n_blocks > 0
+    assert np.array_equal(card.pool.coords, host.pool.coords)
+    for k in card.pool.fields:
+        assert torch.equal(card.pool.fields[k], host.pool.fields[k]), k
+    assert torch.equal(card.pool.touched, host.pool.touched)
+    assert torch.equal(card.pool.eff_level, host.pool.eff_level)

@@ -1,6 +1,10 @@
 """Seeded inputs for the port's kernel tests (numpy and torch only, so the
 card-side tests can use them on a machine without JAX)."""
 
+import importlib.util
+import os
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -773,3 +777,75 @@ def raycast_chain_inputs(dev="cpu", res=0.1, depth=3, n_blocks=16):
     kw = dict(res=res, bs=bs, n=n, max_steps=int(np.ceil(8.0 / res) * 3 + 8), target=1,
               max_range=8.0, max_probes=max(4, 1 << int(np.ceil(np.log2(maxp)))))
     return args, kw
+
+
+# ------------------------------------------------------------ K7v's clouds
+
+def jax_voxel_downsample(points: np.ndarray, leaf: float) -> np.ndarray:
+    """The JAX package's ``voxel_downsample`` (``la3dm_tpu/geometry/
+    preprocess.py``, plain numpy), the reference K7v is held to.  Its file is
+    loaded alone: the package's ``__init__`` imports JAX, which a machine
+    with a card may lack."""
+    name = "la3dm_tpu_preprocess_reference"
+    if name not in sys.modules:
+        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(root, "la3dm_tpu", "geometry", "preprocess.py"))
+        module = importlib.util.module_from_spec(spec)
+        sys.modules[name] = module
+        spec.loader.exec_module(module)
+    return sys.modules[name].voxel_downsample(points, leaf)
+
+
+def keyable(cloud: np.ndarray, origin, leaf: float, radius: int = 512) -> np.ndarray:
+    """[N] bool: the points whose cell floor(p · float32(1/leaf)) is finite
+    and within ``radius`` cells of the origin's on every axis, the points
+    K7v keys (numpy, apart from the kernel's code)."""
+    inv = np.float32(1.0 / leaf)
+    with np.errstate(invalid="ignore"):
+        c = np.floor(cloud * inv).astype(np.float64)
+        a = np.floor(np.asarray(origin, np.float64) * float(inv))
+        return (np.abs(c - a) <= radius).all(-1)
+
+def vlp16_cloud(seed: int, r_max: float = 60.0, origin=(3.3, -7.1, 1.8)):
+    """A VLP-16-shaped cloud [28800, 3] f32 (16 rings over ±15°, 1,800
+    azimuths, ranges uniform in 2 m … ``r_max``) round ``origin``, and the
+    origin [3] f32."""
+    rng = np.random.default_rng(seed)
+    az = np.linspace(0.0, 2 * np.pi, 1800, endpoint=False)
+    el = np.deg2rad(np.linspace(-15.0, 15.0, 16))
+    r = rng.uniform(2.0, r_max, (16, 1800))
+    d = np.stack(np.broadcast_arrays(np.cos(el)[:, None] * np.cos(az),
+                                     np.cos(el)[:, None] * np.sin(az), np.sin(el)[:, None]), -1)
+    o = np.asarray(origin, np.float32)
+    return (o + d * r[..., None]).reshape(-1, 3).astype(np.float32), o
+
+
+def sum_order_cells(n_points=(4, 64, 1024), seed: int = 0):
+    """A cloud of cells at leaf 0.5 whose centroids show numpy's sum order in
+    their float32 bits.  A cell of n (a power of two) points holds on x
+    0.25, then 2^-26, then n − 2 values of 2^-55: numpy's reduceat adds the
+    first point to the pairwise sum of the rest, which keeps the 2^-55s
+    (0.25 + 2^-26 + (n − 2)·2^-55, exact); a running sum from the first
+    point rounds each of them away (half an ulp of 0.25, to even), and its
+    mean (0.25 + 2^-26) / n is a float32 tie, which rounds the other way.
+    Cell k lies at y in [2k, 2k + 0.5), y and z spread in it; one more cell
+    (x in [1, 1.5)) holds three points with y = z = -0.0.  The cells are merged in a random
+    order, each keeping its own (its first point first)."""
+    rng = np.random.default_rng(seed)
+    cells = []
+    for k, n in enumerate(n_points):
+        c = np.empty((n, 3), np.float32)
+        c[:, 0] = 2.0 ** -55
+        c[:2, 0] = (0.25, 2.0 ** -26)
+        c[:, 1:] = rng.uniform(0.0, 0.5, (n, 2))
+        c[:, 1] += np.float32(2 * k)
+        cells.append(c)
+    zeros = np.full((3, 3), -0.0, np.float32)
+    zeros[:, 0] = (1.3, 1.2, 1.1)
+    cells.append(zeros)
+    label = rng.permutation(np.repeat(np.arange(len(cells)), [len(c) for c in cells]))
+    pts = np.empty((len(label), 3), np.float32)
+    for k, c in enumerate(cells):
+        pts[label == k] = c
+    return pts
